@@ -6,26 +6,44 @@ Phases, each printing as it goes; any failure exits non-zero:
 
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles hijiki_tpu_torch/csrc/*.cu with nvcc (seconds printed);
+2. build: compiles hijiki_tpu_torch/csrc/*.cu with nvcc, one process per
+   source (seconds printed);
 3. K3, the reconstruction kernel, against its plain twin on the card at
    1024x1024 and at 1024 x 1000 (a width that is no multiple of the block),
    numpy-seeded inputs with NaN pixels: rtol 1e-5, atol 1e-6 (expf ULPs);
-4. K1/K2, the megakernel's camera and resume launches, against the twin on
-   the card, as a quick first gate: 64x64 paths on the full meshbox +
-   spheres, max_bounces 24; final RNG state bit-equal on >= 99.5% of paths
-   and radiance within rtol/atol 2e-3 on those;
-5. the slice: Renderer(driver="mega", device="cuda") at 1024x1024, 8 spp,
-   max_bounces 1000: finite film, mean radiance > 0, overflow 0, every
-   kernel launched (counts reset just before the render), EXR written and
-   read back;
-6. one sweep of the slice again, recording the inputs of each K1/K2 call
-   (1M lanes to cap 5; the compacted survivors to caps 12, 48 and 1000):
-   every call replayed through the kernel and through the twin, held to
-   the phase-4 bounds and timed; K3 likewise on the sweep's radiance.
+4. quick gates on the full meshbox + spheres at 64x64, max_bounces 24,
+   each kernel against its twin on the card with the final RNG state
+   bit-equal on >= 99.5% of paths and radiance within rtol/atol 2e-3 on
+   those: K1 (cap 5), K2 (resume to 24), K5 (single launch), K4 (S = 3
+   chained samples, chain cap 8); K5 equal to K1 at cap max_bounces on
+   every channel; render_waves equal to render_tiles on every RNG state;
+   render_waves_chained bit-equal per sweep to 3 separate render_waves;
+5. the paths, each driven with the launch counts set to 0 just before and
+   read just after, each with a finite film, mean > 0, overflow 0 and
+   every kernel of the path launched:
+   (a) the chained slice: Renderer(device="cuda") at 1024x1024, 8 spp,
+       max_bounces 1000, chaining on auto (8 sweeps per launch: K4, K2,
+       K3), EXR written and read back, peak device memory;
+   (b) the unchained slice (chain_sweeps=1: K1, K2, K3), its film equal
+       to (a)'s within rtol 1e-5 / atol 1e-6 (the order of the film adds);
+   (c) the overflow retry at 256x256, 8 spp, chain cap 2, phase_shrink
+       (9999,): paths drop and are re-rendered; the film bit-equal to the
+       same render at phase_shrink (1,)*8;
+   (d) checkpoint and resume at 256x256: saved at sweep 4 of 8 from the
+       progress callback, resumed in a new Renderer: film bit-equal to the
+       uninterrupted render;
+   (e) the single-launch render_tiles (K5) over the 1024x1024 frame;
+6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
+   and one unchained sweep again, recording the inputs of every K4, K1 and
+   K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
+   then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
+   replayed through the kernel and through the twin, held to the phase-4
+   bounds and timed; K5 on the 1M-path frame and K3 on a sweep likewise.
 
 The line before the last is the kernel report {"kernels": [...]}, whose
-errors and times come from phase 6 (K3's error also from phase 3); the
-last line is {"ok": true, "device": {...}}.
+errors and times come from phase 6 (K3's error also from phase 3) and
+whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
+(b), K5 from (e)); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -84,22 +102,45 @@ def check_k3(name: str, got, want) -> float:
     return err
 
 
-def agree(name: str, got, want) -> float:
-    """K1/K2 against the twin: final RNG state bit-equal on >= 99.5% of
-    paths and radiance within rtol/atol 2e-3 on those (the JAX suite's
-    megakernel bounds); returns the radiance max abs error on those paths."""
+def agree_paths(name, grng, wrng, gl, wl, bit_note="") -> float:
+    """Final RNG state bit-equal on >= 99.5% of paths and radiance (P, 3)
+    within rtol/atol 2e-3 on those (the JAX suite's megakernel bounds);
+    returns the radiance max abs error on those paths."""
     import numpy as np
 
-    (gst, grng), (wst, wrng) = got, want
     same = (grng == wrng).cpu().numpy()
-    gl, wl = gst[15:18].T.cpu().numpy(), wst[15:18].T.cpu().numpy()
+    gl, wl = gl.cpu().numpy(), wl.cpu().numpy()
     close = np.isclose(gl, wl, rtol=2e-3, atol=2e-3).all(-1)
     err = float(np.abs(gl - wl)[same].max()) if same.any() else float("inf")
     print(f"{name}: RNG equal on {same.mean():.4%} of paths, radiance max abs err "
-          f"{err:.3e} on those, state bit-equal on {(gst == wst).all(0).float().mean().item():.4%}")
+          f"{err:.3e} on those{bit_note}")
     if same.mean() < 0.995 or not close[same].all():
         fail(f"{name} disagrees with its twin")
     return err
+
+
+def agree(name: str, got, want) -> float:
+    """K1/K2: (state, rng) against the twin's."""
+    (gst, grng), (wst, wrng) = got, want
+    note = f", state bit-equal on {(gst == wst).all(0).float().mean().item():.4%}"
+    return agree_paths(name, grng, wrng, gst[15:18].T, wst[15:18].T, note)
+
+
+def agree_chained(name: str, got, want) -> float:
+    """K4: (pool, pool RNG, flush buffer) against the twin's; a slot's
+    radiance is its flushed value plus its parked one (the other is 0)."""
+    (gp, grng, gco), (wp, wrng, wco) = got, want
+    note = (f", pool bit-equal on {(gp == wp).all(0).float().mean().item():.4%}, "
+            f"flush buffer on {(gco == wco).all(0).float().mean().item():.4%} of slots; "
+            f"{int((gp[0] > 0).sum())} of {gp.shape[1]} slots parked")
+    return agree_paths(name, grng, wrng, (gco[0:3] + gp[15:18]).T, (wco[0:3] + wp[15:18]).T, note)
+
+
+def agree_tiles(name: str, got, want) -> float:
+    """K5: (7-channel result, rng) against the twin's."""
+    (go, grng), (wo, wrng) = got, want
+    note = f", result bit-equal on {(go == wo).all(0).float().mean().item():.4%}"
+    return agree_paths(name, grng, wrng, go[0:3].T, wo[0:3].T, note)
 
 
 def main() -> int:
@@ -137,7 +178,7 @@ def main() -> int:
     path, secs, report = build.build()
     print(f"built {path.relative_to(HERE)} in {secs:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     build.load_library()
 
@@ -157,8 +198,8 @@ def main() -> int:
         want = reconstruct_sweep(c, n, torch.zeros_like(c), so, block_size=128)
         k3_err = max(k3_err, check_k3(f"K3 {H}x{W}", got, want))
 
-    # ---- 4. K1/K2 against the twin ----
-    phase("K1/K2 megakernel vs twin")
+    # ---- 4. quick gates: every megakernel launch against the twin ----
+    phase("K1/K2/K4/K5 megakernel vs twin, 64x64")
     scene = load_obj_scene(SCENE)
     scene.put_cbox_spheres()
     cs = compile_scene(scene)
@@ -166,122 +207,258 @@ def main() -> int:
           f"{cs.trace_rows_mega.shape[0]} trace rows, {cs.mega_num_tables_static} table(s)")
     S = 64
     ms_small = mk.mega_scene(cs, S, S, dev)
+    frame = np.random.default_rng(99)
     y, x = np.mgrid[0:S, 0:S]
-    px = torch.from_numpy((x + 0.37).ravel().astype(np.float32)).to(dev)
-    py = torch.from_numpy((y + 0.61).ravel().astype(np.float32)).to(dev)
-    seeds = (np.arange(S * S) * 2654435761 % (1 << 32)).astype(np.uint32)
-    seeds = torch.from_numpy(seeds.view(np.int32)).to(dev)  # the u32 bits
+    jit = frame.random((3, 2), dtype=np.float32)
+    pxs = torch.from_numpy(np.stack([(x + j[0]).ravel() for j in jit]).astype(np.float32)).to(dev)
+    pys = torch.from_numpy(np.stack([(y + j[1]).ravel() for j in jit]).astype(np.float32)).to(dev)
+    sds = frame.integers(0, 1 << 32, size=(3, S * S), dtype=np.uint32)
+    sds = torch.from_numpy(sds.view(np.int32)).to(dev)  # the u32 bits
+    px, py, seeds = pxs[0].contiguous(), pys[0].contiguous(), sds[0].contiguous()
 
     k1 = mk.megakernel_start(ms_small, px, py, seeds, 5)
     agree("K1 (cap 5)", k1, mk.megakernel_start_plain(ms_small, px, py, seeds, 5))
     st0, rng0 = k1
     agree("K2 (resume to 24)", mk.megakernel_resume(ms_small, st0, rng0, 24),
           mk.megakernel_resume_plain(ms_small, st0, rng0, 24))
+    k5 = mk.megakernel_tiles(ms_small, px, py, seeds, 24)
+    agree_tiles("K5 (single launch to 24)", k5, mk.megakernel_tiles_plain(ms_small, px, py, seeds, 24))
+    k1_full = mk.megakernel_start(ms_small, px, py, seeds, 24)
+    if not (torch.equal(k5[0], k1_full[0][list(mk._TILE_CH)]) and torch.equal(k5[1], k1_full[1])):
+        fail("K5 and K1 at cap max_bounces disagree")
+    print("K5 == K1 at cap max_bounces on every channel and RNG state")
+    agree_chained("K4 (3 samples, cap 8)", mk.megakernel_start_chained(ms_small, pxs, pys, sds, 8),
+                  mk.megakernel_start_chained_plain(ms_small, pxs, pys, sds, 8))
     full = mk.render_tiles(ms_small, px, py, seeds, max_bounces=24)
     waves = mk.render_waves(ms_small, px, py, seeds, max_bounces=24, phase_bounces=(5, 12))
     if not torch.equal(full[3], waves[3]):
         fail("render_waves (phases) and render_tiles (one launch) disagree on RNG states")
     print("render_waves == render_tiles on every RNG state")
+    ch = mk.render_waves_chained(ms_small, pxs, pys, sds, max_bounces=24, chain_cap=8)
+    if int(ch[4]) != 0:
+        fail("render_waves_chained overflowed at 64x64")
+    for s in range(3):
+        ref = mk.render_waves(ms_small, pxs[s].contiguous(), pys[s].contiguous(),
+                              sds[s].contiguous(), max_bounces=24)
+        for i in (0, 1, 2, 3, 5, 7):
+            if not torch.equal(ch[i][s], ref[i]):
+                fail(f"render_waves_chained output {i} of sweep {s} differs from render_waves")
+    print("render_waves_chained == 3 separate render_waves, bit for bit per sweep "
+          "(total, normal, depth, RNG, segs, albedo)")
 
-    # ---- 5. the slice ----
-    phase("slice: Renderer(driver='mega', device='cuda') 1024x1024, 8 spp")
-    cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
-                       use_bvh=True, driver="mega")
-    r = Renderer(cs, cfg, device="cuda")
-    for d in (mk.LAUNCHES, prc.LAUNCHES):
-        for k in d:
-            d[k] = 0
-    metrics = r.render()
-    launches = {**mk.LAUNCHES, **prc.LAUNCHES}
-    film = r.film.cpu().numpy()
-    img = r.image()
-    print(f"render: {metrics['render_seconds']:.3f} s, {metrics['mrays_per_second']:.4f} Mrays/s, "
-          f"{metrics['spp_per_second']:.3f} spp/s, mean path {metrics.get('mean_path_length', 0):.3f} "
-          f"segments, overflow {metrics['wave_overflow']}, launches {launches}")
-    if not np.isfinite(film).all():
-        fail("film has non-finite values")
-    if not img.mean() > 0:
-        fail("mean radiance is not > 0")
-    if metrics["wave_overflow"] != 0:
-        fail("overflow != 0")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched by the main path")
+    # ---- 5. the paths ----
+    def drive(label, fn):
+        """Run one path with every launch count set to 0 just before;
+        returns (its result, the counts just after)."""
+        phase(label)
+        for d in (mk.LAUNCHES, prc.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {**mk.LAUNCHES, **prc.LAUNCHES}
+
+    def check_render(name, r, metrics, counts, kernels):
+        film = r.film.cpu().numpy()
+        print(f"{name}: {metrics['render_seconds']:.4f} s, {metrics['mrays_per_second']:.4f} Mrays/s, "
+              f"{metrics['spp_per_second']:.3f} spp/s, chunk {metrics['chain_chunk_sweeps']} sweeps, "
+              f"mean path {metrics.get('mean_path_length', 0):.3f} segments, overflow "
+              f"{metrics['wave_overflow']} (retried {metrics['overflow_retried']}), launches {counts}")
+        if not np.isfinite(film).all():
+            fail(f"{name}: film has non-finite values")
+        if not r.image().mean() > 0:
+            fail(f"{name}: mean radiance is not > 0")
+        if metrics["wave_overflow"] != 0:
+            fail(f"{name}: overflow != 0")
+        for k in kernels:
+            if counts[k] <= 0:
+                fail(f"{name}: kernel {k} was not launched by this path")
+
+    slice_cfg = dict(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
+                     use_bvh=True, driver="mega")
+    ra = Renderer(cs, RenderConfig(**slice_cfg), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ma, counts_a = drive("(a) chained slice: Renderer(device='cuda') 1024x1024, 8 spp, "
+                         "chaining auto", ra.render)
+    peak = torch.cuda.max_memory_allocated()
+    check_render("(a) chained", ra, ma, counts_a, ("mk_start_chained", "mk_resume", "reconstruct"))
+    if ma["chain_chunk_sweeps"] != mk.CHAIN_SWEEPS_CUDA:
+        fail(f"auto chaining resolved to {ma['chain_chunk_sweeps']} sweeps, not {mk.CHAIN_SWEEPS_CUDA}")
+    print(f"(a) peak device memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     out_dir = os.path.join(HERE, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
     exr = os.path.join(out_dir, "slice.exr")
-    r.save_exr(exr)
+    ra.save_exr(exr)
+    img = ra.image()
     back = read_exr(exr)
     if back.shape != (1024, 1024, 3) or not np.array_equal(back, img.astype(np.float32)):
         fail("EXR round trip changed the image")
     print(f"EXR written and read back: mean {float(back.mean()):.5f}")
 
-    # ---- 6. each kernel at the main path's shapes: agreement and time ----
-    # One sweep of the slice again, recording the inputs of every K1/K2 call
-    # render_waves makes (1M lanes to cap 5, then the compacted survivors to
-    # caps 12, 48 and 1000); each call is then replayed through the kernel
-    # and through its twin, held to the phase-4 bounds and timed.
-    phase("kernels vs twins at the main path's shapes, one sweep")
-    from hijiki_tpu_torch.ops.rng import to_bits
-    from hijiki_tpu_torch.render.blocks import per_pixel_seeds_device
+    rb = Renderer(cs, RenderConfig(**slice_cfg, chain_sweeps=1), device="cuda")
+    mb, counts_b = drive("(b) unchained slice: chain_sweeps=1, 1024x1024, 8 spp", rb.render)
+    check_render("(b) unchained", rb, mb, counts_b, ("mk_start", "mk_resume", "reconstruct"))
+    fa, fb = ra.film.cpu().numpy(), rb.film.cpu().numpy()
+    if not np.allclose(fa, fb, rtol=1e-5, atol=1e-6):
+        fail(f"chained and unchained films differ: max abs {np.abs(fa - fb).max():.3e}")
+    print(f"(a) vs (b) films: max abs diff {np.abs(fa - fb).max():.3e} (rtol 1e-5 / atol 1e-6)")
 
-    sched = r.scheduler.sweep(cfg.spp)
+    small = dict(width=256, height=256, spp=8, max_bounces=1000, block_size=128, driver="mega")
+    rc_ = Renderer(cs, RenderConfig(**small, mega_chain_cap=2, phase_shrink=(9999,)), device="cuda")
+    import warnings
+
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        mc, counts_c = drive("(c) overflow retry: 256x256, 8 spp, chain cap 2, "
+                             "phase_shrink (9999,)", rc_.render)
+    check_render("(c) retry", rc_, mc, counts_c, ("mk_start_chained", "mk_resume", "reconstruct"))
+    if mc["overflow_retried"] <= 0:
+        fail("(c) the pathological capacity dropped no path: the retry was not exercised")
+    rc_ref = Renderer(cs, RenderConfig(**small, mega_chain_cap=2, phase_shrink=(1,) * 8),
+                      device="cuda")
+    rc_ref.render()
+    if not torch.equal(rc_.film, rc_ref.film):
+        fail("(c) the retried film differs from the full-capacity render")
+    print("(c) retried film == the full-capacity render, bit for bit")
+
+    ck = os.path.join(out_dir, "resume.npz")
+    ck_cfg = RenderConfig(**small, chain_sweeps=4)
+    rd = Renderer(cs, ck_cfg, device="cuda")
+
+    def save_at_4(done, total):
+        if done == 4:
+            rd.save_checkpoint(ck)
+
+    def checkpoint_and_resume():
+        m1 = rd.render(progress=save_at_4)
+        resumed = Renderer.resume_checkpoint(cs, ck, ck_cfg, device="cuda")
+        return m1, resumed, resumed.render()
+
+    (md, rd2, md2), counts_d = drive("(d) checkpoint at sweep 4 of 8 and resume, 256x256",
+                                     checkpoint_and_resume)
+    check_render("(d) resumed", rd2, md2, counts_d, ("mk_start_chained", "mk_resume", "reconstruct"))
+    if rd2.sweeps_done != 8 or md2["primary_rays"] != 256 * 256 * 4:
+        fail("(d) the resumed render did not trace sweeps 4..7")
+    if not torch.equal(rd2.film, rd.film):
+        fail("(d) the resumed film differs from the uninterrupted render")
+    print("(d) resumed film == the uninterrupted render, bit for bit")
+
     H = W = 1024
-    so = torch.as_tensor(sched.sample_offset)
     yy = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
     xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
-    spx = (xx + float(so[0])).reshape(-1).contiguous()
-    spy = (yy + float(so[1])).reshape(-1).contiguous()
-    sseeds = to_bits(per_pixel_seeds_device(W, H, 128, sched.block_seeds, dev).reshape(-1))
-    ms = r.scene
-    real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume}
-    plain = {"mk_start": mk.megakernel_start_plain, "mk_resume": mk.megakernel_resume_plain}
-    calls = []
 
-    def recorder(name):
-        def call(ms_, *args):
-            calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
-            return real[name](ms_, *args)
-        return call
+    def frame_of(sched):
+        from hijiki_tpu_torch.ops.rng import to_bits
+        from hijiki_tpu_torch.render.blocks import per_pixel_seeds_device
 
-    mk.megakernel_start, mk.megakernel_resume = recorder("mk_start"), recorder("mk_resume")
-    try:
-        tw = mk.render_waves(ms, spx, spy, sseeds, max_bounces=cfg.max_bounces)
-    finally:
-        mk.megakernel_start, mk.megakernel_resume = real["mk_start"], real["mk_resume"]
-    ms_of = {"mk_start": 0.0, "mk_resume": 0.0}
-    plain_ms_of = {"mk_start": 0.0, "mk_resume": 0.0}
-    err_of = {"mk_start": 0.0, "mk_resume": 0.0}
-    for name, args in calls:
-        t_k, got = timed(lambda: real[name](ms, *args), reps=3)
-        t_p, want = timed(lambda: plain[name](ms, *args), reps=1, warm=False)
-        label = f"{name} ({args[-2].shape[-1]} lanes, cap {args[-1]})"
-        err_of[name] = max(err_of[name], agree(label, got, want))
-        ms_of[name] += t_k
-        plain_ms_of[name] += t_p
-        print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms")
-    total = tw[0].reshape(H, W, 3).contiguous()
-    normal = tw[1].reshape(H, W, 3).contiguous()
-    t_k3, got = timed(lambda: prc.reconstruct(total, normal, so, block_size=128), reps=20)
-    t_k3p, want = timed(lambda: reconstruct_sweep(total, normal, torch.zeros_like(total), so,
+        so = np.asarray(sched.sample_offset, np.float32)
+        return ((xx + float(so[0])).reshape(-1).contiguous(),
+                (yy + float(so[1])).reshape(-1).contiguous(),
+                to_bits(per_pixel_seeds_device(W, H, 128, sched.block_seeds, dev).reshape(-1)),
+                so)
+
+    ms = ra.scene
+    tpx, tpy, tseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"]))
+    te, counts_e = drive("(e) render_tiles (single launch) over the 1024x1024 frame",
+                         lambda: mk.render_tiles(ms, tpx, tpy, tseeds, max_bounces=1000))
+    tot = te[0].cpu().numpy()
+    print(f"(e) render_tiles: mean radiance {tot.mean():.5f}, launches {counts_e}")
+    if not np.isfinite(tot).all() or not tot.mean() > 0 or counts_e["mk_tiles"] <= 0:
+        fail("(e) render_tiles: non-finite or dark result, or K5 not launched")
+
+    # ---- 6. each kernel at the main path's shapes: agreement and time ----
+    phase("kernels vs twins at the main path's shapes")
+    real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
+            "mk_start_chained": mk.megakernel_start_chained}
+    plain = {"mk_start": mk.megakernel_start_plain, "mk_resume": mk.megakernel_resume_plain,
+             "mk_start_chained": mk.megakernel_start_chained_plain}
+    check = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chained}
+
+    def record(run):
+        calls = []
+
+        def recorder(name):
+            def call(ms_, *args):
+                calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+                return real[name](ms_, *args)
+            return call
+
+        for name in real:
+            setattr(mk, f"megakernel_{name[3:]}", recorder(name))
+        try:
+            run()
+        finally:
+            for name in real:
+                setattr(mk, f"megakernel_{name[3:]}", real[name])
+        return calls
+
+    def replay(tag, calls):
+        ms_of, plain_of, err_of = {}, {}, {}
+        for name, args in calls:
+            t_k, got = timed(lambda: real[name](ms, *args), reps=3)
+            t_p, want = timed(lambda: plain[name](ms, *args), reps=1, warm=False)
+            lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
+            label = f"{tag} {name} ({lanes} lanes, cap {args[-1]})"
+            err_of[name] = max(err_of.get(name, 0.0), check[name](label, got, want))
+            ms_of.setdefault(name, []).append(t_k)
+            plain_of.setdefault(name, []).append(t_p)
+            print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms", flush=True)
+        return ms_of, plain_of, err_of
+
+    scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
+    frames = [frame_of(sc) for sc in scheds]
+    cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
+    chunk_calls = record(lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
+    c_ms, c_plain, c_err = replay("chained chunk:", chunk_calls)
+    t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
+                               torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
+    print(f"K4's zeroed pool + flush buffer ({cpx.numel()} slots): {t_zero:.3f} ms per chunk")
+
+    upx, upy, useeds, uso = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 1 + mk.CHAIN_SWEEPS_CUDA))
+    sweep_out = []
+    sweep_calls = record(lambda: sweep_out.append(
+        mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
+    u_ms, u_plain, u_err = replay("unchained sweep:", sweep_calls)
+
+    t_k5, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
+    t_k5p, want = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000),
+                        reps=1, warm=False)
+    k5_err = agree_tiles(f"K5 mk_tiles ({upx.numel()} lanes, cap 1000)", got, want)
+    print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, twin {t_k5p:.3f} ms")
+
+    total = sweep_out[0][0].reshape(H, W, 3).contiguous()
+    normal = sweep_out[0][1].reshape(H, W, 3).contiguous()
+    t_k3, got = timed(lambda: prc.reconstruct(total, normal, uso, block_size=128), reps=20)
+    t_k3p, want = timed(lambda: reconstruct_sweep(total, normal, torch.zeros_like(total), uso,
                                                   block_size=128), reps=1, warm=False)
     k3_err = max(k3_err, check_k3("K3 on the sweep's radiance (1024x1024)", got, want))
     print(f"K3 reconstruct (1024x1024, device time of 20 back-to-back launches): "
           f"{t_k3:.3f} ms, twin {t_k3p:.3f} ms")
+    print(f"per chained chunk: K4 {sum(c_ms['mk_start_chained']):.3f} ms + K2 "
+          f"{' + '.join(f'{t:.3f}' for t in c_ms['mk_resume'])} ms; per unchained sweep: K1 "
+          f"{sum(u_ms['mk_start']):.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in u_ms['mk_resume'])} ms")
 
     src = "hijiki_tpu_torch/csrc/"
+    mkpy = "hijiki_tpu/ops/pallas_megakernel.py"
     kernels = [
         dict(name="mk_start", route="cuda", source=src + "megakernel.cu",
-             replaces="hijiki_tpu/ops/pallas_megakernel.py:3000", launches=launches["mk_start"],
-             max_abs_err=err_of["mk_start"], ms=ms_of["mk_start"],
-             plain_ms=plain_ms_of["mk_start"]),
+             replaces=f"{mkpy}:3000", launches=counts_b["mk_start"],
+             max_abs_err=u_err["mk_start"], ms=sum(u_ms["mk_start"]),
+             plain_ms=sum(u_plain["mk_start"])),
         dict(name="mk_resume", route="cuda", source=src + "megakernel.cu",
-             replaces="hijiki_tpu/ops/pallas_megakernel.py:3041", launches=launches["mk_resume"],
-             max_abs_err=err_of["mk_resume"], ms=ms_of["mk_resume"],
-             plain_ms=plain_ms_of["mk_resume"]),
+             replaces=f"{mkpy}:3041", launches=counts_a["mk_resume"],
+             max_abs_err=max(c_err["mk_resume"], u_err["mk_resume"]),
+             ms=sum(c_ms["mk_resume"]), plain_ms=sum(c_plain["mk_resume"])),
+        dict(name="mk_start_chained", route="cuda", source=src + "megakernel.cu",
+             replaces=f"{mkpy}:3015", launches=counts_a["mk_start_chained"],
+             max_abs_err=c_err["mk_start_chained"], ms=sum(c_ms["mk_start_chained"]),
+             plain_ms=sum(c_plain["mk_start_chained"])),
+        dict(name="mk_tiles", route="cuda", source=src + "megakernel.cu",
+             replaces=f"{mkpy}:2778", launches=counts_e["mk_tiles"],
+             max_abs_err=k5_err, ms=t_k5, plain_ms=t_k5p),
         dict(name="reconstruct", route="cuda", source=src + "reconstruct.cu",
-             replaces="hijiki_tpu/render/pallas_reconstruct.py:42", launches=launches["reconstruct"],
-             max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p),
+             replaces="hijiki_tpu/render/pallas_reconstruct.py:42",
+             launches=counts_a["reconstruct"], max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

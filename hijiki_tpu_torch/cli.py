@@ -13,16 +13,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 # hijiki_tpu.cli flags the port does not have yet (any value is refused)
 NOT_PORTED = (
-    "--put-dielectric-sphere", "--present-interval", "--preview-image",
-    "--packed-leaf", "--checkpoint", "--checkpoint-interval", "--sort-lanes",
-    "--fixed-albedo", "--live-preview", "--mega-packet", "--mega-groups",
-    "--chain-sweeps", "--spec-resolve", "--mega-trunk", "--mega-window",
-    "--mega-shadow", "--profile-dir", "--trace-json", "--devices", "--platform",
+    "--packed-leaf", "--sort-lanes", "--fixed-albedo", "--mega-packet",
+    "--mega-groups", "--spec-resolve", "--mega-trunk", "--mega-window",
+    "--mega-shadow", "--profile-dir", "--devices", "--platform",
 )
 
 
@@ -37,21 +36,39 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--put-cbox-spheres", action="store_true",
                    help="Add a mirror and a checkerboard sphere to the scene")
+    p.add_argument("--put-dielectric-sphere", action="store_true",
+                   help="Add a clear glass sphere (the reference's commented-out variant)")
     p.add_argument("--use-bvh", action="store_true",
                    help="Use a BVH to optimize intersections (the mega driver always does)")
     p.add_argument("-w", "--width", type=int, default=800)
     p.add_argument("-H", "--height", type=int, default=600)
     p.add_argument("-s", "--sample-count", type=int, default=64)
+    p.add_argument("--present-interval", type=int, default=0,
+                   help="Write a PNG preview every N sweeps (0 = off)")
     p.add_argument("-o", "--output-image", default="output.exr")
+    p.add_argument("--preview-image", default="preview.png")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--block-size", type=int, default=128)
     p.add_argument("--max-bounces", type=int, default=1000)
-    p.add_argument("--driver", choices=["mega"], default="mega",
-                   help="Execution driver (only the megakernel driver is ported)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (the CUDA kernels) or cpu (their plain twins)")
     p.add_argument("--metrics-json", default=None,
                    help="Write render metrics as one JSON object to this path ('-' for stdout)")
+    p.add_argument("--checkpoint", default=None,
+                   help="Checkpoint file to write, and to resume from if it exists")
+    p.add_argument("--checkpoint-interval", type=int, default=0,
+                   help="Sweeps between checkpoints")
+    p.add_argument("--driver", choices=["mega"], default="mega",
+                   help="Execution driver (only the megakernel driver is ported)")
+    p.add_argument("--live-preview", type=int, default=0,
+                   help="Redraw a live ANSI preview in the terminal every N sweeps; 0 = off")
+    p.add_argument("--chain-sweeps", type=int, default=0,
+                   help="Sweep samples chained per megakernel launch (in-kernel lane "
+                   "respawn); 1 = off, 0 = auto (8 on a CUDA device, off on the CPU)")
+    p.add_argument("--trace-json", default=None,
+                   help="Write a Chrome-trace timeline of the driver loop (chunk "
+                   "dispatches, film sync, overflow retries, checkpoint saves) to "
+                   "this path; load in chrome://tracing or ui.perfetto.dev")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (the CUDA kernels) or cpu (their plain twins)")
     return p
 
 
@@ -76,6 +93,8 @@ def main(argv=None) -> int:
         scene = load_obj_scene(args.scene)
     if args.put_cbox_spheres:
         scene.put_cbox_spheres()
+    if args.put_dielectric_sphere:
+        scene.put_dielectric_sphere()
     compiled = compile_scene(scene)
     print(
         f"Compiled scene: {compiled.num_spheres} spheres, {compiled.num_quads} quads, "
@@ -90,33 +109,70 @@ def main(argv=None) -> int:
         seed=args.seed,
         use_bvh=args.use_bvh,
         max_bounces=args.max_bounces,
+        preview_interval=args.present_interval,
+        preview_path=args.preview_image,
         driver=args.driver,
+        chain_sweeps=args.chain_sweeps,
+        live_preview=args.live_preview,
     )
-    renderer = Renderer(compiled, config, device=args.device)
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        renderer = Renderer.resume_checkpoint(compiled, args.checkpoint, config,
+                                              device=args.device)
+        print(f"Resumed from {args.checkpoint} at sweep {renderer.sweeps_done}")
+    else:
+        renderer = Renderer(compiled, config, device=args.device)
     print("Starting to render...")
+    if args.trace_json:
+        from hijiki_tpu_torch.utils.tracing import SpanTracer
+
+        renderer.tracer = SpanTracer()
+    last_ckpt = [renderer.sweeps_done]
 
     def progress(done, total):
         sys.stdout.write(f"\rRendering... {100.0 * done / total:5.1f}% ({done}/{total} sweeps)")
         sys.stdout.flush()
+        if (
+            args.checkpoint
+            and args.checkpoint_interval
+            and done - last_ckpt[0] >= args.checkpoint_interval
+        ):
+            renderer.save_checkpoint(args.checkpoint)
+            last_ckpt[0] = done
 
-    metrics = renderer.render(progress=progress)
+    # on Ctrl-C, save the partial render (the reference saves the image when
+    # its preview window closes mid-render, src/main.rs:1349-1352) and a
+    # resumable checkpoint
+    interrupted = False
+    try:
+        metrics = renderer.render(progress=progress)
+    except KeyboardInterrupt:
+        interrupted = True
+        metrics = renderer.metrics or dict(
+            primary_rays=0, render_seconds=0.0, mrays_per_second=0.0, spp_per_second=0.0
+        )
+        print(f"\nInterrupted at sweep {renderer.sweeps_done}; saving partial render")
     print()
-    print(
-        f"Integrated {metrics['primary_rays']} rays in {metrics['render_seconds']:.3f}s "
-        f"({metrics['mrays_per_second']:.3f} Mrays/s, "
-        f"{metrics['spp_per_second']:.2f} spp/s) on {args.device}"
-    )
-    if "mean_path_length" in metrics:
-        print(f"Mean path length {metrics['mean_path_length']:.2f} segments/sample")
+    if not interrupted:
+        print(
+            f"Integrated {metrics['primary_rays']} rays in {metrics['render_seconds']:.3f}s "
+            f"({metrics['mrays_per_second']:.3f} Mrays/s, "
+            f"{metrics['spp_per_second']:.2f} spp/s) on {args.device}"
+        )
+        if "mean_path_length" in metrics:
+            print(f"Mean path length {metrics['mean_path_length']:.2f} segments/sample")
+    if args.trace_json and renderer.tracer is not None:
+        renderer.tracer.write(args.trace_json)
+        print(f"Trace: {args.trace_json}")
     if args.metrics_json:
         payload = dict(
             metrics={k: (list(map(float, v)) if isinstance(v, list) else float(v))
                      for k, v in metrics.items()},
             sweeps_done=renderer.sweeps_done,
+            interrupted=interrupted,
             device=args.device,
             config=dict(width=args.width, height=args.height, spp=args.sample_count,
                         seed=args.seed, driver=args.driver, block_size=args.block_size,
-                        max_bounces=args.max_bounces),
+                        max_bounces=args.max_bounces, use_bvh=args.use_bvh),
         )
         if args.metrics_json == "-":
             print(json.dumps(payload))
@@ -124,9 +180,13 @@ def main(argv=None) -> int:
             with open(args.metrics_json, "w") as f:
                 json.dump(payload, f, indent=1)
             print(f"Metrics: {args.metrics_json}")
-    renderer.save_exr(args.output_image)
-    print(f"Wrote {args.output_image}")
-    return 0
+    if renderer.sweeps_done > 0:
+        renderer.save_exr(args.output_image)
+        print(f"Wrote {args.output_image}")
+    if args.checkpoint:
+        renderer.save_checkpoint(args.checkpoint)
+        print(f"Checkpoint at sweep {renderer.sweeps_done}: {args.checkpoint}")
+    return 130 if interrupted else 0
 
 
 if __name__ == "__main__":

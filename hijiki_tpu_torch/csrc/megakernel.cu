@@ -1,11 +1,15 @@
-// Path-tracing megakernel for Hopper (sm_90a): the camera launch and the
-// resume launch of the phased wavefront driver.
+// Path-tracing megakernel for Hopper (sm_90a): the launches of the phased
+// wavefront driver, chained or not, and the single-launch render.
 //
-// Replaces hijiki_tpu/ops/pallas_megakernel.py::_megakernel_start (mk_start)
-// and ::_megakernel_resume (mk_resume); both share bounce_loop(), the port
-// of _bounce_loop with _camera_init, _analytic_pretest, the trace-row walk,
-// _resolve_winners, NEE, the BSDFs and Russian roulette. The plain PyTorch
-// twin of every line below is hijiki_tpu_torch/ops/megakernel.py.
+// Replaces, in hijiki_tpu/ops/pallas_megakernel.py:
+//   _megakernel_start          -> mk_start          (K1)
+//   _megakernel_resume         -> mk_resume         (K2)
+//   _megakernel_start_chained  -> mk_start_chained  (K4, note below)
+//   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5)
+// All share bounce_loop(), the port of _bounce_loop with _camera_init,
+// _analytic_pretest, the trace-row walk, _resolve_winners, NEE, the BSDFs
+// and Russian roulette. The plain PyTorch twin of every line below is
+// hijiki_tpu_torch/ops/megakernel.py.
 //
 // Design: one thread per path, 128 threads per block, the whole path state
 // in registers. The TPU kernel walked 8x128-lane packets with shared
@@ -55,6 +59,8 @@ constexpr float kInv2p32 = 0x1p-32f;
 
 constexpr int kRowW = 32;
 constexpr int kNState = 29;
+constexpr int kChainOut = 12;  // CHAIN_OUT_CH
+constexpr int kTileOut = 7;    // render_tiles' result channels
 constexpr int kAnaStride = 16;
 constexpr int kEmStride = 28;
 constexpr int kThreads = 128;
@@ -705,6 +711,82 @@ __global__ void __launch_bounds__(kThreads)
   write_state(p, st_out, rng_out, i, n);
 }
 
+// K4, the chained camera launch (_megakernel_start_chained with the chain
+// block of _bounce_loop, pallas_megakernel.py:2618-2681).
+//
+// Each thread traces the `nsamp` sweep samples of its pixel one after the
+// other. A sample's path bounces until it dies or reaches `cap`; then it is
+//   * parked, if still alive: its full state goes to slot samp*n + lane of
+//     the (29, nsamp*n) pool and of the (nsamp*n,) RNG pool, and the
+//     compaction phases resume it later (no sample is dropped), or
+//   * flushed, if dead: its 12 CHAIN_OUT_CH values (Lr,Lg,Lb, n1,n2,n3,
+//     depth, segs, rows, ar,ag,ab) go to column samp*n + lane of the
+//     (12, nsamp*n) buffer, and its final RNG to the RNG pool;
+// and the thread respawns on the next sample: a fresh camera ray from
+// pxs/pys/seeds[samp+1][lane] (camera_init), samp = samp + 1.
+// The TPU kernel selected a sample's slot with a where-chain over S and
+// wrote every slot masked; a thread indexes its slot directly. Both
+// outputs are in the (C, nsamp*n) layout that the compaction phases
+// consume, so no transpose follows. The wrapper zeroes the pool and the
+// flush buffer: an empty pool slot must read alive = 0, and a parked
+// sample's flush column must read 0 until its resume commits it.
+//
+// What bounds it: as K1, the dependent loads of the walk and the
+// divergence of a warp's threads. Respawn hides part of the divergence: a
+// thread whose path dies early starts its next sample instead of idling
+// until the warp's longest path ends, so a warp runs for the longest SUM
+// of nsamp capped samples, not for nsamp times the longest path.
+//
+// The RNG pool also receives flushed samples' final states (the TPU kernel
+// leaves those slots 0), so the chained driver returns per sweep the same
+// RNG states as separate sweeps.
+__global__ void __launch_bounds__(kThreads)
+    mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
+                            const uint32_t* seeds, int n, int nsamp, float cap,
+                            float* pool, uint32_t* pool_rng, float* chain_out) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  const int sn = nsamp * n;
+  Path p;
+  camera_init(S, pxs[lane], pys[lane], seeds[lane], p);
+  for (int s = 0;;) {
+    bounce_loop(S, p, cap);
+    const int slot = s * n + lane;
+    if (p.alive > 0.0f) {  // park
+      write_state(p, pool, pool_rng, slot, sn);
+    } else {  // flush
+      const float vals[kChainOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3,
+                                     p.depth, p.segs, p.rows, p.ar, p.ag, p.ab};
+#pragma unroll
+      for (int c = 0; c < kChainOut; ++c)
+        chain_out[static_cast<size_t>(c) * sn + slot] = vals[c];
+      pool_rng[slot] = p.rng;
+    }
+    if (++s == nsamp) break;
+    const int next = s * n + lane;  // respawn on the pixel's next sample
+    camera_init(S, pxs[next], pys[next], seeds[next], p);
+    p.samp = static_cast<float>(s);
+  }
+}
+
+// K5, the single-launch render (_megakernel/_megakernel_body): camera ray
+// and bounces to `cap`, then only the 7 result channels (Lr,Lg,Lb,
+// n1,n2,n3, depth) and the RNG; no 29-channel state.
+__global__ void __launch_bounds__(kThreads)
+    mk_tiles_kernel(Scene S, const float* px, const float* py,
+                    const uint32_t* seeds, int n, float cap, float* out,
+                    uint32_t* rng_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Path p;
+  camera_init(S, px[i], py[i], seeds[i], p);
+  bounce_loop(S, p, cap);
+  const float vals[kTileOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3, p.depth};
+#pragma unroll
+  for (int c = 0; c < kTileOut; ++c) out[static_cast<size_t>(c) * n + i] = vals[c];
+  rng_out[i] = p.rng;
+}
+
 Scene make_scene(const float* rows, const float* consts, int total_rows,
                  int tbl_rows, int ntab, int analytic_mode, int na, int ne,
                  int nd, int ncb, int ndl, int nem) {
@@ -757,5 +839,26 @@ extern "C" int mk_resume(SCENE_ARGS, const float* st_in, const uint32_t* rng_in,
   int blocks = (n + kThreads - 1) / kThreads;
   mk_resume_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       SCENE_CALL, st_in, rng_in, n, static_cast<float>(cap), st_out, rng_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
+                                const uint32_t* seeds, int n, int nsamp, int cap,
+                                float* pool, uint32_t* pool_rng, float* chain_out,
+                                void* stream) {
+  int blocks = (n + kThreads - 1) / kThreads;
+  mk_start_chained_kernel<<<blocks, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      SCENE_CALL, pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool,
+      pool_rng, chain_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mk_tiles(SCENE_ARGS, const float* px, const float* py,
+                        const uint32_t* seeds, int n, int cap, float* out,
+                        uint32_t* rng_out, void* stream) {
+  int blocks = (n + kThreads - 1) / kThreads;
+  mk_tiles_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      SCENE_CALL, px, py, seeds, n, static_cast<float>(cap), out, rng_out);
   return static_cast<int>(cudaGetLastError());
 }

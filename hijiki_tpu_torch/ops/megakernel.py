@@ -1,18 +1,27 @@
 """The path-tracing megakernel on Hopper, its plain twin, and the phased driver.
 
-Port of ``hijiki_tpu/ops/pallas_megakernel.py``: ``render_waves`` traces
-every path of a sweep with a camera launch (``mk_start``, the counterpart of
-``_megakernel_start``) up to ``phase_bounces[0]``, then compacts and sorts
-the survivors with plain torch ops and resumes them (``mk_resume``, the
-counterpart of ``_megakernel_resume``) at the later caps.
+Port of ``hijiki_tpu/ops/pallas_megakernel.py``:
 
-On a CUDA tensor the two launches run the hand-written kernels of
+* ``render_waves`` traces every path of a sweep with a camera launch
+  (K1 ``mk_start``, the counterpart of ``_megakernel_start``) up to
+  ``phase_bounces[0]``, then compacts and sorts the survivors with plain
+  torch ops and resumes them (K2 ``mk_resume``, ``_megakernel_resume``) at
+  the later caps;
+* ``render_waves_chained`` traces S sweeps in one chained camera launch
+  (K4 ``mk_start_chained``, ``_megakernel_start_chained``) that respawns a
+  lane on its pixel's next sample and parks paths at ``chain_cap``, then
+  resumes the parked paths through the same compaction phases;
+* ``render_tiles`` traces whole paths in one launch (K5 ``mk_tiles``,
+  ``_megakernel``/``_megakernel_body``).
+
+On a CUDA tensor the launches run the hand-written kernels of
 ``csrc/megakernel.cu`` (one thread per path, the stackless walk over the
 trace rows; see the note there). On a CPU tensor they run the plain twin
 below: a vectorized per-lane transcription of ``_camera_init``,
-``_bounce_loop``, ``_analytic_pretest``, the walk and ``_resolve_winners``
-that computes, lane by lane, what one CUDA thread computes. Differences to
-the TPU kernel, all per-lane semantics of the same estimator:
+``_bounce_loop`` (with its chain block), ``_analytic_pretest``, the walk
+and ``_resolve_winners`` that computes, lane by lane, what one CUDA thread
+computes. Differences to the TPU kernel, all per-lane semantics of the
+same estimator:
 
 * each lane walks its own cursor (the TPU walks packets that descend when
   any lane's slab test passes) and picks the octant table by its own
@@ -21,7 +30,10 @@ the TPU kernel, all per-lane semantics of the same estimator:
 * the ``rows`` counter counts the rows this lane visited (closest walk,
   winner fetch, shadow walk), not packet unions, and a dead lane's
   ``bounce`` stops where it died (the TPU tile loop keeps counting);
-* ``lax.rsqrt`` is ``1 / sqrt`` here and in the kernel.
+* ``lax.rsqrt`` is ``1 / sqrt`` here and in the kernel;
+* the chained launch also writes a flushed sample's final RNG state to its
+  RNG-pool slot (the TPU kernel leaves it 0), so ``render_waves_chained``
+  returns per sweep the RNG states that separate sweeps return.
 
 State layout: ``(N_STATE, N)`` f32, lane-major, channels ``_STATE_CH``, plus
 the RNG as an ``(N,)`` int32 tensor of the u32 bits, which the kernels read
@@ -73,10 +85,19 @@ _RESULT_CH = tuple(
     )
 )
 
+# per-sweep channels the chained launch flushes as samples finish, in
+# _RESULT_CH order: Lr,Lg,Lb, n1,n2,n3, depth, segs, rows, ar,ag,ab
+CHAIN_OUT_CH = len(_RESULT_CH)
+# render_tiles' result channels: Lr,Lg,Lb, n1,n2,n3, depth
+_TILE_CH = tuple(_STATE_CH.index(ch) for ch in ("Lr", "Lg", "Lb", "n1", "n2", "n3", "depth"))
+# sweeps per chained launch when chaining is auto on a CUDA device (the
+# counterpart of the TPU's CHAIN_SWEEPS_TPU)
+CHAIN_SWEEPS_CUDA = 8
+
 # launches of each hand-written kernel (CUDA tensors only; the CPU twin is
 # not counted). Read and reset by chip_smoke.py to prove the main path ran
 # through the kernels.
-LAUNCHES = {"mk_start": 0, "mk_resume": 0}
+LAUNCHES = {"mk_start": 0, "mk_resume": 0, "mk_start_chained": 0, "mk_tiles": 0}
 
 _f32 = np.float32
 # layout of one baked analytic prim / emitter in the constants buffer
@@ -115,6 +136,10 @@ class MegaScene:
     cam: np.ndarray  # (15,) f32: c.xyz, R (row-major 3x3), halfW, halfH, scale
     root_min: torch.Tensor  # (3,) f32 BVH root box (compaction sort key)
     root_max: torch.Tensor
+    # _RESULT_CH on the device: indexing a CUDA tensor with a Python list
+    # uploads the list from pageable memory, which synchronizes the stream
+    # and stalls the host until every queued kernel has finished
+    result_ch: torch.Tensor
 
     @property
     def n_analytic(self) -> int:
@@ -225,6 +250,7 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
         cam=cam,
         root_min=torch.from_numpy(bmin).to(device),
         root_max=torch.from_numpy(bmax).to(device),
+        result_ch=torch.tensor(_RESULT_CH, device=device),
         **tabs,
     )
 
@@ -828,6 +854,46 @@ def _unpack(st, rng):
     return s
 
 
+def megakernel_start_chained_plain(ms: MegaScene, pxs, pys, seeds, cap: int):
+    """The plain twin of K4 (any device): the chain block of
+    ``_bounce_loop`` (pallas_megakernel.py:2618-2681) in lockstep. Bounce the
+    lanes that are going; then, per lane whose sample has stopped, park it
+    (still alive at ``cap``) or flush it (dead), and respawn the lane on its
+    pixel's next sample. Returns what ``megakernel_start_chained`` does."""
+    S, n = pxs.shape
+    dev = pxs.device
+    pool = torch.zeros((N_STATE, S * n), dtype=torch.float32, device=dev)
+    pool_rng = torch.zeros(S * n, dtype=torch.int32, device=dev)
+    chain_out = torch.zeros((CHAIN_OUT_CH, S * n), dtype=torch.float32, device=dev)
+    s = _camera_init(ms, pxs[0], pys[0], from_bits(seeds[0]))
+    done = torch.zeros(n, dtype=torch.bool, device=dev)  # all samples traced
+    while True:
+        going = ~done & (s["alive"] > 0) & (s["bounce"] < cap)
+        idx = torch.nonzero(~done & ~going).flatten()
+        if idx.numel():
+            samp = s["samp"][idx].long()
+            slot = samp * n + idx
+            st, rng = _pack({k: v[idx] for k, v in s.items()})
+            parked = st[0] > 0
+            pool[:, slot[parked]] = st[:, parked]
+            chain_out[:, slot[~parked]] = st[list(_RESULT_CH)][:, ~parked]
+            pool_rng[slot] = rng
+            more = samp < S - 1
+            lanes, nxt = idx[more], samp[more] + 1
+            fresh = _camera_init(ms, pxs[nxt, lanes], pys[nxt, lanes], from_bits(seeds[nxt, lanes]))
+            fresh["samp"] = nxt.to(torch.float32)
+            for k in s:
+                s[k] = s[k].index_put((lanes,), fresh[k])
+            done = done.index_put((idx[~more],), torch.ones((), dtype=torch.bool, device=dev))
+            continue  # the respawned lanes are going now
+        gidx = torch.nonzero(going).flatten()
+        if gidx.numel() == 0:
+            return pool, pool_rng, chain_out
+        sub = _bounce(ms, {k: v[gidx] for k, v in s.items()})
+        for k in s:
+            s[k] = s[k].index_put((gidx,), sub[k])
+
+
 # ----------------------------------------------------------------------------
 # kernel wrappers: CUDA tensor -> hand-written kernel, CPU tensor -> twin
 # ----------------------------------------------------------------------------
@@ -848,26 +914,32 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected a contiguous tensor on {device}")
 
 
-def _launch(fn_name, ms, ins, n, cap):
-    """Run ``mk_start``/``mk_resume`` of csrc/megakernel.cu on the current
-    stream; returns the (N_STATE, n) state and the (n,) RNG bits."""
+def _launch(fn_name, ms, ins, ints, outs):
+    """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
+    stream: scene, input pointers, ``ints``, output pointers, stream. The
+    first int is the lane count; nothing launches for 0 lanes. Returns
+    ``outs``."""
     from hijiki_tpu_torch.utils.build import load_library
 
-    dev = ms.rows.device
-    st = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
-    rng = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
+    if ints[0]:
         lib = load_library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        stream = torch.cuda.current_stream(ms.rows.device).cuda_stream
         rc = getattr(lib, fn_name)(
             ms.rows.data_ptr(), ms.consts.data_ptr(), *_scene_args(ms),
-            *[t.data_ptr() for t in ins], n, cap, st.data_ptr(), rng.data_ptr(),
+            *[t.data_ptr() for t in ins], *ints, *[t.data_ptr() for t in outs],
             stream,
         )
         LAUNCHES[fn_name] += 1
         if rc != 0:
             raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
-    return st, rng
+    return outs
+
+
+def _check_camera_inputs(ms, px, py, seeds, shape):
+    dev = ms.rows.device
+    _check("px", px, torch.float32, shape, dev)
+    _check("py", py, torch.float32, shape, dev)
+    _check("seeds", seeds, torch.int32, shape, dev)
 
 
 def megakernel_start(ms: MegaScene, px, py, seeds, cap: int):
@@ -876,11 +948,11 @@ def megakernel_start(ms: MegaScene, px, py, seeds, cap: int):
     Returns (state (N_STATE, N) f32, rng (N,) int32 bits)."""
     n = px.shape[0]
     if px.device.type == "cuda":
+        _check_camera_inputs(ms, px, py, seeds, (n,))
         dev = ms.rows.device
-        _check("px", px, torch.float32, (n,), dev)
-        _check("py", py, torch.float32, (n,), dev)
-        _check("seeds", seeds, torch.int32, (n,), dev)
-        return _launch("mk_start", ms, [px, py, seeds], n, cap)
+        st = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
+        rng = torch.empty(n, dtype=torch.int32, device=dev)
+        return _launch("mk_start", ms, [px, py, seeds], [n, cap], [st, rng])
     return megakernel_start_plain(ms, px, py, seeds, cap)
 
 
@@ -897,7 +969,9 @@ def megakernel_resume(ms: MegaScene, st, rng, cap: int):
         dev = ms.rows.device
         _check("state", st, torch.float32, (N_STATE, n), dev)
         _check("rng", rng, torch.int32, (n,), dev)
-        return _launch("mk_resume", ms, [st, rng], n, cap)
+        st_out = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
+        rng_out = torch.empty(n, dtype=torch.int32, device=dev)
+        return _launch("mk_resume", ms, [st, rng], [n, cap], [st_out, rng_out])
     return megakernel_resume_plain(ms, st, rng, cap)
 
 
@@ -906,17 +980,61 @@ def megakernel_resume_plain(ms: MegaScene, st, rng, cap: int):
     return _pack(_bounce_loop(ms, _unpack(st, rng), cap))
 
 
+def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
+    """Chained camera launch (K4, replaces ``_megakernel_start_chained``):
+    each lane traces its pixel's S sweep samples in turn, parking a path
+    that is still alive at ``cap`` bounces and flushing one that died.
+    pxs/pys (S, N) f32, seeds (S, N) int32 u32 bits. Returns (pool
+    (N_STATE, S*N) f32, pool RNG (S*N,) int32 bits, flush buffer
+    (CHAIN_OUT_CH, S*N) f32), slot ``samp * N + lane``; a slot's pool
+    state is all zero unless its sample parked, its flush column all zero
+    unless it finished."""
+    S, n = pxs.shape
+    if pxs.device.type == "cuda":
+        _check_camera_inputs(ms, pxs, pys, seeds, (S, n))
+        dev = ms.rows.device
+        # zeroed: an empty pool slot must read alive = 0, and a parked
+        # sample's flush column 0 until its resume commits it (the RNG pool
+        # is written for every slot)
+        pool = torch.zeros((N_STATE, S * n), dtype=torch.float32, device=dev)
+        pool_rng = torch.empty(S * n, dtype=torch.int32, device=dev)
+        chain_out = torch.zeros((CHAIN_OUT_CH, S * n), dtype=torch.float32, device=dev)
+        return _launch("mk_start_chained", ms, [pxs, pys, seeds], [n, S, cap],
+                       [pool, pool_rng, chain_out])
+    return megakernel_start_chained_plain(ms, pxs, pys, seeds, cap)
+
+
+def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int):
+    """Single-launch render (K5, replaces ``_megakernel``/
+    ``_megakernel_body``): raygen and bounces up to ``cap``, keeping only
+    the result. Returns (out (7, N) f32: Lr,Lg,Lb, n1,n2,n3, depth; rng
+    (N,) int32 bits)."""
+    n = px.shape[0]
+    if px.device.type == "cuda":
+        _check_camera_inputs(ms, px, py, seeds, (n,))
+        dev = ms.rows.device
+        out = torch.empty((len(_TILE_CH), n), dtype=torch.float32, device=dev)
+        rng = torch.empty(n, dtype=torch.int32, device=dev)
+        return _launch("mk_tiles", ms, [px, py, seeds], [n, cap], [out, rng])
+    return megakernel_tiles_plain(ms, px, py, seeds, cap)
+
+
+def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int):
+    """The plain twin of K5 (any device)."""
+    st, rng = megakernel_start_plain(ms, px, py, seeds, cap)
+    return st[list(_TILE_CH)], rng
+
+
 # ----------------------------------------------------------------------------
 # drivers
 # ----------------------------------------------------------------------------
 
 
 def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000):
-    """Whole paths in one camera launch to ``max_bounces`` (the counterpart
-    of the TPU's single-launch ``render_tiles``). Returns (total (N,3),
-    normal (N,3), depth (N,), state (N,))."""
-    st, rng = megakernel_start(ms, px, py, seeds, max_bounces)
-    return st[15:18].T, st[20:23].T, st[19], rng
+    """Whole paths in one launch to ``max_bounces`` (``render_tiles``).
+    Returns (total (N,3), normal (N,3), depth (N,), state (N,))."""
+    out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces)
+    return out[0:3].T, out[3:6].T, out[6], rng
 
 
 def _phase_caps(max_bounces, phase_bounces, phase_shrink):
@@ -931,16 +1049,49 @@ def _phase_caps(max_bounces, phase_bounces, phase_shrink):
     return [caps[0]] + [c for c, _ in inc], [s for _, s in inc]
 
 
+def _chain_caps(max_bounces, cap0, phase_bounces, phase_shrink):
+    """``render_waves_chained``' cap normalization (pallas_megakernel.py:
+    3534-3546): clamp FIRST, pair each cap with ITS shrink, then keep only
+    caps above the in-kernel cap ``cap0`` that increase. Unlike
+    ``_phase_caps`` every entry, the last (``max_bounces``) included, is a
+    resume cap; none left means the parked paths are already final."""
+    raw = [min(c, max_bounces) for c in phase_bounces] + [max_bounces]
+    shr = list(phase_shrink) + [4] * (len(raw) - len(phase_shrink))
+    kept = []
+    for c, s in zip(raw, shr):
+        if c > cap0 and (not kept or c > kept[-1][0]):
+            kept.append((c, s))
+    return [c for c, _ in kept], [s for _, s in kept]
+
+
+def _commit(res, res_state, orig, out, rngf):
+    """Scatter finished results ``out`` (the ``_RESULT_CH`` channels) and
+    RNG states to their slots. ``res``/``res_state`` carry one trash column
+    past the slots: JAX's ``res.at[:, orig].set`` drops updates whose
+    ``orig`` is out of bounds (empty pool slots point there), where torch's
+    ``index_put`` raises on the CPU and device-asserts on CUDA, so such
+    updates land in the trash column instead."""
+    res[:, orig] = out
+    res_state[orig] = rngf
+
+
+def _with_trash_column(res, res_state):
+    return (torch.cat([res, res.new_zeros((res.shape[0], 1))], 1),
+            torch.cat([res_state, res_state.new_zeros(1)]))
+
+
 def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state):
     """The survivor phases: compact + coherence-sort the alive lanes, resume
-    at each cap, scatter the results into ``res``/``res_state`` at ``orig``.
-    Returns (res, res_state, overflow tensor)."""
+    at each cap, scatter the results into ``res``/``res_state`` at ``orig``
+    (``_commit``: both carry a trash column at index ``n``, where ``orig``
+    points for slots that must not commit). Shared by render_waves (orig =
+    lane) and render_waves_chained (orig = samp * N + lane). Returns (res,
+    res_state, overflow tensor)."""
     dev = flat.device
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     n_lanes = flat.shape[1]
     root_min = ms.root_min
     root_span = torch.clamp_min(ms.root_max - root_min, 1e-6)
-    result_ch = list(_RESULT_CH)
     for pi, cap in enumerate(caps):
         n_next = max(TILE, -(-(n_lanes // shrinks[pi]) // TILE) * TILE)
         alive = flat[0] > 0
@@ -965,8 +1116,7 @@ def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state):
             order = torch.argsort(key, stable=True)[:n_next]
         flat, rngf, orig = flat[:, order].contiguous(), rngf[order].contiguous(), orig[order]
         flat, rngf = megakernel_resume(ms, flat, rngf, cap)
-        res[:, orig] = flat[result_ch]
-        res_state[orig] = rngf
+        _commit(res, res_state, orig, flat.index_select(0, ms.result_ch), rngf)
         n_lanes = n_next
     return res, res_state, overflow
 
@@ -1000,8 +1150,7 @@ def render_waves(
     n = px.shape[0]
     caps, shrinks = _phase_caps(max_bounces, phase_bounces, phase_shrink)
     flat, rngf = megakernel_start(ms, px.contiguous(), py.contiguous(), seeds.contiguous(), caps[0])
-    res = flat[list(_RESULT_CH)].clone()
-    res_state = rngf.clone()
+    res, res_state = _with_trash_column(flat.index_select(0, ms.result_ch), rngf)
     orig = torch.arange(n, device=px.device)
     res, res_state, overflow = _run_compaction_phases(
         ms, caps[1:], shrinks, flat, rngf, orig, res, res_state
@@ -1011,6 +1160,74 @@ def render_waves(
         res[0:3].T, res[3:6].T, res[6], res_state[:n_req], overflow,
         res[7], res[8], res[9:12].T,
     )
+
+
+def render_waves_chained(
+    ms: MegaScene,
+    pxs,
+    pys,
+    seeds,
+    *,
+    max_bounces: int = 1000,
+    chain_cap: int = 8,
+    phase_bounces: tuple = (48,),
+    phase_shrink: tuple = (4,),
+):
+    """Chained phased render (``render_waves_chained``): S sweep samples per
+    pixel in ONE chained camera launch (K4) that respawns a dead path's lane
+    on the pixel's next sample and parks paths still alive at
+    ``min(chain_cap, max_bounces)`` bounces in an (N_STATE, S*N) pool; the
+    compaction phases then resume the parked paths (unchained K2) at the
+    ``phase_bounces`` caps and ``max_bounces``. pxs/pys (S, N) f32, seeds
+    (S, N) int32 u32 bits.
+
+    Per sample exactly what S separate ``render_waves`` sweeps compute (each
+    thread walks alone), as long as nothing overflows.
+
+    Returns per-sweep images: total (S,N,3), normal (S,N,3), depth (S,N),
+    state (S,N) (the sample's final RNG), overflow (), segs (S,N), rows (N,)
+    (summed over the S samples), albedo (S,N,3).
+    """
+    S, n_req = pxs.shape
+    if S < 2:
+        raise ValueError("render_waves_chained needs >= 2 sweeps; use render_waves")
+    pad = (-n_req) % TILE
+    if pad:
+        # dummy lanes: copies of each sweep's first column, dropped below
+        padf = lambda a: torch.cat([a, a[:, :1].expand(S, pad)], 1)
+        pxs, pys, seeds = padf(pxs), padf(pys), padf(seeds)
+    n = pxs.shape[1]
+    cap0 = min(chain_cap, max_bounces)
+    flat, rngf, chain_out = megakernel_start_chained(
+        ms, pxs.contiguous(), pys.contiguous(), seeds.contiguous(), cap0
+    )
+    res, res_state = _with_trash_column(chain_out, rngf)
+    # only parked paths commit; an empty pool slot (its sample finished in
+    # the chained launch and was flushed) points at the trash column
+    orig = torch.where(
+        flat[0] > 0, torch.arange(S * n, device=flat.device), S * n
+    )
+    caps, shrinks = _chain_caps(max_bounces, cap0, phase_bounces, phase_shrink)
+    if caps:
+        res, res_state, overflow = _run_compaction_phases(
+            ms, caps, shrinks, flat, rngf, orig, res, res_state
+        )
+    else:
+        # max_bounces <= chain_cap: every parked path has traced its whole
+        # budget, so its pool state is final; commit it directly (a resume
+        # phase would only add a capacity cut that could drop samples)
+        _commit(res, res_state, orig, flat.index_select(0, ms.result_ch), rngf)
+        overflow = torch.zeros((), dtype=torch.int64, device=flat.device)
+
+    def per_sweep(ch):
+        return res[ch, : S * n].reshape(S, n)[:, :n_req]
+
+    total = torch.stack([per_sweep(0), per_sweep(1), per_sweep(2)], -1)
+    normal = torch.stack([per_sweep(3), per_sweep(4), per_sweep(5)], -1)
+    albedo = torch.stack([per_sweep(9), per_sweep(10), per_sweep(11)], -1)
+    state = res_state[: S * n].reshape(S, n)[:, :n_req]
+    return (total, normal, per_sweep(6), state, overflow, per_sweep(7),
+            per_sweep(8).sum(0), albedo)
 
 
 # ----------------------------------------------------------------------------

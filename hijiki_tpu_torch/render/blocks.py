@@ -55,15 +55,26 @@ class BlockScheduler:
         return SweepSchedule(sweep_index, offset, seeds)
 
 
+def upload(array: np.ndarray, device=None) -> torch.Tensor:
+    """A host array on ``device``; to a card from pinned memory,
+    asynchronously: a pageable upload would wait for every kernel queued
+    before it."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    device = torch.device(device or "cpu")
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def per_pixel_seeds_device(width, height, block_size, block_seeds, device=None):
-    """Expand the (nby, nbx) block seeds to (H, W) per-pixel seeds on
-    ``device`` (the tensor twin of ``per_pixel_seeds``). Returns an int64
-    tensor holding u32 values (see ``ops/rng.py``)."""
+    """Expand the (..., nby, nbx) block seeds to (..., H, W) per-pixel seeds
+    on ``device`` (the tensor twin of ``per_pixel_seeds``; leading dims, such
+    as a chained chunk's sweeps, expand in the same few ops). Returns an
+    int64 tensor holding u32 values (see ``ops/rng.py``)."""
     B = block_size
-    bs = torch.as_tensor(np.asarray(block_seeds, dtype=np.uint32).astype(np.int64))
-    bs = bs.to(device or "cpu")
-    base = bs.repeat_interleave(B, dim=0).repeat_interleave(B, dim=1)
-    base = base[:height, :width]
+    bs = upload(np.asarray(block_seeds, dtype=np.uint32).astype(np.int64), device)
+    base = bs.repeat_interleave(B, dim=-2).repeat_interleave(B, dim=-1)
+    base = base[..., :height, :width]
     y = torch.arange(height, device=base.device).view(-1, 1)
     x = torch.arange(width, device=base.device).view(1, -1)
     bx = x // B

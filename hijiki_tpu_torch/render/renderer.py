@@ -1,18 +1,25 @@
-"""The renderer driver: sweeps, film, overflow invariant, metrics.
+"""The renderer driver: sweeps and chained chunks, film, overflow invariant,
+checkpoint/resume, previews, metrics, span tracing.
 
-Port of ``hijiki_tpu/render/renderer.py`` for the mega driver at
-``chain_sweeps=1`` (the reference's ``src/main.rs:1143-1355`` loop): each
-sweep traces every pixel once through ``ops.megakernel.render_waves``,
-reconstructs it with the radius-2 bilateral filter and adds the
-(rgb*weight, weight) delta to the film; normalization happens at save time.
+Port of ``hijiki_tpu/render/renderer.py`` for the mega driver (the
+reference's ``src/main.rs:1143-1355`` loop). The sweeps of a render go in
+chunks: a chunk of S > 1 sweeps traces every pixel's S samples in one
+chained launch (``ops.megakernel.render_waves_chained``), a chunk of one
+sweep through ``render_waves``. Each sweep is reconstructed with the
+radius-2 bilateral filter; a chunk's (rgb*weight, weight) deltas are summed
+in sweep order and the sum is added to the film; normalization happens at
+read time.
 
 Not ported yet (``RenderConfig`` refuses them at non-default values): the
-sync and wavefront drivers, chained sweeps, lane sorting, fixed albedo,
-previews, checkpoints and the TPU packet/walker knobs.
+sync and wavefront drivers, lane sorting, fixed albedo, other
+reconstruction radii and the TPU packet/walker knobs.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -20,13 +27,16 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from hijiki_tpu_torch.ops.megakernel import mega_scene, render_waves
+from hijiki_tpu_torch.ops.megakernel import (
+    CHAIN_SWEEPS_CUDA, mega_scene, render_waves, render_waves_chained,
+)
 from hijiki_tpu_torch.ops.rng import to_bits
-from hijiki_tpu_torch.render.blocks import BlockScheduler, per_pixel_seeds_device
+from hijiki_tpu_torch.render.blocks import BlockScheduler, per_pixel_seeds_device, upload
 from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct
 from hijiki_tpu_torch.render.reconstruct import normalize_film
 from hijiki_tpu_torch.scene.compile import CompiledScene
-from hijiki_tpu_torch.utils.exr import write_exr
+from hijiki_tpu_torch.utils.exr import write_exr, write_png
+from hijiki_tpu_torch.utils.tracing import maybe_span
 
 
 @dataclass(frozen=True)
@@ -43,6 +53,7 @@ class RenderConfig:
     max_bounces: int = 1000
     reconstruction_radius: int = 2
     reconstruction_stddev: float = 0.5
+    # sweeps between PNG previews; 0 = off
     preview_interval: int = 0
     preview_path: str = "/tmp/hijiki_preview.png"
     leaf_size: int = 1
@@ -51,37 +62,92 @@ class RenderConfig:
     sort_lanes: bool = False
     traversal: str = ""
     fixed_albedo: bool = False
+    # live terminal preview every N sweeps; 0 = off
     live_preview: int = 0
     mega_packet: int = 0
     mega_groups: int = 0
+    # sweeps per chained launch: 1 = off, 0 = auto (CHAIN_SWEEPS_CUDA on a
+    # CUDA device, off on the CPU); estimator-exact per (pixel, sweep)
     chain_sweeps: int = 0
     spec_resolve: int = 0
     mega_trunk: int = 0
     mega_window: int = 0
+    # in-kernel bounce cap of a chained launch before a path parks for the
+    # compaction phases; 0 = render_waves_chained's default (8)
     mega_chain_cap: int = 0
     mega_shadow: int = 0
-    # wavefront phase-capacity shrink factors; () = render_waves' defaults
+    # wavefront phase-capacity shrink factors; () = the drivers' defaults
     phase_shrink: tuple = ()
 
 
 # fields whose non-default values select code that is not ported yet
 _NOT_PORTED = (
-    "reconstruction_radius", "preview_interval", "leaf_size", "wavefront_lanes",
-    "sort_lanes", "traversal", "fixed_albedo", "live_preview", "mega_packet",
-    "mega_groups", "spec_resolve", "mega_trunk", "mega_window",
-    "mega_chain_cap", "mega_shadow",
+    "reconstruction_radius", "leaf_size", "wavefront_lanes", "sort_lanes",
+    "traversal", "fixed_albedo", "mega_packet", "mega_groups", "spec_resolve",
+    "mega_trunk", "mega_window", "mega_shadow",
+)
+
+# fields that change an accumulated film: a resumed render must match them
+_CHECKPOINT_FIXED = (
+    "width", "height", "block_size", "seed", "use_bvh", "max_bounces", "driver",
+    "reconstruction_radius", "reconstruction_stddev", "fixed_albedo",
 )
 
 
 def check_config(c: RenderConfig) -> None:
     if c.driver != "mega":
         raise NotImplementedError(f"driver {c.driver!r} is not ported yet (only 'mega')")
-    if c.chain_sweeps not in (0, 1):
-        raise NotImplementedError("chained sweeps (chain_sweeps > 1) are not ported yet")
     defaults = RenderConfig()
     for f in _NOT_PORTED:
         if getattr(c, f) != getattr(defaults, f):
             raise NotImplementedError(f"RenderConfig.{f}={getattr(c, f)!r} is not ported yet")
+
+
+def chain_chunk_size(remaining: int, chain: int) -> int:
+    """Prefer a chunk size that divides ``remaining`` (any divisor in
+    [chain/2, chain]), so every chunk of a render has the same S; otherwise
+    ``chain`` with a shorter tail chunk."""
+    remaining = max(remaining, 1)
+    if remaining % chain:
+        for s in range(chain - 1, max(chain // 2 - 1, 1), -1):
+            if remaining % s == 0:
+                return s
+    return chain
+
+
+def resolve_chain_sweeps(config: RenderConfig, device, sweeps_done: int = 0) -> int:
+    """Sweeps per chained launch. 0 = auto: CHAIN_SWEEPS_CUDA (through
+    ``chain_chunk_size``) for the mega driver on a CUDA device, 1 (off) on
+    the CPU, where the twins gain nothing from chaining. Chaining needs the
+    mega driver with the radius-2 reconstruction, parity albedo and no lane
+    sort; HIJIKI_CHAIN_SWEEPS overrides the auto choice."""
+    c = config
+    eligible = (
+        c.driver == "mega"
+        and c.reconstruction_radius == 2
+        and not c.fixed_albedo
+        and not c.sort_lanes
+    )
+    requested = c.chain_sweeps
+    env = os.environ.get("HIJIKI_CHAIN_SWEEPS")
+    if not requested and env:
+        requested = int(env)
+    if requested:
+        if requested > 1 and not eligible:
+            raise ValueError(
+                "chain_sweeps > 1 needs the mega driver with radius-2 "
+                "reconstruction, parity albedo, and no --sort-lanes"
+            )
+        return requested
+    if not eligible or torch.device(device).type != "cuda":
+        return 1
+    return chain_chunk_size(c.spp - sweeps_done, CHAIN_SWEEPS_CUDA)
+
+
+def _pixel_grid(width, height, device):
+    y = torch.arange(height, dtype=torch.float32, device=device).view(-1, 1).expand(height, width)
+    x = torch.arange(width, dtype=torch.float32, device=device).view(1, -1).expand(height, width)
+    return x.reshape(-1), y.reshape(-1)
 
 
 def render_sweep(
@@ -100,13 +166,10 @@ def render_sweep(
     dev = ms.rows.device
     H, W = height, width
     seeds = to_bits(per_pixel_seeds_device(W, H, block_size, block_seeds, dev).reshape(-1))
-    so = torch.as_tensor(np.asarray(sample_offset, np.float32))
-    y = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
-    x = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
-    px = (x + float(so[0])).reshape(-1)
-    py = (y + float(so[1])).reshape(-1)
+    so = np.asarray(sample_offset, np.float32)
+    x, y = _pixel_grid(W, H, dev)
     total, normal, depth, _, overflow, segs, rows, _ = render_waves(
-        ms, px, py, seeds, max_bounces=max_bounces,
+        ms, x + float(so[0]), y + float(so[1]), seeds, max_bounces=max_bounces,
         **({"phase_shrink": phase_shrink} if phase_shrink else {}),
     )
     total = total.reshape(H, W, 3).contiguous()
@@ -128,8 +191,58 @@ def render_sweep(
     return delta, stats
 
 
+def render_sweeps_chained(
+    ms,
+    block_seeds,
+    sample_offsets,
+    *,
+    width: int,
+    height: int,
+    block_size: int,
+    max_bounces: int,
+    stddev: float,
+    chain_cap: int = 8,
+    phase_shrink: tuple = (),
+):
+    """Trace S sweeps in one chained launch (``render_waves_chained``) and
+    reconstruct each with its own jitter. ``block_seeds`` (S, bh, bw) u32,
+    ``sample_offsets`` (S, 2) f32. Returns (film_delta (H, W, 4): the S
+    sweeps' deltas summed in sweep order, stats: per-sweep averages)."""
+    dev = ms.rows.device
+    H, W = height, width
+    S = len(block_seeds)
+    offs = np.asarray(sample_offsets, np.float32)
+    # the chunk's inputs in a few batched ops over S: per-sweep ops would
+    # leave the card idle while the host enqueues them
+    x, y = _pixel_grid(W, H, dev)
+    offs_d = upload(offs, dev)
+    pxs = x + offs_d[:, 0:1]
+    pys = y + offs_d[:, 1:2]
+    seeds = to_bits(per_pixel_seeds_device(W, H, block_size, block_seeds, dev).reshape(S, -1))
+    t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
+        ms, pxs, pys, seeds, max_bounces=max_bounces, chain_cap=chain_cap,
+        **({"phase_shrink": phase_shrink} if phase_shrink else {}),
+    )
+    delta = None
+    for s in range(S):
+        d = reconstruct(t[s].reshape(H, W, 3), n[s].reshape(H, W, 3), offs[s],
+                        block_size=block_size, stddev=stddev)
+        delta = d if delta is None else delta + d
+    stats = dict(
+        wave_overflow=overflow,
+        mean_radiance=t.mean(),
+        mean_depth=dep.mean(),
+        # per-sweep averages, so the metrics stay sweep-denominated; the
+        # rows counter is per thread here (the TPU's is per packet and is
+        # divided by 8*packet too)
+        path_segments=segs.sum() / S,
+        rows_visited=rows.sum() / S,
+    )
+    return delta, stats
+
+
 class Renderer:
-    """Progressive sweep renderer over a compiled scene on ``device``."""
+    """Progressive renderer over a compiled scene on ``device``."""
 
     def __init__(self, compiled: CompiledScene, config: RenderConfig, device="cuda"):
         check_config(config)
@@ -147,62 +260,96 @@ class Renderer:
         self.sweeps_done = 0
         self.metrics: dict = {}
         self._last_stats = None
+        # chunks are pending settlement (save_checkpoint settles them first)
+        self._rendering = False
+        # optional host-span tracing (utils/tracing.SpanTracer; CLI
+        # --trace-json): chunk dispatches, overflow check, film sync,
+        # retries, checkpoint saves. None = no-op.
+        self.tracer = None
 
-    def _run_sweep(self, block_seeds, offset, phase_shrink):
+    def _run_chunk(self, kind, block_seeds, offsets, phase_shrink):
+        """One chunk: ("chained", (S, bh, bw) seeds, (S, 2) offsets) or
+        ("sweep", (bh, bw) seeds, (2,) offset). Returns (delta, stats)."""
         c = self.config
-        return render_sweep(
-            self.scene, block_seeds, offset,
-            width=c.width, height=c.height, block_size=c.block_size,
-            max_bounces=c.max_bounces, stddev=c.reconstruction_stddev,
-            phase_shrink=phase_shrink,
-        )
+        kw = dict(width=c.width, height=c.height, block_size=c.block_size,
+                  max_bounces=c.max_bounces, stddev=c.reconstruction_stddev,
+                  phase_shrink=phase_shrink)
+        if kind == "chained":
+            if c.mega_chain_cap:
+                kw["chain_cap"] = c.mega_chain_cap
+            return render_sweeps_chained(self.scene, block_seeds, offsets, **kw)
+        return render_sweep(self.scene, block_seeds, offsets, **kw)
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def render(self, progress: Optional[Callable[[int, int], None]] = None):
-        """Run the remaining sweeps."""
+        """Run the remaining sweeps (all of them unless resumed)."""
         c = self.config
         start = time.monotonic()
         sweep_marks = []
         resume_start = self.sweeps_done
-        # overflow == 0 is an INVARIANT: each sweep's inputs and overflow
+        chain = resolve_chain_sweeps(c, self.device, self.sweeps_done)
+        sweep = self.sweeps_done
+        ps = tuple(c.phase_shrink or ())
+        # overflow == 0 is an INVARIANT: each chunk's inputs and overflow
         # counter are recorded; if any path was dropped by a phase-capacity
-        # truncation, every recorded sweep is re-rendered at full capacity
+        # truncation, the pending chunks are re-rendered at full capacity
         # (phase_shrink 1, which cannot overflow) with the SAME seeds, so the
         # film is always the unbiased estimate. Settled once after the loop
-        # (one host sync, never per sweep).
-        film_start = self.film
-        records, counters = [], []
-        ps = tuple(c.phase_shrink or ())
-        while self.sweeps_done < c.spp:
-            sched = self.scheduler.sweep(self.sweeps_done)
-            delta, stats = self._run_sweep(sched.block_seeds, sched.sample_offset, ps)
+        # (one host sync, never per chunk) and before any mid-render
+        # checkpoint (save_checkpoint), so a checkpoint never holds a biased
+        # film.
+        self._ovf_film_start = self.film
+        self._ovf_records: list = []
+        self._ovf_counters: list = []
+        self._ovf_retried_total = 0
+        self._rendering = True
+        while sweep < c.spp:
+            n_chunk = min(chain, c.spp - sweep) if chain > 1 else 1
+            if n_chunk > 1:
+                # one chained launch traces n_chunk sweeps; their deltas are
+                # summed in sweep order before the film add
+                scheds = [self.scheduler.sweep(si) for si in range(sweep, sweep + n_chunk)]
+                rec = ("chained", np.stack([sc.block_seeds for sc in scheds]),
+                       np.stack([sc.sample_offset for sc in scheds]))
+                span = maybe_span(self.tracer, "dispatch chained chunk",
+                                  sweeps=f"{sweep}..{sweep + n_chunk - 1}")
+            else:
+                sched = self.scheduler.sweep(sweep)
+                rec = ("sweep", sched.block_seeds, sched.sample_offset)
+                span = maybe_span(self.tracer, "dispatch sweep", sweep=sweep)
+            with span:
+                delta, stats = self._run_chunk(*rec, ps)
             self._last_stats = stats
-            records.append((sched.block_seeds, sched.sample_offset))
-            counters.append(stats["wave_overflow"])
+            self._ovf_records.append(rec)
+            self._ovf_counters.append(stats["wave_overflow"])
             self.film = self.film + delta
-            self.sweeps_done += 1
+            prev_done = sweep
+            sweep += n_chunk
+            self.sweeps_done = sweep
             if progress is not None:
                 progress(self.sweeps_done, c.spp)
+            # interval CROSSINGS, not modulo: a chunk advances sweeps_done by
+            # n_chunk, so "done % interval == 0" could skip every preview
+            if c.preview_interval and (
+                prev_done // c.preview_interval != sweep // c.preview_interval
+            ):
+                self.save_png(c.preview_path)
+            if c.live_preview and prev_done // c.live_preview != sweep // c.live_preview:
+                self._term_preview().update(self.image(), f"{self.sweeps_done}/{c.spp} sweeps")
             sweep_marks.append(time.monotonic() - start)
-        seen = int(torch.stack(counters).sum()) if counters else 0
-        if seen:
-            import warnings
-
-            warnings.warn(
-                f"{seen} paths exceeded wavefront phase capacity; re-rendering "
-                "these sweeps at full capacity (phase_shrink=1) with the same seeds"
-            )
-            film = film_start
-            for bs, off in records:
-                delta, stats = self._run_sweep(bs, off, (1,) * 8)
-                self._last_stats = stats
-                film = film + delta
-            self.film = film
-        self._sync()
+        with maybe_span(self.tracer, "overflow check (host sync)") as sp:
+            self._settle_overflow()
+            sp["overflow"] = self._ovf_retried_total
+        seen = self._ovf_retried_total
+        self._rendering = False
+        with maybe_span(self.tracer, "film ready"):
+            self._sync()
         elapsed = time.monotonic() - start
+        # only the sweeps traced in THIS call (after a resume the loop starts
+        # at resume_start)
         sweeps_traced = self.sweeps_done - resume_start
         primary_rays = c.width * c.height * sweeps_traced
         rate = primary_rays / elapsed if elapsed > 0 else 0.0
@@ -212,11 +359,15 @@ class Renderer:
             rays_per_second=rate,
             mrays_per_second=rate / 1e6,
             spp_per_second=sweeps_traced / elapsed if elapsed > 0 else 0.0,
+            # one mark per chunk (host clock at dispatch)
             sweep_marks=sweep_marks,
-            chain_chunk_sweeps=1,
+            chain_chunk_sweeps=chain if chain > 1 else 1,
         )
         if self._last_stats is not None:
             st = self._last_stats
+            # the overflow of the film as accumulated: 0 when nothing dropped
+            # and after a full-capacity re-render; overflow_retried says how
+            # many paths the discarded attempts dropped
             self.metrics["wave_overflow"] = 0 if seen else int(st["wave_overflow"])
             self.metrics["overflow_retried"] = seen
             segs = float(st["path_segments"])
@@ -226,10 +377,56 @@ class Renderer:
             rows = float(st["rows_visited"])
             if rows > 0:
                 self.metrics["rows_visited_last_sweep"] = rows
+                # sweeps traced in this call (the JAX renderer multiplies by
+                # c.spp, which overstates the rate after a resume)
                 self.metrics["mrows_per_second"] = (
                     rows * sweeps_traced / elapsed / 1e6 if elapsed > 0 else 0.0
                 )
+        if self.tracer is not None:
+            self.tracer.counter(
+                "throughput",
+                mrays_per_s=self.metrics["mrays_per_second"],
+                spp_per_s=self.metrics["spp_per_second"],
+            )
         return self.metrics
+
+    def _settle_overflow(self) -> int:
+        """Enforce overflow == 0 on the pending chunks: one host read sums
+        their counters; if any path was dropped, the film is rebuilt from the
+        recorded seeds at full capacity (phase_shrink 1). Runs at the end of
+        render() and before a mid-render checkpoint; resets the pending
+        state."""
+        counters = self._ovf_counters
+        if not counters:
+            return 0
+        seen = int(torch.stack(counters).sum())
+        if seen:
+            import warnings
+
+            warnings.warn(
+                f"{seen} paths exceeded wavefront phase capacity; re-rendering "
+                "every pending chunk at full capacity (phase_shrink=1) with the "
+                "same seeds, so the film stays unbiased"
+            )
+            film = self._ovf_film_start
+            for kind, a, b in self._ovf_records:
+                with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind):
+                    delta, stats = self._run_chunk(kind, a, b, (1,) * 8)
+                self._last_stats = stats
+                film = film + delta
+            self.film = film
+            self._ovf_retried_total += seen
+        self._ovf_film_start = self.film
+        self._ovf_records = []
+        self._ovf_counters = []
+        return seen
+
+    def _term_preview(self):
+        if not hasattr(self, "_term_preview_obj"):
+            from hijiki_tpu_torch.utils.term_preview import TerminalPreview
+
+            self._term_preview_obj = TerminalPreview()
+        return self._term_preview_obj
 
     def image(self) -> np.ndarray:
         """Normalized (H, W, 3) float RGB."""
@@ -237,3 +434,55 @@ class Renderer:
 
     def save_exr(self, path: str) -> None:
         write_exr(path, self.image())
+
+    def save_png(self, path: str) -> None:
+        write_png(path, self.image())
+
+    # --- checkpoint / resume ---
+
+    def save_checkpoint(self, path: str) -> None:
+        """Save the film, the sweep cursor and the config as npz at ``path``.
+        A mid-render save (from the progress callback) settles pending
+        overflow first, so the saved film is never biased."""
+        if self._rendering:
+            self._settle_overflow()
+        with maybe_span(self.tracer, "checkpoint save", path=path):
+            with open(path, "wb") as f:  # np.savez(path) would append ".npz"
+                np.savez(
+                    f,
+                    film=self.film.cpu().numpy(),
+                    sweeps_done=self.sweeps_done,
+                    config=json.dumps(dataclasses.asdict(self.config)),
+                )
+
+    @classmethod
+    def resume_checkpoint(
+        cls,
+        compiled: CompiledScene,
+        path: str,
+        config: "RenderConfig | None" = None,
+        device="cuda",
+    ) -> "Renderer":
+        """Resume a checkpointed render. ``config`` may override the saved
+        one (a higher spp renders the extra sweeps), but the fields that
+        shape the accumulated film (``_CHECKPOINT_FIXED``) must match."""
+        data = np.load(path, allow_pickle=False)
+        saved = json.loads(str(data["config"]))
+        saved["phase_shrink"] = tuple(saved.get("phase_shrink") or ())  # JSON gave a list
+        ckpt_config = RenderConfig(**saved)
+        if config is not None:
+            for f in _CHECKPOINT_FIXED:
+                a, b = getattr(config, f), getattr(ckpt_config, f)
+                if a != b:
+                    raise ValueError(
+                        f"checkpoint resume: {f}={a!r} conflicts with the "
+                        f"checkpointed render's {f}={b!r}"
+                    )
+        r = cls(compiled, config or ckpt_config, device=device)
+        r.film = torch.from_numpy(data["film"]).to(r.device)
+        r.sweeps_done = int(data["sweeps_done"])
+        # replay the scheduler so the remaining sweeps get the seeds they
+        # would have had uninterrupted
+        for s in range(r.sweeps_done):
+            r.scheduler.sweep(s)
+        return r

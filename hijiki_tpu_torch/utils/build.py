@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels (``hijiki_tpu_torch/csrc``).
 
-nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The build runs at first use
-and is cached under ``build/kernels/<key>/`` beside the package, where the
-key is the sha256 of the sources and the flags, so an edited source can
-never load a stale binary.
+nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` (one nvcc per source, all
+started together) and links the objects into one shared library with a
+plain C interface, loaded with ctypes. The build runs at first use and is
+cached under ``build/kernels/<key>/`` beside the package, where the key is
+the sha256 of the sources and the flags, so an edited source can never
+load a stale binary.
 
 Run ``python -m hijiki_tpu_torch.utils.build`` to build (and print ptxas
 register/spill reports) without rendering.
@@ -27,9 +28,10 @@ LIB_NAME = "libhijiki_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,8 @@ _SCENE = [_P, _P] + [_I] * 10
 SIGNATURES = {
     "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
     "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
+    "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
     "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
 }
 
@@ -54,7 +58,7 @@ def cache_key() -> str:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -73,14 +77,32 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sources() if p.suffix == ".cu"]]
+    nvcc = nvcc_path()
+    pid = os.getpid()
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.monotonic() - t0
-    report = proc.stdout + proc.stderr
+    objs, procs = [], []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    report, failed = "", False
+    for proc in procs:  # wait for every compile, so no process outlives the build
+        report += proc.communicate()[0]
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{report}")
+    tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+    proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    report += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{report}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{report}")
+    for obj in objs:
+        obj.unlink()
+    secs = time.monotonic() - t0
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib, secs, report
 

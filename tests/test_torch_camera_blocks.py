@@ -73,6 +73,19 @@ def test_per_pixel_seeds_bitexact(W, H, B):
     assert got.dtype == torch.int64 and int(got.max()) <= 0xFFFFFFFF
 
 
+@pytest.mark.parametrize("W,H,B", [(200, 130, 64), (64, 1, 64)])
+def test_per_pixel_seeds_batched_over_sweeps(W, H, B):
+    """A chained chunk expands its sweeps' block seeds in one call: each
+    (H, W) slice equals the JAX expansion of that sweep alone."""
+    sched = tblocks.BlockScheduler(W, H, B, 3)
+    bs = np.stack([sched.sweep(i).block_seeds for i in range(3)])
+    got = tblocks.per_pixel_seeds_device(W, H, B, bs, "cpu")
+    assert got.shape == (3, H, W)
+    for s in range(3):
+        want = np.asarray(jblocks.per_pixel_seeds_device(W, H, B, jnp.asarray(bs[s])))
+        np.testing.assert_array_equal(got[s].numpy().astype(np.uint32), want)
+
+
 def test_block_size_must_be_multiple_of_64():
     with pytest.raises(ValueError):
         tblocks.BlockScheduler(64, 64, 100, 0)

@@ -1,5 +1,5 @@
-"""The port's CLI: a CPU render that writes an EXR, and refusal of the
-flags that are not ported yet."""
+"""The port's CLI: CPU renders that write an EXR (chained, checkpointed,
+traced, with previews), and refusal of the flags that are not ported yet."""
 
 import json
 import subprocess
@@ -33,10 +33,39 @@ def test_cli_builtin_scene(tmp_path):
     assert read_exr(str(out)).shape == (16, 16, 3)
 
 
-@pytest.mark.parametrize("flag", ["--checkpoint=x.npz", "--devices", "--sort-lanes", "--chain-sweeps"])
+@pytest.mark.parametrize("flag", ["--mega-packet=1024", "--devices", "--sort-lanes", "--fixed-albedo"])
 def test_cli_refuses_unported_flags(flag, capsys):
     assert cli.main(["builtin:cornell", flag, "2"] if "=" not in flag else ["builtin:cornell", flag]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def test_cli_chained_checkpoint_trace_preview(tmp_path, capsys):
+    """--chain-sweeps, --checkpoint(-interval), --trace-json and
+    --present-interval together; a second run with more sweeps resumes from
+    the checkpoint."""
+    ck, trace, png = tmp_path / "ck.npz", tmp_path / "t.json", tmp_path / "p.png"
+    base = [MESHBOX_SMALL, "--put-cbox-spheres", "--put-dielectric-sphere", "--use-bvh",
+            "-w", "32", "-H", "24", "--max-bounces", "12", "--device", "cpu",
+            "--chain-sweeps", "2", "--checkpoint", str(ck), "--checkpoint-interval", "2",
+            "--trace-json", str(trace), "--present-interval", "3", "--preview-image", str(png),
+            "-o", str(tmp_path / "o.exr"), "--metrics-json", str(tmp_path / "m.json")]
+    assert cli.main(base + ["-s", "4"]) == 0
+    assert png.exists()  # sweeps 2 -> 4 cross the interval 3
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]]
+    assert names.count("dispatch chained chunk") == 2 and "film ready" in names
+    # saves at sweeps 2 and 4 (the final save comes after the trace is written)
+    assert names.count("checkpoint save") == 2
+    assert int(np.load(ck)["sweeps_done"]) == 4
+    m = json.loads((tmp_path / "m.json").read_text())
+    assert m["metrics"]["chain_chunk_sweeps"] == 2 and m["sweeps_done"] == 4
+    capsys.readouterr()
+    assert cli.main(base + ["-s", "6"]) == 0
+    assert "Resumed from" in capsys.readouterr().out
+    assert int(np.load(ck)["sweeps_done"]) == 6
+    m = json.loads((tmp_path / "m.json").read_text())
+    assert m["metrics"]["primary_rays"] == 32 * 24 * 2  # only the resumed sweeps
+    img = read_exr(str(tmp_path / "o.exr"))
+    assert np.isfinite(img).all() and img.mean() > 0
 
 
 def test_cli_module_entry_point(tmp_path):

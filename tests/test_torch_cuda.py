@@ -6,9 +6,10 @@ the port is installed (the H100 machine):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -p no:cacheprovider
 
-Bounds: K3 rtol 1e-5 / atol 1e-6 (expf ULPs); K1/K2 RNG state bit-equal and
-radiance within 2e-3 on >= 99.5% of paths (built with --fmad=false, the
-kernels round like the twin, which measured them bit-equal)."""
+Bounds: K3 rtol 1e-5 / atol 1e-6 (expf ULPs); K1/K2/K4/K5 RNG state
+bit-equal and radiance within 2e-3 on >= 99.5% of paths (built with
+--fmad=false, the kernels round like the twin, which measured them
+bit-equal); the chained driver bit-equal per sweep to separate sweeps."""
 
 import numpy as np
 import pytest
@@ -91,6 +92,50 @@ def test_phased_kernels_equal_single_launch():
     assert torch.equal(one[0], waves[0])
 
 
+def test_chained_and_tiles_kernels_match_twins():
+    dev = cuda_device()
+    S = 64
+    ms = mk.mega_scene(_scene(MESHBOX), S, S, dev)
+    px, py, seeds = _frame(S, dev)
+    pxs = torch.stack([px, px + 0.25, px - 0.25])
+    pys = torch.stack([py, py - 0.125, py + 0.125])
+    sds = torch.stack([seeds, seeds + 1, seeds + 977])
+    before = dict(mk.LAUNCHES)
+    pool, prng, co = mk.megakernel_start_chained(ms, pxs, pys, sds, 8)
+    out, rng = mk.megakernel_tiles(ms, px, py, seeds, 24)
+    assert mk.LAUNCHES["mk_start_chained"] == before["mk_start_chained"] + 1
+    assert mk.LAUNCHES["mk_tiles"] == before["mk_tiles"] + 1
+    wpool, wprng, wco = mk.megakernel_start_chained_plain(ms, pxs, pys, sds, 8)
+    same = (prng == wprng).cpu().numpy()
+    close = np.isclose((co[0:3] + pool[15:18]).T.cpu().numpy(),
+                       (wco[0:3] + wpool[15:18]).T.cpu().numpy(), rtol=2e-3, atol=2e-3).all(-1)
+    assert same.mean() >= 0.995 and (same & close).mean() >= 0.995
+    wout, wrng = mk.megakernel_tiles_plain(ms, px, py, seeds, 24)
+    same = (rng == wrng).cpu().numpy()
+    close = np.isclose(out[0:3].T.cpu().numpy(), wout[0:3].T.cpu().numpy(),
+                       rtol=2e-3, atol=2e-3).all(-1)
+    assert same.mean() >= 0.995 and (same & close).mean() >= 0.995
+    k1 = mk.megakernel_start(ms, px, py, seeds, 24)
+    assert torch.equal(out, k1[0][list(mk._TILE_CH)]) and torch.equal(rng, k1[1])
+
+
+def test_chained_equals_separate_sweeps_on_card():
+    dev = cuda_device()
+    S = 128
+    ms = mk.mega_scene(_scene(MESHBOX), S, S, dev)
+    px, py, seeds = _frame(S, dev)
+    pxs = torch.stack([px, px + 0.25, px - 0.25])
+    pys = torch.stack([py, py - 0.125, py + 0.125])
+    sds = torch.stack([seeds, seeds + 1, seeds + 977])
+    ch = mk.render_waves_chained(ms, pxs, pys, sds, max_bounces=64, chain_cap=8)
+    assert int(ch[4]) == 0
+    for s in range(3):
+        ref = mk.render_waves(ms, pxs[s].contiguous(), pys[s].contiguous(), sds[s].contiguous(),
+                              max_bounces=64)
+        for i in (0, 1, 2, 3, 5, 7):
+            assert torch.equal(ch[i][s], ref[i]), (i, s)
+
+
 def test_wrapper_rejects_bad_inputs():
     dev = cuda_device()
     ms = mk.mega_scene(_scene(MESHBOX_SMALL), 8, 8, dev)
@@ -108,6 +153,21 @@ def test_renderer_on_card_matches_twin_renderer():
     a = Renderer(cs, cfg, device=dev)
     a.render()
     b = Renderer(cs, cfg, device="cpu")
+    b.render()
+    close = np.isclose(a.film.cpu().numpy(), b.film.numpy(), rtol=2e-3, atol=2e-3).all(-1)
+    assert close.mean() >= 0.90
+
+
+def test_chained_renderer_on_card_matches_twin_renderer():
+    """The default on the card chains (auto: 8, here a divisor of spp=6);
+    the twin Renderer with the same chunking computes the same samples."""
+    dev = cuda_device()
+    cs = _scene(MESHBOX_SMALL)
+    cfg = RenderConfig(width=64, height=64, spp=6, seed=5)
+    a = Renderer(cs, cfg, device=dev)
+    m = a.render()
+    assert m["chain_chunk_sweeps"] == 6
+    b = Renderer(cs, RenderConfig(width=64, height=64, spp=6, seed=5, chain_sweeps=6), device="cpu")
     b.render()
     close = np.isclose(a.film.cpu().numpy(), b.film.numpy(), rtol=2e-3, atol=2e-3).all(-1)
     assert close.mean() >= 0.90

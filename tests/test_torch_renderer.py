@@ -1,5 +1,6 @@
-"""The slice end to end: the port's Renderer (mega driver, unchained sweeps)
-against hijiki_tpu's Renderer on the same compiled scene and seed.
+"""The slice end to end: the port's Renderer (mega driver, unchained and
+chained sweeps) against hijiki_tpu's Renderer on the same compiled scene
+and seed, and chained against unchained.
 
 Film tolerance: per pixel rtol/atol 2e-3 on >= 90% of pixels, the image
 mean within 1%. A path that reroutes (the <= 0.5% silhouette/t-tie class of
@@ -47,6 +48,66 @@ def test_renderer_matches_tpu_renderer():
     assert abs(m["mean_path_length"] - jm["mean_path_length"]) < 0.05
 
 
+def test_renderer_chained_matches_tpu_renderer():
+    """chain_sweeps=2 in both packages (one chained chunk of 2 sweeps): the
+    film bounds of the unchained comparison above."""
+    s = j_load(MESHBOX_SMALL)
+    s.put_cbox_spheres()
+    jcs = j_compile(s, shadow_vis_boxes=False)
+    cfg = dict(width=32, height=32, spp=2, seed=3, chain_sweeps=2, max_bounces=24)
+    jr = JRenderer(jcs, JConfig(driver="mega", **cfg))
+    jm = jr.render()
+    r = Renderer(port_scene(jcs), RenderConfig(**cfg), device="cpu")
+    m = r.render()
+    a, b = np.asarray(jr.film), r.film.numpy()
+    close = np.isclose(a, b, rtol=2e-3, atol=2e-3).all(-1)
+    assert close.mean() >= 0.90, f"only {close.mean():.1%} of film pixels agree"
+    np.testing.assert_allclose(b[..., :3].mean(), a[..., :3].mean(), rtol=1e-2)
+    assert m["chain_chunk_sweeps"] == jm["chain_chunk_sweeps"] == 2
+    assert m["wave_overflow"] == 0 and jm["wave_overflow"] == 0
+
+
+def test_renderer_chained_matches_unchained():
+    """tests/test_render.py:252-284: chaining is estimator-exact per (pixel,
+    sweep) sample, so the films differ only by the order of the film adds
+    (a chunk's deltas are summed before the film add)."""
+    cs = _port_scene()
+    cfg = dict(width=64, height=64, spp=3, block_size=64, seed=11, max_bounces=8)
+    plain = Renderer(cs, RenderConfig(**cfg, chain_sweeps=1), device="cpu")
+    plain.render()
+    chained = Renderer(cs, RenderConfig(**cfg, chain_sweeps=2), device="cpu")
+    m = chained.render()
+    assert m["chain_chunk_sweeps"] == 2 and len(m["sweep_marks"]) == 2
+    a, b = plain.film.numpy(), chained.film.numpy()
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    assert a.mean() > 0.01
+
+
+def test_preview_fires_across_chained_chunks(tmp_path):
+    """Chunks of 2 advance sweeps_done to 2 and 4; an interval of 3 is
+    crossed once, though no sweeps_done is a multiple of it."""
+    png = tmp_path / "prev.png"
+    cfg = RenderConfig(width=32, height=32, spp=4, block_size=64, seed=2, max_bounces=4,
+                       chain_sweeps=2, preview_interval=3, preview_path=str(png))
+    Renderer(_port_scene(), cfg, device="cpu").render()
+    assert png.exists() and png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+@pytest.mark.parametrize("size,chain,mb", [(32, 1, 4), (64, 2, 4), (64, 2, 16), (32, 1, 1000)])
+def test_overflow_zero_matrix(size, chain, mb):
+    """tests/test_render.py:384-403: no default capacity drops a path,
+    chained or not, max_bounces <= chain_cap included."""
+    import warnings
+
+    cfg = RenderConfig(width=size, height=size, spp=2, block_size=64, seed=3,
+                       max_bounces=mb, chain_sweeps=chain)
+    r = Renderer(_port_scene(), cfg, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        r.render()
+    assert r.metrics["wave_overflow"] == 0 and r.metrics["overflow_retried"] == 0
+
+
 def test_overflow_retry_keeps_film_unbiased():
     """A phase capacity too small for the survivors drops paths; the
     renderer re-renders those sweeps at full capacity with the same seeds,
@@ -63,7 +124,7 @@ def test_overflow_retry_keeps_film_unbiased():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("driver", "sync"), ("chain_sweeps", 8), ("sort_lanes", True),
+    ("driver", "sync"), ("mega_groups", 2), ("sort_lanes", True),
     ("fixed_albedo", True), ("mega_packet", 1024), ("reconstruction_radius", 3),
 ])
 def test_unported_config_refused(field, value):

@@ -11,6 +11,11 @@ import os
 
 import numpy as np
 import pytest
+import torch
+
+# the twins run many small tensor ops: intra-op threads only spin there, and
+# with several test workers they oversubscribe the cores
+torch.set_num_threads(1)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 MESHBOX = os.path.join(REPO, "scenes", "meshbox", "meshbox.obj")

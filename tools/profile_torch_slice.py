@@ -1,11 +1,15 @@
 """Profile the PyTorch/CUDA port's slice on the card: where a sweep's time
 goes (kernels by name, host gaps) and the device's busy share.
 
-    python tools/profile_torch_slice.py [--size 1024] [--spp 8] [--trace out.json]
+    python tools/profile_torch_slice.py [--size 1024] [--spp 8] [--chain-sweeps 0]
+                                        [--trace out.json]
 
 Renders the meshbox (+ cbox spheres) once to warm up, then renders again
 under torch.profiler (CPU + CUDA activities) and prints device time by
-kernel, the sum of device kernel time, the wall time and their ratio.
+kernel, per render and per chunk (a chained launch of S sweeps, or one
+sweep), the sum of device kernel time, the wall time, their ratio (the
+busy share) and the peak device memory. ``--chain-sweeps``: 0 = auto
+(chained, 8 sweeps per launch, on a card), 1 = unchained, S = S sweeps.
 Needs a CUDA card; imports only the port.
 """
 
@@ -31,6 +35,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--spp", type=int, default=8)
+    p.add_argument("--chain-sweeps", type=int, default=0,
+                   help="sweeps per chained launch: 0 = auto, 1 = unchained")
     p.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -39,10 +45,12 @@ def main(argv=None) -> int:
     scene = load_obj_scene(os.path.join(HERE, "..", "scenes", "meshbox", "meshbox.obj"))
     scene.put_cbox_spheres()
     cs = compile_scene(scene)
-    cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp)
+    cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
+                       chain_sweeps=args.chain_sweeps)
     Renderer(cs, cfg, device="cuda").render()  # warm-up: build, caches, allocator
     r = Renderer(cs, cfg, device="cuda")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         m = r.render()
@@ -56,11 +64,16 @@ def main(argv=None) -> int:
         key=lambda e: -getattr(e, "self_device_time_total", 0),
     )
     busy_us = sum(getattr(e, "self_device_time_total", 0) for e in rows)
-    print(f"render {m['render_seconds']:.4f} s ({m['mrays_per_second']:.3f} Mrays/s); profiled wall {wall:.4f} s")
-    print(f"{'device us':>12} {'calls':>7}  name")
+    chunks = len(m["sweep_marks"])
+    print(f"render {m['render_seconds']:.4f} s ({m['mrays_per_second']:.3f} Mrays/s), "
+          f"{chunks} chunks of {m['chain_chunk_sweeps']} sweeps; profiled wall {wall:.4f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    print(f"{'device us':>12} {'per chunk':>10} {'calls':>7}  name")
     for e in rows[:20]:
-        print(f"{getattr(e, 'self_device_time_total', 0):12.1f} {e.count:7d}  {e.key[:90]}")
-    print(f"device busy {busy_us / 1e6:.4f} s of {wall:.4f} s wall: busy share {busy_us / 1e6 / wall:.3f}")
+        t = getattr(e, "self_device_time_total", 0)
+        print(f"{t:12.1f} {t / chunks:10.1f} {e.count:7d}  {e.key[:90]}")
+    print(f"device busy {busy_us / 1e6:.4f} s of {wall:.4f} s wall: busy share {busy_us / 1e6 / wall:.3f}; "
+          f"per chunk {busy_us / 1e3 / chunks:.3f} ms busy, {(wall * 1e6 - busy_us) / 1e3 / chunks:.3f} ms idle")
     if args.trace:
         prof.export_chrome_trace(args.trace)
         print(f"trace: {args.trace}")
