@@ -18,6 +18,9 @@ Phases, each printing as it goes; any failure exits non-zero:
    chained samples, chain cap 8); K5 equal to K1 at cap max_bounces on
    every channel; render_waves equal to render_tiles on every RNG state;
    render_waves_chained bit-equal per sweep to 3 separate render_waves;
+   K6 (the trace-row walk), closest and any hit, bit-equal to its twin on
+   every output of 64x64 camera rays and 64x64 random rays (inactive
+   lanes, finite and infinite tmax);
 5. the paths, each driven with the launch counts set to 0 just before and
    read just after, each with a finite film, mean > 0, overflow 0 and
    every kernel of the path launched:
@@ -33,17 +36,44 @@ Phases, each printing as it goes; any failure exits non-zero:
        progress callback, resumed in a new Renderer: film bit-equal to the
        uninterrupted render;
    (e) the single-launch render_tiles (K5) over the 1024x1024 frame;
+   (f) the sync slice: Renderer(driver="sync", use_bvh=True) at 1024x1024,
+       8 spp, max_bounces 1000 (K6 for every closest and shadow walk, K3;
+       no megakernel), EXR round trip, peak device memory; then one
+       1024x1024 sweep through the sync integrator (K6) and through the
+       mega driver's render_waves on the same seeds and jitter: final RNG
+       state bit-equal and radiance within 2e-3 on >= 99.5% of paths, and
+       (f)'s film mean within 1e-3 relative of (a)'s;
+   (g) the wavefront slice at 1024x1024, 2^18 lanes, the first
+       WAVEFRONT_SWEEPS sweeps: its film against (f)'s film after the same
+       sweeps within rtol 1e-4 / atol 2e-4 (JAX's bound); a sort_lanes
+       variant at 256x256 against the sync driver there;
+   (h) fixed albedo (sync, 256x256); the packet traversal's film equal to
+       rows' bit for bit (256x256); bvh and brute at 64x64 on
+       meshbox_small against rows (RNG bit-equal on >= 99.5% of paths);
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
    then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
    replayed through the kernel and through the twin, held to the phase-4
-   bounds and timed; K5 on the 1M-path frame and K3 on a sweep likewise.
+   bounds and timed; K5 on the 1M-path frame and K3 on a sweep likewise;
+   K6's calls of one 1024x1024 sync sweep: the first bounce's closest walk
+   (1M rays), its shadow any-hit walk and the closest walk of bounce 9,
+   each replayed through the kernel and the twin, bit-equal, and timed
+   (plus K6's device time over every call of that sweep, from
+   torch.profiler, and a check that three bounces of the sync integrator
+   make no device sync under torch.cuda.set_sync_debug_mode("error")).
 
 The line before the last is the kernel report {"kernels": [...]}, whose
 errors and times come from phase 6 (K3's error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
-(b), K5 from (e)); the last line is {"ok": true, "device": {...}}.
+(b), K5 from (e), K6 from (f)); each entry has its bound (bound_ms: the
+larger of the bytes this run's data needs at 3.35 TB/s and its f32
+operations at 67 TFLOP/s, counted from this run's row-visit counters at
+ROW_OPS per row; a K2 resume counts every lane's alive flag and the state
+of its live lanes only, a K6 walk the o and d of the rays that walk and
+the six outputs of the TPU kernel's contract) and library_ms null: no
+PyTorch call computes a BVH walk, a path trace or the feature-weighted
+bilateral stencil. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,6 +88,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 SCENE = os.path.join(HERE, "scenes", "meshbox", "meshbox.obj")
+SCENE_SMALL = os.path.join(HERE, "scenes", "meshbox", "meshbox_small.obj")
+# sweeps of the wavefront slice (g), compared with the sync film after as many
+WAVEFRONT_SWEEPS = 8
+
+# roofline of one H100 SXM (published peaks): HBM bytes/s, f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations counted per trace row a walk visits: the interior row's
+# slab test (12 mul/add, 10 min/max, 1 add, 3 compares), the cheapest row;
+# prim rows and shading are not counted, so the bound is a lower one
+ROW_OPS = 26
+# f32 operations per pixel and tap of the R = 2 reconstruction (feature
+# distance, weight, NaN test, 4 accumulations)
+TAP_OPS = 25
 
 
 def fail(msg: str) -> None:
@@ -143,16 +187,46 @@ def agree_tiles(name: str, got, want) -> float:
     return agree_paths(name, grng, wrng, go[0:3].T, wo[0:3].T, note)
 
 
+def bound(nbytes: float, ops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and f32
+    operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k6_bytes_ops(args, got):
+    """(bytes, f32 operations) of one K6 call: the table once, every
+    ray's tmin and tmax, o and d of the rays that walk (tmax >= tmin;
+    the others return their tmax and a miss without reading them), the
+    six outputs of the TPU kernel's contract per ray (the seventh, rows
+    visited, is the port's own counter), ROW_OPS per visited row."""
+    rows, o, d, tmin, tmax = args
+    walking = int((tmax >= tmin).sum())
+    nb = (nbytes(rows, tmin, tmax) + walking * (o.shape[1] + d.shape[1]) * o.element_size()
+          + 6 * o.shape[0] * got.element_size())
+    return nb, float(got[6].sum()) * ROW_OPS
+
+
 def main() -> int:
     try:
         import numpy as np
         import torch
 
         from hijiki_tpu_torch.ops import megakernel as mk
+        from hijiki_tpu_torch.ops import pallas_traverse as pt
+        from hijiki_tpu_torch.ops.camera import camera_rays
+        from hijiki_tpu_torch.ops.integrate import (
+            bounce_step, integrate, make_intersectors, start_lanes,
+        )
+        from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
         from hijiki_tpu_torch.render import pallas_reconstruct as prc
         from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
         from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
-        from hijiki_tpu_torch.scene.compile import compile_scene
+        from hijiki_tpu_torch.scene.compile import compile_scene, to_device
         from hijiki_tpu_torch.scene.obj import load_obj_scene
         from hijiki_tpu_torch.utils import build
         from hijiki_tpu_torch.utils.exr import read_exr
@@ -246,17 +320,41 @@ def main() -> int:
     print("render_waves_chained == 3 separate render_waves, bit for bit per sweep "
           "(total, normal, depth, RNG, segs, albedo)")
 
+    phase("K6 trace-row walk vs twin, 64x64")
+    csd = to_device(cs, dev)
+    cam = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov, torch.stack([px, py], -1),
+                      (S, S))
+    gen = np.random.default_rng(7)
+    lo, hi = (b[0].cpu().numpy() for b in (csd.bvh_aabb_min, csd.bvh_aabb_max))
+    rdir = gen.standard_normal((S * S, 3)).astype(np.float32)
+    rdir /= np.linalg.norm(rdir, axis=-1, keepdims=True)
+    rtmax = np.full(S * S, np.inf, np.float32)
+    rtmax[1::5] = gen.random(S * S, dtype=np.float32)[1::5] * 2.0  # finite shadow-like tmax
+    rtmax[::7] = -3.0e38  # inactive lanes, as intersect_rows marks them
+    rand_rays = [torch.from_numpy(a).to(dev) for a in (
+        (lo + (hi - lo) * gen.random((S * S, 3))).astype(np.float32), rdir,
+        np.full(S * S, 1e-4, np.float32), rtmax)]
+    for label, rays in (("camera", [c.contiguous() for c in cam]), ("random", rand_rays)):
+        for any_hit in (False, True):
+            got = pt.traverse(csd.trace_rows, *rays, any_hit=any_hit)
+            want = pt.traverse_plain(csd.trace_rows, *rays, any_hit=any_hit)
+            if not torch.equal(got, want):
+                fail(f"K6 ({label} rays, any_hit={any_hit}) differs from its twin")
+            print(f"K6 {label} rays, any_hit={any_hit}: bit-equal to the twin on all 7 outputs of "
+                  f"{S * S} rays; {float((got[1] > 0).float().mean()):.4f} hit, "
+                  f"{float(got[6].mean()):.2f} rows visited per ray")
+
     # ---- 5. the paths ----
     def drive(label, fn):
         """Run one path with every launch count set to 0 just before;
         returns (its result, the counts just after)."""
         phase(label)
-        for d in (mk.LAUNCHES, prc.LAUNCHES):
+        for d in (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES):
             for k in d:
                 d[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {**mk.LAUNCHES, **prc.LAUNCHES}
+        return out, {**mk.LAUNCHES, **prc.LAUNCHES, **pt.LAUNCHES}
 
     def check_render(name, r, metrics, counts, kernels):
         film = r.film.cpu().numpy()
@@ -366,6 +464,94 @@ def main() -> int:
     if not np.isfinite(tot).all() or not tot.mean() > 0 or counts_e["mk_tiles"] <= 0:
         fail("(e) render_tiles: non-finite or dark result, or K5 not launched")
 
+    sync_cfg = dict(slice_cfg, driver="sync")
+    rf = Renderer(cs, RenderConfig(**sync_cfg), device="cuda")
+    snap = {}
+
+    def keep_film(done, total):
+        if done == WAVEFRONT_SWEEPS:
+            snap["film"] = rf.film.clone()
+
+    torch.cuda.reset_peak_memory_stats()
+    mf, counts_f = drive("(f) sync slice: Renderer(driver='sync', use_bvh=True) 1024x1024, 8 spp",
+                         lambda: rf.render(progress=keep_film))
+    peak_f = torch.cuda.max_memory_allocated()
+    check_render("(f) sync", rf, mf, counts_f, ("traverse", "reconstruct"))
+    if any(counts_f[k] for k in mk.LAUNCHES):
+        fail(f"(f) the sync slice launched a megakernel: {counts_f}")
+    print(f"(f) {mf['render_seconds'] / 8:.4f} s per sweep, {mf['iterations_last_sweep']} bounces "
+          f"in the last sweep, peak device memory {peak_f / 2**20:.1f} MiB "
+          "(torch.cuda.max_memory_allocated)")
+    rf.save_exr(exr)
+    if not np.array_equal(read_exr(exr), rf.image().astype(np.float32)):
+        fail("(f) EXR round trip changed the image")
+    fmean, amean = float(rf.film[..., :3].mean()), float(ra.film[..., :3].mean())
+    print(f"(f) film mean {fmean:.6f} against the mega slice's {amean:.6f}: "
+          f"rel diff {abs(fmean - amean) / amean:.3e}")
+    if abs(fmean - amean) > 1e-3 * amean:
+        fail("(f) the sync and mega films' means differ by more than 1e-3 relative")
+
+    # one sweep, path by path: the sync integrator (K6) and the megakernel
+    xpx, xpy, xseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 20))
+    xo, xd, xtmin, xtmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
+                                       torch.stack([xpx, xpy], -1), (W, H))
+    xs = integrate(csd, xo, xd, xtmin, xtmax, seed_rng(from_bits(xseeds)), max_bounces=1000)
+    xm = mk.render_waves(ms, xpx, xpy, xseeds, max_bounces=1000)
+    same = (xs.state == from_bits(xm[3])).cpu().numpy()
+    close = np.isclose(xs.total.cpu().numpy(), xm[0].cpu().numpy(), rtol=2e-3, atol=2e-3).all(-1)
+    print(f"(f) one 1024x1024 sweep, sync (K6) against mega (render_waves), same seeds: RNG equal on "
+          f"{same.mean():.4%} of paths, RNG equal and radiance within 2e-3 on "
+          f"{(same & close).mean():.4%}; {xs.iterations} sync bounces")
+    if (same & close).mean() < 0.995:
+        fail("(f) the sync and mega drivers disagree on more than 0.5% of paths")
+
+    wf_cfg = dict(slice_cfg, driver="wavefront", spp=WAVEFRONT_SWEEPS)
+    rg = Renderer(cs, RenderConfig(**wf_cfg), device="cuda")
+    mg, counts_g = drive(f"(g) wavefront slice: 1024x1024, {1 << 18} lanes, "
+                         f"{WAVEFRONT_SWEEPS} sweeps", rg.render)
+    check_render("(g) wavefront", rg, mg, counts_g, ("traverse", "reconstruct"))
+    fg, fs = rg.film.cpu().numpy(), snap["film"].cpu().numpy()
+    print(f"(g) {mg['render_seconds'] / WAVEFRONT_SWEEPS:.4f} s per sweep, "
+          f"{mg['iterations_last_sweep']} pool iterations in the last sweep; film against the sync "
+          f"film of the same sweeps: max abs diff {np.abs(fg - fs).max():.3e}, "
+          f"bit-equal {np.array_equal(fg, fs)}")
+    if not np.allclose(fg, fs, rtol=1e-4, atol=2e-4):
+        fail("(g) the wavefront film differs from the sync film beyond rtol 1e-4 / atol 2e-4")
+
+    small_sync = dict(width=256, height=256, spp=1, max_bounces=1000, block_size=128)
+    rs = Renderer(cs, RenderConfig(**small_sync, driver="sync"), device="cuda")
+    rs.render()
+    rw = Renderer(cs, RenderConfig(**small_sync, driver="wavefront", wavefront_lanes=1 << 14,
+                                   sort_lanes=True), device="cuda")
+    _, counts_gs = drive("(g) sorted wavefront, 256x256, 16384 lanes", rw.render)
+    if not np.allclose(rw.film.cpu().numpy(), rs.film.cpu().numpy(), rtol=1e-4, atol=2e-4):
+        fail("(g) the sorted wavefront film differs from the sync film")
+    print(f"(g) sorted wavefront == sync at 256x256 (bit-equal {torch.equal(rw.film, rs.film)}), "
+          f"launches {counts_gs}")
+
+    rh = Renderer(cs, RenderConfig(**small_sync, driver="sync", fixed_albedo=True), device="cuda")
+    _, counts_h = drive("(h) fixed albedo (sync, 256x256), packet traversal, bvh and brute",
+                        rh.render)
+    if not np.isfinite(rh.image()).all() or torch.equal(rh.film, rs.film):
+        fail("(h) fixed albedo: a non-finite film, or no albedo term")
+    rp = Renderer(cs, RenderConfig(**small_sync, driver="sync", traversal="packet"), device="cuda")
+    rp.render()
+    if not torch.equal(rp.film, rs.film):
+        fail("(h) the packet traversal's film differs from rows'")
+    print(f"(h) fixed albedo film finite (launches {counts_h}); packet film == rows film, bit for bit")
+    small_scene = load_obj_scene(SCENE_SMALL)
+    small_scene.put_cbox_spheres()
+    css = to_device(compile_scene(small_scene), dev)
+    so_ = camera_rays(css.cam_position, css.cam_rotation, css.cam_fov,
+                      torch.stack([px, py], -1), (S, S))
+    by_trav = {tr: integrate(css, *so_, seed_rng(from_bits(seeds)), max_bounces=1000, traversal=tr)
+               for tr in ("rows", "bvh", "brute")}
+    for tr in ("bvh", "brute"):
+        eq = (by_trav[tr].state == by_trav["rows"].state).float().mean().item()
+        print(f"(h) {tr} against rows, 64x64 meshbox_small: RNG equal on {eq:.4%} of paths")
+        if eq < 0.995:
+            fail(f"(h) {tr} disagrees with rows")
+
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
     phase("kernels vs twins at the main path's shapes")
     real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
@@ -392,8 +578,29 @@ def main() -> int:
                 setattr(mk, f"megakernel_{name[3:]}", real[name])
         return calls
 
+    def work(name, args, got):
+        """(bytes, f32 operations) of one megakernel call: the table once,
+        ROW_OPS per trace row the call's paths visited (state channel 23 /
+        flush channel 8 count them), and its inputs and outputs once. K2
+        passes a lane that is not alive through unchanged, so a resume
+        counts every lane's alive flag and the state and RNG of the live
+        lanes, read and written."""
+        table = nbytes(ms.rows, ms.consts)
+        rows = got[0][23].sum()
+        if name == "mk_resume":
+            st, rng_in = args[0], args[1]
+            rows = rows - st[23].sum()
+            live = int((st[0] > 0).sum())
+            lane_bytes = st.shape[0] * st.element_size() + rng_in.element_size()
+            return (table + st.shape[1] * st.element_size() + 2 * live * lane_bytes,
+                    float(rows) * ROW_OPS)
+        if name == "mk_start_chained":
+            rows = rows + got[2][8].sum()
+        tensors = [a for a in args if torch.is_tensor(a)] + list(got)
+        return table + nbytes(*tensors), float(rows) * ROW_OPS
+
     def replay(tag, calls):
-        ms_of, plain_of, err_of = {}, {}, {}
+        ms_of, plain_of, err_of, work_of = {}, {}, {}, {}
         for name, args in calls:
             t_k, got = timed(lambda: real[name](ms, *args), reps=3)
             t_p, want = timed(lambda: plain[name](ms, *args), reps=1, warm=False)
@@ -402,14 +609,17 @@ def main() -> int:
             err_of[name] = max(err_of.get(name, 0.0), check[name](label, got, want))
             ms_of.setdefault(name, []).append(t_k)
             plain_of.setdefault(name, []).append(t_p)
-            print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms", flush=True)
-        return ms_of, plain_of, err_of
+            work_of.setdefault(name, []).append(work(name, args, got))
+            b_ms, b_by = bound(*work_of[name][-1])
+            print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
+        return ms_of, plain_of, err_of, work_of
 
     scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
     frames = [frame_of(sc) for sc in scheds]
     cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
     chunk_calls = record(lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
-    c_ms, c_plain, c_err = replay("chained chunk:", chunk_calls)
+    c_ms, c_plain, c_err, c_work = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
     print(f"K4's zeroed pool + flush buffer ({cpx.numel()} slots): {t_zero:.3f} ms per chunk")
@@ -418,13 +628,17 @@ def main() -> int:
     sweep_out = []
     sweep_calls = record(lambda: sweep_out.append(
         mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
-    u_ms, u_plain, u_err = replay("unchained sweep:", sweep_calls)
+    u_ms, u_plain, u_err, u_work = replay("unchained sweep:", sweep_calls)
 
     t_k5, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
     t_k5p, want = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000),
                         reps=1, warm=False)
     k5_err = agree_tiles(f"K5 mk_tiles ({upx.numel()} lanes, cap 1000)", got, want)
-    print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, twin {t_k5p:.3f} ms")
+    # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's rows
+    k5_rows = float(mk.megakernel_start(ms, upx, upy, useeds, 1000)[0][23].sum())
+    k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * ROW_OPS)
+    print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, twin {t_k5p:.3f} ms, "
+          f"bound {bound(*k5_work)[0]:.4f} ms ({bound(*k5_work)[1]})")
 
     total = sweep_out[0][0].reshape(H, W, 3).contiguous()
     normal = sweep_out[0][1].reshape(H, W, 3).contiguous()
@@ -432,11 +646,85 @@ def main() -> int:
     t_k3p, want = timed(lambda: reconstruct_sweep(total, normal, torch.zeros_like(total), uso,
                                                   block_size=128), reps=1, warm=False)
     k3_err = max(k3_err, check_k3("K3 on the sweep's radiance (1024x1024)", got, want))
+    k3_work = (nbytes(total, normal, got), H * W * 25 * TAP_OPS)
     print(f"K3 reconstruct (1024x1024, device time of 20 back-to-back launches): "
-          f"{t_k3:.3f} ms, twin {t_k3p:.3f} ms")
+          f"{t_k3:.3f} ms, twin {t_k3p:.3f} ms, bound {bound(*k3_work)[0]:.4f} ms "
+          f"({bound(*k3_work)[1]})")
+
+    # K6: the device time of every call of one 1024x1024 sync sweep, from
+    # torch.profiler (CUDA events around each call would add the host's
+    # launch latency: the loop is host-bound); the first bounce's closest
+    # and shadow walks and bounce 9's closest walk recorded and replayed
+    # through the kernel and the twin
+    from torch.profiler import ProfilerActivity, profile
+
+    real_traverse = pt.traverse
+    k6_calls, n_calls = [], [0]
+
+    def traverse_recorded(rows, o, d, tmin, tmax, *, any_hit=False):
+        if n_calls[0] in (0, 1, 16):
+            k6_calls.append((n_calls[0], (rows, o.clone(), d.clone(), tmin.clone(), tmax.clone()),
+                             any_hit))
+        n_calls[0] += 1
+        return real_traverse(rows, o, d, tmin, tmax, any_hit=any_hit)
+
+    kpx, kpy, kseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 21))
+    ko, kd, ktmin, ktmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
+                                       torch.stack([kpx, kpy], -1), (W, H))
+    pt.traverse = traverse_recorded
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ksweep = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)),
+                               max_bounces=1000)
+            torch.cuda.synchronize()
+    finally:
+        pt.traverse = real_traverse
+    k6_events = [e for e in prof.key_averages() if "traverse_kernel" in e.key]
+    k6_sweep_ms = sum(getattr(e, "self_device_time_total", 0) for e in k6_events) / 1e3
+    k6_sweep_n = sum(e.count for e in k6_events)
+    print(f"K6 in one sync sweep: {n_calls[0]} launches over {ksweep.iterations} bounces, "
+          f"{k6_sweep_ms:.3f} ms of device time in all ({k6_sweep_n} kernels in the profile)")
+    if k6_sweep_n != n_calls[0] or not k6_sweep_ms > 0:
+        fail("the profiler did not see every K6 launch of the sweep")
+
+    lanes = start_lanes(ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)))
+    isect, occl = make_intersectors(csd, "rows")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            lanes = bounce_step(csd, lanes, isect, occl)
+    except RuntimeError as e:
+        fail(f"bounce_step synchronized with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("three sync bounces (1M lanes) made no device sync under set_sync_debug_mode('error')")
+
+    k6_ms, k6_plain, k6_work, k6_err = [], [], [], 0.0
+    for idx, args, any_hit in k6_calls:
+        t_k, got = timed(lambda: pt.traverse(*args, any_hit=any_hit), reps=5)
+        t_p, want = timed(lambda: pt.traverse_plain(*args, any_hit=any_hit), reps=1, warm=False)
+        label = (f"K6 call {idx} ({'any-hit' if any_hit else 'closest'}, bounce {idx // 2 + 1}, "
+                 f"{int((args[4] >= args[3]).sum())} of {args[1].shape[0]} rays walking)")
+        if not torch.equal(got, want):
+            fail(f"{label}: the kernel differs from its twin")
+        k6_err = max(k6_err, float((got - want).abs().nan_to_num(0.0).max()))
+        k6_ms.append(t_k)
+        k6_plain.append(t_p)
+        k6_work.append(k6_bytes_ops(args, got))
+        print(f"{label}: bit-equal on all 7 outputs; {float(got[6].sum()) / 1e6:.3f} M rows "
+              f"visited; {t_k:.3f} ms, twin {t_p:.3f} ms, bound {bound(*k6_work[-1])[0]:.4f} ms "
+              f"({bound(*k6_work[-1])[1]})", flush=True)
+    if [c[0] for c in k6_calls] != [0, 1, 16]:
+        fail("K6 replay: the sync sweep did not reach bounce 9")
     print(f"per chained chunk: K4 {sum(c_ms['mk_start_chained']):.3f} ms + K2 "
           f"{' + '.join(f'{t:.3f}' for t in c_ms['mk_resume'])} ms; per unchained sweep: K1 "
           f"{sum(u_ms['mk_start']):.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in u_ms['mk_resume'])} ms")
+
+    def summed(works):
+        """bound of a list of calls: summed bytes and summed operations"""
+        b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
+        return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     src = "hijiki_tpu_torch/csrc/"
     mkpy = "hijiki_tpu/ops/pallas_megakernel.py"
@@ -444,21 +732,26 @@ def main() -> int:
         dict(name="mk_start", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3000", launches=counts_b["mk_start"],
              max_abs_err=u_err["mk_start"], ms=sum(u_ms["mk_start"]),
-             plain_ms=sum(u_plain["mk_start"])),
+             plain_ms=sum(u_plain["mk_start"]), **summed(u_work["mk_start"])),
         dict(name="mk_resume", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3041", launches=counts_a["mk_resume"],
              max_abs_err=max(c_err["mk_resume"], u_err["mk_resume"]),
-             ms=sum(c_ms["mk_resume"]), plain_ms=sum(c_plain["mk_resume"])),
+             ms=sum(c_ms["mk_resume"]), plain_ms=sum(c_plain["mk_resume"]),
+             **summed(c_work["mk_resume"])),
         dict(name="mk_start_chained", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3015", launches=counts_a["mk_start_chained"],
              max_abs_err=c_err["mk_start_chained"], ms=sum(c_ms["mk_start_chained"]),
-             plain_ms=sum(c_plain["mk_start_chained"])),
+             plain_ms=sum(c_plain["mk_start_chained"]), **summed(c_work["mk_start_chained"])),
         dict(name="mk_tiles", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:2778", launches=counts_e["mk_tiles"],
-             max_abs_err=k5_err, ms=t_k5, plain_ms=t_k5p),
+             max_abs_err=k5_err, ms=t_k5, plain_ms=t_k5p, **summed([k5_work])),
         dict(name="reconstruct", route="cuda", source=src + "reconstruct.cu",
              replaces="hijiki_tpu/render/pallas_reconstruct.py:42",
-             launches=counts_a["reconstruct"], max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p),
+             launches=counts_a["reconstruct"], max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p,
+             **summed([k3_work])),
+        dict(name="traverse", route="cuda", source=src + "traverse.cu",
+             replaces="hijiki_tpu/ops/pallas_traverse.py:41", launches=counts_f["traverse"],
+             max_abs_err=k6_err, ms=sum(k6_ms), plain_ms=sum(k6_plain), **summed(k6_work)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

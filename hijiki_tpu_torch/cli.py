@@ -1,9 +1,12 @@
-"""Command-line interface of the PyTorch/CUDA port — the subset of
-``hijiki_tpu/cli.py`` that the ported mega driver runs, plus ``--device``.
+"""Command-line interface of the PyTorch/CUDA port — the flags of
+``hijiki_tpu/cli.py`` that the ported drivers run, plus ``--device``.
 
 Usage:
     python -m hijiki_tpu_torch.cli scene.obj --put-cbox-spheres --use-bvh \\
         --driver mega -w 1024 -H 1024 -s 8 -o out.exr
+
+The port's default driver is ``mega`` (the card's fast path); the JAX
+package's is ``sync``. All three compute the same estimator.
 
 Flags of ``hijiki_tpu.cli`` that are not ported yet are refused with an
 error that says so.
@@ -19,9 +22,9 @@ import time
 
 # hijiki_tpu.cli flags the port does not have yet (any value is refused)
 NOT_PORTED = (
-    "--packed-leaf", "--sort-lanes", "--fixed-albedo", "--mega-packet",
-    "--mega-groups", "--spec-resolve", "--mega-trunk", "--mega-window",
-    "--mega-shadow", "--profile-dir", "--devices", "--platform",
+    "--packed-leaf", "--mega-packet", "--mega-groups", "--spec-resolve",
+    "--mega-trunk", "--mega-window", "--mega-shadow", "--profile-dir", "--devices",
+    "--platform",
 )
 
 
@@ -39,7 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--put-dielectric-sphere", action="store_true",
                    help="Add a clear glass sphere (the reference's commented-out variant)")
     p.add_argument("--use-bvh", action="store_true",
-                   help="Use a BVH to optimize intersections (the mega driver always does)")
+                   help="Use a BVH to optimize intersections: the sync and wavefront drivers "
+                   "walk the trace rows (the CUDA kernel on a card), else test every "
+                   "primitive; the mega driver always walks")
     p.add_argument("-w", "--width", type=int, default=800)
     p.add_argument("-H", "--height", type=int, default=600)
     p.add_argument("-s", "--sample-count", type=int, default=64)
@@ -56,8 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Checkpoint file to write, and to resume from if it exists")
     p.add_argument("--checkpoint-interval", type=int, default=0,
                    help="Sweeps between checkpoints")
-    p.add_argument("--driver", choices=["mega"], default="mega",
-                   help="Execution driver (only the megakernel driver is ported)")
+    p.add_argument("--driver", choices=["sync", "wavefront", "mega"], default="mega",
+                   help="Execution driver: mega (the megakernel, default), sync "
+                   "(bulk-synchronous, the JAX package's default) or wavefront "
+                   "(regenerating lane pool)")
+    p.add_argument("--sort-lanes", action="store_true",
+                   help="Coherence-sort the wavefront driver's lanes between bounces")
+    p.add_argument("--fixed-albedo", action="store_true",
+                   help="Populate the albedo AOV (the reference declares it but never "
+                   "assigns it), activating the reconstruction's albedo feature term; "
+                   "sync/mega drivers; default off = reference parity")
     p.add_argument("--live-preview", type=int, default=0,
                    help="Redraw a live ANSI preview in the terminal every N sweeps; 0 = off")
     p.add_argument("--chain-sweeps", type=int, default=0,
@@ -79,6 +92,13 @@ def main(argv=None) -> int:
             print(f"{a.split('=')[0]}: not ported yet", file=sys.stderr)
             return 2
     args = build_parser().parse_args(argv)
+    if args.sort_lanes and args.driver == "mega":
+        print("--sort-lanes with --driver mega (the in-kernel lane sort): not ported yet",
+              file=sys.stderr)
+        return 2
+    if args.fixed_albedo and args.driver == "wavefront":
+        print("--fixed-albedo requires the sync or mega driver", file=sys.stderr)
+        return 2
 
     from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
     from hijiki_tpu_torch.scene.compile import compile_scene
@@ -112,6 +132,8 @@ def main(argv=None) -> int:
         preview_interval=args.present_interval,
         preview_path=args.preview_image,
         driver=args.driver,
+        sort_lanes=args.sort_lanes,
+        fixed_albedo=args.fixed_albedo,
         chain_sweeps=args.chain_sweeps,
         live_preview=args.live_preview,
     )
@@ -172,7 +194,8 @@ def main(argv=None) -> int:
             device=args.device,
             config=dict(width=args.width, height=args.height, spp=args.sample_count,
                         seed=args.seed, driver=args.driver, block_size=args.block_size,
-                        max_bounces=args.max_bounces, use_bvh=args.use_bvh),
+                        max_bounces=args.max_bounces, use_bvh=args.use_bvh,
+                        sort_lanes=args.sort_lanes, fixed_albedo=args.fixed_albedo),
         )
         if args.metrics_json == "-":
             print(json.dumps(payload))

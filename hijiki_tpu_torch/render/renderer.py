@@ -1,18 +1,27 @@
 """The renderer driver: sweeps and chained chunks, film, overflow invariant,
 checkpoint/resume, previews, metrics, span tracing.
 
-Port of ``hijiki_tpu/render/renderer.py`` for the mega driver (the
-reference's ``src/main.rs:1143-1355`` loop). The sweeps of a render go in
-chunks: a chunk of S > 1 sweeps traces every pixel's S samples in one
-chained launch (``ops.megakernel.render_waves_chained``), a chunk of one
-sweep through ``render_waves``. Each sweep is reconstructed with the
-radius-2 bilateral filter; a chunk's (rgb*weight, weight) deltas are summed
-in sweep order and the sum is added to the film; normalization happens at
-read time.
+Port of ``hijiki_tpu/render/renderer.py`` (the reference's
+``src/main.rs:1143-1355`` loop) with its three drivers, which compute the
+same estimator from the same seeds:
+
+* ``mega`` (the port's default, the card's fast path): the megakernel.
+  The sweeps of a render go in chunks: a chunk of S > 1 sweeps traces
+  every pixel's S samples in one chained launch
+  (``ops.megakernel.render_waves_chained``), a chunk of one sweep through
+  ``render_waves``;
+* ``sync`` (the JAX package's default): the bulk-synchronous integrator
+  (``ops/integrate.py``), one sweep per chunk;
+* ``wavefront``: the regenerating lane pool (``render/wavefront.py``).
+
+Each sweep is reconstructed with the bilateral filter (K3 at radius 2
+without an albedo AOV, whatever the driver; ``reconstruct_sweep``
+otherwise); a chunk's (rgb*weight, weight) deltas are summed in sweep
+order and the sum is added to the film; normalization happens at read
+time.
 
 Not ported yet (``RenderConfig`` refuses them at non-default values): the
-sync and wavefront drivers, lane sorting, fixed albedo, other
-reconstruction radii and the TPU packet/walker knobs.
+mega driver's in-kernel lane sort and the TPU packet/walker knobs.
 """
 
 from __future__ import annotations
@@ -27,14 +36,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from hijiki_tpu_torch.ops.camera import camera_rays
+from hijiki_tpu_torch.ops.integrate import TRAVERSALS, integrate
 from hijiki_tpu_torch.ops.megakernel import (
     CHAIN_SWEEPS_CUDA, mega_scene, render_waves, render_waves_chained,
 )
-from hijiki_tpu_torch.ops.rng import to_bits
+from hijiki_tpu_torch.ops.rng import seed_rng, to_bits
 from hijiki_tpu_torch.render.blocks import BlockScheduler, per_pixel_seeds_device, upload
 from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct
-from hijiki_tpu_torch.render.reconstruct import normalize_film
-from hijiki_tpu_torch.scene.compile import CompiledScene
+from hijiki_tpu_torch.render.reconstruct import normalize_film, reconstruct_sweep
+from hijiki_tpu_torch.render.wavefront import render_wavefront
+from hijiki_tpu_torch.scene.compile import CompiledScene, to_device
 from hijiki_tpu_torch.utils.exr import write_exr, write_png
 from hijiki_tpu_torch.utils.tracing import maybe_span
 
@@ -57,10 +69,19 @@ class RenderConfig:
     preview_interval: int = 0
     preview_path: str = "/tmp/hijiki_preview.png"
     leaf_size: int = 1
+    # "mega" (the port's default), "sync" (the JAX package's default) or
+    # "wavefront"
     driver: str = "mega"
     wavefront_lanes: int = 1 << 18
+    # coherence-sort the wavefront driver's lanes between bounces (with the
+    # mega driver: the in-kernel lane sort, not ported yet)
     sort_lanes: bool = False
+    # sync/wavefront traversal: "" = "rows" (or "brute" without use_bvh);
+    # "rows" and "packet" walk the trace rows (K6 on a card), "bvh" and
+    # "brute" are plain torch
     traversal: str = ""
+    # populate the albedo AOV at the first hit (sync and unchained mega),
+    # activating the reconstruction's albedo feature term
     fixed_albedo: bool = False
     # live terminal preview every N sweeps; 0 = off
     live_preview: int = 0
@@ -80,11 +101,11 @@ class RenderConfig:
     phase_shrink: tuple = ()
 
 
+DRIVERS = ("sync", "wavefront", "mega")
 # fields whose non-default values select code that is not ported yet
 _NOT_PORTED = (
-    "reconstruction_radius", "leaf_size", "wavefront_lanes", "sort_lanes",
-    "traversal", "fixed_albedo", "mega_packet", "mega_groups", "spec_resolve",
-    "mega_trunk", "mega_window", "mega_shadow",
+    "mega_packet", "mega_groups", "spec_resolve", "mega_trunk", "mega_window",
+    "mega_shadow",
 )
 
 # fields that change an accumulated film: a resumed render must match them
@@ -95,8 +116,15 @@ _CHECKPOINT_FIXED = (
 
 
 def check_config(c: RenderConfig) -> None:
-    if c.driver != "mega":
-        raise NotImplementedError(f"driver {c.driver!r} is not ported yet (only 'mega')")
+    if c.driver not in DRIVERS:
+        raise ValueError(f"unknown driver {c.driver!r} (one of {', '.join(DRIVERS)})")
+    if c.traversal and c.traversal not in TRAVERSALS:
+        raise ValueError(f"unknown traversal {c.traversal!r} (one of {', '.join(TRAVERSALS)})")
+    if c.driver == "mega" and c.sort_lanes:
+        raise NotImplementedError(
+            "RenderConfig.sort_lanes with the mega driver (the in-kernel lane sort) "
+            "is not ported yet"
+        )
     defaults = RenderConfig()
     for f in _NOT_PORTED:
         if getattr(c, f) != getattr(defaults, f):
@@ -150,66 +178,88 @@ def _pixel_grid(width, height, device):
     return x.reshape(-1), y.reshape(-1)
 
 
-def render_sweep(
-    ms,
-    block_seeds,
-    sample_offset,
-    *,
-    width: int,
-    height: int,
-    block_size: int,
-    max_bounces: int,
-    stddev: float,
-    phase_shrink: tuple = (),
-):
-    """Trace + reconstruct one full-image sweep; returns (film_delta, stats)."""
-    dev = ms.rows.device
-    H, W = height, width
-    seeds = to_bits(per_pixel_seeds_device(W, H, block_size, block_seeds, dev).reshape(-1))
+def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
+                 phase_shrink: tuple = ()):
+    """Trace + reconstruct one full-image sweep with ``config.driver``;
+    ``scene`` is a ``MegaScene`` for the mega driver and a device
+    ``CompiledScene`` (``to_device``) for the others. Returns (film_delta,
+    stats)."""
+    c = config
+    H, W, driver, max_bounces = c.height, c.width, c.driver, c.max_bounces
+    dev = scene.rows.device if driver == "mega" else scene.trace_rows.device
+    seeds = per_pixel_seeds_device(W, H, c.block_size, block_seeds, dev).reshape(-1)
     so = np.asarray(sample_offset, np.float32)
     x, y = _pixel_grid(W, H, dev)
-    total, normal, depth, _, overflow, segs, rows, _ = render_waves(
-        ms, x + float(so[0]), y + float(so[1]), seeds, max_bounces=max_bounces,
-        **({"phase_shrink": phase_shrink} if phase_shrink else {}),
-    )
+    px, py = x + float(so[0]), y + float(so[1])
+    traversal = c.traversal or ("rows" if c.use_bvh else "brute")
+    albedo = None  # None = the reference's always-zero albedo AOV
+    zero = torch.zeros((), device=dev)
+    iterations = None
+    if driver == "mega":
+        total, normal, depth, _, overflow, segs, rows, alb = render_waves(
+            scene, px, py, to_bits(seeds), max_bounces=max_bounces,
+            **({"phase_shrink": phase_shrink} if phase_shrink else {}),
+        )
+        if c.fixed_albedo:
+            albedo = alb.reshape(H, W, 3)
+        # total path segments (closest-hit casts); trace-table rows visited,
+        # summed over paths (per-thread walks: not comparable with the
+        # TPU's per-packet row unions)
+        path_segments, rows_visited = segs.sum(), rows.sum()
+    elif driver == "wavefront":
+        lanes = min(c.wavefront_lanes, H * W)
+        imgs = render_wavefront(
+            scene, torch.stack([px, py], -1), seeds, (W, H), num_lanes=lanes,
+            max_iters=max_bounces * max(1, H * W // lanes) + 64,
+            max_path_bounces=max_bounces, traversal=traversal, leaf_size=c.leaf_size,
+            sort_lanes=c.sort_lanes,
+        )
+        total, normal, depth, iterations = imgs.color, imgs.normal, imgs.depth, imgs.iterations
+        overflow, path_segments, rows_visited = zero.long(), zero, zero
+    else:
+        o, d, tmin, tmax = camera_rays(scene.cam_position, scene.cam_rotation, scene.cam_fov,
+                                       torch.stack([px, py], -1), (W, H))
+        out = integrate(scene, o, d, tmin, tmax, seed_rng(seeds), max_bounces=max_bounces,
+                        use_bvh=c.use_bvh, leaf_size=c.leaf_size, traversal=traversal,
+                        albedo_aov=c.fixed_albedo)
+        if c.fixed_albedo:
+            albedo = out.albedo.reshape(H, W, 3)
+        total, normal, depth, iterations = out.total, out.normal, out.depth, out.iterations
+        overflow, path_segments, rows_visited = zero.long(), zero, zero
     total = total.reshape(H, W, 3).contiguous()
-    delta = reconstruct(
-        total, normal.reshape(H, W, 3).contiguous(), so,
-        block_size=block_size, stddev=stddev,
-    )
+    normal = normal.reshape(H, W, 3).contiguous()
+    if c.reconstruction_radius == 2 and albedo is None:
+        delta = reconstruct(total, normal, so, block_size=c.block_size,
+                            stddev=c.reconstruction_stddev)
+    else:
+        delta = reconstruct_sweep(
+            total, normal, torch.zeros_like(total) if albedo is None else albedo, so,
+            block_size=c.block_size, radius=c.reconstruction_radius,
+            stddev=c.reconstruction_stddev,
+        )
     stats = dict(
         # paths dropped by phase-capacity overflow (0 = unbiased)
         wave_overflow=overflow,
         mean_radiance=total.mean(),
         mean_depth=depth.mean(),
-        # total path segments (closest-hit casts)
-        path_segments=segs.sum(),
-        # trace-table rows visited, summed over paths (per-thread walks: not
-        # comparable with the TPU's per-packet row unions)
-        rows_visited=rows.sum(),
+        path_segments=path_segments,
+        rows_visited=rows_visited,
     )
+    if iterations is not None:
+        # bounce iterations of the sync loop / the wavefront pool
+        stats["iterations"] = iterations
     return delta, stats
 
 
-def render_sweeps_chained(
-    ms,
-    block_seeds,
-    sample_offsets,
-    *,
-    width: int,
-    height: int,
-    block_size: int,
-    max_bounces: int,
-    stddev: float,
-    chain_cap: int = 8,
-    phase_shrink: tuple = (),
-):
+def render_sweeps_chained(ms, block_seeds, sample_offsets, config: RenderConfig,
+                          phase_shrink: tuple = ()):
     """Trace S sweeps in one chained launch (``render_waves_chained``) and
     reconstruct each with its own jitter. ``block_seeds`` (S, bh, bw) u32,
     ``sample_offsets`` (S, 2) f32. Returns (film_delta (H, W, 4): the S
     sweeps' deltas summed in sweep order, stats: per-sweep averages)."""
+    c = config
     dev = ms.rows.device
-    H, W = height, width
+    H, W = c.height, c.width
     S = len(block_seeds)
     offs = np.asarray(sample_offsets, np.float32)
     # the chunk's inputs in a few batched ops over S: per-sweep ops would
@@ -218,15 +268,16 @@ def render_sweeps_chained(
     offs_d = upload(offs, dev)
     pxs = x + offs_d[:, 0:1]
     pys = y + offs_d[:, 1:2]
-    seeds = to_bits(per_pixel_seeds_device(W, H, block_size, block_seeds, dev).reshape(S, -1))
+    seeds = to_bits(per_pixel_seeds_device(W, H, c.block_size, block_seeds, dev).reshape(S, -1))
     t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
-        ms, pxs, pys, seeds, max_bounces=max_bounces, chain_cap=chain_cap,
+        ms, pxs, pys, seeds, max_bounces=c.max_bounces,
+        **({"chain_cap": c.mega_chain_cap} if c.mega_chain_cap else {}),
         **({"phase_shrink": phase_shrink} if phase_shrink else {}),
     )
     delta = None
     for s in range(S):
         d = reconstruct(t[s].reshape(H, W, 3), n[s].reshape(H, W, 3), offs[s],
-                        block_size=block_size, stddev=stddev)
+                        block_size=c.block_size, stddev=c.reconstruction_stddev)
         delta = d if delta is None else delta + d
     stats = dict(
         wave_overflow=overflow,
@@ -250,7 +301,10 @@ class Renderer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Renderer(device='cuda') needs a CUDA device")
         self.config = config
-        self.scene = mega_scene(compiled, config.width, config.height, self.device)
+        if config.driver == "mega":
+            self.scene = mega_scene(compiled, config.width, config.height, self.device)
+        else:
+            self.scene = to_device(compiled, self.device)
         self.scheduler = BlockScheduler(
             config.width, config.height, config.block_size, config.seed
         )
@@ -270,15 +324,8 @@ class Renderer:
     def _run_chunk(self, kind, block_seeds, offsets, phase_shrink):
         """One chunk: ("chained", (S, bh, bw) seeds, (S, 2) offsets) or
         ("sweep", (bh, bw) seeds, (2,) offset). Returns (delta, stats)."""
-        c = self.config
-        kw = dict(width=c.width, height=c.height, block_size=c.block_size,
-                  max_bounces=c.max_bounces, stddev=c.reconstruction_stddev,
-                  phase_shrink=phase_shrink)
-        if kind == "chained":
-            if c.mega_chain_cap:
-                kw["chain_cap"] = c.mega_chain_cap
-            return render_sweeps_chained(self.scene, block_seeds, offsets, **kw)
-        return render_sweep(self.scene, block_seeds, offsets, **kw)
+        run = render_sweeps_chained if kind == "chained" else render_sweep
+        return run(self.scene, block_seeds, offsets, self.config, phase_shrink)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -374,6 +421,8 @@ class Renderer:
             if segs > 0:
                 self.metrics["path_segments_last_sweep"] = segs
                 self.metrics["mean_path_length"] = segs / (c.width * c.height)
+            if "iterations" in st:
+                self.metrics["iterations_last_sweep"] = int(st["iterations"])
             rows = float(st["rows_visited"])
             if rows > 0:
                 self.metrics["rows_visited_last_sweep"] = rows

@@ -799,12 +799,14 @@ _INT_DTYPES = {np.dtype(np.uint32): np.int64}
 
 
 def to_device(cs: CompiledScene, device) -> CompiledScene:
-    """Copy of ``cs`` with every array field as a torch tensor on ``device``
-    (uint32 fields widen to int64: torch has few uint32 operators)."""
+    """Copy of ``cs`` with every array field (numpy scalars such as
+    ``cam_fov`` included) as a torch tensor on ``device`` (uint32 fields
+    widen to int64: torch has few uint32 operators)."""
     import torch
 
     def conv(v):
-        if isinstance(v, np.ndarray):
+        if isinstance(v, (np.ndarray, np.generic)):
+            v = np.asarray(v)
             v = v.astype(_INT_DTYPES.get(v.dtype, v.dtype), copy=False)
             return torch.from_numpy(np.ascontiguousarray(v)).to(device)
         return v

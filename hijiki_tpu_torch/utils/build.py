@@ -44,6 +44,7 @@ SIGNATURES = {
     "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
     "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
+    "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _loaded: dict = {}

@@ -1,5 +1,6 @@
 """The port's CLI: CPU renders that write an EXR (chained, checkpointed,
-traced, with previews), and refusal of the flags that are not ported yet."""
+traced, with previews; every driver), and refusal of the flags that are not
+ported yet."""
 
 import json
 import subprocess
@@ -33,10 +34,35 @@ def test_cli_builtin_scene(tmp_path):
     assert read_exr(str(out)).shape == (16, 16, 3)
 
 
-@pytest.mark.parametrize("flag", ["--mega-packet=1024", "--devices", "--sort-lanes", "--fixed-albedo"])
-def test_cli_refuses_unported_flags(flag, capsys):
-    assert cli.main(["builtin:cornell", flag, "2"] if "=" not in flag else ["builtin:cornell", flag]) == 2
+@pytest.mark.parametrize("flags", [["--mega-packet=1024"], ["--devices", "2"], ["--mega-groups", "2"],
+                                   ["--sort-lanes", "--driver", "mega"]])
+def test_cli_refuses_unported_flags(flags, capsys):
+    assert cli.main(["builtin:cornell", *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--driver", "sync", "--use-bvh"],
+    ["--driver", "sync"],  # no BVH: brute force
+    ["--driver", "wavefront", "--use-bvh", "--sort-lanes"],
+    ["--driver", "sync", "--use-bvh", "--fixed-albedo"],
+    ["--driver", "mega", "--fixed-albedo"],
+], ids=["sync", "sync-brute", "wavefront-sorted", "sync-albedo", "mega-albedo"])
+def test_cli_drivers(flags, tmp_path):
+    out, mj = tmp_path / "d.exr", tmp_path / "m.json"
+    assert cli.main([MESHBOX_SMALL, "--put-cbox-spheres", *flags, "-w", "24", "-H", "16", "-s", "1",
+                     "--max-bounces", "10", "--device", "cpu", "-o", str(out),
+                     "--metrics-json", str(mj)]) == 0
+    img = read_exr(str(out))
+    assert img.shape == (16, 24, 3) and np.isfinite(img).all() and img.mean() > 0
+    m = json.loads(mj.read_text())
+    assert m["config"]["driver"] == flags[1]
+    assert m["config"]["fixed_albedo"] == ("--fixed-albedo" in flags)
+
+
+def test_cli_fixed_albedo_needs_sync_or_mega(capsys):
+    assert cli.main(["builtin:cornell", "--driver", "wavefront", "--fixed-albedo"]) == 2
+    assert "requires the sync or mega driver" in capsys.readouterr().err
 
 
 def test_cli_chained_checkpoint_trace_preview(tmp_path, capsys):

@@ -9,20 +9,24 @@ the port is installed (the H100 machine):
 Bounds: K3 rtol 1e-5 / atol 1e-6 (expf ULPs); K1/K2/K4/K5 RNG state
 bit-equal and radiance within 2e-3 on >= 99.5% of paths (built with
 --fmad=false, the kernels round like the twin, which measured them
-bit-equal); the chained driver bit-equal per sweep to separate sweeps."""
+bit-equal); the chained driver bit-equal per sweep to separate sweeps;
+K6 bit-equal to its twin on every channel of every ray, so the sync
+driver's film is the same bit for bit whichever walk it runs."""
 
 import numpy as np
 import pytest
 import torch
 
 from hijiki_tpu_torch.ops import megakernel as mk
+from hijiki_tpu_torch.ops import pallas_traverse as pt
 from hijiki_tpu_torch.render import pallas_reconstruct as prc
 from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
 from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
 from hijiki_tpu_torch.scene.compile import compile_scene
 from hijiki_tpu_torch.scene.obj import load_obj_scene
 from hijiki_tpu_torch.scene.presets import load_preset
-from torch_port_helpers import MESHBOX, MESHBOX_SMALL, cuda_device, frame_inputs
+from hijiki_tpu_torch.scene.compile import to_device
+from torch_port_helpers import MESHBOX, MESHBOX_SMALL, cuda_device, frame_inputs, random_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -171,3 +175,100 @@ def test_chained_renderer_on_card_matches_twin_renderer():
     b.render()
     close = np.isclose(a.film.cpu().numpy(), b.film.numpy(), rtol=2e-3, atol=2e-3).all(-1)
     assert close.mean() >= 0.90
+
+
+@pytest.mark.parametrize("path", [MESHBOX, "builtin:cornell-glass"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_matches_twin(path, any_hit):
+    """K6 against traverse_plain on random rays (inactive lanes, finite and
+    infinite tmax, N no multiple of the block): every output channel."""
+    dev = cuda_device()
+    cs = to_device(_scene(path), dev)
+    rays = [torch.from_numpy(x).to(dev) for x in random_rays(cs, 5000, seed=3)]
+    before = pt.LAUNCHES["traverse"]
+    got = pt.traverse(cs.trace_rows, *rays, any_hit=any_hit)
+    assert pt.LAUNCHES["traverse"] == before + 1
+    want = pt.traverse_plain(cs.trace_rows, *rays, any_hit=any_hit)
+    assert torch.equal(got, want)
+    assert (got[1] > 0).float().mean() > 0.3
+
+
+def test_traverse_wrapper_rejects_bad_inputs():
+    dev = cuda_device()
+    cs = to_device(_scene(MESHBOX_SMALL), dev)
+    o, d, tmin, tmax = (torch.from_numpy(x).to(dev) for x in random_rays(cs, 64, seed=1))
+    with pytest.raises(ValueError):
+        pt.traverse(cs.trace_rows, o.double(), d, tmin, tmax)
+    with pytest.raises(ValueError):
+        pt.traverse(cs.trace_rows, o, d[:, :2].contiguous(), tmin, tmax)
+
+
+def test_sync_film_same_with_kernel_or_twin_walk(monkeypatch):
+    """The sync driver on the card with K6, then with every K6 call replaced
+    by its twin: the films are equal bit for bit; the K6 render launched K6
+    and K3 and no megakernel."""
+    dev = cuda_device()
+    cs = _scene(MESHBOX)
+    cfg = RenderConfig(width=128, height=128, spp=2, seed=7, driver="sync")
+    for d in (mk.LAUNCHES, pt.LAUNCHES, prc.LAUNCHES):
+        for k in d:
+            d[k] = 0
+    a = Renderer(cs, cfg, device=dev)
+    a.render()
+    assert pt.LAUNCHES["traverse"] > 0 and prc.LAUNCHES["reconstruct"] == 2
+    assert not any(mk.LAUNCHES.values())
+    monkeypatch.setattr(pt, "traverse", pt.traverse_plain)
+    b = Renderer(cs, cfg, device=dev)
+    b.render()
+    assert torch.equal(a.film, b.film)
+
+
+def test_wavefront_on_card_equals_sync_on_card():
+    dev = cuda_device()
+    cs = _scene(MESHBOX)
+    cfg = dict(width=128, height=128, spp=1, seed=9)
+    a = Renderer(cs, RenderConfig(driver="sync", **cfg), device=dev)
+    a.render()
+    b = Renderer(cs, RenderConfig(driver="wavefront", wavefront_lanes=4096, sort_lanes=True, **cfg),
+                 device=dev)
+    b.render()
+    assert torch.equal(a.film, b.film)
+
+
+def test_sync_renderer_on_card_matches_cpu_renderer():
+    dev = cuda_device()
+    cs = _scene(MESHBOX_SMALL)
+    cfg = RenderConfig(width=64, height=64, spp=2, seed=5, driver="sync", max_bounces=24)
+    a = Renderer(cs, cfg, device=dev)
+    a.render()
+    b = Renderer(cs, cfg, device="cpu")
+    b.render()
+    close = np.isclose(a.film.cpu().numpy(), b.film.numpy(), rtol=2e-3, atol=2e-3).all(-1)
+    assert close.mean() >= 0.90
+
+
+@pytest.mark.parametrize("traversal", ["rows", "packet"])
+def test_bounce_step_reads_nothing_back(traversal):
+    """Three bounces of the sync integrator on the card under
+    torch.cuda.set_sync_debug_mode("error"): no op of bounce_step (the K6
+    walks, NEE with the meshbox's triangle emitters, BSDF sampling) waits
+    for the device, so the loop's any(alive) read is its only sync."""
+    from hijiki_tpu_torch.ops.camera import camera_rays
+    from hijiki_tpu_torch.ops.integrate import bounce_step, make_intersectors, start_lanes
+    from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
+
+    dev = cuda_device()
+    cs = to_device(_scene(MESHBOX), dev)
+    px, py, seeds = _frame(64, dev)
+    rays = camera_rays(cs.cam_position, cs.cam_rotation, cs.cam_fov, torch.stack([px, py], -1),
+                       (64, 64))
+    lanes = start_lanes(*rays, seed_rng(from_bits(seeds)))
+    intersect, occluded = make_intersectors(cs, traversal)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            lanes = bounce_step(cs, lanes, intersect, occluded)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(lanes["bounce"].max()) == 3

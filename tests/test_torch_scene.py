@@ -134,3 +134,25 @@ def test_port_never_imports_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("name", ["meshbox_small", "mixed", "builtin:cornell-glass"])
+def test_device_scene_equals_reference(name):
+    """The scene the sync and wavefront drivers read (``to_device`` of the
+    port's own compile) holds hijiki_tpu's ``scene_to_device`` arrays,
+    value for value (u32 handles widened to int64, numpy scalars such as
+    cam_fov as 0-d tensors)."""
+    from hijiki_tpu.scene.compile import scene_to_device
+
+    ja, pa = _scenes(name)
+    jd = scene_to_device(j_compile(ja, shadow_vis_boxes=False))
+    pd = to_device(compile_scene(pa), "cpu")
+    n = 0
+    for f in dataclasses.fields(pd):
+        y = getattr(pd, f.name)
+        if f.name in _SKIP_FIELDS or not isinstance(y, torch.Tensor):
+            continue
+        x = np.asarray(getattr(jd, f.name))
+        np.testing.assert_array_equal(y.numpy(), x.astype(y.numpy().dtype), err_msg=f.name)
+        n += 1
+    assert n >= 30 and isinstance(pd.cam_fov, torch.Tensor) and pd.materials.dtype == torch.int64

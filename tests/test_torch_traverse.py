@@ -1,0 +1,115 @@
+"""K6's plain twin, ``traverse_plain``, against the JAX package: its Pallas
+kernel ``traverse_packets(..., interpret=True)`` and its lockstep walks
+``intersect_rows``/``occluded_rows``, on the same numpy-seeded rays (random
+origins inside the scene, inactive lanes at tmax -3e38, finite and
+infinite tmax, N no multiple of 1024 for the port).
+
+Bounds: slot, tag and midx equal on every ray, and so is the any-hit
+answer. t within rtol 1e-5 / atol 1e-6 and the hit parameters u, v within
+1e-5 (of their unit range), not bit for bit: XLA's CPU backend contracts
+a*b + c into FMAs and torch does not, so on these rays about 4% of t and
+25-30% of u, v differ in the last bits, and u = (q.c) / (d.n) amplifies
+that difference on grazing rays (5.3e-6 at most here); the share of t that
+is bit-equal is asserted to stay above 90%. No t-tie moved a hit on these
+rays."""
+
+import numpy as np
+import pytest
+import torch
+
+from hijiki_tpu.ops.intersect import intersect_rows as j_rows, occluded_rows as j_occ
+from hijiki_tpu.ops.pallas_traverse import traverse_packets as j_traverse
+from hijiki_tpu_torch.ops import pallas_traverse as pt
+from hijiki_tpu_torch.ops.intersect import intersect_rows, occluded_rows
+from torch_port_helpers import random_rays, scene_pair, t
+
+SCENES = ["meshbox_small", "cornell-glass", "mixed"]
+N = 2048
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def case(request):
+    jd, pd = scene_pair(request.param)
+    rays = random_rays(jd, N, seed=len(request.param))
+    return request.param, jd, pd, rays
+
+
+def _close(a, b, atol=1e-6):
+    np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol)
+
+
+def test_closest_matches_pallas_kernel(case):
+    _, jd, pd, rays = case
+    want = [np.asarray(x) for x in j_traverse(jd.trace_rows, *rays, interpret=True)]
+    best_t, slot, u, v, tag, midx = (x.numpy() for x in pt.traverse_packets(
+        pd.trace_rows, *map(t, rays)))
+    np.testing.assert_array_equal(slot, want[1])
+    np.testing.assert_array_equal(tag, want[4])
+    np.testing.assert_array_equal(midx, want[5])
+    _close(best_t, want[0])
+    _close(u, want[2], atol=1e-5)
+    _close(v, want[3], atol=1e-5)
+    assert (best_t == want[0]).mean() > 0.9
+    assert (slot >= 0).mean() > 0.3  # the rays do hit things
+
+
+def test_any_hit_matches_pallas_kernel(case):
+    _, jd, pd, rays = case
+    want = np.asarray(j_traverse(jd.trace_rows, *rays, any_hit=True, interpret=True)[1]) >= 0
+    got = pt.traverse_packets(pd.trace_rows, *map(t, rays), any_hit=True)[1].numpy() >= 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rows_walks_match_lockstep_walks(case):
+    """intersect_rows/occluded_rows (which run K6's twin on the CPU) against
+    the JAX lockstep walks, with an ``active`` mask; the port takes 1000
+    rays (any N)."""
+    _, jd, pd, rays = case
+    o, d, tmin, tmax = (x[:1000] for x in rays)
+    active = np.arange(1000) % 3 != 0
+    jh = j_rows(o, d, tmin, tmax, active, scene=jd)
+    h = intersect_rows(t(o), t(d), t(tmin), t(tmax), t(active), scene=pd)
+    np.testing.assert_array_equal(h.valid.numpy(), np.asarray(jh.valid))
+    np.testing.assert_array_equal(h.prim_slot.numpy(), np.asarray(jh.prim_slot))
+    np.testing.assert_array_equal(h.shape_id.numpy(), np.asarray(jh.shape_id))
+    _close(h.t.numpy(), np.asarray(jh.t))
+    _close(h.u.numpy(), np.asarray(jh.u), atol=1e-5)
+    occ = occluded_rows(t(o), t(d), t(tmin), t(tmax), t(active), scene=pd)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(j_occ(o, d, tmin, tmax, active, scene=jd)))
+
+
+def test_twin_is_per_ray_and_counts_no_launch():
+    """Any N (here a prefix) gives the same per-ray answer, lanes that
+    cannot accept anything are untouched, and the CPU twin counts no
+    launch; every walking ray visits at least the root row."""
+    jd, pd = scene_pair("meshbox_small")
+    rays = [t(x) for x in random_rays(jd, 3000, seed=5)]
+    before = pt.LAUNCHES["traverse"]
+    full = pt.traverse(pd.trace_rows, *rays)
+    part = pt.traverse(pd.trace_rows, *(x[:777] for x in rays))
+    assert pt.LAUNCHES["traverse"] == before
+    assert torch.equal(full[:, :777], part)
+    dead = rays[3] < rays[2]
+    assert torch.equal(full[0][dead], rays[3][dead])
+    assert (full[1:][:, dead] == 0).all()
+    assert (full[6][~dead] >= 1).all() and full[6].max() > 10
+
+
+def test_packets_equal_rows_with_material():
+    """intersect_packets/occluded_packets: the same hits as intersect_rows,
+    with the material split the shading would gather from materials."""
+    from hijiki_tpu_torch.ops.bsdf import split_handle
+
+    jd, pd = scene_pair("mixed")
+    o, d, tmin, tmax = (t(x) for x in random_rays(jd, 1500, seed=9))
+    active = torch.arange(1500) % 4 != 1
+    a = pt.intersect_packets(o, d, tmin, tmax, active, scene=pd)
+    b = intersect_rows(o, d, tmin, tmax, active, scene=pd)
+    for f in ("valid", "prim_slot", "shape_id", "u", "v"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.t[active], b.t[active])
+    tag, midx = split_handle(pd.materials[b.shape_id])
+    assert torch.equal(a.tag[a.valid], tag[a.valid].int())
+    assert torch.equal(a.midx[a.valid], midx[a.valid].int())
+    assert torch.equal(pt.occluded_packets(o, d, tmin, tmax, active, scene=pd),
+                       occluded_rows(o, d, tmin, tmax, active, scene=pd))

@@ -78,3 +78,74 @@ def frame_inputs(W, H, jx, jy, mult):
     py = (y + jy).ravel().astype(np.float32)
     seeds = (np.arange(W * H) * mult % (1 << 32)).astype(np.uint32)
     return px, py, seeds
+
+
+def many_emitter_scene(pkg):
+    """The mixed scene plus 9 small emitters (spheres, quads and triangles):
+    10 emitters in all, past the 8 that sample_emitter unrolls, so NEE takes
+    its gather path. Built with ``pkg``'s scene model."""
+    import importlib
+
+    m = importlib.import_module(f"{pkg}.scene.model")
+    s = mixed_scene(pkg)
+    warm = s.add_material(m.Emissive((4.0, 3.0, 2.0)))
+    cool = s.add_material(m.Emissive((1.0, 2.0, 5.0)))
+    for k in range(3):
+        s.add_object(m.Sphere((-1.5 + 1.5 * k, 2.2, -1.2), 0.1), warm)
+        s.add_object(m.Quad((-1.6 + 1.4 * k, 2.5, 1.0), (0.3, 0, 0), (0, 0, 0.3)), cool)
+    base = len(s.positions)
+    tri = np.array([[-0.2, 2.6, 0.0], [0.2, 2.6, 0.0], [0.0, 2.6, 0.3]], np.float32)
+    for k in range(3):
+        s.positions = np.concatenate([s.positions, tri + np.float32([1.2 * k - 1.2, 0, -0.5])])
+        s.normals = np.concatenate([s.normals, np.array([[0, -1, 0]] * 3, np.float32)])
+        s.uvs = np.concatenate([s.uvs, np.zeros((3, 2), np.float32)])
+        s.add_object(m.Triangle((base + 3 * k, base + 3 * k + 1, base + 3 * k + 2)), warm)
+    return s
+
+
+def scene_pair(name, leaf_size=1):
+    """One scene compiled by hijiki_tpu and carried to the port: (the JAX
+    device scene, the port's CPU tensor scene). ``name``: "meshbox_small"
+    (with the cbox spheres), "cornell-glass", "mixed" or "many_emitters"."""
+    from hijiki_tpu.scene.compile import compile_scene, scene_to_device
+
+    from hijiki_tpu_torch.scene.compile import to_device
+
+    if name == "meshbox_small":
+        from hijiki_tpu.scene.obj import load_obj_scene
+
+        s = load_obj_scene(MESHBOX_SMALL)
+        s.put_cbox_spheres()
+    elif name == "mixed":
+        s = mixed_scene("hijiki_tpu")
+    elif name == "many_emitters":
+        s = many_emitter_scene("hijiki_tpu")
+    else:
+        from hijiki_tpu.scene.presets import load_preset
+
+        s = load_preset(name)
+    jcs = compile_scene(s, leaf_size=leaf_size, shadow_vis_boxes=False)
+    return scene_to_device(jcs), to_device(port_scene(jcs), "cpu")
+
+
+def random_rays(scene, n, seed):
+    """``n`` rays from points inside the scene's bounds in random
+    directions (numpy, f32): every 7th lane inactive (tmax -3e38), every
+    5th with a finite random tmax, the rest tmax = inf."""
+    rng = np.random.default_rng(seed)
+    box = [x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+           for x in (scene.bvh_aabb_min, scene.bvh_aabb_max)]
+    lo, hi = box[0][0], box[1][0]
+    o = (lo + (hi - lo) * rng.random((n, 3))).astype(np.float32)
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmin = np.full(n, 1e-4, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[1::5] = (rng.random(n)[1::5] * 2.0).astype(np.float32)
+    tmax[::7] = -3.0e38
+    return o, d, tmin, tmax
+
+
+def t(x):
+    """numpy (or jax) array -> CPU tensor (a copy)."""
+    return torch.from_numpy(np.array(x))

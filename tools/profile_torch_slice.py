@@ -1,16 +1,19 @@
 """Profile the PyTorch/CUDA port's slice on the card: where a sweep's time
 goes (kernels by name, host gaps) and the device's busy share.
 
-    python tools/profile_torch_slice.py [--size 1024] [--spp 8] [--chain-sweeps 0]
-                                        [--trace out.json]
+    python tools/profile_torch_slice.py [--driver mega|sync|wavefront] [--size 1024]
+                                        [--spp 8] [--chain-sweeps 0] [--trace out.json]
 
 Renders the meshbox (+ cbox spheres) once to warm up, then renders again
 under torch.profiler (CPU + CUDA activities) and prints device time by
 kernel, per render and per chunk (a chained launch of S sweeps, or one
-sweep), the sum of device kernel time, the wall time, their ratio (the
-busy share) and the peak device memory. ``--chain-sweeps``: 0 = auto
-(chained, 8 sweeps per launch, on a card), 1 = unchained, S = S sweeps.
-Needs a CUDA card; imports only the port.
+sweep), the device time grouped into the hand-written kernels (K1-K5 the
+megakernel launches, K3 reconstruct, K6 traverse) and everything else (the
+torch ops), the sum of device time, the wall time, their ratio (the busy
+share), the device-to-host and host-to-device copies (each host read of a
+device value is one and waits for the device) and the peak device memory. ``--chain-sweeps`` (mega driver): 0 =
+auto (chained, 8 sweeps per launch, on a card), 1 = unchained, S = S
+sweeps. Needs a CUDA card; imports only the port.
 """
 
 from __future__ import annotations
@@ -23,6 +26,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, ".."))
 
+# kernel-name fragments of the hand-written kernels, in report order
+GROUPS = (("K6 traverse", "traverse_kernel"), ("K3 reconstruct", "reconstruct_kernel"),
+          ("K4 mk_start_chained", "mk_start_chained_kernel"), ("K1 mk_start", "mk_start_kernel"),
+          ("K2 mk_resume", "mk_resume_kernel"), ("K5 mk_tiles", "mk_tiles_kernel"))
+
 
 def main(argv=None) -> int:
     import torch
@@ -33,6 +41,7 @@ def main(argv=None) -> int:
     from hijiki_tpu_torch.scene.obj import load_obj_scene
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--driver", choices=["mega", "sync", "wavefront"], default="mega")
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--spp", type=int, default=8)
     p.add_argument("--chain-sweeps", type=int, default=0,
@@ -45,7 +54,7 @@ def main(argv=None) -> int:
     scene = load_obj_scene(os.path.join(HERE, "..", "scenes", "meshbox", "meshbox.obj"))
     scene.put_cbox_spheres()
     cs = compile_scene(scene)
-    cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp,
+    cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp, driver=args.driver,
                        chain_sweeps=args.chain_sweeps)
     Renderer(cs, cfg, device="cuda").render()  # warm-up: build, caches, allocator
     r = Renderer(cs, cfg, device="cuda")
@@ -72,6 +81,20 @@ def main(argv=None) -> int:
     for e in rows[:20]:
         t = getattr(e, "self_device_time_total", 0)
         print(f"{t:12.1f} {t / chunks:10.1f} {e.count:7d}  {e.key[:90]}")
+    left = busy_us
+    for label, frag in GROUPS:
+        t = sum(getattr(e, "self_device_time_total", 0) for e in rows if frag in e.key)
+        n = sum(e.count for e in rows if frag in e.key)
+        if n:
+            left -= t
+            print(f"{label}: {t / 1e3 / chunks:.3f} ms per chunk ({n} launches in the render)")
+    print(f"torch ops and copies: {left / 1e3 / chunks:.3f} ms per chunk")
+    # each device-to-host copy is a host read that waits for the device
+    for kind in ("DtoH", "HtoD"):
+        n = sum(e.count for e in rows if e.key.startswith(f"Memcpy {kind}"))
+        print(f"Memcpy {kind}: {n} copies in the render ({n / chunks:.1f} per chunk)")
+    if "iterations_last_sweep" in m:
+        print(f"{m['iterations_last_sweep']} bounce iterations in the last sweep")
     print(f"device busy {busy_us / 1e6:.4f} s of {wall:.4f} s wall: busy share {busy_us / 1e6 / wall:.3f}; "
           f"per chunk {busy_us / 1e3 / chunks:.3f} ms busy, {(wall * 1e6 - busy_us) / 1e3 / chunks:.3f} ms idle")
     if args.trace:
