@@ -20,7 +20,18 @@ Phases, each printing as it goes; any failure exits non-zero:
    render_waves_chained bit-equal per sweep to 3 separate render_waves;
    K6 (the trace-row walk), closest and any hit, bit-equal to its twin on
    every output of 64x64 camera rays and 64x64 random rays (inactive
-   lanes, finite and infinite tmax);
+   lanes, finite and infinite tmax); K8 (sort_tiles, the block sort alone)
+   bit-equal to its plain version on 1,024 tiles of numpy-seeded keys
+   (random, heavy ties with dead keys, all equal, sorted, reversed) and 31
+   channels; the lane-sorted K1/K2/K5 (K7 inside) against their plain
+   versions with the bounds above, and bit-equal to the unsorted kernels on
+   every output channel (NaN included) and RNG state; since the outputs
+   cannot show the sort, each also returns its order record (the path id
+   at each lane after its tile's last sort, and that path's key), which
+   must equal the sorted plain version's bit for bit, move some path off
+   its lane and hold lane_sort_key of each path's written state
+   (order_mismatch); once more on a K2 input whose lanes alive at the cap
+   have NaN, +-inf, +-1e30, box-bound and outside origins;
 5. the paths, each driven with the launch counts set to 0 just before and
    read just after, each with a finite film, mean > 0, overflow 0 and
    every kernel of the path launched:
@@ -29,13 +40,17 @@ Phases, each printing as it goes; any failure exits non-zero:
        K3), EXR written and read back, peak device memory;
    (b) the unchained slice (chain_sweeps=1: K1, K2, K3), its film equal
        to (a)'s within rtol 1e-5 / atol 1e-6 (the order of the film adds);
+   (i) the lane-sorted slice: Renderer(sort_lanes=True) at 1024x1024, 8
+       spp (chaining off by rule: the sorted K1 and K2, K3), its film
+       bit-equal to (b)'s;
    (c) the overflow retry at 256x256, 8 spp, chain cap 2, phase_shrink
        (9999,): paths drop and are re-rendered; the film bit-equal to the
        same render at phase_shrink (1,)*8;
    (d) checkpoint and resume at 256x256: saved at sweep 4 of 8 from the
        progress callback, resumed in a new Renderer: film bit-equal to the
        uninterrupted render;
-   (e) the single-launch render_tiles (K5) over the 1024x1024 frame;
+   (e) the single-launch render_tiles (K5) over the 1024x1024 frame, then
+       lane-sorted (the sorted K5), bit-equal to it;
    (f) the sync slice: Renderer(driver="sync", use_bvh=True) at 1024x1024,
        8 spp, max_bounces 1000 (K6 for every closest and shadow walk, K3;
        no megakernel), EXR round trip, peak device memory; then one
@@ -50,6 +65,7 @@ Phases, each printing as it goes; any failure exits non-zero:
    (h) fixed albedo (sync, 256x256); the packet traversal's film equal to
        rows' bit for bit (256x256); bvh and brute at 64x64 on
        meshbox_small against rows (RNG bit-equal on >= 99.5% of paths);
+   (j) K8 alone: sort_tiles on 1,024 tiles (1M lanes) x 31 channels;
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
@@ -61,19 +77,29 @@ Phases, each printing as it goes; any failure exits non-zero:
    each replayed through the kernel and the twin, bit-equal, and timed
    (plus K6's device time over every call of that sweep, from
    torch.profiler, and a check that three bounces of the sync integrator
-   make no device sync under torch.cuda.set_sync_debug_mode("error")).
+   make no device sync under torch.cuda.set_sync_debug_mode("error"));
+   every K1 and K2 call of the unchained sweep replayed through the sorted
+   kernel too (bit-equal to the unsorted kernel, held to its sorted plain
+   version with the phase-4 bounds and its order record bit-equal to the
+   plain version's, and timed beside the unsorted one), K5 sorted on the
+   frame likewise; K8 at 1M lanes x 31 channels, bit-equal to
+   its plain version, timed beside torch.sort(stable=True) + gather.
 
 The line before the last is the kernel report {"kernels": [...]}, whose
 errors and times come from phase 6 (K3's error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
-(b), K5 from (e), K6 from (f)); each entry has its bound (bound_ms: the
+(b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
+K8 from (j)); each entry has its bound (bound_ms: the
 larger of the bytes this run's data needs at 3.35 TB/s and its f32
 operations at 67 TFLOP/s, counted from this run's row-visit counters at
 ROW_OPS per row; a K2 resume counts every lane's alive flag and the state
 of its live lanes only, a K6 walk the o and d of the rays that walk and
-the six outputs of the TPU kernel's contract) and library_ms null: no
-PyTorch call computes a BVH walk, a path trace or the feature-weighted
-bilateral stencil. The last line is {"ok": true, "device": {...}}.
+the six outputs of the TPU kernel's contract; a sorted kernel the work of
+its unsorted twin, the sort touching no device memory; K8 its key and
+channels read and written once) and library_ms null (no PyTorch call
+computes a BVH walk, a path trace or the feature-weighted bilateral
+stencil), except K8's: torch.sort(stable=True) + gather, which orders ties
+otherwise. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -187,6 +213,106 @@ def agree_tiles(name: str, got, want) -> float:
     return agree_paths(name, grng, wrng, go[0:3].T, wo[0:3].T, note)
 
 
+def bit_equal(got, want) -> bool:
+    """Every tensor of ``got`` equal to ``want``'s bit for bit (int32 views:
+    NaN equals NaN of the same bits)."""
+    import torch
+
+    def b(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    return all(torch.equal(b(g), b(w)) for g, w in zip(got, want))
+
+
+def order_mismatch(mk, ms, got, want) -> str:
+    """What is wrong with a sorted launch's order record (the last entry of
+    ``got``: the path id at each lane after its tile's last sort, and that
+    path's key), or "" if nothing: it must equal the sorted plain version's
+    (``want``'s) bit for bit, move some path off its own lane, and, for
+    K1/K2, hold at each lane lane_sort_key of the state the kernel wrote for
+    that path (a padded path's key: dead). The outputs cannot show the sort;
+    this does."""
+    import torch
+
+    order = got[-1]
+    lane = torch.arange(order.shape[1], device=order.device)
+    if not torch.equal(order, want[-1]):
+        return f"order differs from the plain version's on {int((order != want[-1]).any(0).sum())} lanes"
+    if torch.equal(order[0], lane.to(order.dtype)):
+        return "no lane holds another lane's path: nothing was sorted"
+    if got[0].shape[0] == mk.N_STATE:
+        key = mk.lane_sort_key(ms, mk._unpack(got[0], got[1]))
+        key = torch.cat([key, key.new_full(((-key.numel()) % mk.SORT_TILE,), 1 << 20)])
+        if not torch.equal(order[1], key[order[0].long()]):
+            return "a recorded key differs from lane_sort_key of its path's state"
+    return ""
+
+
+def check_order(label, mk, ms, got, want) -> None:
+    """Fail unless ``got``'s order record passes ``order_mismatch``."""
+    import torch
+
+    why = order_mismatch(mk, ms, got, want)
+    if why:
+        fail(f"{label}: {why}")
+    pid = got[-1][0]
+    moved = float((pid != torch.arange(pid.numel(), dtype=pid.dtype, device=pid.device)).float().mean())
+    print(f"{label}: order of the last sort bit-equal to the plain version's, "
+          f"{moved:.2%} of lanes hold another lane's path")
+
+
+def key_test_state(st, stuck, cap, lo, hi, seed):
+    """A K2 input whose ``stuck`` lanes are alive at ``cap`` bounces (no
+    bounce moves them, the sort keys them as they are), with origins that
+    test the key: NaN, +-inf, +-1e30, the scene box's bounds and points
+    outside it; directions with 0 and -0.0 components."""
+    import numpy as np
+    import torch
+
+    st = st.clone()
+    g = np.random.default_rng(seed)
+    m = int(stuck.sum())
+    o = lo - 0.5 * (hi - lo) + 2.0 * (hi - lo) * g.random((m, 3))
+    special = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30], np.float32)
+    for a in range(3):
+        o[a::5, a] = special[g.integers(0, len(special), len(o[a::5]))]
+        o[1 + a::7, a] = lo[a]
+        o[2 + a::9, a] = hi[a]
+    d = g.standard_normal((m, 3))
+    d[::4, 0] = 0.0
+    d[1::6, 1] = -0.0
+    st[0, stuck] = 1.0
+    st[1, stuck] = float(cap)
+    st[2:5, stuck] = torch.from_numpy(o.T.astype(np.float32)).to(st.device)
+    st[5:8, stuck] = torch.from_numpy(d.T.astype(np.float32)).to(st.device)
+    return st
+
+
+def record_calls(mk, names, run):
+    """Run ``run`` with the megakernel wrappers of the C entries ``names``
+    (``mk_start`` -> ``mk.megakernel_start``, ...) recording: returns
+    [(name, cloned positional args)] of every call, in order."""
+    import torch
+
+    real = {name: getattr(mk, f"megakernel_{name[3:]}") for name in names}
+    calls = []
+
+    def recorder(name):
+        def call(ms_, *args, **kw):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+            return real[name](ms_, *args, **kw)
+        return call
+
+    for name in names:
+        setattr(mk, f"megakernel_{name[3:]}", recorder(name))
+    try:
+        run()
+    finally:
+        for name in names:
+            setattr(mk, f"megakernel_{name[3:]}", real[name])
+    return calls
+
+
 def bound(nbytes: float, ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and f32
     operations over the f32 peak."""
@@ -218,6 +344,7 @@ def main() -> int:
 
         from hijiki_tpu_torch.ops import megakernel as mk
         from hijiki_tpu_torch.ops import pallas_traverse as pt
+        from hijiki_tpu_torch.ops import sort as srt
         from hijiki_tpu_torch.ops.camera import camera_rays
         from hijiki_tpu_torch.ops.integrate import (
             bounce_step, integrate, make_intersectors, start_lanes,
@@ -344,17 +471,67 @@ def main() -> int:
                   f"{S * S} rays; {float((got[1] > 0).float().mean()):.4f} hit, "
                   f"{float(got[6].mean()):.2f} rows visited per ray")
 
+    phase("K8 sort_tiles vs plain; K7: the sorted K1/K2/K5 vs plain and vs unsorted, 64x64")
+    gen = np.random.default_rng(8)
+    n8 = srt.TILE
+
+    def key_set(t):
+        kind = t % 5
+        if kind == 0:
+            return gen.integers(0, 5000, n8)
+        if kind == 1:  # heavy ties with dead keys, the shape of the lane-sort key
+            k = gen.integers(0, 8, n8)
+            k[gen.random(n8) < 0.3] = 1 << 20
+            return k
+        if kind == 2:
+            return np.full(n8, 7)
+        k = np.sort(gen.integers(0, 5000, n8))
+        return k if kind == 3 else k[::-1]
+
+    T8, C8 = 1024, mk.N_STATE + 2
+    key8 = torch.from_numpy(np.stack([key_set(t) for t in range(T8)]).astype(np.int32)).to(dev)
+    ch8 = torch.from_numpy(gen.integers(-2**31, 2**31 - 1, (C8, T8, n8)).astype(np.int32)).to(dev)
+    got8 = srt.sort_tiles(key8, ch8)
+    if not bit_equal(got8, srt.sort_tiles_plain(key8, ch8)):
+        fail("K8 sort_tiles differs from its plain version")
+    print(f"K8 sort_tiles: {T8} tiles x {n8} lanes x {C8} channels bit-equal to the plain version "
+          "(random, ties with dead keys, all equal, sorted, reversed)")
+    for name, args, un in (("K1", (px, py, seeds, 5), k1), ("K2", (st0, rng0, 24), None),
+                           ("K5", (px, py, seeds, 24), k5)):
+        real_fn, plain_fn, check_fn = {
+            "K1": (mk.megakernel_start, mk.megakernel_start_plain, agree),
+            "K2": (mk.megakernel_resume, mk.megakernel_resume_plain, agree),
+            "K5": (mk.megakernel_tiles, mk.megakernel_tiles_plain, agree_tiles)}[name]
+        label = f"{name} sorted (cap {args[-1]})"
+        got = real_fn(ms_small, *args, lane_sort=True, lane_order=True)
+        want = plain_fn(ms_small, *args, lane_sort=True, lane_order=True)
+        check_fn(label, got[:2], want[:2])
+        check_order(label, mk, ms_small, got, want)
+        if not bit_equal(got[:2], real_fn(ms_small, *args) if un is None else un):
+            fail(f"the sorted {name} differs from the unsorted kernel")
+    print("sorted K1/K2/K5 == the unsorted kernels bit for bit on every channel (segs, rows "
+          "included) and RNG state")
+    stuck = torch.arange(S * S, device=dev) % 3 == 0
+    bb = np.asarray(cs.bbox_static, np.float64)
+    st_key = key_test_state(st0, stuck, 8, bb[:3], bb[3:], 17)  # the others resume from 5 to 8
+    got = mk.megakernel_resume(ms_small, st_key, rng0, 8, lane_sort=True, lane_order=True)
+    check_order("K2 sorted, a third of the lanes alive at the cap with NaN, inf, 1e30, box-bound "
+                "and outside origins", mk, ms_small, got,
+                mk.megakernel_resume_plain(ms_small, st_key, rng0, 8, lane_sort=True, lane_order=True))
+    if not bit_equal(got[:2], mk.megakernel_resume(ms_small, st_key, rng0, 8)):
+        fail("the sorted K2 differs from the unsorted kernel on the key-test state")
+
     # ---- 5. the paths ----
     def drive(label, fn):
         """Run one path with every launch count set to 0 just before;
         returns (its result, the counts just after)."""
         phase(label)
-        for d in (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES):
+        for d in (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES, srt.LAUNCHES):
             for k in d:
                 d[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {**mk.LAUNCHES, **prc.LAUNCHES, **pt.LAUNCHES}
+        return out, {**mk.LAUNCHES, **prc.LAUNCHES, **pt.LAUNCHES, **srt.LAUNCHES}
 
     def check_render(name, r, metrics, counts, kernels):
         film = r.film.cpu().numpy()
@@ -400,6 +577,16 @@ def main() -> int:
     if not np.allclose(fa, fb, rtol=1e-5, atol=1e-6):
         fail(f"chained and unchained films differ: max abs {np.abs(fa - fb).max():.3e}")
     print(f"(a) vs (b) films: max abs diff {np.abs(fa - fb).max():.3e} (rtol 1e-5 / atol 1e-6)")
+
+    ri = Renderer(cs, RenderConfig(**slice_cfg, sort_lanes=True), device="cuda")
+    mi, counts_i = drive("(i) lane-sorted slice: sort_lanes=True, 1024x1024, 8 spp", ri.render)
+    check_render("(i) sorted", ri, mi, counts_i, ("mk_start_sorted", "mk_resume_sorted", "reconstruct"))
+    if mi["chain_chunk_sweeps"] != 1 or counts_i["mk_start"] or counts_i["mk_resume"]:
+        fail("(i) the sorted slice chained or launched an unsorted megakernel")
+    if not torch.equal(ri.film, rb.film):
+        fail("(i) the lane-sorted film differs from the unsorted film (b)")
+    print(f"(i) film == (b)'s bit for bit; {mi['render_seconds'] / 8:.4f} s per sweep against (b)'s "
+          f"{mb['render_seconds'] / 8:.4f} s")
 
     small = dict(width=256, height=256, spp=8, max_bounces=1000, block_size=128, driver="mega")
     rc_ = Renderer(cs, RenderConfig(**small, mega_chain_cap=2, phase_shrink=(9999,)), device="cuda")
@@ -463,6 +650,12 @@ def main() -> int:
     print(f"(e) render_tiles: mean radiance {tot.mean():.5f}, launches {counts_e}")
     if not np.isfinite(tot).all() or not tot.mean() > 0 or counts_e["mk_tiles"] <= 0:
         fail("(e) render_tiles: non-finite or dark result, or K5 not launched")
+    tes, counts_es = drive("(e) render_tiles lane-sorted over the 1024x1024 frame",
+                           lambda: mk.render_tiles(ms, tpx, tpy, tseeds, max_bounces=1000,
+                                                   lane_sort=True))
+    if counts_es["mk_tiles_sorted"] <= 0 or not bit_equal(tes, te):
+        fail("(e) the sorted K5 was not launched or differs from render_tiles")
+    print(f"(e) sorted render_tiles == render_tiles bit for bit, launches {counts_es}")
 
     sync_cfg = dict(slice_cfg, driver="sync")
     rf = Renderer(cs, RenderConfig(**sync_cfg), device="cuda")
@@ -552,6 +745,11 @@ def main() -> int:
         if eq < 0.995:
             fail(f"(h) {tr} disagrees with rows")
 
+    _, counts_j = drive("(j) K8 alone: sort_tiles, 1M lanes x 31 channels",
+                        lambda: srt.sort_tiles(key8, ch8))
+    if counts_j["sort_tiles"] <= 0:
+        fail("(j) sort_tiles was not launched")
+
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
     phase("kernels vs twins at the main path's shapes")
     real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
@@ -559,24 +757,6 @@ def main() -> int:
     plain = {"mk_start": mk.megakernel_start_plain, "mk_resume": mk.megakernel_resume_plain,
              "mk_start_chained": mk.megakernel_start_chained_plain}
     check = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chained}
-
-    def record(run):
-        calls = []
-
-        def recorder(name):
-            def call(ms_, *args):
-                calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
-                return real[name](ms_, *args)
-            return call
-
-        for name in real:
-            setattr(mk, f"megakernel_{name[3:]}", recorder(name))
-        try:
-            run()
-        finally:
-            for name in real:
-                setattr(mk, f"megakernel_{name[3:]}", real[name])
-        return calls
 
     def work(name, args, got):
         """(bytes, f32 operations) of one megakernel call: the table once,
@@ -618,7 +798,7 @@ def main() -> int:
     scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
     frames = [frame_of(sc) for sc in scheds]
     cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
-    chunk_calls = record(lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
+    chunk_calls = record_calls(mk, real, lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
     c_ms, c_plain, c_err, c_work = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
@@ -626,7 +806,7 @@ def main() -> int:
 
     upx, upy, useeds, uso = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 1 + mk.CHAIN_SWEEPS_CUDA))
     sweep_out = []
-    sweep_calls = record(lambda: sweep_out.append(
+    sweep_calls = record_calls(mk, real, lambda: sweep_out.append(
         mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
     u_ms, u_plain, u_err, u_work = replay("unchained sweep:", sweep_calls)
 
@@ -639,6 +819,61 @@ def main() -> int:
     k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * ROW_OPS)
     print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, twin {t_k5p:.3f} ms, "
           f"bound {bound(*k5_work)[0]:.4f} ms ({bound(*k5_work)[1]})")
+
+    # K7: the sweep's K1/K2 calls through the sorted kernels
+    k7_ms, k7_unsorted, k7_plain, k7_err = [], [], [], 0.0
+
+    def max_diff(got, want) -> float:
+        """largest |got - want| over every value (NaN = NaN, bits as ints)"""
+        return max(float((g.nan_to_num(0.0) - w.nan_to_num(0.0)).abs().max()) if g.is_floating_point()
+                   else float((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+
+    for name, args in sweep_calls:
+        t_u, want = timed(lambda: real[name](ms, *args), reps=3)
+        t_s, got = timed(lambda: real[name](ms, *args, lane_sort=True), reps=3)
+        label = f"K7 sorted {name} ({args[-2].numel()} lanes, cap {args[-1]})"
+        if not bit_equal(got, want):
+            fail(f"{label} differs from the unsorted kernel")
+        t_p, pl_out = timed(lambda: plain[name](ms, *args, lane_sort=True, lane_order=True),
+                            reps=1, warm=False)
+        k7_err = max(k7_err, agree(f"{label} vs its plain version", got, pl_out[:2]))
+        rec = real[name](ms, *args, lane_sort=True, lane_order=True)
+        if not bit_equal(rec[:2], got):
+            fail(f"{label}: the launch with the order record differs from the one without")
+        check_order(label, mk, ms, rec, pl_out)
+        k7_ms.append(t_s)
+        k7_unsorted.append(t_u)
+        k7_plain.append(t_p)
+        print(f"{label}: {t_s:.3f} ms against {t_u:.3f} ms unsorted (bit-equal), plain {t_p:.3f} ms",
+              flush=True)
+    t_k5s, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000, lane_sort=True), reps=3)
+    t_k5u, want = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
+    if not bit_equal(got, want):
+        fail("K5 sorted differs from K5 on the 1M-path frame")
+    t_k5sp, pl_out = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000, lane_sort=True,
+                                                             lane_order=True), reps=1, warm=False)
+    k5s_err = agree_tiles("K5 sorted vs its plain version (1M paths to 1000)", got, pl_out[:2])
+    rec = mk.megakernel_tiles(ms, upx, upy, useeds, 1000, lane_sort=True, lane_order=True)
+    if not bit_equal(rec[:2], got):
+        fail("K5 sorted: the launch with the order record differs from the one without")
+    check_order("K5 sorted (1M paths to 1000)", mk, ms, rec, pl_out)
+    print(f"K5 sorted ({upx.numel()} paths to 1000): {t_k5s:.3f} ms against {t_k5u:.3f} ms unsorted "
+          f"(bit-equal), plain {t_k5sp:.3f} ms")
+
+    # K8 at the size of a 1M-path state: the kernel, its plain version, the library call
+    t_k8, got = timed(lambda: srt.sort_tiles(key8, ch8), reps=10)
+    t_k8p, want = timed(lambda: srt.sort_tiles_plain(key8, ch8), reps=1, warm=False)
+    if not bit_equal(got, want):
+        fail("K8 at 1M lanes differs from its plain version")
+    k8_err = max_diff(got, want)
+    t_k8lib, _ = timed(lambda: torch.gather(
+        ch8, 2, torch.sort(key8, dim=1, stable=True).indices.expand(C8, T8, n8)), reps=10)
+    k8_work = (nbytes(key8, ch8, *got), 0.0)
+    print(f"K8 sort_tiles ({T8} x {n8} lanes, {C8} channels): {t_k8:.4f} ms, plain {t_k8p:.3f} ms, "
+          f"torch.sort+gather {t_k8lib:.4f} ms, bound {bound(*k8_work)[0]:.4f} ms ({bound(*k8_work)[1]})")
+    print(f"per unchained sweep, sorted: K1 {k7_ms[0]:.3f} ms + K2 "
+          f"{' + '.join(f'{t:.3f}' for t in k7_ms[1:])} ms; unsorted in the same replay: K1 "
+          f"{k7_unsorted[0]:.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in k7_unsorted[1:])} ms")
 
     total = sweep_out[0][0].reshape(H, W, 3).contiguous()
     normal = sweep_out[0][1].reshape(H, W, 3).contiguous()
@@ -752,6 +987,21 @@ def main() -> int:
         dict(name="traverse", route="cuda", source=src + "traverse.cu",
              replaces="hijiki_tpu/ops/pallas_traverse.py:41", launches=counts_f["traverse"],
              max_abs_err=k6_err, ms=sum(k6_ms), plain_ms=sum(k6_plain), **summed(k6_work)),
+        # K7 inside the sorted K1/K2 of path (i): the error against the
+        # sorted plain version (the order record bit-equal to it, the
+        # outputs bit-equal to the unsorted kernels'); the bound is the
+        # unsorted calls' work
+        dict(name="mk_start_sorted+mk_resume_sorted", route="cuda",
+             source=src + "megakernel.cu", replaces="hijiki_tpu/ops/pallas_sort.py:51",
+             launches=counts_i["mk_start_sorted"] + counts_i["mk_resume_sorted"],
+             max_abs_err=k7_err, ms=sum(k7_ms), plain_ms=sum(k7_plain),
+             **summed(u_work["mk_start"] + u_work["mk_resume"])),
+        dict(name="mk_tiles_sorted", route="cuda", source=src + "megakernel.cu",
+             replaces="hijiki_tpu/ops/pallas_sort.py:51", launches=counts_es["mk_tiles_sorted"],
+             max_abs_err=k5s_err, ms=t_k5s, plain_ms=t_k5sp, **summed([k5_work])),
+        dict(name="sort_tiles", route="cuda", source=src + "sort.cu",
+             replaces="tests/test_megakernel.py:337", launches=counts_j["sort_tiles"],
+             max_abs_err=k8_err, ms=t_k8, plain_ms=t_k8p, **dict(summed([k8_work]), library_ms=t_k8lib)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

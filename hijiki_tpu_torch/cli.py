@@ -66,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(bulk-synchronous, the JAX package's default) or wavefront "
                    "(regenerating lane pool)")
     p.add_argument("--sort-lanes", action="store_true",
-                   help="Coherence-sort the wavefront driver's lanes between bounces")
+                   help="Coherence-sort the lanes between bounces: the wavefront driver's "
+                   "pool, or each tile of the mega driver's launches (unchained); the "
+                   "image is the same")
     p.add_argument("--fixed-albedo", action="store_true",
                    help="Populate the albedo AOV (the reference declares it but never "
                    "assigns it), activating the reconstruction's albedo feature term; "
@@ -92,10 +94,6 @@ def main(argv=None) -> int:
             print(f"{a.split('=')[0]}: not ported yet", file=sys.stderr)
             return 2
     args = build_parser().parse_args(argv)
-    if args.sort_lanes and args.driver == "mega":
-        print("--sort-lanes with --driver mega (the in-kernel lane sort): not ported yet",
-              file=sys.stderr)
-        return 2
     if args.fixed_albedo and args.driver == "wavefront":
         print("--fixed-albedo requires the sync or mega driver", file=sys.stderr)
         return 2

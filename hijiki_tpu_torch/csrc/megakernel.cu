@@ -6,6 +6,9 @@
 //   _megakernel_resume         -> mk_resume         (K2)
 //   _megakernel_start_chained  -> mk_start_chained  (K4, note below)
 //   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5)
+// and, with lane_sort=True (K7, _lane_sort with pallas_sort.py's network
+// inside the bounce loop), the lane-sorted K1/K2/K5:
+//   mk_start_sorted, mk_resume_sorted, mk_tiles_sorted (note below).
 // All share bounce_loop(), the port of _bounce_loop with _camera_init,
 // _analytic_pretest, the trace-row walk, _resolve_winners, NEE, the BSDFs
 // and Russian roulette. The plain PyTorch twin of every line below is
@@ -43,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sort.cuh"
+
 namespace {
 
 constexpr float kEps = 0x1.a36e2ep-14f;      // f32(1e-4)
@@ -70,7 +75,7 @@ struct Scene {
   const float* consts;
   int total_rows, tbl_rows, ntab, analytic_mode;
   int na, ne, nd, ncb, ndl, nem;
-  int ana_off, em_off, d_off, cb_off, dl_off, emi_off;
+  int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off;
 };
 
 struct Path {
@@ -688,27 +693,144 @@ __device__ __forceinline__ void write_state(const Path& p, float* st,
   rng[i] = p.rng;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    mk_start_kernel(Scene S, const float* px, const float* py,
-                    const uint32_t* seeds, int n, float cap, float* st_out,
-                    uint32_t* rng_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Path p;
-  camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop(S, p, cap);
-  write_state(p, st_out, rng_out, i, n);
+// ------------------------------------------------------ lane-sorted K1/K2/K5 --
+//
+// The mega driver's --sort-lanes (JAX: lane_sort=True, _lane_sort at
+// pallas_megakernel.py:2003 with pallas_sort.py::sort_tile_by_key). A block
+// of kSortTile threads holds kSortTile paths and runs the bounce loop in
+// lockstep: while any of its paths is going, the going threads run one
+// bounce, every thread computes its path's key (dead last, then the
+// direction octant, then the origin's cell of a 4x4x4 grid over the scene
+// box), the block sorts the keys (sort.cuh) and each thread takes over the
+// path of its source lane through shared memory. After the loop each path
+// goes back to the thread of its path id (a direct inverse: path ids are
+// unique, so this equals JAX's sort by pid) and is written out.
+//
+// The sort permutes whole paths and each thread walks alone, so every
+// output equals the unsorted kernels' bit for bit; what the sort changes
+// is which paths share a warp: paths of one octant and cell walk similar
+// rows, and dead paths gather at the end of the tile, so whole warps idle
+// instead of a few lanes in every warp.
+//
+// The tile: kSortTile = 256 lanes (a block of 256 threads). The TPU sorted
+// its 1024-lane tile; any tile gives the same outputs (a pure permutation),
+// and a 1024-thread block would cap the megakernel at 64 registers a thread
+// (65,536 per SM). The exchange buffer holds the tile's 29 state words, RNG
+// and path id (31 words a path, 31 KB at 256 lanes) in dynamic shared
+// memory, with the sort's own 4 KB beside it: 35 KB, under the 48 KB a
+// launch gets without opting in (larger tiles opt in, see launch_paths).
+// ops/megakernel.py::SORT_TILE must equal kSortTile.
+//
+// Every thread reaches every barrier: a thread past the last path (i >= n)
+// carries a dead path, takes part in the sorts and writes nothing.
+//
+// The outputs cannot show the sort (they equal the unsorted kernels'), so
+// the sorted launches take an optional `order` record: the path id at each
+// lane after the block's last sort and that path's key, which the plain
+// version reproduces bit for bit (ops/megakernel.py::_bounce_loop). The
+// render path passes null.
+
+constexpr int kSortTile = 256;
+constexpr int kSortWords = kNState + 2;  // the state, the RNG, the path id
+constexpr int kDeadKey = 1 << 20;
+
+struct SortShared {
+  hijiki_sort::Scratch<kSortTile> sort;
+  uint32_t path[kSortWords][kSortTile];
+};
+
+// clip(int32(x), 0, 3) as XLA computes it (saturating, NaN -> 0), clamped
+// in float before the cast
+__device__ __forceinline__ int grid_cell(float x) {
+  return isnan(x) ? 0 : static_cast<int>(jmin(jmax(x, 0.0f), 3.0f));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// _lane_sort's key; the box min and scale are f32 bakes of the host's doubles
+__device__ __forceinline__ int lane_key(const Scene& S, const Path& p) {
+  if (!(p.alive > 0.0f)) return kDeadKey;
+  const float* c = S.consts + S.sort_off;
+  const int qx = grid_cell((p.ox - c[0]) * c[3]);
+  const int qy = grid_cell((p.oy - c[1]) * c[4]);
+  const int qz = grid_cell((p.oz - c[2]) * c[5]);
+  const int oct = (p.dx > 0.0f) + 2 * (p.dy > 0.0f) + 4 * (p.dz > 0.0f);
+  return oct + 8 * (qx + 4 * (qy + 4 * qz));
+}
+
+// every thread writes its path (and id) to slot `dst` and takes the path
+// in slot `src`
+__device__ __forceinline__ void move_path(Path& p, int& pid, int dst, int src,
+                                          SortShared& sh) {
+#define PUT_FIELD(c, f) sh.path[c][dst] = __float_as_uint(p.f);
+  STATE_FIELDS(PUT_FIELD)
+#undef PUT_FIELD
+  sh.path[kNState][dst] = p.rng;
+  sh.path[kNState + 1][dst] = static_cast<uint32_t>(pid);
+  __syncthreads();
+#define GET_FIELD(c, f) p.f = __uint_as_float(sh.path[c][src]);
+  STATE_FIELDS(GET_FIELD)
+#undef GET_FIELD
+  p.rng = sh.path[kNState][src];
+  pid = static_cast<int>(sh.path[kNState + 1][src]);
+  __syncthreads();
+}
+
+// thread i of the block holds path i of the tile; `order` (nullable): the
+// record of the last sort, at order[i] and order[n + i]
+__device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int i,
+                                   int n, int* order) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  SortShared& sh = *reinterpret_cast<SortShared*>(smem);
+  const int lane = threadIdx.x;
+  int pid = lane;
+  while (__syncthreads_or(p.alive > 0.0f && p.bounce < cap)) {
+    if (p.alive > 0.0f && p.bounce < cap) bounce(S, p);
+    int key = lane_key(S, p);
+    const int src = hijiki_sort::block_sort<kSortTile>(key, sh.sort);
+    move_path(p, pid, lane, src, sh);
+  }
+  if (order != nullptr && i < n) {
+    order[i] = blockIdx.x * kSortTile + pid;
+    order[n + i] = lane_key(S, p);
+  }
+  move_path(p, pid, pid, lane, sh);  // back to the path's own lane
+}
+
+// a path's bounces to `cap`: alone, or in the block's sorted lockstep
+template <bool kSort>
+__device__ __forceinline__ void run_path(const Scene& S, Path& p, float cap,
+                                         int i, int n, int* order) {
+  if constexpr (kSort)
+    bounce_loop_sorted(S, p, cap, i, n, order);
+  else
+    bounce_loop(S, p, cap);
+}
+
+// K1 and K2, and with kSort their lane-sorted variants (mk_start_sorted,
+// mk_resume_sorted). A sorted block's threads past the last path carry a
+// dead path to the end.
+template <bool kSort>
+__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
+    mk_start_kernel(Scene S, const float* px, const float* py,
+                    const uint32_t* seeds, int n, float cap, float* st_out,
+                    uint32_t* rng_out, int* order) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kSort && i >= n) return;
+  Path p{};
+  if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
+  run_path<kSort>(S, p, cap, i, n, order);
+  if (i < n) write_state(p, st_out, rng_out, i, n);
+}
+
+template <bool kSort>
+__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
     mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
-                     float cap, float* st_out, uint32_t* rng_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Path p;
-  read_state(st_in, rng_in, i, n, p);
-  bounce_loop(S, p, cap);
-  write_state(p, st_out, rng_out, i, n);
+                     float cap, float* st_out, uint32_t* rng_out, int* order) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kSort && i >= n) return;
+  Path p{};
+  if (i < n) read_state(st_in, rng_in, i, n, p);
+  run_path<kSort>(S, p, cap, i, n, order);
+  if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
 // K4, the chained camera launch (_megakernel_start_chained with the chain
@@ -771,20 +893,40 @@ __global__ void __launch_bounds__(kThreads)
 
 // K5, the single-launch render (_megakernel/_megakernel_body): camera ray
 // and bounces to `cap`, then only the 7 result channels (Lr,Lg,Lb,
-// n1,n2,n3, depth) and the RNG; no 29-channel state.
-__global__ void __launch_bounds__(kThreads)
+// n1,n2,n3, depth) and the RNG; no 29-channel state. kSort:
+// mk_tiles_sorted.
+template <bool kSort>
+__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
     mk_tiles_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* out,
-                    uint32_t* rng_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+                    uint32_t* rng_out, int* order) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (!kSort && i >= n) return;
+  Path p{};
+  if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
+  run_path<kSort>(S, p, cap, i, n, order);
   if (i >= n) return;
-  Path p;
-  camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop(S, p, cap);
   const float vals[kTileOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3, p.depth};
 #pragma unroll
   for (int c = 0; c < kTileOut; ++c) out[static_cast<size_t>(c) * n + i] = vals[c];
   rng_out[i] = p.rng;
+}
+
+// the launch of K1/K2/K5: blocks of kThreads paths, or of kSortTile with
+// the exchange buffer in dynamic shared memory for the sorted kernels
+// (opting in past 48 KB, which only tiles of 512 lanes and more need)
+template <bool kSort, typename... Params, typename... Args>
+int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
+  constexpr int block = kSort ? kSortTile : kThreads;
+  constexpr size_t smem = kSort ? sizeof(SortShared) : 0;
+  if constexpr (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  kernel<<<(n + block - 1) / block, block, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Scene make_scene(const float* rows, const float* consts, int total_rows,
@@ -811,6 +953,7 @@ Scene make_scene(const float* rows, const float* consts, int total_rows,
   S.cb_off = S.d_off + nd * 3;
   S.dl_off = S.cb_off + ncb * 8;
   S.emi_off = S.dl_off + ndl * 4;
+  S.sort_off = S.emi_off + nem * 3;  // lane-sort key: box min xyz, scale xyz
   return S;
 }
 
@@ -824,22 +967,53 @@ Scene make_scene(const float* rows, const float* consts, int total_rows,
   make_scene(rows, consts, total_rows, tbl_rows, ntab, analytic_mode, na, ne,  \
              nd, ncb, ndl, nem)
 
-extern "C" int mk_start(SCENE_ARGS, const float* px, const float* py,
-                        const uint32_t* seeds, int n, int cap, float* st_out,
-                        uint32_t* rng_out, void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  mk_start_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      SCENE_CALL, px, py, seeds, n, static_cast<float>(cap), st_out, rng_out);
-  return static_cast<int>(cudaGetLastError());
+// K1/K2/K5 and their sorted variants; `order` (sorted only) may be null
+#define START_ARGS                                                             \
+  SCENE_ARGS, const float *px, const float *py, const uint32_t *seeds, int n,  \
+      int cap
+#define RESUME_ARGS                                                            \
+  SCENE_ARGS, const float *st_in, const uint32_t *rng_in, int n, int cap
+
+extern "C" int mk_start(START_ARGS, float* st_out, uint32_t* rng_out,
+                        void* stream) {
+  return launch_paths<false>(mk_start_kernel<false>, n, stream, SCENE_CALL, px,
+                             py, seeds, n, static_cast<float>(cap), st_out,
+                             rng_out, nullptr);
 }
 
-extern "C" int mk_resume(SCENE_ARGS, const float* st_in, const uint32_t* rng_in,
-                         int n, int cap, float* st_out, uint32_t* rng_out,
+extern "C" int mk_start_sorted(START_ARGS, float* st_out, uint32_t* rng_out,
+                               int* order, void* stream) {
+  return launch_paths<true>(mk_start_kernel<true>, n, stream, SCENE_CALL, px,
+                            py, seeds, n, static_cast<float>(cap), st_out,
+                            rng_out, order);
+}
+
+extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                          void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  mk_resume_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      SCENE_CALL, st_in, rng_in, n, static_cast<float>(cap), st_out, rng_out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_paths<false>(mk_resume_kernel<false>, n, stream, SCENE_CALL,
+                             st_in, rng_in, n, static_cast<float>(cap), st_out,
+                             rng_out, nullptr);
+}
+
+extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
+                                int* order, void* stream) {
+  return launch_paths<true>(mk_resume_kernel<true>, n, stream, SCENE_CALL,
+                            st_in, rng_in, n, static_cast<float>(cap), st_out,
+                            rng_out, order);
+}
+
+extern "C" int mk_tiles(START_ARGS, float* out, uint32_t* rng_out,
+                        void* stream) {
+  return launch_paths<false>(mk_tiles_kernel<false>, n, stream, SCENE_CALL, px,
+                             py, seeds, n, static_cast<float>(cap), out,
+                             rng_out, nullptr);
+}
+
+extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
+                               int* order, void* stream) {
+  return launch_paths<true>(mk_tiles_kernel<true>, n, stream, SCENE_CALL, px,
+                            py, seeds, n, static_cast<float>(cap), out, rng_out,
+                            order);
 }
 
 extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
@@ -851,14 +1025,5 @@ extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
                             static_cast<cudaStream_t>(stream)>>>(
       SCENE_CALL, pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool,
       pool_rng, chain_out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int mk_tiles(SCENE_ARGS, const float* px, const float* py,
-                        const uint32_t* seeds, int n, int cap, float* out,
-                        uint32_t* rng_out, void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  mk_tiles_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      SCENE_CALL, px, py, seeds, n, static_cast<float>(cap), out, rng_out);
   return static_cast<int>(cudaGetLastError());
 }

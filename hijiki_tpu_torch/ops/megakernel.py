@@ -14,6 +14,17 @@ Port of ``hijiki_tpu/ops/pallas_megakernel.py``:
 * ``render_tiles`` traces whole paths in one launch (K5 ``mk_tiles``,
   ``_megakernel``/``_megakernel_body``).
 
+With ``lane_sort=True`` (the mega driver's ``--sort-lanes``; JAX's
+``_lane_sort`` with ``pallas_sort.py::sort_tile_by_key``, K7) the camera
+and resume launches of ``render_waves`` and the single launch of
+``render_tiles`` sort each tile of ``SORT_TILE`` paths between bounces by
+(dead last, direction octant, origin cell) and restore lane order at the
+end (``mk_start_sorted``, ``mk_resume_sorted``, ``mk_tiles_sorted``). A pure
+permutation of whole paths: every output equals the unsorted launch's bit
+for bit, so only ``lane_order=True``, which also returns the order each
+tile's last sort left, shows the sort itself. The chained launch never
+sorts (nor does JAX's).
+
 On a CUDA tensor the launches run the hand-written kernels of
 ``csrc/megakernel.cu`` (one thread per path, the stackless walk over the
 trace rows; see the note there). On a CPU tensor they run the plain twin
@@ -50,6 +61,7 @@ import numpy as np
 import torch
 
 from hijiki_tpu_torch.ops.rng import from_bits, to_bits, wang_hash, xorshift
+from hijiki_tpu_torch.ops.sort import sort_tiles_plain
 from hijiki_tpu_torch.scene.compile import CompiledScene
 
 M_EPS = 1e-4
@@ -88,6 +100,13 @@ _RESULT_CH = tuple(
 # per-sweep channels the chained launch flushes as samples finish, in
 # _RESULT_CH order: Lr,Lg,Lb, n1,n2,n3, depth, segs, rows, ar,ag,ab
 CHAIN_OUT_CH = len(_RESULT_CH)
+# lanes of one lane-sort tile: a block of the sorted kernels
+# (csrc/megakernel.cu kSortTile, which must equal it: the order record
+# differs otherwise; the TPU's tile was 1024 lanes, and any tile gives the
+# same outputs)
+SORT_TILE = 256
+# the lane-sort key of a dead path: after every live one
+_DEAD_KEY = 1 << 20
 # render_tiles' result channels: Lr,Lg,Lb, n1,n2,n3, depth
 _TILE_CH = tuple(_STATE_CH.index(ch) for ch in ("Lr", "Lg", "Lb", "n1", "n2", "n3", "depth"))
 # sweeps per chained launch when chaining is auto on a CUDA device (the
@@ -97,7 +116,10 @@ CHAIN_SWEEPS_CUDA = 8
 # launches of each hand-written kernel (CUDA tensors only; the CPU twin is
 # not counted). Read and reset by chip_smoke.py to prove the main path ran
 # through the kernels.
-LAUNCHES = {"mk_start": 0, "mk_resume": 0, "mk_start_chained": 0, "mk_tiles": 0}
+LAUNCHES = {
+    "mk_start": 0, "mk_resume": 0, "mk_start_chained": 0, "mk_tiles": 0,
+    "mk_start_sorted": 0, "mk_resume_sorted": 0, "mk_tiles_sorted": 0,
+}
 
 _f32 = np.float32
 # layout of one baked analytic prim / emitter in the constants buffer
@@ -136,6 +158,10 @@ class MegaScene:
     cam: np.ndarray  # (15,) f32: c.xyz, R (row-major 3x3), halfW, halfH, scale
     root_min: torch.Tensor  # (3,) f32 BVH root box (compaction sort key)
     root_max: torch.Tensor
+    # lane-sort key (_lane_sort): f32(box min) and f32(4 / box span) per
+    # axis, from the scene box in double, as the TPU kernel baked them
+    sort_lo: tuple
+    sort_scale: tuple
     # _RESULT_CH on the device: indexing a CUDA tensor with a Python list
     # uploads the list from pageable memory, which synchronizes the stream
     # and stalls the host until every queued kernel has finished
@@ -212,6 +238,14 @@ def _camera_consts(camera_static, width, height) -> np.ndarray:
     )
 
 
+def _lane_sort_consts(bbox) -> tuple:
+    """``_lane_sort``'s bakes (pallas_megakernel.py:2013-2019): f32 of each
+    box min, and f32(4 / span) with span = max(max - min, 1e-6) in double."""
+    lo = tuple(_f(bbox[a]) for a in range(3))
+    scale = tuple(_f(4.0 / max(bbox[a + 3] - bbox[a], 1e-6)) for a in range(3))
+    return lo, scale
+
+
 def _table(rows, ncols) -> np.ndarray:
     return np.asarray(rows, np.float32).reshape(-1, ncols)
 
@@ -230,10 +264,11 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
         diel=_table(diel, 4), emissive=_table(emis, 3),
     )
     cam = _camera_consts(cs.camera_static, width, height)
+    sort_lo, sort_scale = _lane_sort_consts(cs.bbox_static)
     consts = np.concatenate(
         [cam, analytic.ravel(), emitters.ravel()]
         + [tabs[k].ravel() for k in ("diffuse", "cboard", "diel", "emissive")]
-        + [np.zeros(1, np.float32)]
+        + [np.asarray(sort_lo + sort_scale, np.float32)]
     ).astype(np.float32)
     rows = torch.as_tensor(np.asarray(_cpu(cs.trace_rows_mega), np.float32))
     bmin = np.asarray(_cpu(cs.bvh_aabb_min), np.float32)[0]
@@ -250,6 +285,8 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
         cam=cam,
         root_min=torch.from_numpy(bmin).to(device),
         root_max=torch.from_numpy(bmax).to(device),
+        sort_lo=sort_lo,
+        sort_scale=sort_scale,
         result_ch=torch.tensor(_RESULT_CH, device=device),
         **tabs,
     )
@@ -830,18 +867,72 @@ def _bounce(ms, s):
     return out
 
 
-def _bounce_loop(ms, s, cap):
+def _grid_cell(x):
+    """``clip(int32(x), 0, 3)`` as XLA computes it (a saturating cast, NaN
+    -> 0), clamped in float before the cast as the kernel does."""
+    return torch.where(torch.isnan(x), 0.0, torch.clamp(x, 0.0, 3.0)).to(torch.int32)
+
+
+def lane_sort_key(ms, s):
+    """``_lane_sort``'s key of each lane: octant + 8 * (qx + 4 * (qy + 4 *
+    qz)) for a live path (q: the origin's cell of a 4x4x4 grid over the
+    scene box), 1 << 20 for a dead one. int32."""
+    q = [_grid_cell((s[o] - ms.sort_lo[a]) * ms.sort_scale[a])
+         for a, o in enumerate(("ox", "oy", "oz"))]
+    octant = ((s["dx"] > 0).to(torch.int32) + 2 * (s["dy"] > 0).to(torch.int32)
+              + 4 * (s["dz"] > 0).to(torch.int32))
+    key = octant + 8 * (q[0] + 4 * (q[1] + 4 * q[2]))
+    return torch.where(s["alive"] > 0, key, _DEAD_KEY)
+
+
+def _lane_sort(ms, s, tiles):
+    """Permute the paths of each ``SORT_TILE``-lane tile listed in ``tiles``
+    by ``lane_sort_key`` (``sort_tiles_plain`` on every state channel, the
+    RNG and the path id); the other tiles stay as they are."""
+    key = lane_sort_key(ms, s).view(-1, SORT_TILE)[tiles]
+    chans = torch.stack([s[ch].view(torch.int32) for ch in _STATE_CH]
+                        + [to_bits(s["state"]), s["pid"]])
+    chans = chans.view(len(chans), -1, SORT_TILE)
+    chans[:, tiles] = sort_tiles_plain(key, chans[:, tiles])[1]
+    out = chans.view(len(chans), -1)
+    new = {ch: out[i].view(torch.float32) for i, ch in enumerate(_STATE_CH)}
+    new["state"] = from_bits(out[-2])
+    new["pid"] = out[-1]
+    return new
+
+
+def _bounce_loop(ms, s, cap, lane_sort=False):
     """Bounce every lane while it is alive and under ``cap`` bounces. Each
-    pass runs one bounce of the lanes still going (per-lane semantics)."""
+    pass runs one bounce of the lanes still going (per-lane semantics).
+
+    With ``lane_sort`` the lanes are padded with dead paths to whole tiles,
+    and each pass in which a tile had a lane going ends with ``_lane_sort``
+    of that tile (the sorted kernels loop per block, JAX per tile). At the
+    end ``order`` records the permutation of each tile's last sort, (2, N)
+    int32: the path id at each lane and its key; then the lanes go back to
+    their own order."""
     s = dict(s)
+    n = s["alive"].shape[0]
+    if lane_sort:
+        pad = (-n) % SORT_TILE
+        s = {k: torch.cat([v, v.new_zeros(pad)]) for k, v in s.items()}  # alive 0
+        s["pid"] = torch.arange(n + pad, dtype=torch.int32, device=s["alive"].device)
     while True:
         go = (s["alive"] > 0) & (s["bounce"] < cap)
         idx = torch.nonzero(go).flatten()
         if idx.numel() == 0:
-            return s
-        sub = _bounce(ms, {k: v[idx] for k, v in s.items()})
-        for k in s:
+            break
+        sub = _bounce(ms, {k: v[idx] for k, v in s.items() if k != "pid"})
+        for k in sub:
             s[k] = s[k].index_put((idx,), sub[k])
+        if lane_sort:
+            s = _lane_sort(ms, s, torch.nonzero(go.view(-1, SORT_TILE).any(1)).flatten())
+    if lane_sort:
+        order = torch.stack([s["pid"], lane_sort_key(ms, s)])[:, :n]
+        pid = s.pop("pid").long()
+        s = {k: torch.empty_like(v).index_put_((pid,), v)[:n] for k, v in s.items()}
+        s["order"] = order
+    return s
 
 
 def _pack(s):
@@ -916,9 +1007,9 @@ def _check(name, t, dtype, shape, device):
 
 def _launch(fn_name, ms, ins, ints, outs):
     """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
-    stream: scene, input pointers, ``ints``, output pointers, stream. The
-    first int is the lane count; nothing launches for 0 lanes. Returns
-    ``outs``."""
+    stream: scene, input pointers, ``ints``, output pointers (None: a null
+    pointer), stream. The first int is the lane count; nothing launches for
+    0 lanes. Returns the outputs that are not None."""
     from hijiki_tpu_torch.utils.build import load_library
 
     if ints[0]:
@@ -926,13 +1017,13 @@ def _launch(fn_name, ms, ins, ints, outs):
         stream = torch.cuda.current_stream(ms.rows.device).cuda_stream
         rc = getattr(lib, fn_name)(
             ms.rows.data_ptr(), ms.consts.data_ptr(), *_scene_args(ms),
-            *[t.data_ptr() for t in ins], *ints, *[t.data_ptr() for t in outs],
-            stream,
+            *[t.data_ptr() for t in ins], *ints,
+            *[None if t is None else t.data_ptr() for t in outs], stream,
         )
         LAUNCHES[fn_name] += 1
         if rc != 0:
             raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
-    return outs
+    return tuple(t for t in outs if t is not None)
 
 
 def _check_camera_inputs(ms, px, py, seeds, shape):
@@ -942,42 +1033,79 @@ def _check_camera_inputs(ms, px, py, seeds, shape):
     _check("seeds", seeds, torch.int32, shape, dev)
 
 
-def megakernel_start(ms: MegaScene, px, py, seeds, cap: int):
+def _check_lane_order(lane_sort, lane_order):
+    if lane_order and not lane_sort:
+        raise ValueError("lane_order records the lane sort: it needs lane_sort=True")
+
+
+def _entry(name, lane_sort, lane_order, n, dev):
+    """(C entry, extra outputs) of a K1/K2/K5 launch: the unsorted entry, or
+    the sorted one with its order record ((2, n) int32, or None when not
+    asked for)."""
+    _check_lane_order(lane_sort, lane_order)
+    if not lane_sort:
+        return name, []
+    order = torch.empty((2, n), dtype=torch.int32, device=dev) if lane_order else None
+    return name + "_sorted", [order]
+
+
+def _with_order(out, s, lane_order):
+    return (*out, s["order"]) if lane_order else out
+
+
+def megakernel_start(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,
+                     lane_order: bool = False):
     """Camera launch (K1, replaces ``_megakernel_start``): raygen and
     bounces up to ``cap``. px/py (N,) f32, seeds (N,) int32 u32 bits.
-    Returns (state (N_STATE, N) f32, rng (N,) int32 bits)."""
+    Returns (state (N_STATE, N) f32, rng (N,) int32 bits).
+
+    ``lane_sort``: the lane-sorted variant (K7 inside, ``mk_start_sorted``).
+    ``lane_order`` (with ``lane_sort``) appends the permutation of each
+    tile's last sort, before lane order is restored: (2, N) int32, the path
+    id at each lane and its ``lane_sort_key``. The outputs do not show the
+    sort, this does."""
     n = px.shape[0]
     if px.device.type == "cuda":
         _check_camera_inputs(ms, px, py, seeds, (n,))
         dev = ms.rows.device
+        name, extra = _entry("mk_start", lane_sort, lane_order, n, dev)
         st = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
         rng = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch("mk_start", ms, [px, py, seeds], [n, cap], [st, rng])
-    return megakernel_start_plain(ms, px, py, seeds, cap)
+        return _launch(name, ms, [px, py, seeds], [n, cap], [st, rng, *extra])
+    return megakernel_start_plain(ms, px, py, seeds, cap, lane_sort, lane_order)
 
 
-def megakernel_start_plain(ms: MegaScene, px, py, seeds, cap: int):
+def megakernel_start_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,
+                           lane_order: bool = False):
     """The plain twin of K1 (any device)."""
-    return _pack(_bounce_loop(ms, _camera_init(ms, px, py, from_bits(seeds)), cap))
+    _check_lane_order(lane_sort, lane_order)
+    s = _bounce_loop(ms, _camera_init(ms, px, py, from_bits(seeds)), cap, lane_sort)
+    return _with_order(_pack(s), s, lane_order)
 
 
-def megakernel_resume(ms: MegaScene, st, rng, cap: int):
+def megakernel_resume(ms: MegaScene, st, rng, cap: int, lane_sort: bool = False,
+                      lane_order: bool = False):
     """Resume launch (K2, replaces ``_megakernel_resume``): continue the
-    paths of a packed state up to ``cap`` bounces."""
+    paths of a packed state up to ``cap`` bounces (``lane_sort``,
+    ``lane_order``: as for ``megakernel_start``, ``mk_resume_sorted``)."""
     n = st.shape[1]
     if st.device.type == "cuda":
         dev = ms.rows.device
         _check("state", st, torch.float32, (N_STATE, n), dev)
         _check("rng", rng, torch.int32, (n,), dev)
+        name, extra = _entry("mk_resume", lane_sort, lane_order, n, dev)
         st_out = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
         rng_out = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch("mk_resume", ms, [st, rng], [n, cap], [st_out, rng_out])
-    return megakernel_resume_plain(ms, st, rng, cap)
+        return _launch(name, ms, [st, rng], [n, cap], [st_out, rng_out, *extra])
+    return megakernel_resume_plain(ms, st, rng, cap, lane_sort, lane_order)
 
 
-def megakernel_resume_plain(ms: MegaScene, st, rng, cap: int):
+def megakernel_resume_plain(ms: MegaScene, st, rng, cap: int, lane_sort: bool = False,
+                            lane_order: bool = False):
     """The plain twin of K2 (any device)."""
-    return _pack(_bounce_loop(ms, _unpack(st, rng), cap))
+    _check_lane_order(lane_sort, lane_order)
+    s = _bounce_loop(ms, _unpack(st, rng), cap, lane_sort)
+    return _with_order(_pack(s), s, lane_order)
 
 
 def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
@@ -1004,25 +1132,29 @@ def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
     return megakernel_start_chained_plain(ms, pxs, pys, seeds, cap)
 
 
-def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int):
+def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,
+                     lane_order: bool = False):
     """Single-launch render (K5, replaces ``_megakernel``/
     ``_megakernel_body``): raygen and bounces up to ``cap``, keeping only
-    the result. Returns (out (7, N) f32: Lr,Lg,Lb, n1,n2,n3, depth; rng
-    (N,) int32 bits)."""
+    the result (``lane_sort``, ``lane_order``: as for ``megakernel_start``,
+    ``mk_tiles_sorted``). Returns (out (7, N) f32: Lr,Lg,Lb, n1,n2,n3,
+    depth; rng (N,) int32 bits)."""
     n = px.shape[0]
     if px.device.type == "cuda":
         _check_camera_inputs(ms, px, py, seeds, (n,))
         dev = ms.rows.device
+        name, extra = _entry("mk_tiles", lane_sort, lane_order, n, dev)
         out = torch.empty((len(_TILE_CH), n), dtype=torch.float32, device=dev)
         rng = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch("mk_tiles", ms, [px, py, seeds], [n, cap], [out, rng])
-    return megakernel_tiles_plain(ms, px, py, seeds, cap)
+        return _launch(name, ms, [px, py, seeds], [n, cap], [out, rng, *extra])
+    return megakernel_tiles_plain(ms, px, py, seeds, cap, lane_sort, lane_order)
 
 
-def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int):
+def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,
+                           lane_order: bool = False):
     """The plain twin of K5 (any device)."""
-    st, rng = megakernel_start_plain(ms, px, py, seeds, cap)
-    return st[list(_TILE_CH)], rng
+    st, rng, *order = megakernel_start_plain(ms, px, py, seeds, cap, lane_sort, lane_order)
+    return (st[list(_TILE_CH)], rng, *order)
 
 
 # ----------------------------------------------------------------------------
@@ -1030,10 +1162,13 @@ def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int):
 # ----------------------------------------------------------------------------
 
 
-def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000):
+def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000,
+                 lane_sort: bool = False):
     """Whole paths in one launch to ``max_bounces`` (``render_tiles``).
+    ``lane_sort``: sort each tile's paths between bounces (any N: the
+    kernel and the plain version pad the last tile with dead paths).
     Returns (total (N,3), normal (N,3), depth (N,), state (N,))."""
-    out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces)
+    out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces, lane_sort)
     return out[0:3].T, out[3:6].T, out[6], rng
 
 
@@ -1080,13 +1215,15 @@ def _with_trash_column(res, res_state):
             torch.cat([res_state, res_state.new_zeros(1)]))
 
 
-def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state):
+def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state,
+                           lane_sort=False):
     """The survivor phases: compact + coherence-sort the alive lanes, resume
-    at each cap, scatter the results into ``res``/``res_state`` at ``orig``
-    (``_commit``: both carry a trash column at index ``n``, where ``orig``
-    points for slots that must not commit). Shared by render_waves (orig =
-    lane) and render_waves_chained (orig = samp * N + lane). Returns (res,
-    res_state, overflow tensor)."""
+    at each cap (lane-sorted resumes with ``lane_sort``), scatter the
+    results into ``res``/``res_state`` at ``orig`` (``_commit``: both carry
+    a trash column at index ``n``, where ``orig`` points for slots that must
+    not commit). Shared by render_waves (orig = lane) and
+    render_waves_chained (orig = samp * N + lane). Returns (res, res_state,
+    overflow tensor)."""
     dev = flat.device
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     n_lanes = flat.shape[1]
@@ -1115,7 +1252,7 @@ def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state):
             key = torch.where(alive, octant + 8 * (q[0] + 8 * (q[1] + 8 * q[2])), 1 << 20)
             order = torch.argsort(key, stable=True)[:n_next]
         flat, rngf, orig = flat[:, order].contiguous(), rngf[order].contiguous(), orig[order]
-        flat, rngf = megakernel_resume(ms, flat, rngf, cap)
+        flat, rngf = megakernel_resume(ms, flat, rngf, cap, lane_sort=lane_sort)
         _commit(res, res_state, orig, flat.index_select(0, ms.result_ch), rngf)
         n_lanes = n_next
     return res, res_state, overflow
@@ -1130,12 +1267,15 @@ def render_waves(
     max_bounces: int = 1000,
     phase_bounces: tuple = (5, 12, 48),
     phase_shrink: tuple = (2, 4, 4),
+    lane_sort: bool = False,
 ):
     """Phased wavefront render (``render_waves``): a camera launch to
     ``phase_bounces[0]``, then compaction phases that resume the survivors
     at the later caps, the last one to ``max_bounces``. Survivor capacity
     after phase k is N / phase_shrink[k]; paths beyond it are dropped and
     counted in ``overflow`` (the renderer re-renders such sweeps).
+    ``lane_sort``: every launch sorts its tiles' paths between bounces
+    (K7); the outputs are the same bit for bit.
 
     Returns (total (N,3), normal (N,3), depth (N,), state (N,), overflow (),
     segs (N,), rows (N,), albedo (N,3)).
@@ -1149,11 +1289,12 @@ def render_waves(
         seeds = torch.cat([seeds, torch.zeros(pad, dtype=seeds.dtype, device=seeds.device)])
     n = px.shape[0]
     caps, shrinks = _phase_caps(max_bounces, phase_bounces, phase_shrink)
-    flat, rngf = megakernel_start(ms, px.contiguous(), py.contiguous(), seeds.contiguous(), caps[0])
+    flat, rngf = megakernel_start(ms, px.contiguous(), py.contiguous(), seeds.contiguous(), caps[0],
+                                  lane_sort=lane_sort)
     res, res_state = _with_trash_column(flat.index_select(0, ms.result_ch), rngf)
     orig = torch.arange(n, device=px.device)
     res, res_state, overflow = _run_compaction_phases(
-        ms, caps[1:], shrinks, flat, rngf, orig, res, res_state
+        ms, caps[1:], shrinks, flat, rngf, orig, res, res_state, lane_sort
     )
     res = res[:, :n_req]
     return (

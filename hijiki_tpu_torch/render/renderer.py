@@ -20,8 +20,10 @@ otherwise); a chunk's (rgb*weight, weight) deltas are summed in sweep
 order and the sum is added to the film; normalization happens at read
 time.
 
-Not ported yet (``RenderConfig`` refuses them at non-default values): the
-mega driver's in-kernel lane sort and the TPU packet/walker knobs.
+``sort_lanes`` sorts the wavefront driver's lane pool, and the mega
+driver's paths inside every launch (the lane-sorted kernels, K7); neither
+changes a film. Not ported yet (``RenderConfig`` refuses them at
+non-default values): the TPU packet/walker knobs.
 """
 
 from __future__ import annotations
@@ -73,8 +75,9 @@ class RenderConfig:
     # "wavefront"
     driver: str = "mega"
     wavefront_lanes: int = 1 << 18
-    # coherence-sort the wavefront driver's lanes between bounces (with the
-    # mega driver: the in-kernel lane sort, not ported yet)
+    # coherence-sort the lanes between bounces: the wavefront driver's pool,
+    # or each tile of the mega driver's launches (the lane-sorted kernels;
+    # chaining is then off). The film is the same bit for bit.
     sort_lanes: bool = False
     # sync/wavefront traversal: "" = "rows" (or "brute" without use_bvh);
     # "rows" and "packet" walk the trace rows (K6 on a card), "bvh" and
@@ -120,11 +123,6 @@ def check_config(c: RenderConfig) -> None:
         raise ValueError(f"unknown driver {c.driver!r} (one of {', '.join(DRIVERS)})")
     if c.traversal and c.traversal not in TRAVERSALS:
         raise ValueError(f"unknown traversal {c.traversal!r} (one of {', '.join(TRAVERSALS)})")
-    if c.driver == "mega" and c.sort_lanes:
-        raise NotImplementedError(
-            "RenderConfig.sort_lanes with the mega driver (the in-kernel lane sort) "
-            "is not ported yet"
-        )
     defaults = RenderConfig()
     for f in _NOT_PORTED:
         if getattr(c, f) != getattr(defaults, f):
@@ -197,7 +195,7 @@ def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
     iterations = None
     if driver == "mega":
         total, normal, depth, _, overflow, segs, rows, alb = render_waves(
-            scene, px, py, to_bits(seeds), max_bounces=max_bounces,
+            scene, px, py, to_bits(seeds), max_bounces=max_bounces, lane_sort=c.sort_lanes,
             **({"phase_shrink": phase_shrink} if phase_shrink else {}),
         )
         if c.fixed_albedo:

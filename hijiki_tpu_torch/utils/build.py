@@ -43,6 +43,10 @@ SIGNATURES = {
     "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
     "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
+    "mk_start_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "mk_resume_sorted": _SCENE + [_P, _P, _I, _I, _P, _P, _P, _P],
+    "mk_tiles_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "sort_tiles": [_P, _P, _I, _I, _P, _P, _P],
     "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
     "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
 }
@@ -50,13 +54,13 @@ SIGNATURES = {
 _loaded: dict = {}
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def cache_key() -> str:
+def cache_key(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
@@ -70,10 +74,12 @@ def nvcc_path() -> str:
     return found
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the kernels unless the cached library exists. Returns (library
-    path, seconds spent compiling, compiler report)."""
-    out_dir = BUILD_ROOT / cache_key()
+def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
+    """Compile the kernels of ``csrc`` (the package's sources, or an edited
+    copy of them such as tools/probe_sort_tile.py's variants) unless the
+    cached library exists. Returns (library path, seconds spent compiling,
+    compiler report)."""
+    out_dir = BUILD_ROOT / cache_key(csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0, ""
@@ -82,7 +88,7 @@ def build() -> tuple[Path, float, str]:
     pid = os.getpid()
     t0 = time.monotonic()
     objs, procs = [], []
-    for src in (p for p in sources() if p.suffix == ".cu"):
+    for src in (p for p in sources(csrc) if p.suffix == ".cu"):
         obj = out_dir / f"{src.stem}.{pid}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -108,11 +114,12 @@ def build() -> tuple[Path, float, str]:
     return lib, secs, report
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once per process."""
-    if "lib" not in _loaded:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
+def load_library(path: Path | None = None) -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process.
+    ``path``: load that library (a ``build`` of other sources) in its place
+    for every later launch."""
+    if path is not None or "lib" not in _loaded:
+        lib = ctypes.CDLL(str(path if path is not None else build()[0]))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -35,7 +35,7 @@ def test_cli_builtin_scene(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--mega-packet=1024"], ["--devices", "2"], ["--mega-groups", "2"],
-                                   ["--sort-lanes", "--driver", "mega"]])
+                                   ["--spec-resolve", "1", "--driver", "mega"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     assert cli.main(["builtin:cornell", *flags]) == 2
     assert "not ported yet" in capsys.readouterr().err
@@ -47,7 +47,8 @@ def test_cli_refuses_unported_flags(flags, capsys):
     ["--driver", "wavefront", "--use-bvh", "--sort-lanes"],
     ["--driver", "sync", "--use-bvh", "--fixed-albedo"],
     ["--driver", "mega", "--fixed-albedo"],
-], ids=["sync", "sync-brute", "wavefront-sorted", "sync-albedo", "mega-albedo"])
+    ["--driver", "mega", "--use-bvh", "--sort-lanes"],
+], ids=["sync", "sync-brute", "wavefront-sorted", "sync-albedo", "mega-albedo", "mega-sorted"])
 def test_cli_drivers(flags, tmp_path):
     out, mj = tmp_path / "d.exr", tmp_path / "m.json"
     assert cli.main([MESHBOX_SMALL, "--put-cbox-spheres", *flags, "-w", "24", "-H", "16", "-s", "1",

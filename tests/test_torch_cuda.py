@@ -11,7 +11,10 @@ bit-equal and radiance within 2e-3 on >= 99.5% of paths (built with
 --fmad=false, the kernels round like the twin, which measured them
 bit-equal); the chained driver bit-equal per sweep to separate sweeps;
 K6 bit-equal to its twin on every channel of every ray, so the sync
-driver's film is the same bit for bit whichever walk it runs."""
+driver's film is the same bit for bit whichever walk it runs; K8
+(sort_tiles) bit-equal to its plain version; the lane-sorted K1/K2/K5 (K7
+inside) bit-equal to the unsorted kernels on every output (a pure
+permutation of whole paths)."""
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from hijiki_tpu_torch.ops import megakernel as mk
 from hijiki_tpu_torch.ops import pallas_traverse as pt
+from hijiki_tpu_torch.ops import sort as srt
 from hijiki_tpu_torch.render import pallas_reconstruct as prc
 from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
 from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -272,3 +276,122 @@ def test_bounce_step_reads_nothing_back(traversal):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert int(lanes["bounce"].max()) == 3
+
+
+def _bits(ts):
+    return [t.view(torch.int32) if t.is_floating_point() else t for t in ts]
+
+
+def test_sort_tiles_kernel_matches_plain():
+    """K8 on 300 tiles (random keys, ties with dead keys, all equal) and 5
+    channels: keys and payloads bit-equal to sort_tiles_plain."""
+    dev = cuda_device()
+    rng = np.random.default_rng(21)
+    key = rng.integers(0, 5000, (300, srt.TILE))
+    key[100:200] = rng.integers(0, 8, (100, srt.TILE))
+    key[100:200][rng.random((100, srt.TILE)) < 0.3] = 1 << 20
+    key[200:] = 7
+    key = torch.from_numpy(key.astype(np.int32)).to(dev)
+    ch = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (5, 300, srt.TILE)).astype(np.int32)).to(dev)
+    before = srt.LAUNCHES["sort_tiles"]
+    got = srt.sort_tiles(key, ch)
+    assert srt.LAUNCHES["sort_tiles"] == before + 1
+    want = srt.sort_tiles_plain(key, ch)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        srt.sort_tiles(key[:, :512].contiguous(), ch[:, :, :512].contiguous())
+
+
+def _special_state(st, stuck, cap, lo, hi, seed):
+    """A K2 input whose ``stuck`` lanes are alive at ``cap`` bounces (so no
+    bounce moves them and the sort keys them as they are) with origins
+    that test the key: NaN, +-inf, +-1e30, the scene box's bounds and
+    points outside it; directions with 0 and -0.0 components."""
+    st = st.clone()
+    g = np.random.default_rng(seed)
+    m = int(stuck.sum())
+    o = lo - 0.5 * (hi - lo) + 2.0 * (hi - lo) * g.random((m, 3))
+    special = np.array([np.nan, np.inf, -np.inf, 1e30, -1e30], np.float32)
+    for a in range(3):
+        o[a::5, a] = special[g.integers(0, len(special), len(o[a::5]))]
+        o[1 + a::7, a] = lo[a]
+        o[2 + a::9, a] = hi[a]
+    d = g.standard_normal((m, 3))
+    d[::4, 0] = 0.0
+    d[1::6, 1] = -0.0
+    st[0, stuck] = 1.0
+    st[1, stuck] = float(cap)
+    st[2:5, stuck] = torch.from_numpy(o.T.astype(np.float32)).to(st.device)
+    st[5:8, stuck] = torch.from_numpy(d.T.astype(np.float32)).to(st.device)
+    return st
+
+
+def _assert_same_sort(got, want):
+    """outputs (every channel, int32 views) and the order record bit-equal"""
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+
+
+@pytest.mark.parametrize("path", [MESHBOX, "builtin:cornell-glass"])
+def test_sorted_kernels_equal_unsorted(path):
+    """The lane-sorted K1 (cap 5), K2 (resume to 64) and K5 (to 64, on a
+    lane count that is no multiple of the tile) against the unsorted
+    kernels, bit for bit on every output; and their order record (the path
+    id at each lane after the last sort, and its key) bit-equal to the
+    sorted plain version's, which shows the sort itself."""
+    dev = cuda_device()
+    S = 64
+    ms = mk.mega_scene(_scene(path), S, S, dev)
+    px, py, seeds = _frame(S, dev)
+    before = dict(mk.LAUNCHES)
+    k1s = mk.megakernel_start(ms, px, py, seeds, 5, lane_sort=True, lane_order=True)
+    k1 = mk.megakernel_start(ms, px, py, seeds, 5)
+    k2s = mk.megakernel_resume(ms, *k1, 64, lane_sort=True, lane_order=True)
+    part = [a[:4000].contiguous() for a in (px, py, seeds)]
+    k5s = mk.megakernel_tiles(ms, *part, 64, lane_sort=True, lane_order=True)
+    for name in ("mk_start_sorted", "mk_resume_sorted", "mk_tiles_sorted"):
+        assert mk.LAUNCHES[name] == before[name] + 1
+    for got, want in ((k1s, k1), (k2s, mk.megakernel_resume(ms, *k1, 64)),
+                      (k5s, mk.megakernel_tiles(ms, *part, 64))):
+        _assert_same_sort(got[:2], want)
+    _assert_same_sort(k1s, mk.megakernel_start_plain(ms, px, py, seeds, 5, lane_sort=True,
+                                                     lane_order=True))
+    _assert_same_sort(k2s, mk.megakernel_resume_plain(ms, *k1, 64, lane_sort=True,
+                                                      lane_order=True))
+    _assert_same_sort(k5s, mk.megakernel_tiles_plain(ms, *part, 64, lane_sort=True,
+                                                     lane_order=True))
+    assert not torch.equal(k1s[2][0], torch.arange(S * S, dtype=torch.int32, device=dev))
+
+
+def test_sorted_kernel_key_matches_plain():
+    """The kernel's lane key on origins at NaN, +-inf, +-1e30, the box's
+    bounds and outside it, and on 0 / -0.0 directions: one sorted resume
+    pass in which a third of the lanes are alive at the cap, against the
+    plain version (outputs and order record bit-equal), and the recorded
+    keys equal to lane_sort_key of the states they came from."""
+    dev = cuda_device()
+    S = 64
+    cs = _scene(MESHBOX)
+    ms = mk.mega_scene(cs, S, S, dev)
+    st, rng = mk.megakernel_start(ms, *_frame(S, dev), 2)
+    stuck = torch.arange(S * S, device=dev) % 3 == 0
+    bb = np.asarray(cs.bbox_static, np.float64)
+    st = _special_state(st, stuck, 4, bb[:3], bb[3:], 17)
+    got = mk.megakernel_resume(ms, st, rng, 4, lane_sort=True, lane_order=True)
+    _assert_same_sort(got, mk.megakernel_resume_plain(ms, st, rng, 4, lane_sort=True,
+                                                      lane_order=True))
+    pid, key = got[2][0].long(), got[2][1]
+    assert torch.equal(key, mk.lane_sort_key(ms, mk._unpack(*got[:2]))[pid])
+    assert torch.isnan(got[0][2:5, stuck]).any() and len(torch.unique(key)) > 50
+
+
+def test_sorted_renderer_on_card_equals_unsorted():
+    dev = cuda_device()
+    cs = _scene(MESHBOX)
+    cfg = dict(width=128, height=128, spp=2, seed=5, chain_sweeps=1)
+    a = Renderer(cs, RenderConfig(**cfg), device=dev)
+    a.render()
+    before = mk.LAUNCHES["mk_start_sorted"]
+    b = Renderer(cs, RenderConfig(**cfg, sort_lanes=True), device=dev)
+    b.render()
+    assert mk.LAUNCHES["mk_start_sorted"] == before + 2
+    assert torch.equal(a.film, b.film)

@@ -195,7 +195,7 @@ def test_checkpoint_resume_bit_equal(driver, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mega_trunk", 5), ("mega_groups", 2), ("sort_lanes", True),
+    ("mega_trunk", 5), ("mega_groups", 2), ("mega_shadow", 1),
     ("mega_window", 2), ("mega_packet", 1024), ("spec_resolve", 1),
 ])
 def test_unported_config_refused(field, value):

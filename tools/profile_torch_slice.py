@@ -2,7 +2,8 @@
 goes (kernels by name, host gaps) and the device's busy share.
 
     python tools/profile_torch_slice.py [--driver mega|sync|wavefront] [--size 1024]
-                                        [--spp 8] [--chain-sweeps 0] [--trace out.json]
+                                        [--spp 8] [--chain-sweeps 0] [--sort-lanes]
+                                        [--trace out.json]
 
 Renders the meshbox (+ cbox spheres) once to warm up, then renders again
 under torch.profiler (CPU + CUDA activities) and prints device time by
@@ -13,7 +14,8 @@ torch ops), the sum of device time, the wall time, their ratio (the busy
 share), the device-to-host and host-to-device copies (each host read of a
 device value is one and waits for the device) and the peak device memory. ``--chain-sweeps`` (mega driver): 0 =
 auto (chained, 8 sweeps per launch, on a card), 1 = unchained, S = S
-sweeps. Needs a CUDA card; imports only the port.
+sweeps. ``--sort-lanes``: the lane-sorted launches (K7 inside K1/K2; the
+mega driver then runs unchained). Needs a CUDA card; imports only the port.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ sys.path.insert(0, os.path.join(HERE, ".."))
 # kernel-name fragments of the hand-written kernels, in report order
 GROUPS = (("K6 traverse", "traverse_kernel"), ("K3 reconstruct", "reconstruct_kernel"),
           ("K4 mk_start_chained", "mk_start_chained_kernel"), ("K1 mk_start", "mk_start_kernel"),
-          ("K2 mk_resume", "mk_resume_kernel"), ("K5 mk_tiles", "mk_tiles_kernel"))
+          ("K2 mk_resume", "mk_resume_kernel"), ("K5 mk_tiles", "mk_tiles_kernel"),
+          ("K7 in K1 mk_start_sorted", "mk_start_sorted_kernel"),
+          ("K7 in K2 mk_resume_sorted", "mk_resume_sorted_kernel"),
+          ("K7 in K5 mk_tiles_sorted", "mk_tiles_sorted_kernel"))
 
 
 def main(argv=None) -> int:
@@ -46,6 +51,8 @@ def main(argv=None) -> int:
     p.add_argument("--spp", type=int, default=8)
     p.add_argument("--chain-sweeps", type=int, default=0,
                    help="sweeps per chained launch: 0 = auto, 1 = unchained")
+    p.add_argument("--sort-lanes", action="store_true",
+                   help="lane-sorted megakernel launches (K7; unchained)")
     p.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -55,7 +62,7 @@ def main(argv=None) -> int:
     scene.put_cbox_spheres()
     cs = compile_scene(scene)
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp, driver=args.driver,
-                       chain_sweeps=args.chain_sweeps)
+                       chain_sweeps=args.chain_sweeps, sort_lanes=args.sort_lanes)
     Renderer(cs, cfg, device="cuda").render()  # warm-up: build, caches, allocator
     r = Renderer(cs, cfg, device="cuda")
     torch.cuda.synchronize()
