@@ -83,13 +83,20 @@ Phases, each printing as it goes; any failure exits non-zero:
    version with the phase-4 bounds and its order record bit-equal to the
    plain version's, and timed beside the unsorted one), K5 sorted on the
    frame likewise; K8 at 1M lanes x 31 channels, bit-equal to
-   its plain version, timed beside torch.sort(stable=True) + gather.
+   its plain version, timed beside torch.sort(stable=True) + gather;
+7. probes: K10/K11a vs plain, then timed (hijiki_tpu_torch/probes/): each
+   of walk_ablate (K10a), walk_isolate (K10b), latency_chain and
+   staged_chase (K11a) bit-equal to its plain version at 4096 threads
+   (every mode and variant) and at 1M threads with a short trip count
+   (timed there beside the plain version); then (k) a short run of each
+   probe's main() at one warp per SM and at 1M threads (slope timings,
+   launches counted as a path's).
 
 The line before the last is the kernel report {"kernels": [...]}, whose
 errors and times come from phase 6 (K3's error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
 (b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
-K8 from (j)); each entry has its bound (bound_ms: the
+K8 from (j), the probes from (k)); each entry has its bound (bound_ms: the
 larger of the bytes this run's data needs at 3.35 TB/s and its f32
 operations at 67 TFLOP/s, counted from this run's row-visit counters at
 ROW_OPS per row; a K2 resume counts every lane's alive flag and the state
@@ -99,7 +106,10 @@ its unsorted twin, the sort touching no device memory; K8 its key and
 channels read and written once) and library_ms null (no PyTorch call
 computes a BVH walk, a path trace or the feature-weighted bilateral
 stencil), except K8's: torch.sort(stable=True) + gather, which orders ties
-otherwise. The last line is {"ok": true, "device": {...}}.
+otherwise; a probe's bound is its inputs and outputs once against its
+counted f32 operations (PROBE_OPS), and its library_ms null (no PyTorch call
+runs a dependent chain of loads or a fixed-trip walk). The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -128,6 +138,16 @@ ROW_OPS = 26
 # f32 operations per pixel and tap of the R = 2 reconstruction (feature
 # distance, weight, NaN test, 4 accumulations)
 TAP_OPS = 25
+# f32 operations a thread-step of each probe: walk_ablate's full body (the
+# slab test's ROW_OPS, the triangle test's 41: 3 sub, 9 for the cross
+# product, 6 for the denominator and its reciprocal, 6 each for u, v and t,
+# 7 compares and the sum u + v; the counter's add), latency_chain's fetch
+# (one add) and chain (6 mul, 10 min/max, a compare, an add), and
+# staged_chase's add a cursor and step (8 a warp-step, counted a thread as
+# 8/32); walk_isolate counts ROW_OPS a row visited, as K6 does
+PROBE_OPS = {"walk_ablate": ROW_OPS + 41 + 1, "fetch": 1, "chain": 18, "staged": 8 / 32}
+# threads of the probes' full-width runs: one per path of a 1024x1024 sweep
+PROBE_THREADS = 1 << 20
 
 
 def fail(msg: str) -> None:
@@ -337,6 +357,136 @@ def k6_bytes_ops(args, got):
     return nb, float(got[6].sum()) * ROW_OPS
 
 
+def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
+    """Phase 7: the probe kernels (K10a, K10b, K11a) bit-equal to their plain
+    versions at 4096 threads, every mode, and at 1M threads with a short
+    trip count (timed beside the plain version); then (k) a short run of
+    each probe's main(), whose launches are counted as a path's. Returns
+    the probes' entries of the kernel report."""
+    import numpy as np
+    import torch
+
+    phase("probes: K10/K11a vs plain, then timed")
+    t_phase = time.monotonic()
+    ms, cs = pwk.load_scene(SCENE, dev)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    err = dict(walk_ablate=0.0, walk_isolate=0.0, latency_chain=0.0, staged_chase=0.0)
+
+    def same(label, key, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not bit_equal(got, want):
+            fail(f"{label}: the kernel differs from its plain version")
+        err[key] = max([err[key]] + [float((g - w).abs().nan_to_num(0.0).max()) for g, w in zip(got, want)])
+
+    n = 64 * 64
+    o, d = pwk.ray_set("random", cs, n, dev)
+    for name, cfg in pab.VARIANTS.items():
+        for g in (1, 32):
+            same(f"walk_ablate {name} G={g}", "walk_ablate", pab.walk_ablate(ms.rows, o, d, 40, cfg, g),
+                 pab.walk_ablate_plain(ms.rows, o, d, 40, cfg, g))
+    tables = {32: ms.rows, 16: pwk.w16_rows(ms.rows).contiguous()}
+    for rays in ("camera", "random"):
+        o, d = pwk.ray_set(rays, cs, n, dev, frame=64)
+        for name, (w, test) in pwk.VARIANTS.items():
+            for g in (1, 32):
+                same(f"walk_isolate {rays} {name} G={g}", "walk_isolate",
+                     pwk.walk_isolate(ms, tables[w], o, d, test=test, group=g, iters=2),
+                     pwk.walk_isolate_plain(ms, tables[w], o, d, test=test, group=g))
+    it = 50
+    x, xv = T(pcl.x_of(n)), T(pcl.x_of(n, scale=0.4))
+    ftbl = T(pcl.fetch_table())
+    ctbl, xc = T(pcl.chain_table()[0]), T(pcl.x_of(n) + np.float32(0.5))
+    gtbl, gidx = (T(a) for a in pga.gather_inputs(n, 4))
+    chains = [(f"alu k={k}", lambda k=k: pcl.alu(x, it, k), lambda k=k: pcl.alu_plain(x, it, k))
+              for k in (8, 16, 32)]
+    chains += [(f"vote G={g}", lambda g=g: pcl.vote(xv, it, g), lambda g=g: pcl.vote_plain(xv, it, g))
+               for g in (1, 32)]
+    chains += [(f"fetch {m} h={h}", lambda m=m, h=h: pcl.fetch(ftbl, n, it, m, h),
+                lambda m=m, h=h: pcl.fetch_plain(ftbl, n, it, m, h))
+               for m, h in (("indep", 1), ("indep", 2), ("chase", 1))]
+    chains += [(f"chain G={g}", lambda g=g: pcl.chain(ctbl, xc, it, g),
+                lambda g=g: pcl.chain_plain(ctbl, xc, it, g)) for g in (1, 32)]
+    chains += [(f"gather {m}", lambda m=m: pga.gather(gtbl, gidx, it, m),
+                lambda m=m: pga.gather_plain(gtbl, gidx, it, m)) for m in pga.MODES]
+    for label, kern, plain in chains:
+        same(f"latency_chain {label}", "latency_chain", kern(), plain())
+    for mode, h in (("indep", 1), ("indep", 2), ("indep", 4), ("chase", 1), ("sharedsem", 1),
+                    ("sharedsem+noclamp", 1), ("dedup", 1)):
+        dtbl = T(pcl.dma_table(65536, height=h))
+        same(f"staged_chase {mode} h={h}", "staged_chase", pcl.staged_chase(dtbl, 128, it, mode, h),
+             pcl.staged_plain(dtbl, 128, it, mode, h))
+    dtbl = T(pcl.dma_table(65536, height=2))
+    for g, spec in ((1, False), (2, False), (4, False), (1, True), (2, True), (4, True)):
+        same(f"staged_chase multi G={g} spec={spec}", "staged_chase",
+             pcl.staged_chase(dtbl, 128, it, "multi", nchains=g, spec=spec),
+             pcl.staged_multi_plain(dtbl, 128, it, g, spec))
+    print(f"probes at {n} threads: every kernel bit-equal to its plain version (walk_ablate: 11 "
+          "variants x G 1, 32; walk_isolate: w32/w16 x test/notest x G 1, 32 x camera/random "
+          "rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: 7 dma modes, 6 "
+          "multi)", flush=True)
+
+    # 1M threads, a short trip count: agreement, times and bounds
+    N = PROBE_THREADS
+    full = {}
+    ro, rd = pwk.ray_set("random", cs, N, dev)
+    co, cd = pwk.ray_set("camera", cs, N, dev)
+    runs = [
+        ("walk_ablate", "full, G=1, 1M random rays, 16 steps",
+         lambda: pab.walk_ablate(ms.rows, ro, rd, 16, {}, 1),
+         lambda: pab.walk_ablate_plain(ms.rows, ro, rd, 16, {}, 1),
+         lambda got: (nbytes(ms.rows, ro, rd, got), N * 16 * PROBE_OPS["walk_ablate"])),
+        ("walk_isolate", "w32, G=1, 1024x1024 camera rays, one walk",
+         lambda: pwk.walk_isolate(ms, ms.rows, co, cd),
+         lambda: pwk.walk_isolate_plain(ms, ms.rows, co, cd),
+         lambda got: (nbytes(ms.rows, ms.consts, co, cd, *got), float(got[1].sum()) * ROW_OPS)),
+        ("latency_chain", "fetch chase, 1M threads, 16 steps",
+         lambda: pcl.fetch(ftbl, N, 16, "chase"),
+         lambda: pcl.fetch_plain(ftbl, N, 16, "chase"),
+         lambda got: (nbytes(ftbl, got), N * 16 * PROBE_OPS["fetch"])),
+        ("staged_chase", "chase, 32768 warps (1M threads), 8 steps",
+         lambda: pcl.staged_chase(dtbl, N // 32, 8, "chase"),
+         lambda: pcl.staged_plain(dtbl, N // 32, 8, "chase"),
+         lambda got: (nbytes(dtbl, got), N * 8 * PROBE_OPS["staged"])),
+    ]
+    for key, label, kern, plain, work in runs:
+        t_k, got = timed(kern, reps=3)
+        t_p, want = timed(plain, reps=1, warm=False)
+        same(f"{key} ({label})", key, got, want)
+        b_ms, b_by = bound(*work(got))
+        full[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+        print(f"{key} ({label}): bit-equal to its plain version; {t_k:.3f} ms, plain {t_p:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def short_mains():
+        j = lambda name: ["--json", os.path.join(out_dir, f"probe_{name}.json")]
+        pab.main(["0", "1024", "full", "noprefetch", "--rays", "random", "camera"] + j("ablate"))
+        pwk.main(["--variants", "w32", "w32-notest"] + j("walk"))
+        pcl.main(["fetch"] + j("fetch"))
+        pcl.main(["dma", "--rows", "65536", "262144"] + j("dma"))
+        pga.main(j("gather"))
+
+    _, counts_k = drive("(k) probes: short runs of each probe's main(), one warp per SM and 1M "
+                        "threads", short_mains)
+    for k in err:
+        if counts_k[k] <= 0:
+            fail(f"(k) the probes did not launch {k}")
+    print(f"(k) launches {{{', '.join(f'{k!r}: {counts_k[k]}' for k in err)}}}; phase 7 took "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
+    src = "hijiki_tpu_torch/csrc/"
+    replaces = dict(walk_ablate="tools/ablate_walker.py:187", walk_isolate="tools/walk_probe.py:84",
+                    latency_chain="tools/chain_latency_probe.py:233",
+                    staged_chase="tools/chain_latency_probe.py:508")
+    return [dict(name=k, route="cuda", source=src + ("probe_walk.cu" if k.startswith("walk")
+                                                     else "probe_latency.cu"),
+                 replaces=replaces[k], launches=counts_k[k], max_abs_err=err[k],
+                 ms=full[k]["ms"], plain_ms=full[k]["plain_ms"], bound_ms=full[k]["bound_ms"],
+                 bound_by=full[k]["bound_by"], library_ms=None) for k in err]
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -350,6 +500,10 @@ def main() -> int:
             bounce_step, integrate, make_intersectors, start_lanes,
         )
         from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
+        from hijiki_tpu_torch.probes import ablate_walker as pab
+        from hijiki_tpu_torch.probes import chain_latency_probe as pcl
+        from hijiki_tpu_torch.probes import gather_probe as pga
+        from hijiki_tpu_torch.probes import walk_probe as pwk
         from hijiki_tpu_torch.render import pallas_reconstruct as prc
         from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
         from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -526,12 +680,14 @@ def main() -> int:
         """Run one path with every launch count set to 0 just before;
         returns (its result, the counts just after)."""
         phase(label)
-        for d in (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES, srt.LAUNCHES):
+        counters = (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES, srt.LAUNCHES, pab.LAUNCHES,
+                    pwk.LAUNCHES, pcl.LAUNCHES)
+        for d in counters:
             for k in d:
                 d[k] = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {**mk.LAUNCHES, **prc.LAUNCHES, **pt.LAUNCHES, **srt.LAUNCHES}
+        return out, {k: v for d in counters for k, v in d.items()}
 
     def check_render(name, r, metrics, counts, kernels):
         film = r.film.cpu().numpy()
@@ -961,6 +1117,8 @@ def main() -> int:
         b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
         return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga)
+
     src = "hijiki_tpu_torch/csrc/"
     mkpy = "hijiki_tpu/ops/pallas_megakernel.py"
     kernels = [
@@ -1002,7 +1160,7 @@ def main() -> int:
         dict(name="sort_tiles", route="cuda", source=src + "sort.cu",
              replaces="tests/test_megakernel.py:337", launches=counts_j["sort_tiles"],
              max_abs_err=k8_err, ms=t_k8, plain_ms=t_k8p, **dict(summed([k8_work]), library_ms=t_k8lib)),
-    ]
+    ] + probe_entries
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

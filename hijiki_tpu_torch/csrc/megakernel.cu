@@ -10,8 +10,9 @@
 // inside the bounce loop), the lane-sorted K1/K2/K5:
 //   mk_start_sorted, mk_resume_sorted, mk_tiles_sorted (note below).
 // All share bounce_loop(), the port of _bounce_loop with _camera_init,
-// _analytic_pretest, the trace-row walk, _resolve_winners, NEE, the BSDFs
-// and Russian roulette. The plain PyTorch twin of every line below is
+// _analytic_pretest, the trace-row walk (both in walk.cuh, which the walk
+// probe of probe_walk.cu shares), _resolve_winners, NEE, the BSDFs and
+// Russian roulette. The plain PyTorch twin of every line below is
 // hijiki_tpu_torch/ops/megakernel.py.
 //
 // Design: one thread per path, 128 threads per block, the whole path state
@@ -47,12 +48,11 @@
 #include <stdint.h>
 
 #include "sort.cuh"
+#include "walk.cuh"
 
 namespace {
 
-constexpr float kEps = 0x1.a36e2ep-14f;      // f32(1e-4)
 constexpr float kTwoEps = 0x1.a36e2ep-13f;   // f32(2e-4)
-constexpr float kBig = 0x1.c363ccp+127f;     // f32(3e38)
 constexpr float kHalfPi = 0x1.921fb6p+0f;
 constexpr float kPi = 0x1.921fb6p+1f;
 constexpr float kTwoPi = 0x1.921fb6p+2f;
@@ -62,21 +62,10 @@ constexpr float kTiny = 0x1.4484c0p-100f;    // f32(1e-30)
 constexpr float kQ99 = 0x1.fae148p-1f;       // f32(0.99)
 constexpr float kInv2p32 = 0x1p-32f;
 
-constexpr int kRowW = 32;
 constexpr int kNState = 29;
 constexpr int kChainOut = 12;  // CHAIN_OUT_CH
 constexpr int kTileOut = 7;    // render_tiles' result channels
-constexpr int kAnaStride = 16;
-constexpr int kEmStride = 28;
 constexpr int kThreads = 128;
-
-struct Scene {
-  const float* rows;
-  const float* consts;
-  int total_rows, tbl_rows, ntab, analytic_mode;
-  int na, ne, nd, ncb, ndl, nem;
-  int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off;
-};
 
 struct Path {
   float alive, bounce, ox, oy, oz, dx, dy, dz, tmin;
@@ -85,19 +74,7 @@ struct Path {
   uint32_t rng;
 };
 
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? qnan() : fminf(a, b);
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
-}
 __device__ __forceinline__ float rsqrt_ieee(float x) { return 1.0f / sqrtf(x); }
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
 __device__ __forceinline__ uint32_t wang_hash(uint32_t s) {
   s = (s ^ 61u) ^ (s >> 16);
   s = s * 9u;
@@ -152,128 +129,7 @@ __device__ __forceinline__ float bake(const Scene& S, int off, int n, int ncols,
 }
 
 // ---------------------------------------------------------------- walk ----
-
-// one baked analytic prim (_analytic_pretest's per-prim test)
-__device__ __forceinline__ bool analytic_test(const float* a, float ox, float oy,
-                                              float oz, float dx, float dy,
-                                              float dz, float tmin, float best_t,
-                                              float& pt, float& pu, float& pv) {
-  float rx = ox - a[3], ry = oy - a[4], rz = oz - a[5];
-  if (a[0] == 0.0f) {  // sphere: a[12] = f32(r * r)
-    float sb = 2.0f * dot3(dx, dy, dz, rx, ry, rz);
-    float sc = dot3(rx, ry, rz, rx, ry, rz) - a[12];
-    float disc = sb * sb - 4.0f * sc;
-    float sq = sqrtf(jmax(disc, 0.0f));
-    float st0 = -0.5f * (sb + sq);
-    float st1 = -0.5f * (sb - sq);
-    bool ok0 = (tmin <= st0) && (st0 <= best_t);
-    bool ok1 = (tmin <= st1) && (st1 <= best_t);
-    pt = ok0 ? st0 : st1;
-    pu = 0.0f;
-    pv = 0.0f;
-    return (disc >= 0.0f) && (ok0 || ok1);
-  }
-  // quad: origin a[3..5], edge1 a[6..8], edge2 a[9..11], normal a[12..14]
-  float qx = ry * dz - rz * dy;
-  float qy = rz * dx - rx * dz;
-  float qz = rx * dy - ry * dx;
-  float dd = 1.0f / (dx * a[12] + dy * a[13] + dz * a[14]);
-  pu = -dd * (qx * a[9] + qy * a[10] + qz * a[11]);
-  pv = dd * (qx * a[6] + qy * a[7] + qz * a[8]);
-  pt = -dd * (a[12] * rx + a[13] * ry + a[14] * rz);
-  return (pu >= 0.0f) && (pu <= 1.0f) && (pv >= 0.0f) && (pv <= 1.0f) &&
-         (tmin <= pt) && (pt <= best_t);
-}
-
-// _prim_test on a classic 32-column row
-__device__ __forceinline__ bool prim_test(const Scene& S, const float* r, float ox,
-                                          float oy, float oz, float dx, float dy,
-                                          float dz, float tmin, float best_t,
-                                          float& pt, float& pu, float& pv) {
-  float rx = ox - r[0], ry = oy - r[1], rz = oz - r[2];
-  float kind = r[9];
-  if (!S.analytic_mode && kind == 0.0f) {  // sphere row, radius in col 3
-    float radius = r[3];
-    float sb = 2.0f * dot3(dx, dy, dz, rx, ry, rz);
-    float sc = dot3(rx, ry, rz, rx, ry, rz) - radius * radius;
-    float disc = sb * sb - 4.0f * sc;
-    float sq = sqrtf(jmax(disc, 0.0f));
-    float st0 = -0.5f * (sb + sq);
-    float st1 = -0.5f * (sb - sq);
-    bool ok0 = (tmin <= st0) && (st0 <= best_t);
-    bool ok1 = (tmin <= st1) && (st1 <= best_t);
-    pt = ok0 ? st0 : st1;
-    pu = 0.0f;
-    pv = 0.0f;
-    return (disc >= 0.0f) && (ok0 || ok1);
-  }
-  float nx = r[29], ny = r[30], nz = r[31];
-  float qx = ry * dz - rz * dy;
-  float qy = rz * dx - rx * dz;
-  float qz = rx * dy - ry * dx;
-  float dd = 1.0f / (dx * nx + dy * ny + dz * nz);
-  float u = -dd * (qx * r[6] + qy * r[7] + qz * r[8]);
-  float v = dd * (qx * r[3] + qy * r[4] + qz * r[5]);
-  float t = -dd * (nx * rx + ny * ry + nz * rz);
-  pt = t;
-  pu = u;
-  pv = v;
-  bool in_tri = (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-  if (S.analytic_mode) return in_tri && (tmin <= t);
-  bool in_quad = (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (v <= 1.0f);
-  bool ok = (kind == 2.0f) ? in_tri : in_quad;
-  return ok && (tmin <= t) && (t <= best_t);
-}
-
-__device__ __forceinline__ int octant_base(const Scene& S, float dx, float dy,
-                                           float dz) {
-  if (S.ntab == 1) return 0;
-  int oct = (dx > 0.0f) + 2 * (dy > 0.0f) + 4 * (dz > 0.0f);
-  return oct * S.tbl_rows;
-}
-
-// The stackless walk. Closest hit (any_hit false) updates t/u/v/wrow;
-// any-hit sets `hit` and stops at the first accept. Returns rows visited.
-__device__ float walk(const Scene& S, float ox, float oy, float oz, float dx,
-                      float dy, float dz, float tmin, float tmax, bool any_hit,
-                      bool& hit, float& bt, float& bu, float& bv, int& wrow) {
-  if (!(tmax >= 0.0f) || (any_hit && hit)) return 0.0f;
-  float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  float tox = -ox * ix, toy = -oy * iy, toz = -oz * iz;
-  int cur = octant_base(S, dx, dy, dz);
-  int end = cur + S.tbl_rows;
-  float nit = 0.0f;
-  while (cur < end) {
-    const float* r = S.rows + static_cast<size_t>(cur) * kRowW;
-    nit = nit + 1.0f;
-    int nexit = static_cast<int>(r[10]);
-    float best_t = any_hit ? tmax : bt;
-    if (r[9] < 0.0f) {  // interior row: slab test on its box
-      float ax = r[0] * ix + tox, bx = r[3] * ix + tox;
-      float ay = r[1] * iy + toy, by = r[4] * iy + toy;
-      float az = r[2] * iz + toz, bz = r[5] * iz + toz;
-      float t0 = jmax(jmax(jmin(ax, bx), jmin(ay, by)), jmin(az, bz));
-      float t1 = jmin(jmin(jmax(ax, bx), jmax(ay, by)), jmax(az, bz));
-      bool slab = (t0 < t1 + kEps) && (t0 < best_t) && (t1 > tmin);
-      cur = slab ? cur + 1 : nexit;
-      continue;
-    }
-    float pt, pu, pv;
-    if (prim_test(S, r, ox, oy, oz, dx, dy, dz, tmin, best_t, pt, pu, pv) &&
-        pt < best_t) {
-      if (any_hit) {
-        hit = true;
-        break;
-      }
-      bt = pt;
-      bu = pu;
-      bv = pv;
-      wrow = cur;
-    }
-    cur = nexit;
-  }
-  return nit;
-}
+// (analytic_test, prim_test, octant_base, walk: walk.cuh)
 
 struct Hit {
   bool found;
@@ -286,18 +142,7 @@ __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
   const int enc = S.total_rows;
   float bt = kBig, bu = 0.0f, bv = 0.0f;
   int wrow = enc + S.na;
-  for (int k = 0; k < S.na; ++k) {
-    const float* a = S.consts + S.ana_off + k * kAnaStride;
-    float pt, pu, pv;
-    if (analytic_test(a, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, bt, pt,
-                      pu, pv) &&
-        pt < bt) {
-      bt = pt;
-      bu = pu;
-      bv = pv;
-      wrow = enc + k;
-    }
-  }
+  analytic_pretest(S, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, bt, bu, bv, wrow);
   bool unused = false;
   h.nit = walk(S, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, kBig, false,
                unused, bt, bu, bv, wrow);
@@ -929,43 +774,7 @@ int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-Scene make_scene(const float* rows, const float* consts, int total_rows,
-                 int tbl_rows, int ntab, int analytic_mode, int na, int ne,
-                 int nd, int ncb, int ndl, int nem) {
-  Scene S;
-  S.rows = rows;
-  S.consts = consts;
-  S.total_rows = total_rows;
-  S.tbl_rows = tbl_rows;
-  S.ntab = ntab;
-  S.analytic_mode = analytic_mode;
-  S.na = na;
-  S.ne = ne;
-  S.nd = nd;
-  S.ncb = ncb;
-  S.ndl = ndl;
-  S.nem = nem;
-  // constants buffer: camera (15), analytic, emitters, diffuse, checkerboard,
-  // dielectric, emissive (hijiki_tpu_torch/ops/megakernel.py::mega_scene)
-  S.ana_off = 15;
-  S.em_off = S.ana_off + na * kAnaStride;
-  S.d_off = S.em_off + ne * kEmStride;
-  S.cb_off = S.d_off + nd * 3;
-  S.dl_off = S.cb_off + ncb * 8;
-  S.emi_off = S.dl_off + ndl * 4;
-  S.sort_off = S.emi_off + nem * 3;  // lane-sort key: box min xyz, scale xyz
-  return S;
-}
-
 }  // namespace
-
-#define SCENE_ARGS                                                             \
-  const float *rows, const float *consts, int total_rows, int tbl_rows,        \
-      int ntab, int analytic_mode, int na, int ne, int nd, int ncb, int ndl,   \
-      int nem
-#define SCENE_CALL                                                             \
-  make_scene(rows, consts, total_rows, tbl_rows, ntab, analytic_mode, na, ne,  \
-             nd, ncb, ndl, nem)
 
 // K1/K2/K5 and their sorted variants; `order` (sorted only) may be null
 #define START_ARGS                                                             \

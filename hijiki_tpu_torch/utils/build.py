@@ -49,6 +49,12 @@ SIGNATURES = {
     "sort_tiles": [_P, _P, _I, _I, _P, _P, _P],
     "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
     "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    # the probes (csrc/probe_walk.cu, csrc/probe_latency.cu); the pointer
+    # before the stream is the occupancy query's out-parameter (or null)
+    "walk_ablate": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "walk_isolate": _SCENE + [_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
+    "latency_chain": [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "staged_chase": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _loaded: dict = {}

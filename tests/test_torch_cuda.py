@@ -395,3 +395,103 @@ def test_sorted_renderer_on_card_equals_unsorted():
     b.render()
     assert mk.LAUNCHES["mk_start_sorted"] == before + 2
     assert torch.equal(a.film, b.film)
+
+
+# ---- the walker-cost probes (K10a, K10b, K11a): each kernel bit-equal to
+# its plain version at 64x64-sized inputs (4096 threads) ----
+
+def _probe_scene(dev):
+    from hijiki_tpu_torch.probes.walk_probe import load_scene
+
+    return load_scene(MESHBOX, dev, 64, 64)
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("variant", ["full", "nocount", "noreduce", "noprim", "noslab",
+                                     "noprefetch", "nofetch", "onlyfetch", "onlyloop",
+                                     "nofetch_noreduce", "noprim_noreduce"])
+def test_walk_ablate_kernel_matches_plain(variant, group):
+    from hijiki_tpu_torch.probes import ablate_walker as A
+    from hijiki_tpu_torch.probes.walk_probe import ray_set
+
+    dev = cuda_device()
+    ms, cs = _probe_scene(dev)
+    o, d = ray_set("random", cs, 64 * 64, dev)
+    before = A.LAUNCHES["walk_ablate"]
+    got = A.walk_ablate(ms.rows, o, d, 40, A.VARIANTS[variant], group)
+    assert A.LAUNCHES["walk_ablate"] == before + 1
+    want = A.walk_ablate_plain(ms.rows, o, d, 40, A.VARIANTS[variant], group)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("variant", ["w32", "w32-notest", "w16", "w16-notest"])
+@pytest.mark.parametrize("rays", ["camera", "random"])
+def test_walk_isolate_kernel_matches_plain(rays, variant, group):
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    dev = cuda_device()
+    ms, cs = _probe_scene(dev)
+    o, d = W.ray_set(rays, cs, 64 * 64, dev, frame=64)
+    width, test = W.VARIANTS[variant]
+    rows = ms.rows if width == 32 else W.w16_rows(ms.rows).contiguous()
+    got = W.walk_isolate(ms, rows, o, d, test=test, group=group, iters=3)
+    want = W.walk_isolate_plain(ms, rows, o, d, test=test, group=group)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["alu8", "alu16", "alu32", "vote1", "vote32", "fetch_indep1",
+                                  "fetch_indep2", "fetch_chase1", "chain1", "chain32",
+                                  "gather_const", "gather1", "gatherK"])
+def test_latency_chain_kernel_matches_plain(case):
+    import numpy as np
+
+    from hijiki_tpu_torch.probes import chain_latency_probe as C
+    from hijiki_tpu_torch.probes import gather_probe as G
+
+    dev = cuda_device()
+    n, it = 64 * 64, 50
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    if case.startswith("alu"):
+        x = T(C.x_of(n))
+        got, want = C.alu(x, it, int(case[3:])), C.alu_plain(x, it, int(case[3:]))
+    elif case.startswith("vote"):
+        x = T(C.x_of(n, scale=0.4))
+        g = int(case[4:])
+        got, want = C.vote(x, it, g), C.vote_plain(x, it, g)
+    elif case.startswith("fetch"):
+        tbl = T(C.fetch_table())
+        mode, h = case[6:-1], int(case[-1])
+        got, want = C.fetch(tbl, n, it, mode, h), C.fetch_plain(tbl, n, it, mode, h)
+    elif case.startswith("chain"):
+        tbl, x = C.chain_table()
+        tbl, x = T(tbl), T(C.x_of(n) + np.float32(0.5))
+        g = int(case[5:])
+        got, want = C.chain(tbl, x, it, g), C.chain_plain(tbl, x, it, g)
+    else:
+        tbl, idx = (T(a) for a in G.gather_inputs(n, 4))
+        mode = case[7:] if case == "gather_const" else case
+        got, want = G.gather(tbl, idx, it, mode), G.gather_plain(tbl, idx, it, mode)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ["indep1", "indep2", "indep4", "chase1", "sharedsem1",
+                                  "sharedsem+noclamp1", "dedup1", "multi1", "multi2", "multi4",
+                                  "multi1spec", "multi2spec", "multi4spec"])
+def test_staged_chase_kernel_matches_plain(case):
+    from hijiki_tpu_torch.probes import chain_latency_probe as C
+
+    dev = cuda_device()
+    nblk, it = 128, 50
+    spec = case.endswith("spec")
+    case = case[:-4] if spec else case
+    mode, k = case[:-1], int(case[-1])
+    tbl = torch.from_numpy(C.dma_table(65536, height=2 if mode == "multi" else k)).to(dev)
+    if mode == "multi":
+        got = C.staged_chase(tbl, nblk, it, "multi", nchains=k, spec=spec)
+        want = C.staged_multi_plain(tbl, nblk, it, k, spec)
+    else:
+        got = C.staged_chase(tbl, nblk, it, mode, k)
+        want = C.staged_plain(tbl, nblk, it, mode, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
