@@ -20,7 +20,9 @@ Phases, each printing as it goes; any failure exits non-zero:
    render_waves_chained bit-equal per sweep to 3 separate render_waves;
    K6 (the trace-row walk), closest and any hit, bit-equal to its twin on
    every output of 64x64 camera rays and 64x64 random rays (inactive
-   lanes, finite and infinite tmax); K8 (sort_tiles, the block sort alone)
+   lanes, finite and infinite tmax), and its strict and inclusive any-hit
+   modes bit-equal to the twin with tmax at each ray's closest-hit t, where
+   some ray must tell the two modes apart; K8 (sort_tiles, the block sort alone)
    bit-equal to its plain version on 1,024 tiles of numpy-seeded keys
    (random, heavy ties with dead keys, all equal, sorted, reversed) and 31
    channels; the lane-sorted K1/K2/K5 (K7 inside) against their plain
@@ -84,13 +86,18 @@ Phases, each printing as it goes; any failure exits non-zero:
    plain version's, and timed beside the unsorted one), K5 sorted on the
    frame likewise; K8 at 1M lanes x 31 channels, bit-equal to
    its plain version, timed beside torch.sort(stable=True) + gather;
-7. probes: K10/K11a vs plain, then timed (hijiki_tpu_torch/probes/): each
+7. probes: K9/K10/K11 vs plain, then timed (hijiki_tpu_torch/probes/): each
    of walk_ablate (K10a), walk_isolate (K10b), latency_chain and
-   staged_chase (K11a) bit-equal to its plain version at 4096 threads
-   (every mode and variant) and at 1M threads with a short trip count
-   (timed there beside the plain version); then (k) a short run of each
-   probe's main() at one warp per SM and at 1M threads (slope timings,
-   launches counted as a path's).
+   staged_chase (K11a), alu_issue, dtype_elementwise (f32, bf16, bf16x2)
+   and dtype_slab (f32, bf16; rows 8 and 1024) (K11b) bit-equal to its plain
+   version at 4096 threads (every mode and variant) and at 1M threads with
+   a short trip count (timed there beside the plain version); K9
+   (reconstruct_old) against its plain version at 1024x1024 and 1000x1024,
+   block 128, with NaN pixels, to K3's bound (rtol 1e-5, atol 1e-6), and
+   against K3 (the differing pixels counted); then (k) a short run of each
+   probe's main() (the walker probes at one warp per SM and at 1M threads,
+   slope timings; ab_reconstruct's A/B and in-stream modes; the issue and
+   dtype probes), launches counted as a path's.
 
 The line before the last is the kernel report {"kernels": [...]}, whose
 errors and times come from phase 6 (K3's error also from phase 3) and
@@ -146,6 +153,12 @@ TAP_OPS = 25
 # staged_chase's add a cursor and step (8 a warp-step, counted a thread as
 # 8/32); walk_isolate counts ROW_OPS a row visited, as K6 does
 PROBE_OPS = {"walk_ablate": ROW_OPS + 41 + 1, "fetch": 1, "chain": 18, "staged": 8 / 32}
+# K9's f32 operations a pixel and tap: K3's TAP_OPS and the spatial weight
+# it recomputes (the offsets 4, their squares and sum 3, the scale 1, the
+# exp 1, the offset 1; an exp counted as one operation, as TAP_OPS counts
+# it). K11b's counts a thread-trip are the probes' own (OPS_PER_ROUND,
+# EW_OPS, SLAB_OPS; a bf16 op counted as an f32 one)
+K9_TAP_OPS = TAP_OPS + 10
 # threads of the probes' full-width runs: one per path of a 1024x1024 sweep
 PROBE_THREADS = 1 << 20
 
@@ -357,20 +370,51 @@ def k6_bytes_ops(args, got):
     return nb, float(got[6].sum()) * ROW_OPS
 
 
-def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
-    """Phase 7: the probe kernels (K10a, K10b, K11a) bit-equal to their plain
-    versions at 4096 threads, every mode, and at 1M threads with a short
-    trip count (timed beside the plain version); then (k) a short run of
-    each probe's main(), whose launches are counted as a path's. Returns
-    the probes' entries of the kernel report."""
+def k11b_same(same, dev, pvi, pvd, n, it) -> None:
+    """The K11b bodies at ``n`` threads, ``it`` trips, bit-equal to their
+    plain versions on the card: alu_issue at every K, dtype_elementwise in
+    f32, bf16 and bf16x2 at 1 and 8 chains (bf16x2 also equal to bf16), and
+    dtype_slab in f32 and bf16 at rows 8 and 1024 of 1024 lanes."""
+    import torch
+
+    x = torch.from_numpy(pvi.x_of(n)).to(dev)
+    for k in pvi.KERNEL_KS:
+        same(f"alu_issue K={k} ({n} threads)", "alu_issue", pvi.alu_issue(x, it, k),
+             pvi.alu_issue_plain(x, it, k))
+    for chains in (1, 8):
+        for v in pvd.VARIANTS:
+            xe = pvd.ew_input(chains, n, "f32" if v == "f32" else "bf16").to(dev)
+            got = pvd.dtype_elementwise(xe, it, v)
+            same(f"dtype_elementwise {v} chains={chains} ({n} elements)", "dtype_elementwise",
+                 got, pvd.ew_plain(xe, it))
+            if v == "bf16x2":
+                same("dtype_elementwise bf16x2 against bf16", "dtype_elementwise", got,
+                     pvd.dtype_elementwise(xe, it, "bf16"))
+    for rows in pvd.SLAB_ROWS:
+        sx, srow = (t.to(dev) for t in pvd.slab_input(rows, 1024))
+        for v in pvd.SLAB_VARIANTS:
+            same(f"dtype_slab {v} ({rows}, 1024)", "dtype_slab", pvd.dtype_slab(sx, srow, it, v),
+                 pvd.slab_plain(sx, srow, it, v))
+
+
+def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
+    """Phase 7: the probe kernels (K10a, K10b, K11a, K11b) bit-equal to their
+    plain versions at 4096 threads, every mode, and at 1M threads with a
+    short trip count (timed beside the plain version), K9 against its plain
+    version and K3; then (k) a short run of each probe's main(), whose
+    launches are counted as a path's. Returns the probes' entries of the
+    kernel report."""
     import numpy as np
     import torch
 
-    phase("probes: K10/K11a vs plain, then timed")
+    from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct as k3_reconstruct
+
+    phase("probes: K9/K10/K11 vs plain, then timed")
     t_phase = time.monotonic()
     ms, cs = pwk.load_scene(SCENE, dev)
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    err = dict(walk_ablate=0.0, walk_isolate=0.0, latency_chain=0.0, staged_chase=0.0)
+    err = dict(walk_ablate=0.0, walk_isolate=0.0, latency_chain=0.0, staged_chase=0.0,
+               reconstruct_old=0.0, alu_issue=0.0, dtype_elementwise=0.0, dtype_slab=0.0)
 
     def same(label, key, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -425,6 +469,10 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
           "variants x G 1, 32; walk_isolate: w32/w16 x test/notest x G 1, 32 x camera/random "
           "rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: 7 dma modes, 6 "
           "multi)", flush=True)
+    k11b_same(same, dev, pvi, pvd, n, it=6)
+    print(f"K11b at {n} threads: alu_issue (K 1, 2, 4, 8, 16), dtype_elementwise (f32, bf16, "
+          "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; rows 8 and 1024) bit-equal to "
+          "their plain versions", flush=True)
 
     # 1M threads, a short trip count: agreement, times and bounds
     N = PROBE_THREADS
@@ -449,6 +497,21 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
          lambda: pcl.staged_plain(dtbl, N // 32, 8, "chase"),
          lambda got: (nbytes(dtbl, got), N * 8 * PROBE_OPS["staged"])),
     ]
+    k11b_same(same, dev, pvi, pvd, N, it=4)
+    xi = T(pvi.x_of(N))
+    xe = pvd.ew_input(8, N, "f32").to(dev)
+    sx, srow = (t.to(dev) for t in pvd.slab_input(1024, 1024))
+    runs += [
+        ("alu_issue", "K=8, 1M threads, 64 trips",
+         lambda: pvi.alu_issue(xi, 64, 8), lambda: pvi.alu_issue_plain(xi, 64, 8),
+         lambda got: (nbytes(xi, got), N * 64 * (pvi.OPS_PER_ROUND * 8 + 1))),
+        ("dtype_elementwise", "f32, 8 chains, 1M threads, 64 trips",
+         lambda: pvd.dtype_elementwise(xe, 64, "f32"), lambda: pvd.ew_plain(xe, 64),
+         lambda got: (nbytes(xe, got), N * 64 * 8 * pvd.EW_OPS)),
+        ("dtype_slab", "f32, (1024, 1024), 64 trips",
+         lambda: pvd.dtype_slab(sx, srow, 64, "f32"), lambda: pvd.slab_plain(sx, srow, 64, "f32"),
+         lambda got: (nbytes(sx, srow, got), N * 64 * pvd.SLAB_OPS)),
+    ]
     for key, label, kern, plain, work in runs:
         t_k, got = timed(kern, reps=3)
         t_p, want = timed(plain, reps=1, warm=False)
@@ -457,6 +520,29 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
         full[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
         print(f"{key} ({label}): bit-equal to its plain version; {t_k:.3f} ms, plain {t_p:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+    # K9 against its plain version (K3's bound) and against K3, then timed
+    for H, W in ((1024, 1024), (1000, 1024)):
+        color, normal, so = pk9.inputs(W, H, dev)
+        color[3, 5, 1] = float("nan")
+        normal[H // 2, 10, 2] = float("nan")
+        planes = pk9.planes_of(color, normal)
+        kern = lambda: pk9.reconstruct_old_planes(planes, H, so, block_size=128)
+        plain = lambda: pk9.reconstruct_old_plain(planes, H, so, block_size=128)
+        t_k, got = timed(kern, reps=20)
+        t_p, want = timed(plain, reps=1, warm=False)
+        err["reconstruct_old"] = max(err["reconstruct_old"], check_k3(f"K9 {H}x{W}", got, want))
+        t_3, k3 = timed(lambda: k3_reconstruct(color, normal, so, block_size=128), reps=20)
+        e3 = check_k3(f"K9 against K3 {H}x{W}", got, k3)
+        print(f"K9 {H}x{W}: {pk9.differing_pixels(got, k3)} of {H * W} pixels differ from K3 "
+              f"(max |diff| {e3:.3e}); K9 {t_k:.4f} ms, K3 {t_3:.4f} ms (mean of 20), plain "
+              f"{t_p:.3f} ms", flush=True)
+        if (H, W) == (1024, 1024):
+            # each pixel's 7 planes in and 4 channels out, once; K9_TAP_OPS a tap
+            b_ms, b_by = bound(nbytes(planes, got), H * W * 25 * K9_TAP_OPS)
+            full["reconstruct_old"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            print(f"reconstruct_old (1024x1024, block 128): bound {b_ms:.4f} ms ({b_by})",
+                  flush=True)
 
     out_dir = os.path.join(HERE, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -468,6 +554,10 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
         pcl.main(["fetch"] + j("fetch"))
         pcl.main(["dma", "--rows", "65536", "262144"] + j("dma"))
         pga.main(j("gather"))
+        pk9.main(["1024"] + j("ab"))
+        pk9.main(["instream", "1024"] + j("instream"))
+        pvi.main(j("issue"))
+        pvd.main(j("dtype"))
 
     _, counts_k = drive("(k) probes: short runs of each probe's main(), one warp per SM and 1M "
                         "threads", short_mains)
@@ -479,9 +569,16 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga) -> list:
     src = "hijiki_tpu_torch/csrc/"
     replaces = dict(walk_ablate="tools/ablate_walker.py:187", walk_isolate="tools/walk_probe.py:84",
                     latency_chain="tools/chain_latency_probe.py:233",
-                    staged_chase="tools/chain_latency_probe.py:508")
-    return [dict(name=k, route="cuda", source=src + ("probe_walk.cu" if k.startswith("walk")
-                                                     else "probe_latency.cu"),
+                    staged_chase="tools/chain_latency_probe.py:508",
+                    reconstruct_old="tools/ab_reconstruct.py:135",
+                    alu_issue="tools/vpu_issue_probe.py:75",
+                    dtype_elementwise="tools/vpu_dtype_probe.py:124",
+                    dtype_slab="tools/vpu_dtype_probe.py:91")
+    sources = dict(walk_ablate="probe_walk.cu", walk_isolate="probe_walk.cu",
+                   latency_chain="probe_latency.cu", staged_chase="probe_latency.cu",
+                   reconstruct_old="reconstruct_old.cu", alu_issue="probe_alu.cu",
+                   dtype_elementwise="probe_alu.cu", dtype_slab="probe_alu.cu")
+    return [dict(name=k, route="cuda", source=src + sources[k],
                  replaces=replaces[k], launches=counts_k[k], max_abs_err=err[k],
                  ms=full[k]["ms"], plain_ms=full[k]["plain_ms"], bound_ms=full[k]["bound_ms"],
                  bound_by=full[k]["bound_by"], library_ms=None) for k in err]
@@ -504,6 +601,9 @@ def main() -> int:
         from hijiki_tpu_torch.probes import chain_latency_probe as pcl
         from hijiki_tpu_torch.probes import gather_probe as pga
         from hijiki_tpu_torch.probes import walk_probe as pwk
+        from hijiki_tpu_torch.probes import ab_reconstruct as pk9
+        from hijiki_tpu_torch.probes import vpu_dtype_probe as pvd
+        from hijiki_tpu_torch.probes import vpu_issue_probe as pvi
         from hijiki_tpu_torch.render import pallas_reconstruct as prc
         from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
         from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
@@ -624,6 +724,23 @@ def main() -> int:
             print(f"K6 {label} rays, any_hit={any_hit}: bit-equal to the twin on all 7 outputs of "
                   f"{S * S} rays; {float((got[1] > 0).float().mean()):.4f} hit, "
                   f"{float(got[6].mean()):.2f} rows visited per ray")
+        # a hit at exactly tmax: tmax at each hitting ray's closest t
+        closest = pt.traverse(csd.trace_rows, *rays)
+        at = rays[:3] + [torch.where(closest[1] > 0, closest[0], rays[3])]
+        occ = {}
+        for inclusive in (False, True):
+            got = pt.traverse(csd.trace_rows, *at, any_hit=True, inclusive=inclusive)
+            want = pt.traverse_plain(csd.trace_rows, *at, any_hit=True, inclusive=inclusive)
+            if not torch.equal(got, want):
+                fail(f"K6 ({label} rays, tmax at the closest hit, inclusive={inclusive}) "
+                     "differs from its twin")
+            occ[inclusive] = got[1] > 0
+        if not bool((occ[True] & ~occ[False]).any()):
+            fail(f"K6 ({label} rays, tmax at the closest hit): no ray tells the strict any-hit "
+                 "from the inclusive one")
+        print(f"K6 {label} rays, tmax = the closest hit's t: strict and inclusive any-hit each "
+              f"bit-equal to the twin; occluded {int(occ[False].sum())} strict, "
+              f"{int(occ[True].sum())} inclusive of {int((closest[1] > 0).sum())} hitting rays")
 
     phase("K8 sort_tiles vs plain; K7: the sorted K1/K2/K5 vs plain and vs unsorted, 64x64")
     gen = np.random.default_rng(8)
@@ -681,7 +798,7 @@ def main() -> int:
         returns (its result, the counts just after)."""
         phase(label)
         counters = (mk.LAUNCHES, prc.LAUNCHES, pt.LAUNCHES, srt.LAUNCHES, pab.LAUNCHES,
-                    pwk.LAUNCHES, pcl.LAUNCHES)
+                    pwk.LAUNCHES, pcl.LAUNCHES, pk9.LAUNCHES, pvi.LAUNCHES, pvd.LAUNCHES)
         for d in counters:
             for k in d:
                 d[k] = 0
@@ -1052,12 +1169,12 @@ def main() -> int:
     real_traverse = pt.traverse
     k6_calls, n_calls = [], [0]
 
-    def traverse_recorded(rows, o, d, tmin, tmax, *, any_hit=False):
+    def traverse_recorded(rows, o, d, tmin, tmax, **mode):
         if n_calls[0] in (0, 1, 16):
             k6_calls.append((n_calls[0], (rows, o.clone(), d.clone(), tmin.clone(), tmax.clone()),
-                             any_hit))
+                             mode))
         n_calls[0] += 1
-        return real_traverse(rows, o, d, tmin, tmax, any_hit=any_hit)
+        return real_traverse(rows, o, d, tmin, tmax, **mode)
 
     kpx, kpy, kseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 21))
     ko, kd, ktmin, ktmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
@@ -1092,10 +1209,12 @@ def main() -> int:
     print("three sync bounces (1M lanes) made no device sync under set_sync_debug_mode('error')")
 
     k6_ms, k6_plain, k6_work, k6_err = [], [], [], 0.0
-    for idx, args, any_hit in k6_calls:
-        t_k, got = timed(lambda: pt.traverse(*args, any_hit=any_hit), reps=5)
-        t_p, want = timed(lambda: pt.traverse_plain(*args, any_hit=any_hit), reps=1, warm=False)
-        label = (f"K6 call {idx} ({'any-hit' if any_hit else 'closest'}, bounce {idx // 2 + 1}, "
+    for idx, args, mode in k6_calls:
+        t_k, got = timed(lambda: pt.traverse(*args, **mode), reps=5)
+        t_p, want = timed(lambda: pt.traverse_plain(*args, **mode), reps=1, warm=False)
+        kind = "closest" if not mode.get("any_hit") else (
+            "inclusive any-hit" if mode.get("inclusive") else "any-hit")
+        label = (f"K6 call {idx} ({kind}, bounce {idx // 2 + 1}, "
                  f"{int((args[4] >= args[3]).sum())} of {args[1].shape[0]} rays walking)")
         if not torch.equal(got, want):
             fail(f"{label}: the kernel differs from its twin")
@@ -1117,7 +1236,7 @@ def main() -> int:
         b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
         return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga)
+    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd)
 
     src = "hijiki_tpu_torch/csrc/"
     mkpy = "hijiki_tpu/ops/pallas_megakernel.py"

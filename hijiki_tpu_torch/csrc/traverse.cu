@@ -15,7 +15,11 @@
 // row 0: an interior row slab-tests its box and goes to cur+1 or to the exit
 // in column 10; a prim row runs the unified test, accepts when t lies in
 // [tmin, best_t] and t < best_t, and exits. best_t starts at the ray's own
-// tmax. Any-hit stops at the first accept. A ray with tmax < tmin (or a NaN
+// tmax. Any-hit stops at the first accept, in one of two modes: strict
+// (t < tmax, the Pallas kernel's; traverse_packets/occluded_packets) or
+// inclusive (the prim test's own t <= tmax, as JAX's occluded_rows and
+// intersect_unified accept; occluded_rows). The slab test stays strict
+// (t0 < best_t) in both, as in both JAX walks. A ray with tmax < tmin (or a NaN
 // bound) can accept nothing and does not walk; callers mark inactive lanes
 // that way (tmax = -3e38). The TPU kernel walked 128-ray packets because
 // Mosaic has no per-lane gather; a packet's hits are the same per ray.
@@ -56,7 +60,7 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kInclusive>
 __global__ void __launch_bounds__(kThreads)
     traverse_kernel(const float* __restrict__ rows, int num_rows,
                     const float* __restrict__ o, const float* __restrict__ d,
@@ -124,7 +128,9 @@ __global__ void __launch_bounds__(kThreads)
                               (pv <= 1.0f);
       phit = inside && (tmin <= pt) && (pt <= best);
     }
-    if (phit && pt < best) {
+    // with kInclusive (any hit only, so best is still tmax) phit alone
+    // accepts: it already holds t <= tmax
+    if (phit && (kInclusive || pt < best)) {
       best = pt;
       slot1 = __ldg(r + 11) + 1.0f;
       bu = pu;
@@ -144,13 +150,13 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" int traverse(const float* rows, int num_rows, const float* o,
                         const float* d, const float* tmin, const float* tmax,
-                        int n, int any_hit, float* out, cudaStream_t stream) {
+                        int n, int any_hit, int inclusive, float* out,
+                        cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (any_hit)
-    traverse_kernel<true><<<blocks, kThreads, 0, stream>>>(rows, num_rows, o, d,
-                                                           tmin, tmax, n, out);
-  else
-    traverse_kernel<false><<<blocks, kThreads, 0, stream>>>(rows, num_rows, o, d,
-                                                            tmin, tmax, n, out);
+  auto kernel = !any_hit ? traverse_kernel<false, false>
+                : inclusive ? traverse_kernel<true, true>
+                            : traverse_kernel<true, false>;
+  kernel<<<blocks, kThreads, 0, stream>>>(rows, num_rows, o, d, tmin, tmax, n,
+                                          out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -266,11 +266,13 @@ def intersect_rows(o, d, tmin, tmax, active=None, *, scene) -> Hit:
 
 
 def occluded_rows(o, d, tmin, tmax, active=None, *, scene):
-    """Any-hit query over the trace-row table (K6's any-hit walk)."""
+    """Any-hit query over the trace-row table (K6's any-hit walk). As JAX's
+    ``occluded_rows``, a hit at exactly tmax occludes (the inclusive mode)."""
     from hijiki_tpu_torch.ops.pallas_traverse import traverse_packets
 
     tm = tmax if active is None else torch.where(active, tmax, NEG_BIG)
-    return traverse_packets(scene.trace_rows, o, d, tmin, tm, any_hit=True)[1] >= 0
+    return traverse_packets(scene.trace_rows, o, d, tmin, tm, any_hit=True,
+                            inclusive=True)[1] >= 0
 
 
 def populate_intersection(o, d, hit: Hit, scene) -> Its:

@@ -19,7 +19,9 @@ Per ray, the walk starts at row 0 with ``best_t`` = the ray's own tmax and
 takes row ``cur``, then ``cur + 1`` (an interior row whose box the ray
 enters) or the exit pointer in column 10; a prim row's hit is accepted when
 it lies in [tmin, best_t] and ``t < best_t``. Any-hit stops at the first
-accept. A ray whose tmax < tmin (or with a NaN bound) can accept nothing
+accept; with ``inclusive`` it accepts the prim test's own ``t <= tmax``
+(JAX's ``occluded_rows``; ``occluded_rows`` here), without it the strict
+``t < tmax`` of the Pallas kernel (``occluded_packets``). A ray whose tmax < tmin (or with a NaN bound) can accept nothing
 and does not walk. The TPU kernel walked 128-ray packets that descend when
 any ray's slab test passes; a packet visits a superset of each ray's rows
 and accepts per ray, so its closest hits are the same, and its any-hit
@@ -41,10 +43,17 @@ OUT_CH = 7  # best_t, slot+1 (0 = miss), u, v, tag, midx, rows visited
 LAUNCHES = {"traverse": 0}
 
 
-def traverse_plain(rows, o, d, tmin, tmax, *, any_hit: bool = False):
+def _check_mode(any_hit: bool, inclusive: bool) -> None:
+    if inclusive and not any_hit:
+        raise ValueError("inclusive acceptance is an any-hit mode")
+
+
+def traverse_plain(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool = False):
     """The plain twin of K6 (any device): a lockstep walk over the lanes
     still walking, which are compacted as lanes finish. Returns the
-    (OUT_CH, N) f32 buffer the kernel writes."""
+    (OUT_CH, N) f32 buffer the kernel writes. ``inclusive`` (any hit only):
+    accept the prim test's own t <= tmax, not the strict t < tmax."""
+    _check_mode(any_hit, inclusive)
     n, R = o.shape[0], rows.shape[0]
     out = torch.zeros((OUT_CH, n), dtype=torch.float32, device=o.device)
     out[0] = tmax
@@ -119,7 +128,9 @@ def traverse_plain(rows, o, d, tmin, tmax, *, any_hit: bool = False):
         is_sphere = kind == 0.0
         phit = torch.where(is_sphere, (disc >= 0.0) & (ok0 | ok1), ok_pq)
         pt = torch.where(is_sphere, torch.where(ok0, st0, st1), t_pq)
-        accept = act & is_prim & phit & (pt < best)
+        accept = act & is_prim & phit
+        if not inclusive:
+            accept = accept & (pt < best)
         best = torch.where(accept, pt, best)
         slot1 = torch.where(accept, r[:, 11] + 1.0, slot1)
         bu = torch.where(accept, torch.where(is_sphere, 0.0, u), bu)
@@ -135,14 +146,15 @@ def traverse_plain(rows, o, d, tmin, tmax, *, any_hit: bool = False):
     return out
 
 
-def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False):
+def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool = False):
     """The walk of ``N`` rays (o, d (N, 3), tmin, tmax (N,), f32) over the
     trace rows ``rows`` (R, 32) f32: K6 on a CUDA tensor, ``traverse_plain``
     on a CPU tensor. Returns the (OUT_CH, N) f32 buffer."""
     if o.device.type != "cuda":
-        return traverse_plain(rows, o, d, tmin, tmax, any_hit=any_hit)
+        return traverse_plain(rows, o, d, tmin, tmax, any_hit=any_hit, inclusive=inclusive)
     from hijiki_tpu_torch.utils.build import load_library
 
+    _check_mode(any_hit, inclusive)
     n, dev = o.shape[0], o.device
     _check("rows", rows, torch.float32, (rows.shape[0], 32), dev)
     for name, t, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("tmin", tmin, (n,)),
@@ -153,7 +165,7 @@ def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = load_library().traverse(
             rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-            tmax.data_ptr(), n, int(any_hit), out.data_ptr(), stream,
+            tmax.data_ptr(), n, int(any_hit), int(inclusive), out.data_ptr(), stream,
         )
         LAUNCHES["traverse"] += 1
         if rc != 0:
@@ -161,12 +173,12 @@ def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False):
     return out
 
 
-def traverse_packets(rows, o, d, tmin, tmax, *, any_hit: bool = False):
+def traverse_packets(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool = False):
     """``traverse_packets`` of the JAX package: rays o, d (N, 3), tmin, tmax
     (N,) against the trace rows. Returns (best_t, slot, u, v, tag, midx),
     slot = -1 where missed (any N)."""
     out = traverse(rows.contiguous(), o.contiguous(), d.contiguous(), tmin.contiguous(),
-                   tmax.contiguous(), any_hit=any_hit)
+                   tmax.contiguous(), any_hit=any_hit, inclusive=inclusive)
     i32 = torch.int32
     return out[0], out[1].to(i32) - 1, out[2], out[3], out[4].to(i32), out[5].to(i32)
 

@@ -1,6 +1,6 @@
 """Probes of what bounds the per-thread walk on the H100.
 
-The port of the JAX round's walker-cost probes (K10, K11a in PERF.md) as
+The port of the JAX round's probes (K9, K10, K11 in PERF.md) as
 hand-written CUDA kernels, each module beside its JAX tool:
 
 * ``ablate_walker``: K10a ``walk_ablate`` (``csrc/probe_walk.cu``), the
@@ -11,7 +11,15 @@ hand-written CUDA kernels, each module beside its JAX tool:
   and ``staged_chase`` (dma, dmag) (``csrc/probe_latency.cu``;
   tools/chain_latency_probe.py);
 * ``gather_probe``: the gather modes of ``latency_chain``
-  (tools/gather_probe.py).
+  (tools/gather_probe.py);
+* ``ab_reconstruct``: K9 ``reconstruct_old`` (``csrc/reconstruct_old.cu``),
+  the pre-hoisting reconstruction stencil timed beside K3
+  (tools/ab_reconstruct.py);
+* ``vpu_issue_probe``: K11b ``alu_issue`` (``csrc/probe_alu.cu``), the ALU
+  issue rate (tools/vpu_issue_probe.py);
+* ``vpu_dtype_probe``: K11b ``dtype_elementwise`` and ``dtype_slab``
+  (``csrc/probe_alu.cu``), f32 against bf16 and packed bf16x2
+  (tools/vpu_dtype_probe.py).
 
 Each module holds the plain PyTorch version of its kernel (any device; the
 CPU tests hold it to the JAX tool in interpret mode), the wrapper that
@@ -117,3 +125,87 @@ def dump(args, results: list) -> None:
 
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)
+
+
+def sm_clock_during(fn) -> tuple:
+    """Run ``fn()`` while nvidia-smi samples the SM clock every 100 ms.
+    Returns (fn's result, the median sampled MHz, the card's max SM MHz);
+    the clocks are None where nvidia-smi is missing or sampled nothing."""
+    import subprocess
+
+    try:
+        proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                 "--format=csv,noheader,nounits", "-lms", "100"],
+                                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    except OSError:
+        return fn(), None, None
+    try:
+        res = fn()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append(tuple(float(v) for v in line.split(",")[:2]))
+        except ValueError:
+            continue
+    if not samples:
+        return res, None, None
+    cur = sorted(c for c, _ in samples)
+    return res, cur[len(cur) // 2], max(m for _, m in samples)
+
+
+def sass_loop(kernel: str) -> dict:
+    """The instructions of the longest loop of each kernel function whose
+    mangled name contains ``kernel``, from ``cuobjdump -sass`` of the kernel
+    library: {mangled name: {opcode: count}}. A loop runs from a branch
+    target to the backward branch that reaches it. Empty where cuobjdump is
+    missing."""
+    import re
+    import shutil
+    import subprocess
+
+    from hijiki_tpu_torch.utils.build import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(build()[0])], capture_output=True, text=True,
+                          timeout=300).stdout
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if kernel not in name:
+            continue
+        labels, code = {}, []  # label -> index of its first instruction; (addr, op, rest)
+        pending = []
+        for line in chunk.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                pending.append(m.group(1))
+                continue
+            m = ins.search(line)
+            if m:
+                for lab in pending:
+                    labels[lab] = len(code)
+                pending = []
+                code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        addr_at = {a: i for i, (a, _, _) in enumerate(code)}
+        best = ()
+        for j, (_, op, rest) in enumerate(code):
+            if not op.startswith("BRA"):
+                continue
+            m = re.search(r"(\.L_x_\d+)", rest)
+            start = labels.get(m.group(1)) if m else None
+            if start is None:
+                m = re.search(r"(0x[0-9a-f]+)", rest)
+                start = addr_at.get(int(m.group(1), 16)) if m else None
+            if start is not None and start <= j and j - start + 1 > len(best):
+                best = code[start : j + 1]
+        counts = {}
+        for _, op, _ in best:
+            counts[op] = counts.get(op, 0) + 1
+        out[name] = counts
+    return out

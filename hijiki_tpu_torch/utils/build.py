@@ -48,13 +48,19 @@ SIGNATURES = {
     "mk_tiles_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "sort_tiles": [_P, _P, _I, _I, _P, _P, _P],
     "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
-    "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P],
-    # the probes (csrc/probe_walk.cu, csrc/probe_latency.cu); the pointer
-    # before the stream is the occupancy query's out-parameter (or null)
+    "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # the probes (csrc/probe_walk.cu, csrc/probe_latency.cu and those
+    # below); the pointer before the stream is the occupancy query's
+    # out-parameter (or null)
     "walk_ablate": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "walk_isolate": _SCENE + [_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
     "latency_chain": [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "staged_chase": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # csrc/reconstruct_old.cu (K9), csrc/probe_alu.cu (K11b)
+    "reconstruct_old": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    "alu_issue": [_I, _P, _I, _I, _I, _P, _P, _P],
+    "dtype_elementwise": [_I, _I, _P, _I, _I, _I, _P, _P, _P],
+    "dtype_slab": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 _loaded: dict = {}

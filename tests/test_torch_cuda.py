@@ -14,7 +14,10 @@ K6 bit-equal to its twin on every channel of every ray, so the sync
 driver's film is the same bit for bit whichever walk it runs; K8
 (sort_tiles) bit-equal to its plain version; the lane-sorted K1/K2/K5 (K7
 inside) bit-equal to the unsorted kernels on every output (a pure
-permutation of whole paths)."""
+permutation of whole paths); K6's strict and inclusive any-hit bit-equal
+to the plain walk at tmax = the closest hit's t; K9 (reconstruct_old) to
+K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
+bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions."""
 
 import numpy as np
 import pytest
@@ -495,3 +498,93 @@ def test_staged_chase_kernel_matches_plain(case):
         got = C.staged_chase(tbl, nblk, it, mode, k)
         want = C.staged_plain(tbl, nblk, it, mode, k)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("path", [MESHBOX, "builtin:cornell-glass"])
+def test_traverse_any_hit_modes_at_tmax(path):
+    """tmax = the closest hit's t: K6's strict and inclusive any-hit each
+    bit-equal to the plain walk, and the two modes tell some ray apart."""
+    dev = cuda_device()
+    cs = to_device(_scene(path), dev)
+    o, d, tmin, tmax = (torch.from_numpy(x).to(dev) for x in random_rays(cs, 5000, seed=3))
+    closest = pt.traverse(cs.trace_rows, o, d, tmin, tmax)
+    at = torch.where(closest[1] > 0, closest[0], tmax)
+    answers = []
+    for inclusive in (False, True):
+        before = pt.LAUNCHES["traverse"]
+        got = pt.traverse(cs.trace_rows, o, d, tmin, at, any_hit=True, inclusive=inclusive)
+        assert pt.LAUNCHES["traverse"] == before + 1
+        want = pt.traverse_plain(cs.trace_rows, o, d, tmin, at, any_hit=True, inclusive=inclusive)
+        assert torch.equal(got, want)
+        answers.append(got[1] > 0)
+    assert (answers[1] & ~answers[0]).any() and not (answers[0] & ~answers[1]).any()
+
+
+@pytest.mark.parametrize("H,W", [(1024, 1024), (1000, 1024)])
+def test_reconstruct_old_kernel_matches_plain(H, W):
+    """K9 against its plain version (K3's bound: expf ULPs), with NaN
+    pixels and rows no multiple of 8; K9 against K3 to the same bound."""
+    from hijiki_tpu_torch.probes import ab_reconstruct as K9
+
+    dev = cuda_device()
+    color, normal, so = K9.inputs(W, H, dev)
+    color[3, 5, 1] = float("nan")
+    normal[H // 2, 10, 2] = float("nan")
+    before = K9.LAUNCHES["reconstruct_old"]
+    got = K9.reconstruct_old(color, normal, so, block_size=128)
+    assert K9.LAUNCHES["reconstruct_old"] == before + 1
+    planes = K9.planes_of(color, normal)
+    want = K9.reconstruct_old_plain(planes, H, so, block_size=128)
+    assert got.shape == (H, W, 4) and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    k3 = prc.reconstruct(color, normal, so, block_size=128)
+    np.testing.assert_allclose(got.cpu().numpy(), k3.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n", [4096, 1 << 20])
+def test_alu_issue_kernel_matches_plain(k, n):
+    from hijiki_tpu_torch.probes import vpu_issue_probe as I
+
+    dev = cuda_device()
+    x = torch.from_numpy(I.x_of(n)).to(dev)
+    before = I.LAUNCHES["alu_issue"]
+    got = I.alu_issue(x, 6, k)
+    assert I.LAUNCHES["alu_issue"] == before + 1
+    assert torch.equal(got, I.alu_issue_plain(x, 6, k))
+    assert I.alu_issue(x, 6, k, occupancy=True) > 0
+    assert I.LAUNCHES["alu_issue"] == before + 1
+
+
+@pytest.mark.parametrize("chains", [1, 8])
+@pytest.mark.parametrize("variant", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("n", [4096, 1 << 20])
+def test_dtype_elementwise_kernel_matches_plain(variant, chains, n):
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as D
+
+    dev = cuda_device()
+    x = D.ew_input(chains, n, "f32" if variant == "f32" else "bf16").to(dev)
+    before = D.LAUNCHES["dtype_elementwise"]
+    got = D.dtype_elementwise(x, 7, variant)
+    assert D.LAUNCHES["dtype_elementwise"] == before + 1
+    assert torch.equal(got, D.ew_plain(x, 7))
+    if variant == "bf16x2":
+        assert torch.equal(got, D.dtype_elementwise(x, 7, "bf16"))
+        # the packed lanes are element-wise: swapping the input pairs swaps the output pairs
+        swapped = x.reshape(chains, -1, 2).flip(-1).reshape(chains, -1).contiguous()
+        assert torch.equal(D.dtype_elementwise(swapped, 7, variant),
+                           got.reshape(-1, 2).flip(-1).reshape(-1))
+        assert not torch.equal(got.reshape(-1, 2)[:, 0], got.reshape(-1, 2)[:, 1])
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+@pytest.mark.parametrize("rows", [8, 1024])
+def test_dtype_slab_kernel_matches_plain(variant, rows):
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as D
+
+    dev = cuda_device()
+    x, row = (t.to(dev) for t in D.slab_input(rows, 1024))
+    before = D.LAUNCHES["dtype_slab"]
+    got = D.dtype_slab(x, row, 9, variant)
+    assert D.LAUNCHES["dtype_slab"] == before + 1
+    assert torch.equal(got, D.slab_plain(x, row, 9, variant))

@@ -332,9 +332,12 @@ def test_probes_import_no_jax_and_no_tools():
         "sys.modules['jax'] = None  # any import of jax raises\n"
         "import hijiki_tpu_torch.probes.ablate_walker, hijiki_tpu_torch.probes.walk_probe\n"
         "import hijiki_tpu_torch.probes.chain_latency_probe, hijiki_tpu_torch.probes.gather_probe\n"
+        "import hijiki_tpu_torch.probes.ab_reconstruct, hijiki_tpu_torch.probes.vpu_issue_probe\n"
+        "import hijiki_tpu_torch.probes.vpu_dtype_probe\n"
         "import hijiki_tpu_torch.probes.timing, chip_smoke\n"
         "bad = [m for m in sys.modules if m.startswith(('hijiki_tpu.', 'jax.')) or m in (\n"
-        "    'hijiki_tpu', 'ablate_walker', 'walk_probe', 'chain_latency_probe', 'gather_probe')]\n"
+        "    'hijiki_tpu', 'ablate_walker', 'walk_probe', 'chain_latency_probe', 'gather_probe',\n"
+        "    'ab_reconstruct', 'vpu_issue_probe', 'vpu_dtype_probe')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
