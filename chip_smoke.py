@@ -73,7 +73,11 @@ Phases, each printing as it goes; any failure exits non-zero:
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
    then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
    replayed through the kernel and through the twin, held to the phase-4
-   bounds and timed; K5 on the 1M-path frame and K3 on a sweep likewise;
+   bounds, bit-equal on every output, and timed; the registers, resident
+   warps an SM and launch blocks of K4 (persistent) and K2 (mk_occupancy),
+   and the warp-iteration ratios of the chunk's K4 (mk.warp_iterations of
+   its segs); K5 on the 1M-path frame likewise (bit-equal), K3 on a sweep
+   to its bound;
    K6's calls of one 1024x1024 sync sweep: the first bounce's closest walk
    (1M rays), its shadow any-hit walk and the closest walk of bounce 9,
    each replayed through the kernel and the twin, bit-equal, and timed
@@ -1053,40 +1057,60 @@ def main() -> int:
         return table + nbytes(*tensors), float(rows) * ROW_OPS
 
     def replay(tag, calls):
-        ms_of, plain_of, err_of, work_of = {}, {}, {}, {}
+        """Each call through the kernel and the twin; returns per kernel its
+        times, the twin's, its error, its work, and its last call's outputs."""
+        ms_of, plain_of, err_of, work_of, out_of = {}, {}, {}, {}, {}
         for name, args in calls:
             t_k, got = timed(lambda: real[name](ms, *args), reps=3)
             t_p, want = timed(lambda: plain[name](ms, *args), reps=1, warm=False)
             lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
             label = f"{tag} {name} ({lanes} lanes, cap {args[-1]})"
             err_of[name] = max(err_of.get(name, 0.0), check[name](label, got, want))
+            if not bit_equal(got, want):
+                fail(f"{label}: the kernel's outputs differ from the twin's bit for bit")
             ms_of.setdefault(name, []).append(t_k)
             plain_of.setdefault(name, []).append(t_p)
             work_of.setdefault(name, []).append(work(name, args, got))
+            out_of[name] = got
             b_ms, b_by = bound(*work_of[name][-1])
             print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
-        return ms_of, plain_of, err_of, work_of
+        return ms_of, plain_of, err_of, work_of, out_of
 
     scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
     frames = [frame_of(sc) for sc in scheds]
     cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
     chunk_calls = record_calls(mk, real, lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
-    c_ms, c_plain, c_err, c_work = replay("chained chunk:", chunk_calls)
+    c_ms, c_plain, c_err, c_work, c_out = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
     print(f"K4's zeroed pool + flush buffer ({cpx.numel()} slots): {t_zero:.3f} ms per chunk")
+    for name in ("mk_start_chained", "mk_resume"):
+        occ = mk.occupancy(name)
+        launch = (f"{occ['blocks_per_sm'] * occ['sms']} blocks a launch (persistent)"
+                  if name == "mk_start_chained" else "a block per 128 lanes")
+        print(f"{name}: {occ['registers']} registers, {occ['local_bytes']} bytes of local memory, "
+              f"{occ['warps_per_sm']} resident warps an SM, {launch}")
+    pool, _, chain_out = c_out.pop("mk_start_chained")
+    wi = mk.warp_iterations(mk.chained_segs(pool, chain_out, cpx.shape[0]))
+    print("K4's chunk, warp-bounces a warp of 32 consecutive lanes: whole samples a thread "
+          f"(sum of max) {wi['sum_max']:.4f}, per-lane respawn (max of sums) {wi['max_sum']:.4f}, "
+          f"perfect packing (sum of means) {wi['sum_mean']:.4f}; ratios "
+          f"{wi['sum_max'] / wi['sum_mean']:.4f} / {wi['max_sum'] / wi['sum_mean']:.4f}")
+    del pool, chain_out, c_out
 
     upx, upy, useeds, uso = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 1 + mk.CHAIN_SWEEPS_CUDA))
     sweep_out = []
     sweep_calls = record_calls(mk, real, lambda: sweep_out.append(
         mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
-    u_ms, u_plain, u_err, u_work = replay("unchained sweep:", sweep_calls)
+    u_ms, u_plain, u_err, u_work, _ = replay("unchained sweep:", sweep_calls)
 
     t_k5, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
     t_k5p, want = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000),
                         reps=1, warm=False)
     k5_err = agree_tiles(f"K5 mk_tiles ({upx.numel()} lanes, cap 1000)", got, want)
+    if not bit_equal(got, want):
+        fail("K5 mk_tiles: the kernel's outputs differ from the twin's bit for bit")
     # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's rows
     k5_rows = float(mk.megakernel_start(ms, upx, upy, useeds, 1000)[0][23].sum())
     k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * ROW_OPS)

@@ -4,12 +4,12 @@
 // Replaces, in hijiki_tpu/ops/pallas_megakernel.py:
 //   _megakernel_start          -> mk_start          (K1)
 //   _megakernel_resume         -> mk_resume         (K2)
-//   _megakernel_start_chained  -> mk_start_chained  (K4, note below)
+//   _megakernel_start_chained  -> mk_start_chained  (K4, persistent: note below)
 //   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5)
 // and, with lane_sort=True (K7, _lane_sort with pallas_sort.py's network
 // inside the bounce loop), the lane-sorted K1/K2/K5:
 //   mk_start_sorted, mk_resume_sorted, mk_tiles_sorted (note below).
-// All share bounce_loop(), the port of _bounce_loop with _camera_init,
+// All share bounce(), the port of _bounce_loop's body, with _camera_init,
 // _analytic_pretest, the trace-row walk (both in walk.cuh, which the walk
 // probe of probe_walk.cu shares), _resolve_winners, NEE, the BSDFs and
 // Russian roulette. The plain PyTorch twin of every line below is
@@ -22,12 +22,14 @@
 // exit pointer in column 10 — the reference GLSL's stackless walk), reading
 // the table from global memory (it fits in the 50 MB L2 many times over).
 // With octant table sets each thread takes the table of its own direction
-// signs. Finished and dead paths retire per thread; render_waves compacts the
-// survivors between phases, which is what keeps warps full.
+// signs. K1, K2 and K5 trace a whole path per thread; K4 is persistent and
+// bounce-granular (a thread whose path stopped takes the next slot one
+// bounce later; note below); render_waves compacts the survivors between
+// phases.
 //
 // What bounds it: the walk is a chain of dependent global loads (latency)
-// and threads of a warp walk different rows (divergence). Nothing here is
-// tuned yet; this first version aims at agreement with the twin.
+// and threads of a warp walk different rows (divergence); the walk's row
+// step is in walk.cuh.
 //
 // Numerics, chosen on purpose:
 // * built with --fmad=false: a*b+c is never contracted, so every operation
@@ -73,6 +75,16 @@ struct Path {
   float depth, n1, n2, n3, rows, ar, ag, ab, segs, samp;
   uint32_t rng;
 };
+
+// the 29 f32 channels in _STATE_CH order (ops/megakernel.py)
+#define STATE_FIELDS(X)                                                        \
+  X(0, alive) X(1, bounce) X(2, ox) X(3, oy) X(4, oz) X(5, dx) X(6, dy)        \
+  X(7, dz) X(8, tmin) X(9, tr) X(10, tg) X(11, tb) X(12, er) X(13, eg)         \
+  X(14, eb) X(15, Lr) X(16, Lg) X(17, Lb) X(18, wd) X(19, depth) X(20, n1)     \
+  X(21, n2) X(22, n3) X(23, rows) X(24, ar) X(25, ag) X(26, ab) X(27, segs)    \
+  X(28, samp)
+static_assert(kNState == 29, "state channel count");
+
 
 __device__ __forceinline__ float rsqrt_ieee(float x) { return 1.0f / sqrtf(x); }
 __device__ __forceinline__ uint32_t wang_hash(uint32_t s) {
@@ -217,10 +229,45 @@ __device__ void camera_init(const Scene& S, float px, float py, uint32_t seed,
   p.ar = p.ag = p.ab = 0.0f;
 }
 
-// One bounce of a live path (the body of _bounce_loop).
-__device__ void bounce(const Scene& S, Path& p) {
+// ---------------------------------------------------------------- stash ----
+// K4 keeps in shared memory, for the two walks of a bounce, what the bounce
+// carries across them but the walks never read: the path (29 words and the
+// RNG) around both walks, and eight shading values (the uv, the material
+// tag and index, the NEE cosine and importance) around the shadow walk. In
+// registers they count on top of the walks' own, and they set the kernel's
+// peak; stashed, K4 fits in 80 registers a thread (24 warps an SM) with no
+// spill, where it needed 96. A thread's words lie kThreads apart (no bank
+// conflict). The accesses are volatile so that the compiler reloads the
+// values after the walk instead of keeping them live in registers. Pure data
+// movement: the outputs are unchanged bit for bit.
+constexpr int kStashPath = kNState + 1;     // the path's words: state, RNG
+constexpr int kStashWords = kStashPath + 8;  // and the shading values
+#define SHADE_STASH(X)                                                         \
+  X(0, uvx) X(1, uvy) X(2, tag) X(3, midx) X(4, cosw) X(5, impr) X(6, impg)    \
+  X(7, impb)
+
+__device__ __forceinline__ void put_path(const Path& p, volatile float* my) {
+#define PUT_FIELD(c, f) my[(c) * kThreads] = p.f;
+  STATE_FIELDS(PUT_FIELD)
+#undef PUT_FIELD
+  my[kNState * kThreads] = __uint_as_float(p.rng);
+}
+
+__device__ __forceinline__ void get_path(Path& p, const volatile float* my) {
+#define GET_FIELD(c, f) p.f = my[(c) * kThreads];
+  STATE_FIELDS(GET_FIELD)
+#undef GET_FIELD
+  p.rng = __float_as_uint(my[kNState * kThreads]);
+}
+
+// One bounce of a live path (the body of _bounce_loop). kStash: keep the
+// stash above in `my` (this thread's first word of the block's stash).
+template <bool kStash = false>
+__device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   Hit h;
+  if constexpr (kStash) put_path(p, my);
   trace_closest(S, p, h);
+  if constexpr (kStash) get_path(p, my);
   if (!h.found) {
     p.alive = 0.0f;
     p.bounce = p.bounce + 1.0f;
@@ -228,7 +275,8 @@ __device__ void bounce(const Scene& S, Path& p) {
     p.rows = p.rows + h.nit + 0.0f;
     return;
   }
-  const float t = h.t, u = h.u, v = h.v, tag = h.tag, midx = h.midx;
+  const float t = h.t, u = h.u, v = h.v;
+  float tag = h.tag, midx = h.midx;  // stashed across the shadow walk
   const float* pay = h.pay;
   float hx = p.ox + t * p.dx, hy = p.oy + t * p.dy, hz = p.oz + t * p.dz;
 
@@ -371,8 +419,22 @@ __device__ void bounce(const Scene& S, Path& p) {
   float cosw = dot3(sdx, sdy, sdz, nx, ny, nz);
   bool gate = difish && (imp_len > kEps) && (cosw > 0.0f);
   float nit_s = 0.0f;
+  if constexpr (kStash) {
+    put_path(p, my);
+    volatile float* x = my + kStashPath * kThreads;
+#define PUT_LOCAL(c, v) x[(c) * kThreads] = v;
+    SHADE_STASH(PUT_LOCAL)
+#undef PUT_LOCAL
+  }
   bool occluded = trace_any(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
                             gate ? sdist - kEps : -1.0f, nit_s);
+  if constexpr (kStash) {
+    get_path(p, my);
+    volatile float* x = my + kStashPath * kThreads;
+#define GET_LOCAL(c, v) v = x[(c) * kThreads];
+    SHADE_STASH(GET_LOCAL)
+#undef GET_LOCAL
+  }
 
   // eval BSDF for NEE (material.glsl:18-30)
   float dcr = bake(S, S.d_off, S.nd, 3, midx, 0);
@@ -509,18 +571,14 @@ __device__ void bounce(const Scene& S, Path& p) {
   p.rows = p.rows + h.nit + nit_s;
 }
 
-__device__ void bounce_loop(const Scene& S, Path& p, float cap) {
-  while (p.alive > 0.0f && p.bounce < cap) bounce(S, p);
+__device__ __forceinline__ bool going(const Path& p, float cap) {
+  return p.alive > 0.0f && p.bounce < cap;
 }
 
-// the 29 f32 channels in _STATE_CH order (ops/megakernel.py)
-#define STATE_FIELDS(X)                                                        \
-  X(0, alive) X(1, bounce) X(2, ox) X(3, oy) X(4, oz) X(5, dx) X(6, dy)        \
-  X(7, dz) X(8, tmin) X(9, tr) X(10, tg) X(11, tb) X(12, er) X(13, eg)         \
-  X(14, eb) X(15, Lr) X(16, Lg) X(17, Lb) X(18, wd) X(19, depth) X(20, n1)     \
-  X(21, n2) X(22, n3) X(23, rows) X(24, ar) X(25, ag) X(26, ab) X(27, segs)    \
-  X(28, samp)
-static_assert(kNState == 29, "state channel count");
+// a whole path to `cap` (K1, K5)
+__device__ void bounce_loop(const Scene& S, Path& p, float cap) {
+  while (going(p, cap)) bounce(S, p);
+}
 
 __device__ __forceinline__ void read_state(const float* st, const uint32_t* rng,
                                            int i, int n, Path& p) {
@@ -627,8 +685,8 @@ __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int i,
   SortShared& sh = *reinterpret_cast<SortShared*>(smem);
   const int lane = threadIdx.x;
   int pid = lane;
-  while (__syncthreads_or(p.alive > 0.0f && p.bounce < cap)) {
-    if (p.alive > 0.0f && p.bounce < cap) bounce(S, p);
+  while (__syncthreads_or(going(p, cap))) {
+    if (going(p, cap)) bounce(S, p);
     int key = lane_key(S, p);
     const int src = hijiki_sort::block_sort<kSortTile>(key, sh.sort);
     move_path(p, pid, lane, src, sh);
@@ -679,60 +737,127 @@ __global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
 }
 
 // K4, the chained camera launch (_megakernel_start_chained with the chain
-// block of _bounce_loop, pallas_megakernel.py:2618-2681).
+// block of _bounce_loop, pallas_megakernel.py:2618-2681): a persistent,
+// bounce-granular path loop.
 //
-// Each thread traces the `nsamp` sweep samples of its pixel one after the
-// other. A sample's path bounces until it dies or reaches `cap`; then it is
-//   * parked, if still alive: its full state goes to slot samp*n + lane of
-//     the (29, nsamp*n) pool and of the (nsamp*n,) RNG pool, and the
-//     compaction phases resume it later (no sample is dropped), or
+// The work items are the nsamp * n slots in slot order samp * n + lane, so
+// that a warp's run of consecutive slots is consecutive pixels of one
+// sample (coherent camera rays). The launch holds as many blocks as the SMs
+// keep resident at once (the occupancy of the kernel as built). Each thread
+// loops: if it holds no path it takes a slot, if it holds one it runs ONE
+// bounce of it, and when that path has stopped (dead, or at `cap`) it
+// writes it out. Slots are fetched by the warp: a ballot of the lanes that
+// need one, one atomicAdd of their number on a device counter (zeroed by
+// the wrapper on the stream), the base broadcast by a shuffle, each such
+// lane taking base + its rank among them. A lane past the last slot stays
+// idle; a warp leaves when the counter is spent and none of its lanes holds
+// a path. Every lane reaches both ballots in every iteration (the SASS
+// closes every divergent region of the loop body, BSSY/BSYNC, before them),
+// so the warp is converged there.
+//
+// A slot's sample starts as a fresh camera ray from pxs/pys/seeds[slot]
+// and, when it stops, is
+//   * parked, if still alive: its full state goes to column `slot` of the
+//     (29, nsamp*n) pool and of the (nsamp*n,) RNG pool, and the compaction
+//     phases resume it later (no sample is dropped), or
 //   * flushed, if dead: its 12 CHAIN_OUT_CH values (Lr,Lg,Lb, n1,n2,n3,
-//     depth, segs, rows, ar,ag,ab) go to column samp*n + lane of the
-//     (12, nsamp*n) buffer, and its final RNG to the RNG pool;
-// and the thread respawns on the next sample: a fresh camera ray from
-// pxs/pys/seeds[samp+1][lane] (camera_init), samp = samp + 1.
+//     depth, segs, rows, ar,ag,ab) go to column `slot` of the (12, nsamp*n)
+//     flush buffer, and its final RNG to the RNG pool.
+// The wrapper zeroes the pool and the flush buffer: an empty pool slot must
+// read alive = 0, and a parked slot's flush column must read 0 until its
+// resume commits it (writing those zeros here read slower than the memset).
 // The TPU kernel selected a sample's slot with a where-chain over S and
-// wrote every slot masked; a thread indexes its slot directly. Both
-// outputs are in the (C, nsamp*n) layout that the compaction phases
-// consume, so no transpose follows. The wrapper zeroes the pool and the
-// flush buffer: an empty pool slot must read alive = 0, and a parked
-// sample's flush column must read 0 until its resume commits it.
+// wrote every slot masked; here a slot is indexed directly. The outputs are
+// in the (C, nsamp*n) layout the compaction phases consume. The RNG pool
+// also receives flushed samples' final states (the TPU kernel leaves those
+// slots 0), so the chained driver returns per sweep the same RNG states as
+// separate sweeps. Which thread traces a slot, and when, does not change
+// the outputs: a slot's path depends only on its inputs.
 //
 // What bounds it: as K1, the dependent loads of the walk and the
-// divergence of a warp's threads. Respawn hides part of the divergence: a
-// thread whose path dies early starts its next sample instead of idling
-// until the warp's longest path ends, so a warp runs for the longest SUM
-// of nsamp capped samples, not for nsamp times the longest path.
-//
-// The RNG pool also receives flushed samples' final states (the TPU kernel
-// leaves those slots 0), so the chained driver returns per sweep the same
-// RNG states as separate sweeps.
-__global__ void __launch_bounds__(kThreads)
+// divergence of a warp's threads. A loop of whole samples per thread keeps a
+// warp on each sample until its slowest lane's path ends (nvcc wraps that
+// bounce loop in BSSY/BSYNC: lanes whose sample stopped wait at the BSYNC),
+// a cost of the sum over samples of the warp's longest path; here a lane
+// takes its next slot one bounce after its path stops, as the TPU kernel's
+// chain block respawned a lane. On the H100, at 1024x1024 x 8 samples, the
+// whole-sample loop costs 1.61x the warp-bounces of perfect packing
+// (mk.warp_iterations), yet this loop alone gains only ~3% over it
+// (tools/ab_megakernel_torch.py): a warp-bounce with few lanes active moves
+// fewer rows, so idle lanes cost less than their count, and a warp's lanes
+// no longer share their sample's coherent camera bounce. The inlined slot
+// start and finish raise the kernel to 120 registers (16 warps an SM);
+// capped at 96 (20 warps, no spill) the loop gains ~14%, and with the stash
+// at 80 (24 warps, no spill) another ~5% (PERF.md).
+
+// resident blocks an SM asked of ptxas for K4 (__launch_bounds__' second
+// argument: it caps the registers a thread, 80 at 6 blocks); with the stash
+// 6 is the most that spills nothing
+constexpr int kPersistMinBlocks = 6;
+
+// a slot's fresh camera path (its sample: slot / n)
+__device__ __forceinline__ void chain_start(const Scene& S, const float* pxs,
+                                            const float* pys,
+                                            const uint32_t* seeds, int n,
+                                            int slot, Path& p) {
+  camera_init(S, pxs[slot], pys[slot], seeds[slot], p);
+  const int s = slot / n;
+  if (s != 0) p.samp = static_cast<float>(s);  // sample 0 keeps px * 0
+}
+
+// park or flush a stopped path at `slot` of the sn slots
+__device__ __forceinline__ void chain_finish(const Path& p, int slot, int sn,
+                                             float* pool, uint32_t* pool_rng,
+                                             float* chain_out) {
+  pool_rng[slot] = p.rng;
+  if (p.alive > 0.0f) {  // park
+#define PARK_FIELD(c, f) pool[static_cast<size_t>(c) * sn + slot] = p.f;
+    STATE_FIELDS(PARK_FIELD)
+#undef PARK_FIELD
+  } else {  // flush
+    const float vals[kChainOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3,
+                                   p.depth, p.segs, p.rows, p.ar, p.ag, p.ab};
+#pragma unroll
+    for (int c = 0; c < kChainOut; ++c)
+      chain_out[static_cast<size_t>(c) * sn + slot] = vals[c];
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
                             const uint32_t* seeds, int n, int nsamp, float cap,
-                            float* pool, uint32_t* pool_rng, float* chain_out) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
+                            float* pool, uint32_t* pool_rng, float* chain_out,
+                            int* next) {
   const int sn = nsamp * n;
-  Path p;
-  camera_init(S, pxs[lane], pys[lane], seeds[lane], p);
-  for (int s = 0;;) {
-    bounce_loop(S, p, cap);
-    const int slot = s * n + lane;
-    if (p.alive > 0.0f) {  // park
-      write_state(p, pool, pool_rng, slot, sn);
-    } else {  // flush
-      const float vals[kChainOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3,
-                                     p.depth, p.segs, p.rows, p.ar, p.ag, p.ab};
-#pragma unroll
-      for (int c = 0; c < kChainOut; ++c)
-        chain_out[static_cast<size_t>(c) * sn + slot] = vals[c];
-      pool_rng[slot] = p.rng;
+  const unsigned lane = threadIdx.x % 32u;
+  const unsigned below = (1u << lane) - 1u;  // the lanes ranked before this one
+  __shared__ float stash[kStashWords * kThreads];
+  volatile float* my = stash + threadIdx.x;
+  Path p{};
+  int slot = -1;       // the slot whose path this thread holds; -1: none
+  bool spent = false;  // the counter is past the last slot (warp-uniform)
+  for (;;) {
+    const unsigned need = __ballot_sync(kFull, slot < 0);
+    if (need != 0u && !spent) {  // warp-uniform: one atomicAdd for the warp
+      const int leader = __ffs(need) - 1;
+      int base = 0;
+      if (static_cast<int>(lane) == leader) base = atomicAdd(next, __popc(need));
+      base = __shfl_sync(kFull, base, leader);
+      spent = base + __popc(need) >= sn;
+      const int mine = base + __popc(need & below);
+      if (slot < 0 && mine < sn) {
+        slot = mine;
+        chain_start(S, pxs, pys, seeds, n, slot, p);
+      }
     }
-    if (++s == nsamp) break;
-    const int next = s * n + lane;  // respawn on the pixel's next sample
-    camera_init(S, pxs[next], pys[next], seeds[next], p);
-    p.samp = static_cast<float>(s);
+    if (__ballot_sync(kFull, slot >= 0) == 0u) return;
+    if (slot >= 0) {
+      if (going(p, cap)) bounce<true>(S, p, my);
+      if (!going(p, cap)) {
+        chain_finish(p, slot, sn, pool, pool_rng, chain_out);
+        slot = -1;
+      }
+    }
   }
 }
 
@@ -825,14 +950,57 @@ extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
                             order);
 }
 
+// K4; `next`: the work counter, zeroed on the stream. The launch: the SMs
+// times the blocks an SM holds at once, no more blocks than the slots fill.
 extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
                                 const uint32_t* seeds, int n, int nsamp, int cap,
                                 float* pool, uint32_t* pool_rng, float* chain_out,
-                                void* stream) {
-  int blocks = (n + kThreads - 1) / kThreads;
-  mk_start_chained_kernel<<<blocks, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      SCENE_CALL, pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool,
-      pool_rng, chain_out);
+                                int* next, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mk_start_chained_kernel,
+                                                       kThreads, 0);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int fill = (nsamp * n + kThreads - 1) / kThreads;
+  const int blocks = fill < sms * per_sm ? fill : sms * per_sm;
+  mk_start_chained_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      SCENE_CALL, pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool, pool_rng,
+      chain_out, next);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+template <typename... Params>
+int occupancy(void (*kernel)(Params...), int* out) {
+  cudaFuncAttributes attr{};
+  int dev = 0;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kThreads, 0);
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
+  out[0] = attr.numRegs;
+  out[2] = kThreads;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(rc);
+}
+}  // namespace
+
+// What the card makes of a megakernel as built: out[0] registers a thread,
+// out[1] resident blocks an SM, out[2] threads a block, out[3] SMs, out[4]
+// local (spill) bytes a thread. which: 0 K1 mk_start, 1 K2 mk_resume, 2 K4
+// mk_start_chained, 3 K5 mk_tiles. K4, persistent, launches out[1] * out[3]
+// blocks (fewer where its slots fill fewer).
+extern "C" int mk_occupancy(int which, int* out) {
+  switch (which) {
+    case 0: return occupancy(mk_start_kernel<false>, out);
+    case 1: return occupancy(mk_resume_kernel<false>, out);
+    case 2: return occupancy(mk_start_chained_kernel, out);
+    case 3: return occupancy(mk_tiles_kernel<false>, out);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

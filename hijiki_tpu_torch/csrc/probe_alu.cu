@@ -53,17 +53,6 @@ namespace {
 
 enum DtypeVariant { kF32 = 0, kBf16 = 1, kBf16x2 = 2 };
 
-__device__ __forceinline__ float nmin(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nmax(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
 // ---------------------------------------------------------------- alu_issue --
 
 template <int kK>
@@ -81,13 +70,13 @@ __global__ void alu_issue_kernel(const float* __restrict__ x, int n, int iters,
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
       a = a * 1.000001f + f;
-      b = nmin(b + 0.75f, a);
+      b = nan_min(b + 0.75f, a);
       c = c > a ? c * 0.5f : c + 0.125f;
       d = d + c * 0.000001f;
-      a = nmax(a, 0.0f);
+      a = nan_max(a, 0.0f);
       b = b * 0.999999f;
       c = fabsf(c - b);
-      d = nmin(d, 8192.0f);
+      d = nan_min(d, 8192.0f);
     }
   }
   out[e] = a + b + c + d;
@@ -172,8 +161,8 @@ struct F32Ops {
   static __device__ __forceinline__ T of(float v) { return v; }
   static __device__ __forceinline__ float f32(T v) { return v; }
   static __device__ __forceinline__ T mad(T a, T b, T c) { return a * b + c; }
-  static __device__ __forceinline__ T mn(T a, T b) { return nmin(a, b); }
-  static __device__ __forceinline__ T mx(T a, T b) { return nmax(a, b); }
+  static __device__ __forceinline__ T mn(T a, T b) { return nan_min(a, b); }
+  static __device__ __forceinline__ T mx(T a, T b) { return nan_max(a, b); }
 };
 
 struct Bf16Ops {

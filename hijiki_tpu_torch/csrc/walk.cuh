@@ -10,6 +10,17 @@
 // --fmad=false, IEEE division and sqrtf, NaN-propagating min/max, f32
 // constants as exact hex literals.
 //
+// The row step: a row's columns 0-11 come in as three 128-bit loads (the
+// interior row's box in 0-5, kind in 9, exit pointer in 10, the prim's
+// edges in 3-8), and a prim row adds one more for its plane normal, where a
+// 32-bit load per column took eight for an interior row (the table's rows
+// are 16-byte aligned: the wrappers check its pointer). The slab test's
+// min/max are single min.NaN/max.NaN instructions: their results only feed
+// comparisons, which a NaN fails whatever its bits, so they decide as
+// jmin/jmax do, each of which took several instructions; jmin/jmax stay
+// wherever a value is kept. On the H100 the interior step went from 77
+// SASS instructions to 42 (PERF.md).
+//
 // prim_test, octant_base and walk take template parameters whose defaults
 // are the megakernel's (32-column rows, the plane normal in columns 29-31,
 // the prim test on, a thread walking alone), so K1-K5 compile to the code
@@ -46,6 +57,23 @@ __device__ __forceinline__ float jmin(float a, float b) {
 }
 __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
+}
+// one FMNMX each (min.NaN/max.NaN; probe_alu.cu's bodies use them too). A
+// NaN operand gives PTX's canonical NaN, whose bits need not be qnan()'s, so
+// the render kernels take them only for values that feed comparisons
+__device__ __forceinline__ float nan_min(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+// four consecutive columns of a row (16-byte aligned), a read-only load
+__device__ __forceinline__ float4 row4(const float* r, int col) {
+  return __ldg(reinterpret_cast<const float4*>(r + col));
 }
 // the vote of a group of kG threads: a thread alone (1) or a warp (32)
 template <int kG>
@@ -109,17 +137,20 @@ __device__ __forceinline__ void analytic_pretest(const Scene& S, float ox, float
   }
 }
 
-// _prim_test on a classic row; kNrm: the column of the baked plane normal
-// (29 in the 32-column table, 11 in the 16-column probe table)
+// _prim_test on a classic row whose columns 0-11 are c0, c1, c2 (row4 at 0,
+// 4, 8); kNrm: the column of the baked plane normal (29 in the 32-column
+// table, 11 in the 16-column probe table), loaded here
 template <int kNrm = 29>
-__device__ __forceinline__ bool prim_test(const Scene& S, const float* r, float ox,
-                                          float oy, float oz, float dx, float dy,
-                                          float dz, float tmin, float best_t,
-                                          float& pt, float& pu, float& pv) {
-  float rx = ox - r[0], ry = oy - r[1], rz = oz - r[2];
-  float kind = r[9];
+__device__ __forceinline__ bool prim_test(const Scene& S, const float* r,
+                                          const float4& c0, const float4& c1,
+                                          const float4& c2, float ox, float oy,
+                                          float oz, float dx, float dy, float dz,
+                                          float tmin, float best_t, float& pt,
+                                          float& pu, float& pv) {
+  float rx = ox - c0.x, ry = oy - c0.y, rz = oz - c0.z;
+  float kind = c2.y;
   if (!S.analytic_mode && kind == 0.0f) {  // sphere row, radius in col 3
-    float radius = r[3];
+    float radius = c0.w;
     float sb = 2.0f * dot3(dx, dy, dz, rx, ry, rz);
     float sc = dot3(rx, ry, rz, rx, ry, rz) - radius * radius;
     float disc = sb * sb - 4.0f * sc;
@@ -133,13 +164,25 @@ __device__ __forceinline__ bool prim_test(const Scene& S, const float* r, float 
     pv = 0.0f;
     return (disc >= 0.0f) && (ok0 || ok1);
   }
-  float nx = r[kNrm], ny = r[kNrm + 1], nz = r[kNrm + 2];
+  static_assert(kNrm == 29 || kNrm == 11, "the normal's column");
+  float nx, ny, nz;
+  if constexpr (kNrm == 29) {
+    const float4 c7 = row4(r, 28);
+    nx = c7.y;
+    ny = c7.z;
+    nz = c7.w;
+  } else {
+    const float4 c3 = row4(r, 12);
+    nx = c2.w;
+    ny = c3.x;
+    nz = c3.y;
+  }
   float qx = ry * dz - rz * dy;
   float qy = rz * dx - rx * dz;
   float qz = rx * dy - ry * dx;
   float dd = 1.0f / (dx * nx + dy * ny + dz * nz);
-  float u = -dd * (qx * r[6] + qy * r[7] + qz * r[8]);
-  float v = dd * (qx * r[3] + qy * r[4] + qz * r[5]);
+  float u = -dd * (qx * c1.z + qy * c1.w + qz * c2.x);
+  float v = dd * (qx * c0.w + qy * c1.x + qz * c1.y);
   float t = -dd * (nx * rx + ny * ry + nz * rz);
   pt = t;
   pu = u;
@@ -188,22 +231,24 @@ __device__ float walk(const Scene& S, float ox, float oy, float oz, float dx,
   float nit = 0.0f;
   while (cur < end) {
     const float* r = S.rows + static_cast<size_t>(cur) * kW;
+    const float4 c0 = row4(r, 0), c1 = row4(r, 4), c2 = row4(r, 8);
     nit = nit + 1.0f;
-    int nexit = static_cast<int>(r[10]);
+    int nexit = static_cast<int>(c2.z);
     float best_t = any_hit ? tmax : bt;
-    if (r[9] < 0.0f) {  // interior row: slab test on its box
-      float ax = r[0] * ix + tox, bx = r[3] * ix + tox;
-      float ay = r[1] * iy + toy, by = r[4] * iy + toy;
-      float az = r[2] * iz + toz, bz = r[5] * iz + toz;
-      float t0 = jmax(jmax(jmin(ax, bx), jmin(ay, by)), jmin(az, bz));
-      float t1 = jmin(jmin(jmax(ax, bx), jmax(ay, by)), jmax(az, bz));
+    if (c2.y < 0.0f) {  // interior row: slab test on its box
+      float ax = c0.x * ix + tox, bx = c0.w * ix + tox;
+      float ay = c0.y * iy + toy, by = c1.x * iy + toy;
+      float az = c0.z * iz + toz, bz = c1.y * iz + toz;
+      float t0 = nan_max(nan_max(nan_min(ax, bx), nan_min(ay, by)), nan_min(az, bz));
+      float t1 = nan_min(nan_min(nan_max(ax, bx), nan_max(ay, by)), nan_max(az, bz));
       bool slab = (t0 < t1 + kEps) && (t0 < best_t) && (t1 > tmin);
       cur = group_any<kG>(slab) ? cur + 1 : nexit;
       continue;
     }
     float pt, pu, pv;
     if (kTest &&
-        prim_test<kNrm>(S, r, ox, oy, oz, dx, dy, dz, tmin, best_t, pt, pu, pv) &&
+        prim_test<kNrm>(S, r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, best_t, pt,
+                        pu, pv) &&
         pt < best_t) {
       if (any_hit) {
         hit = true;

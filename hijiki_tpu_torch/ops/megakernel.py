@@ -1005,20 +1005,31 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected a contiguous tensor on {device}")
 
 
-def _launch(fn_name, ms, ins, ints, outs):
+def check_rows_aligned(rows):
+    """The walk reads a trace row's columns four at a time (128-bit loads,
+    csrc/walk.cuh): the table must start on a 16-byte boundary."""
+    if rows.data_ptr() % 16:
+        raise ValueError("the trace rows must start on a 16-byte boundary (a fresh tensor does)")
+
+
+def _launch(fn_name, ms, ins, ints, outs, persistent=False):
     """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
     stream: scene, input pointers, ``ints``, output pointers (None: a null
-    pointer), stream. The first int is the lane count; nothing launches for
-    0 lanes. Returns the outputs that are not None."""
+    pointer), for the ``persistent`` K4 its work counter zeroed on the
+    stream, then the stream. The first int is the lane count; nothing
+    launches for 0 lanes. Returns the outputs that are not None."""
     from hijiki_tpu_torch.utils.build import load_library
 
     if ints[0]:
+        check_rows_aligned(ms.rows)
         lib = load_library()
         stream = torch.cuda.current_stream(ms.rows.device).cuda_stream
+        counter = [torch.zeros(1, dtype=torch.int32, device=ms.rows.device)] if persistent else []
         rc = getattr(lib, fn_name)(
             ms.rows.data_ptr(), ms.consts.data_ptr(), *_scene_args(ms),
             *[t.data_ptr() for t in ins], *ints,
-            *[None if t is None else t.data_ptr() for t in outs], stream,
+            *[None if t is None else t.data_ptr() for t in outs],
+            *[t.data_ptr() for t in counter], stream,
         )
         LAUNCHES[fn_name] += 1
         if rc != 0:
@@ -1116,7 +1127,10 @@ def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
     (N_STATE, S*N) f32, pool RNG (S*N,) int32 bits, flush buffer
     (CHAIN_OUT_CH, S*N) f32), slot ``samp * N + lane``; a slot's pool
     state is all zero unless its sample parked, its flush column all zero
-    unless it finished."""
+    unless it finished.
+
+    The kernel is persistent: its threads take slots from a work counter in
+    slot order and bounce them one bounce at a time."""
     S, n = pxs.shape
     if pxs.device.type == "cuda":
         _check_camera_inputs(ms, pxs, pys, seeds, (S, n))
@@ -1128,8 +1142,58 @@ def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
         pool_rng = torch.empty(S * n, dtype=torch.int32, device=dev)
         chain_out = torch.zeros((CHAIN_OUT_CH, S * n), dtype=torch.float32, device=dev)
         return _launch("mk_start_chained", ms, [pxs, pys, seeds], [n, S, cap],
-                       [pool, pool_rng, chain_out])
+                       [pool, pool_rng, chain_out], persistent=True)
     return megakernel_start_chained_plain(ms, pxs, pys, seeds, cap)
+
+
+def chained_segs(pool, chain_out, nsamp: int):
+    """The bounces each slot's path ran in a chained launch (K4's outputs),
+    (nsamp, N): a parked slot's pool ``segs`` or a flushed slot's flush
+    ``segs`` (the other is 0)."""
+    segs = _STATE_CH.index("segs")  # pool channel 27, flush channel 7
+    return (pool[segs] + chain_out[_RESULT_CH.index(segs)]).view(nsamp, -1)
+
+
+def warp_iterations(segs, warp: int = 32) -> dict:
+    """Warp-bounces of a chained launch's slots ``segs`` (nsamp, N; N padded
+    with 0 to whole warps of ``warp`` consecutive lanes), the mean over
+    warps of what each loop would cost: ``sum_max``, the sum over samples of
+    the warp's longest path (a loop of whole samples per thread, whose warp
+    waits for its slowest lane each sample); ``max_sum``, the warp's longest
+    per-lane sum over samples (a lane respawning alone); ``sum_mean``, the
+    sum over samples of the mean path (perfect packing). sum_max >= max_sum
+    >= sum_mean."""
+    segs = segs.double()
+    segs = torch.cat([segs, segs.new_zeros(segs.shape[0], (-segs.shape[1]) % warp)], 1)
+    w = segs.view(segs.shape[0], -1, warp)
+    return {"sum_max": float(w.amax(2).sum(0).mean()),
+            "max_sum": float(w.sum(0).amax(1).mean()),
+            "sum_mean": float(w.mean(2).sum(0).mean())}
+
+
+# mk_occupancy's kernel numbers (csrc/megakernel.cu)
+_OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3}
+
+
+def occupancy(name: str, lib=None) -> dict:
+    """What the card makes of the megakernel ``name`` (``mk_start``,
+    ``mk_resume``, ``mk_start_chained``, ``mk_tiles``) as built (``lib``:
+    another build's library; default the package's): registers a thread,
+    local-memory bytes a thread (its stack frame, spills included: ptxas'
+    report tells the spills apart), resident blocks and warps an SM, and SMs
+    (the persistent K4 launches blocks_per_sm x sms blocks at most)."""
+    import ctypes
+
+    from hijiki_tpu_torch.utils.build import load_library
+
+    out = (ctypes.c_int * 5)()
+    lib = lib if lib is not None else load_library()
+    rc = lib.mk_occupancy(_OCCUPANCY_OF[name], ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"mk_occupancy({name}) failed: CUDA error {rc}")
+    regs, per_sm, threads, sms, local = out
+    return {"registers": regs, "local_bytes": local, "warps_per_sm": per_sm * threads // 32,
+            "blocks_per_sm": per_sm, "sms": sms}
 
 
 def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,

@@ -156,12 +156,13 @@ def sm_clock_during(fn) -> tuple:
     return res, cur[len(cur) // 2], max(m for _, m in samples)
 
 
-def sass_loop(kernel: str) -> dict:
-    """The instructions of the longest loop of each kernel function whose
-    mangled name contains ``kernel``, from ``cuobjdump -sass`` of the kernel
-    library: {mangled name: {opcode: count}}. A loop runs from a branch
-    target to the backward branch that reaches it. Empty where cuobjdump is
-    missing."""
+def sass_functions(kernel: str, lib=None) -> dict:
+    """The SASS of each kernel function whose mangled name contains
+    ``kernel``, from ``cuobjdump -sass`` of the kernel library ``lib`` (a
+    path; the package's build by default): {mangled name: ([(opcode, the
+    rest of the line), ...], [loop, ...], the function's cuobjdump text)}, a
+    loop being the (start, end) indices of a branch target and the backward
+    branch that reaches it. Empty where cuobjdump is missing."""
     import re
     import shutil
     import subprocess
@@ -171,8 +172,8 @@ def sass_loop(kernel: str) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
-    text = subprocess.run([tool, "-sass", str(build()[0])], capture_output=True, text=True,
-                          timeout=300).stdout
+    text = subprocess.run([tool, "-sass", str(lib or build()[0])], capture_output=True,
+                          text=True, timeout=300).stdout
     ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
     out = {}
     for chunk in text.split("Function : ")[1:]:
@@ -193,7 +194,7 @@ def sass_loop(kernel: str) -> dict:
                 pending = []
                 code.append((int(m.group(1), 16), m.group(2), m.group(3)))
         addr_at = {a: i for i, (a, _, _) in enumerate(code)}
-        best = ()
+        loops = []
         for j, (_, op, rest) in enumerate(code):
             if not op.startswith("BRA"):
                 continue
@@ -202,10 +203,26 @@ def sass_loop(kernel: str) -> dict:
             if start is None:
                 m = re.search(r"(0x[0-9a-f]+)", rest)
                 start = addr_at.get(int(m.group(1), 16)) if m else None
-            if start is not None and start <= j and j - start + 1 > len(best):
-                best = code[start : j + 1]
-        counts = {}
-        for _, op, _ in best:
-            counts[op] = counts.get(op, 0) + 1
-        out[name] = counts
+            if start is not None and start <= j:
+                loops.append((start, j))
+        out[name] = ([(op, rest) for _, op, rest in code], loops, chunk)
+    return out
+
+
+def op_counts(ops) -> dict:
+    """{opcode: count} of a list of (opcode, rest) instructions."""
+    counts = {}
+    for op, _ in ops:
+        counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def sass_loop(kernel: str) -> dict:
+    """The instructions of the longest loop of each kernel function whose
+    mangled name contains ``kernel`` (``sass_functions``): {mangled name:
+    {opcode: count}}."""
+    out = {}
+    for name, (code, loops, _) in sass_functions(kernel).items():
+        start, end = max(loops, key=lambda lp: lp[1] - lp[0], default=(0, -1))
+        out[name] = op_counts(code[start : end + 1])
     return out

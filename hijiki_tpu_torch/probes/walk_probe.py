@@ -208,6 +208,7 @@ def walk_isolate(ms, rows, o, d, *, test: bool = True, group: int = 1, iters: in
     if W == 16 and not ms.analytic_mode:
         raise ValueError("the 16-column table holds triangle rows only (analytic mode)")
     check("rows", rows, torch.float32, (ms.total_rows, W), dev)
+    mk.check_rows_aligned(rows)
     check("o", o, torch.float32, (3, n), dev)
     check("d", d, torch.float32, (3, n), dev)
     t = torch.empty(n, dtype=torch.float32, device=dev)

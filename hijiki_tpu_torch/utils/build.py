@@ -41,7 +41,9 @@ _SCENE = [_P, _P] + [_I] * 10
 SIGNATURES = {
     "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
     "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
-    "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # K4 is persistent: the pointer before the stream is its work counter
+    "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "mk_occupancy": [_I, _P],
     "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
     "mk_start_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "mk_resume_sorted": _SCENE + [_P, _P, _I, _I, _P, _P, _P, _P],

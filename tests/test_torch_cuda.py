@@ -17,7 +17,10 @@ inside) bit-equal to the unsorted kernels on every output (a pure
 permutation of whole paths); K6's strict and inclusive any-hit bit-equal
 to the plain walk at tmax = the closest hit's t; K9 (reconstruct_old) to
 K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
-bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions."""
+bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions; the
+persistent K4 (into NaN-filled outputs: it writes every slot it owns), K2 at caps
+12, 48 and 1000, and K2 and K10b on axis-aligned rays (the slab test's NaN
+path) bit-equal to their twins on every output."""
 
 import numpy as np
 import pytest
@@ -588,3 +591,141 @@ def test_dtype_slab_kernel_matches_plain(variant, rows):
     got = D.dtype_slab(x, row, 9, variant)
     assert D.LAUNCHES["dtype_slab"] == before + 1
     assert torch.equal(got, D.slab_plain(x, row, 9, variant))
+
+
+# ---- the persistent K4, K2 and the row step (min.NaN slab test, 128-bit
+# row loads): bit-equal to the twins ----
+
+# lanes of these tests: no multiple of a warp or a block
+ODD_LANES = 64 * 64 - 37
+
+
+def _samples(S, dev):
+    """(S, ODD_LANES) jittered pixel coordinates and seeds, one set a sample."""
+    px, py, seeds = _frame(64, dev)
+    k = torch.arange(S, device=dev, dtype=torch.float32).view(-1, 1)
+    return ((px[:ODD_LANES] + 0.17 * k).contiguous(), (py[:ODD_LANES] - 0.11 * k).contiguous(),
+            (seeds[:ODD_LANES] + 977 * k.int()).contiguous())
+
+
+@pytest.mark.parametrize("S", [1, 3, 8])
+def test_persistent_chained_kernel_bit_equal_to_twin(S):
+    """K4 on S samples of 4059 lanes, chain cap 8: the pool, the RNG pool
+    and the flush buffer bit-equal to megakernel_start_chained_plain
+    through the wrapper (zeroed outputs); and, into outputs filled with NaN
+    first, every slot the kernel writes bit-equal to the twin's: the whole
+    RNG pool, a parked slot's pool column, a flushed slot's flush column."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 64, 64, dev)
+    pxs, pys, sds = _samples(S, dev)
+    n = ODD_LANES
+    nan = float("nan")
+    outs = [torch.full((mk.N_STATE, S * n), nan, device=dev),
+            torch.full((S * n,), nan, device=dev).view(torch.int32),
+            torch.full((mk.CHAIN_OUT_CH, S * n), nan, device=dev)]
+    before = mk.LAUNCHES["mk_start_chained"]
+    got = mk._launch("mk_start_chained", ms, [pxs, pys, sds], [n, S, 8], outs, persistent=True)
+    wrapped = mk.megakernel_start_chained(ms, pxs, pys, sds, 8)
+    assert mk.LAUNCHES["mk_start_chained"] == before + 2
+    want = mk.megakernel_start_chained_plain(ms, pxs, pys, sds, 8)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(wrapped), _bits(want)))
+    parked = want[0][0] > 0
+    assert parked.any() and (~parked).any()
+    (pool, rng, flush), (wpool, wrng, wflush) = _bits(got), _bits(want)
+    assert torch.equal(rng, wrng)
+    assert torch.equal(pool[:, parked], wpool[:, parked])
+    assert torch.equal(flush[:, ~parked], wflush[:, ~parked])
+
+
+@pytest.mark.parametrize("cap", [12, 48, 1000])
+def test_resume_kernel_bit_equal_to_twin(cap):
+    """K2 (the new row step inside) resuming 4059 lanes of a K1 state at cap
+    5 (dead and live lanes mixed) to ``cap``: state and RNG bit-equal to the
+    twin."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 64, 64, dev)
+    px, py, seeds = (a[:ODD_LANES].contiguous() for a in _frame(64, dev))
+    st, rng = mk.megakernel_start(ms, px, py, seeds, 5)
+    before = mk.LAUNCHES["mk_resume"]
+    got = mk.megakernel_resume(ms, st, rng, cap)
+    assert mk.LAUNCHES["mk_resume"] == before + 1
+    want = mk.megakernel_resume_plain(ms, st, rng, cap)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    assert (st[0] > 0).any() and (st[0] == 0).any()
+
+
+def _axis_rays(ms, m, seed):
+    """m rays with axis-aligned directions (one component +-1, the others 0
+    or -0.0) whose origins lie, on a zero-direction axis, on a face of an
+    interior row's box, so the slab test meets 0 * inf and inf - inf."""
+    rows = ms.rows.cpu().numpy()
+    g = np.random.default_rng(seed)
+    boxes = rows[rows[:, 9] < 0]
+    lo, hi = boxes[0, 0:3], boxes[0, 3:6]  # the root's box: the scene's
+    o = lo + (hi - lo) * g.random((m, 3))
+    d = np.zeros((m, 3))
+    axis = g.integers(0, 3, m)
+    d[np.arange(m), axis] = np.where(g.random(m) < 0.5, 1.0, -1.0)
+    d[(np.arange(m) % 5 == 0)[:, None] & (d == 0)] = -0.0
+    face = (axis + 1 + g.integers(0, 2, m)) % 3  # a zero-direction axis
+    pick = boxes[g.integers(0, len(boxes), m)]
+    o[np.arange(m), face] = pick[np.arange(m), face + 3 * g.integers(0, 2, m)]
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def test_axis_aligned_rays_bit_equal_to_twin():
+    """Rays with direction components exactly 0 (and -0.0), origins on box
+    faces: the slab test's NaN path, now min.NaN/max.NaN, decides as the
+    twin's NaN-propagating min/max. K2 resuming such rays to cap 12, and
+    K10b walking them, bit-equal to their plain versions."""
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 64, 64, dev)
+    px, py, seeds = _frame(64, dev)
+    st, rng = mk.megakernel_start(ms, px, py, seeds, 0)  # fresh camera paths
+    o, d = _axis_rays(ms, px.numel(), 5)
+    st = st.clone()
+    st[2:5] = torch.from_numpy(o.T.copy()).to(dev)
+    st[5:8] = torch.from_numpy(d.T.copy()).to(dev)
+    got = mk.megakernel_resume(ms, st, rng, 12)
+    want = mk.megakernel_resume_plain(ms, st, rng, 12)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    ot, dt = (torch.from_numpy(a.T.copy()).to(dev) for a in (o, d))
+    got = W.walk_isolate(ms, ms.rows, ot, dt)
+    want = W.walk_isolate_plain(ms, ms.rows, ot, dt)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    # the NaN path ran: some ray's slab values at the root are NaN
+    r = ms.rows[0]
+    with np.errstate(all="ignore"):
+        inv = 1.0 / d
+        slab = np.concatenate([r[0:3].cpu().numpy() * inv - o * inv,
+                               r[3:6].cpu().numpy() * inv - o * inv], 1)
+    assert np.isnan(slab).any()
+
+
+def test_wrapper_rejects_unaligned_rows():
+    """The walk loads a row's columns 16 bytes at a time: a table that does
+    not start on a 16-byte boundary is refused, not read misaligned."""
+    import dataclasses
+
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX_SMALL), 8, 8, dev)
+    flat = torch.empty(ms.rows.numel() + 1, device=dev)
+    shifted = flat[1:].view(ms.rows.shape)
+    shifted.copy_(ms.rows)
+    bad = dataclasses.replace(ms, rows=shifted)
+    with pytest.raises(ValueError):
+        mk.megakernel_start(bad, *_frame(8, dev), 5)
+
+
+def test_megakernels_occupancy():
+    """mk_occupancy answers for the four unsorted megakernels: registers,
+    resident warps and the card's SMs; K4 holds 24 warps an SM."""
+    cuda_device()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("mk_start", "mk_resume", "mk_start_chained", "mk_tiles"):
+        occ = mk.occupancy(name)
+        assert 0 < occ["registers"] <= 255 and occ["warps_per_sm"] >= 4
+        assert occ["warps_per_sm"] == occ["blocks_per_sm"] * 4 and occ["sms"] == sms
+    assert mk.occupancy("mk_start_chained")["warps_per_sm"] == 24

@@ -117,8 +117,10 @@ def test_unported_options_raise():
 
 
 def test_port_never_imports_jax():
-    """`import hijiki_tpu_torch` and its modules leave jax out of sys.modules
-    (a fresh interpreter: this test process has jax loaded already)."""
+    """`import hijiki_tpu_torch` and its modules, and the port's card tools
+    (chip_smoke.py, tools/ab_megakernel_torch.py with what its main()
+    imports), leave jax out of sys.modules (a fresh interpreter: this test
+    process has jax loaded already)."""
     import subprocess
     import sys
 
@@ -127,6 +129,9 @@ def test_port_never_imports_jax():
         "import hijiki_tpu_torch, hijiki_tpu_torch.cli\n"
         "import hijiki_tpu_torch.render.renderer, hijiki_tpu_torch.ops.megakernel\n"
         "import hijiki_tpu_torch.utils.build, hijiki_tpu_torch.scene.compile\n"
+        "import hijiki_tpu_torch.probes.walk_probe, hijiki_tpu_torch.scene.obj\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import chip_smoke, ab_megakernel_torch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'hijiki_tpu.'))]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
