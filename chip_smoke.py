@@ -39,7 +39,8 @@ Phases, each printing as it goes; any failure exits non-zero:
    every kernel of the path launched:
    (a) the chained slice: Renderer(device="cuda") at 1024x1024, 8 spp,
        max_bounces 1000, chaining on auto (8 sweeps per launch: K4, K2,
-       K3), EXR written and read back, peak device memory;
+       and one K3 launch a chunk), EXR written and read back, peak device
+       memory;
    (b) the unchained slice (chain_sweeps=1: K1, K2, K3), its film equal
        to (a)'s within rtol 1e-5 / atol 1e-6 (the order of the film adds);
    (i) the lane-sorted slice: Renderer(sort_lanes=True) at 1024x1024, 8
@@ -77,13 +78,18 @@ Phases, each printing as it goes; any failure exits non-zero:
    warps an SM and launch blocks of K4 (persistent) and K2 (mk_occupancy),
    and the warp-iteration ratios of the chunk's K4 (mk.warp_iterations of
    its segs); K5 on the 1M-path frame likewise (bit-equal), K3 on a sweep
-   to its bound;
-   K6's calls of one 1024x1024 sync sweep: the first bounce's closest walk
-   (1M rays), its shadow any-hit walk and the closest walk of bounce 9,
-   each replayed through the kernel and the twin, bit-equal, and timed
+   to its bound, and on the chained chunk's 8 sweeps in one launch as path
+   (a) runs it: to its bound against the plain version, bit-equal to its 8
+   one-sweep launches summed in sweep order, timed;
+   K6's calls of one 1024x1024 sync sweep (K6_CALLS): the first bounce's
+   closest walk (1M rays), its shadow any-hit walk and the closest walks of
+   bounces 9, 30 and 200, each replayed through the kernel and the twin,
+   bit-equal, and timed
    (plus K6's device time over every call of that sweep, from
-   torch.profiler, and a check that three bounces of the sync integrator
-   make no device sync under torch.cuda.set_sync_debug_mode("error"));
+   torch.profiler, beside the sweep's summed bound from its walking rays
+   and rows visited, summed on the device, and a check that three bounces
+   of the sync integrator make no device sync under
+   torch.cuda.set_sync_debug_mode("error"));
    every K1 and K2 call of the unchained sweep replayed through the sorted
    kernel too (bit-equal to the unsorted kernel, held to its sorted plain
    version with the phase-4 bounds and its order record bit-equal to the
@@ -104,7 +110,8 @@ Phases, each printing as it goes; any failure exits non-zero:
    dtype probes), launches counted as a path's.
 
 The line before the last is the kernel report {"kernels": [...]}, whose
-errors and times come from phase 6 (K3's error also from phase 3) and
+errors and times come from phase 6 (K3's: the chained chunk's launch;
+its error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
 (b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
 K8 from (j), the probes from (k)); each entry has its bound (bound_ms: the
@@ -165,6 +172,10 @@ PROBE_OPS = {"walk_ablate": ROW_OPS + 41 + 1, "fetch": 1, "chain": 18, "staged":
 K9_TAP_OPS = TAP_OPS + 10
 # threads of the probes' full-width runs: one per path of a 1024x1024 sweep
 PROBE_THREADS = 1 << 20
+# K6's calls of one sync sweep replayed in phase 6 (two a bounce: closest,
+# then shadow): bounce 1's closest and shadow walks, the closest walks of
+# bounces 9, 30 and 200
+K6_CALLS = (0, 1, 16, 58, 398)
 
 
 def fail(msg: str) -> None:
@@ -836,6 +847,8 @@ def main() -> int:
     check_render("(a) chained", ra, ma, counts_a, ("mk_start_chained", "mk_resume", "reconstruct"))
     if ma["chain_chunk_sweeps"] != mk.CHAIN_SWEEPS_CUDA:
         fail(f"auto chaining resolved to {ma['chain_chunk_sweeps']} sweeps, not {mk.CHAIN_SWEEPS_CUDA}")
+    if counts_a["reconstruct"] != -(-slice_cfg["spp"] // mk.CHAIN_SWEEPS_CUDA):
+        fail(f"(a) launched K3 {counts_a['reconstruct']} times, not once a chained chunk")
     print(f"(a) peak device memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
     out_dir = os.path.join(HERE, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -1080,7 +1093,9 @@ def main() -> int:
     scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
     frames = [frame_of(sc) for sc in scheds]
     cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
-    chunk_calls = record_calls(mk, real, lambda: mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000))
+    chunk_res = []
+    chunk_calls = record_calls(mk, real, lambda: chunk_res.append(
+        mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000)))
     c_ms, c_plain, c_err, c_work, c_out = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
@@ -1174,14 +1189,36 @@ def main() -> int:
 
     total = sweep_out[0][0].reshape(H, W, 3).contiguous()
     normal = sweep_out[0][1].reshape(H, W, 3).contiguous()
-    t_k3, got = timed(lambda: prc.reconstruct(total, normal, uso, block_size=128), reps=20)
-    t_k3p, want = timed(lambda: reconstruct_sweep(total, normal, torch.zeros_like(total), uso,
-                                                  block_size=128), reps=1, warm=False)
+    t_k3s, got = timed(lambda: prc.reconstruct(total, normal, uso, block_size=128), reps=20)
+    t_k3sp, want = timed(lambda: reconstruct_sweep(total, normal, torch.zeros_like(total), uso,
+                                                   block_size=128), reps=1, warm=False)
     k3_err = max(k3_err, check_k3("K3 on the sweep's radiance (1024x1024)", got, want))
-    k3_work = (nbytes(total, normal, got), H * W * 25 * TAP_OPS)
-    print(f"K3 reconstruct (1024x1024, device time of 20 back-to-back launches): "
-          f"{t_k3:.3f} ms, twin {t_k3p:.3f} ms, bound {bound(*k3_work)[0]:.4f} ms "
-          f"({bound(*k3_work)[1]})")
+    k3s_work = (nbytes(total, normal, got), H * W * 25 * TAP_OPS)
+    print(f"K3 reconstruct, one sweep (1024x1024, device time of 20 back-to-back launches): "
+          f"{t_k3s:.4f} ms, twin {t_k3sp:.3f} ms, bound {bound(*k3s_work)[0]:.4f} ms "
+          f"({bound(*k3s_work)[1]})")
+    # K3 as path (a) launches it: the chained chunk's 8 sweeps in one launch
+    S3 = cpx.shape[0]
+    ctot = chunk_res[0][0].reshape(S3, H, W, 3).contiguous()
+    cnrm = chunk_res[0][1].reshape(S3, H, W, 3).contiguous()
+    coffs = np.stack([f[3] for f in frames]).astype(np.float32)
+    del chunk_res
+    t_k3, got = timed(lambda: prc.reconstruct(ctot, cnrm, coffs, block_size=128), reps=10)
+    t_k3p, want = timed(lambda: prc.reconstruct_plain(ctot, cnrm, coffs, block_size=128),
+                        reps=1, warm=False)
+    k3_err = max(k3_err, check_k3(f"K3 on the chained chunk ({S3} x 1024x1024, one launch)",
+                                  got, want))
+    k3_sum = None
+    for s in range(S3):
+        d = prc.reconstruct(ctot[s], cnrm[s], coffs[s], block_size=128)
+        k3_sum = d if k3_sum is None else k3_sum + d
+    if not bit_equal([got], [k3_sum]):
+        fail("K3's chunk launch differs from its one-sweep launches summed in sweep order")
+    k3_work = (nbytes(ctot, cnrm, got), S3 * H * W * 25 * TAP_OPS)
+    print(f"K3 reconstruct, the chained chunk ({S3} sweeps, one launch, mean of 10): {t_k3:.4f} ms, "
+          f"bit-equal to its {S3} one-sweep launches summed in sweep order; twin {t_k3p:.3f} ms, "
+          f"bound {bound(*k3_work)[0]:.4f} ms ({bound(*k3_work)[1]})")
+    del ctot, cnrm, k3_sum
 
     # K6: the device time of every call of one 1024x1024 sync sweep, from
     # torch.profiler (CUDA events around each call would add the host's
@@ -1192,13 +1229,23 @@ def main() -> int:
 
     real_traverse = pt.traverse
     k6_calls, n_calls = [], [0]
+    # the sweep's K6 work, summed on the device (no host read per call):
+    # walking rays, rows visited, and on the host lanes and table bytes
+    k6_walking = torch.zeros((), dtype=torch.int64, device=dev)
+    k6_rows = torch.zeros((), dtype=torch.float64, device=dev)
+    k6_lanes, k6_table = [0], [0]
 
     def traverse_recorded(rows, o, d, tmin, tmax, **mode):
-        if n_calls[0] in (0, 1, 16):
+        if n_calls[0] in K6_CALLS:
             k6_calls.append((n_calls[0], (rows, o.clone(), d.clone(), tmin.clone(), tmax.clone()),
                              mode))
         n_calls[0] += 1
-        return real_traverse(rows, o, d, tmin, tmax, **mode)
+        out = real_traverse(rows, o, d, tmin, tmax, **mode)
+        k6_walking.add_((tmax >= tmin).sum())
+        k6_rows.add_(out[6].sum(dtype=torch.float64))
+        k6_lanes[0] += o.shape[0]
+        k6_table[0] += nbytes(rows)
+        return out
 
     kpx, kpy, kseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 21))
     ko, kd, ktmin, ktmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
@@ -1214,8 +1261,17 @@ def main() -> int:
     k6_events = [e for e in prof.key_averages() if "traverse_kernel" in e.key]
     k6_sweep_ms = sum(getattr(e, "self_device_time_total", 0) for e in k6_events) / 1e3
     k6_sweep_n = sum(e.count for e in k6_events)
+    # the sweep's summed bound: every call's table, tmin and tmax, the o and
+    # d of its walking rays, six outputs a lane, ROW_OPS a visited row
+    walking_all, rows_all = int(k6_walking), float(k6_rows)
+    sweep_work = (k6_table[0] + 8 * k6_lanes[0] + 24 * walking_all + 24 * k6_lanes[0],
+                  rows_all * ROW_OPS)
+    k6_sweep_bound = bound(*sweep_work)
     print(f"K6 in one sync sweep: {n_calls[0]} launches over {ksweep.iterations} bounces, "
-          f"{k6_sweep_ms:.3f} ms of device time in all ({k6_sweep_n} kernels in the profile)")
+          f"{k6_sweep_ms:.3f} ms of device time in all ({k6_sweep_n} kernels in the profile); "
+          f"{walking_all} of {k6_lanes[0]} lanes walked, {rows_all / 1e6:.3f} M rows visited; summed "
+          f"bound {k6_sweep_bound[0]:.4f} ms ({k6_sweep_bound[1]}), so launches x gap "
+          f"{k6_sweep_ms - k6_sweep_bound[0]:.3f} ms")
     if k6_sweep_n != n_calls[0] or not k6_sweep_ms > 0:
         fail("the profiler did not see every K6 launch of the sweep")
 
@@ -1240,17 +1296,17 @@ def main() -> int:
             "inclusive any-hit" if mode.get("inclusive") else "any-hit")
         label = (f"K6 call {idx} ({kind}, bounce {idx // 2 + 1}, "
                  f"{int((args[4] >= args[3]).sum())} of {args[1].shape[0]} rays walking)")
-        if not torch.equal(got, want):
+        if not bit_equal([got], [want]):
             fail(f"{label}: the kernel differs from its twin")
         k6_err = max(k6_err, float((got - want).abs().nan_to_num(0.0).max()))
         k6_ms.append(t_k)
         k6_plain.append(t_p)
         k6_work.append(k6_bytes_ops(args, got))
         print(f"{label}: bit-equal on all 7 outputs; {float(got[6].sum()) / 1e6:.3f} M rows "
-              f"visited; {t_k:.3f} ms, twin {t_p:.3f} ms, bound {bound(*k6_work[-1])[0]:.4f} ms "
-              f"({bound(*k6_work[-1])[1]})", flush=True)
-    if [c[0] for c in k6_calls] != [0, 1, 16]:
-        fail("K6 replay: the sync sweep did not reach bounce 9")
+              f"visited, {int(got[6].max())} by the longest walk; {t_k:.4f} ms, twin {t_p:.3f} ms, "
+              f"bound {bound(*k6_work[-1])[0]:.4f} ms ({bound(*k6_work[-1])[1]})", flush=True)
+    if [c[0] for c in k6_calls] != list(K6_CALLS):
+        fail(f"K6 replay: the sync sweep did not reach bounce {K6_CALLS[-1] // 2 + 1}")
     print(f"per chained chunk: K4 {sum(c_ms['mk_start_chained']):.3f} ms + K2 "
           f"{' + '.join(f'{t:.3f}' for t in c_ms['mk_resume'])} ms; per unchained sweep: K1 "
           f"{sum(u_ms['mk_start']):.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in u_ms['mk_resume'])} ms")

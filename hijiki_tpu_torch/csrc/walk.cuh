@@ -10,16 +10,13 @@
 // --fmad=false, IEEE division and sqrtf, NaN-propagating min/max, f32
 // constants as exact hex literals.
 //
-// The row step: a row's columns 0-11 come in as three 128-bit loads (the
-// interior row's box in 0-5, kind in 9, exit pointer in 10, the prim's
-// edges in 3-8), and a prim row adds one more for its plane normal, where a
-// 32-bit load per column took eight for an interior row (the table's rows
-// are 16-byte aligned: the wrappers check its pointer). The slab test's
-// min/max are single min.NaN/max.NaN instructions: their results only feed
-// comparisons, which a NaN fails whatever its bits, so they decide as
-// jmin/jmax do, each of which took several instructions; jmin/jmax stay
-// wherever a value is kept. On the H100 the interior step went from 77
-// SASS instructions to 42 (PERF.md).
+// The row step (its primitives in row.cuh, which K6 shares): a row's
+// columns 0-11 come in as three 128-bit loads (the interior row's box in
+// 0-5, kind in 9, exit pointer in 10, the prim's edges in 3-8), and a prim
+// row adds one more for its plane normal, where a 32-bit load per column
+// took eight for an interior row. The slab test's min/max are single
+// min.NaN/max.NaN instructions, where jmin/jmax took several each. On the
+// H100 the interior step went from 77 SASS instructions to 42 (PERF.md).
 //
 // prim_test, octant_base and walk take template parameters whose defaults
 // are the megakernel's (32-column rows, the plane normal in columns 29-31,
@@ -34,11 +31,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row.cuh"
+
 namespace {
 
-constexpr float kEps = 0x1.a36e2ep-14f;      // f32(1e-4)
 constexpr float kBig = 0x1.c363ccp+127f;     // f32(3e38)
-constexpr int kRowW = 32;
 constexpr int kAnaStride = 16;
 constexpr int kEmStride = 28;
 constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
@@ -51,30 +48,6 @@ struct Scene {
   int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off;
 };
 
-__device__ __forceinline__ float qnan() { return __int_as_float(0x7fc00000); }
-__device__ __forceinline__ float jmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? qnan() : fminf(a, b);
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? qnan() : fmaxf(a, b);
-}
-// one FMNMX each (min.NaN/max.NaN; probe_alu.cu's bodies use them too). A
-// NaN operand gives PTX's canonical NaN, whose bits need not be qnan()'s, so
-// the render kernels take them only for values that feed comparisons
-__device__ __forceinline__ float nan_min(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-// four consecutive columns of a row (16-byte aligned), a read-only load
-__device__ __forceinline__ float4 row4(const float* r, int col) {
-  return __ldg(reinterpret_cast<const float4*>(r + col));
-}
 // the vote of a group of kG threads: a thread alone (1) or a warp (32)
 template <int kG>
 __device__ __forceinline__ bool group_any(bool p) {

@@ -6,7 +6,8 @@ the two are easy to pair). ``traverse_packets`` walks rays over the classic
 closest hit, or to any hit with ``any_hit``:
 
 * on a CUDA tensor it launches ``csrc/traverse.cu`` (K6, the counterpart
-  of ``_traverse_kernel``; see the note there): one thread per ray;
+  of ``_traverse_kernel``; see the note there): one thread per ray, a ray
+  that walks nothing writing its miss before it reads o or d;
 * on a CPU tensor it runs ``traverse_plain``, the lockstep torch walk that
   computes, lane by lane, what one CUDA thread computes.
 
@@ -34,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from hijiki_tpu_torch.ops.intersect import M_EPS, NEG_BIG, Hit, gather
-from hijiki_tpu_torch.ops.megakernel import _check
+from hijiki_tpu_torch.ops.megakernel import _check, check_rows_aligned
 
 # output channels of the walk, (OUT_CH, N) f32
 OUT_CH = 7  # best_t, slot+1 (0 = miss), u, v, tag, midx, rows visited
@@ -148,8 +149,8 @@ def traverse_plain(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: 
 
 def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool = False):
     """The walk of ``N`` rays (o, d (N, 3), tmin, tmax (N,), f32) over the
-    trace rows ``rows`` (R, 32) f32: K6 on a CUDA tensor, ``traverse_plain``
-    on a CPU tensor. Returns the (OUT_CH, N) f32 buffer."""
+    trace rows ``rows`` (R, 32) f32, 16-byte aligned: K6 on a CUDA tensor,
+    ``traverse_plain`` on a CPU tensor. Returns the (OUT_CH, N) f32 buffer."""
     if o.device.type != "cuda":
         return traverse_plain(rows, o, d, tmin, tmax, any_hit=any_hit, inclusive=inclusive)
     from hijiki_tpu_torch.utils.build import load_library
@@ -157,6 +158,7 @@ def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool =
     _check_mode(any_hit, inclusive)
     n, dev = o.shape[0], o.device
     _check("rows", rows, torch.float32, (rows.shape[0], 32), dev)
+    check_rows_aligned(rows)
     for name, t, shape in (("o", o, (n, 3)), ("d", d, (n, 3)), ("tmin", tmin, (n,)),
                            ("tmax", tmax, (n,))):
         _check(name, t, torch.float32, shape, dev)

@@ -1,15 +1,19 @@
 """The bilateral reconstruction kernel (K3) and its wrapper.
 
 Counterpart of ``hijiki_tpu/render/pallas_reconstruct.py`` (same module
-name, so the two are easy to pair). ``reconstruct`` takes one sweep's
-(H, W, 3) radiance and first-hit normals and returns the (H, W, 4) film
-delta of the reference's R = 2 filter (``shader/reconstruction.glsl``):
+name, so the two are easy to pair). ``reconstruct`` takes S sweeps'
+(S, H, W, 3) radiance and first-hit normals and their (S, 2) sample
+offsets (or one sweep's (H, W, 3) and (2,)) and returns the (H, W, 4) film
+delta of the reference's R = 2 filter (``shader/reconstruction.glsl``),
+the S sweeps' deltas summed in sweep order (total = a_0, then
+total = total + a_s, as JAX's renderer sums a chained chunk):
 
-* on a CUDA tensor it launches ``csrc/reconstruct.cu`` (see the note there);
+* on a CUDA tensor it launches ``csrc/reconstruct.cu`` once (see the note
+  there);
 * on a CPU tensor it runs the plain twin, ``render/reconstruct.py::
-  reconstruct_sweep`` with the reference's zero albedo.
+  reconstruct_sweep`` with the reference's zero albedo, sweep by sweep.
 
-The kernel computes the 25 spatial weights itself, with the twin's f32
+The kernel computes the spatial weights itself, with the twin's f32
 operations (``spatial_weights``), so the two differ only by ``expf``
 rounding.
 """
@@ -27,31 +31,52 @@ R = 2  # RECONSTRUCTION_RADIUS (src/main.rs:1284)
 LAUNCHES = {"reconstruct": 0}
 
 
+def reconstruct_plain(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5):
+    """The plain version of ``reconstruct`` (any device): ``reconstruct_sweep``
+    of each sweep, summed in sweep order."""
+    if color.dim() == 3:
+        color, normal, sample_offset = color[None], normal[None], [sample_offset]
+    delta = None
+    for c, n, so in zip(color, normal, sample_offset):
+        d = reconstruct_sweep(c, n, torch.zeros_like(c), so, block_size=block_size,
+                              radius=R, stddev=stddev)
+        delta = d if delta is None else delta + d
+    return delta
+
+
 def reconstruct(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5):
-    """Radius-2 reconstruction of one sweep; returns the (H, W, 4) delta."""
+    """Radius-2 reconstruction of S sweeps ((S, H, W, 3) inputs, (S, 2)
+    offsets) or one ((H, W, 3), (2,)); returns the (H, W, 4) delta."""
     if color.device.type != "cuda":
-        return reconstruct_sweep(
-            color, normal, torch.zeros_like(color), sample_offset,
-            block_size=block_size, radius=R, stddev=stddev,
-        )
+        return reconstruct_plain(color, normal, sample_offset, block_size=block_size,
+                                 stddev=stddev)
     from hijiki_tpu_torch.utils.build import load_library
 
-    H, W = color.shape[0], color.shape[1]
+    shape = tuple(color.shape)
+    if len(shape) not in (3, 4) or shape[-1] != 3:
+        raise ValueError(f"color: expected (H, W, 3) or (S, H, W, 3), got {shape}")
+    S = shape[0] if len(shape) == 4 else 1
+    H, W = shape[-3], shape[-2]
     for name, t in (("color", color), ("normal", normal)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (H, W, 3) or t.device != color.device:
-            raise ValueError(f"{name}: expected f32 ({H}, {W}, 3) on {color.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != shape or t.device != color.device:
+            raise ValueError(f"{name}: expected f32 {shape} on {color.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-    so_x, so_y = torch.as_tensor(sample_offset, dtype=torch.float32).cpu().tolist()
+    offs = torch.as_tensor(sample_offset, dtype=torch.float32).cpu().numpy().reshape(-1)
+    if offs.shape != (2 * S,):
+        raise ValueError(f"sample_offset: expected {S} offsets of 2, got {offs.size} values")
+    if block_size < 1:
+        raise ValueError(f"block_size: expected >= 1, got {block_size}")
     gauss_fac = float(np.float32(-1.0 / (2.0 * stddev * stddev)))
     out = torch.empty((H, W, 4), dtype=torch.float32, device=color.device)
-    lib = load_library()
-    stream = torch.cuda.current_stream(color.device).cuda_stream
-    rc = lib.reconstruct(
-        color.data_ptr(), normal.data_ptr(), so_x, so_y, gauss_fac,
-        H, W, block_size, out.data_ptr(), stream,
-    )
-    LAUNCHES["reconstruct"] += 1
-    if rc != 0:
-        raise RuntimeError(f"reconstruct launch failed: CUDA error {rc}")
+    if H * W:
+        lib = load_library()
+        stream = torch.cuda.current_stream(color.device).cuda_stream
+        rc = lib.reconstruct(
+            color.data_ptr(), normal.data_ptr(), offs.ctypes.data, S, gauss_fac,
+            H, W, block_size, out.data_ptr(), stream,
+        )
+        LAUNCHES["reconstruct"] += 1
+        if rc != 0:
+            raise RuntimeError(f"reconstruct launch failed: CUDA error {rc}")
     return out

@@ -272,11 +272,9 @@ def render_sweeps_chained(ms, block_seeds, sample_offsets, config: RenderConfig,
         **({"chain_cap": c.mega_chain_cap} if c.mega_chain_cap else {}),
         **({"phase_shrink": phase_shrink} if phase_shrink else {}),
     )
-    delta = None
-    for s in range(S):
-        d = reconstruct(t[s].reshape(H, W, 3), n[s].reshape(H, W, 3), offs[s],
+    # one K3 launch reconstructs the S sweeps and sums them in sweep order
+    delta = reconstruct(t.reshape(S, H, W, 3), n.reshape(S, H, W, 3), offs,
                         block_size=c.block_size, stddev=c.reconstruction_stddev)
-        delta = d if delta is None else delta + d
     stats = dict(
         wave_overflow=overflow,
         mean_radiance=t.mean(),

@@ -49,8 +49,11 @@ SIGNATURES = {
     "mk_resume_sorted": _SCENE + [_P, _P, _I, _I, _P, _P, _P, _P],
     "mk_tiles_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "sort_tiles": [_P, _P, _I, _I, _P, _P, _P],
-    "reconstruct": [_P, _P, _F, _F, _F, _I, _I, _I, _P, _P],
+    # K3 takes its S sweeps' (S, 2) offsets as a host pointer
+    "reconstruct": [_P, _P, _P, _I, _F, _I, _I, _I, _P, _P],
     "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "reconstruct_occupancy": [_P],
+    "traverse_occupancy": [_P],
     # the probes (csrc/probe_walk.cu, csrc/probe_latency.cu and those
     # below); the pointer before the stream is the occupancy query's
     # out-parameter (or null)

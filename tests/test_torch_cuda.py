@@ -20,7 +20,10 @@ K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
 bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions; the
 persistent K4 (into NaN-filled outputs: it writes every slot it owns), K2 at caps
 12, 48 and 1000, and K2 and K10b on axis-aligned rays (the slab test's NaN
-path) bit-equal to their twins on every output."""
+path) bit-equal to their twins on every output; K3 on an 8-sweep chunk
+bit-equal to its one-sweep launches summed in sweep order (B = 1, 2, 3, 4,
+128); K6 bit-equal to its twin on dead, sparse, NaN-bound and
+zero-direction rays in all three modes."""
 
 import numpy as np
 import pytest
@@ -729,3 +732,87 @@ def test_megakernels_occupancy():
         assert 0 < occ["registers"] <= 255 and occ["warps_per_sm"] >= 4
         assert occ["warps_per_sm"] == occ["blocks_per_sm"] * 4 and occ["sms"] == sms
     assert mk.occupancy("mk_start_chained")["warps_per_sm"] == 24
+
+
+@pytest.mark.parametrize("B,S", [(1, 8), (2, 8), (3, 8), (4, 8), (128, 8), (3, 20)])
+def test_reconstruct_chunk_equals_summed_sweeps(B, S):
+    """K3 at S = 8 (one launch, a chained chunk's shape; S = 20 takes two
+    launches, the second adding to the first's sum) against the same
+    kernel's S = 1 calls summed in sweep order, bit for bit, and against the
+    plain version (rtol 1e-5 / atol 1e-6), on a 67x131 image (no multiple
+    of the tile or of B) with NaN pixels."""
+    dev = cuda_device()
+    rng = np.random.default_rng(B + S)
+    H, W = 67, 131
+    color = (rng.random((S, H, W, 3)) * 2).astype(np.float32)
+    color[rng.random((S, H, W)) < 1e-2] = np.nan
+    normal = rng.standard_normal((S, H, W, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    so = rng.random((S, 2)).astype(np.float32)
+    c, n = torch.from_numpy(color).to(dev), torch.from_numpy(normal).to(dev)
+    before = prc.LAUNCHES["reconstruct"]
+    got = prc.reconstruct(c, n, so, block_size=B)
+    assert prc.LAUNCHES["reconstruct"] == before + 1
+    want = None
+    for s in range(S):
+        d = prc.reconstruct(c[s], n[s], so[s], block_size=B)
+        want = d if want is None else want + d
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    plain = prc.reconstruct_plain(c, n, so, block_size=B)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5, atol=1e-6)
+
+
+def _k6_ray_set(kind, cs, dev):
+    """K6's edge cases on random rays (torch_port_helpers.random_rays):
+    every lane dead; 1% walking, scattered; NaN tmin or tmax on a third of
+    the lanes; direction components exactly 0 and -0.0."""
+    from torch_port_helpers import sparse_rays
+
+    o, d, tmin, tmax = random_rays(cs, 5000, seed=21)
+    if kind == "dead":
+        tmax = np.full_like(tmax, -3.0e38)
+    elif kind == "sparse":
+        o, d, tmin, tmax = sparse_rays((o, d, tmin, tmax), seed=22)
+    elif kind == "nan_bounds":
+        tmin, tmax = tmin.copy(), tmax.copy()
+        tmin[::3] = np.nan
+        tmax[1::3] = np.nan
+    else:
+        d = d.copy()
+        d[::2, 0] = 0.0
+        d[1::3, 1] = -0.0
+        d[::5, 2] = 0.0
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (o, d, tmin, tmax)]
+
+
+@pytest.mark.parametrize("kind", ["dead", "sparse", "nan_bounds", "zero_dir"])
+@pytest.mark.parametrize("mode", ["closest", "any", "inclusive"])
+def test_traverse_edge_rays_bit_equal_to_plain(kind, mode):
+    """K6 bit-equal to traverse_plain on all 7 channels in all three modes;
+    a lane that walks nothing visits no row."""
+    dev = cuda_device()
+    cs = to_device(_scene(MESHBOX), dev)
+    rays = _k6_ray_set(kind, cs, dev)
+    kw = {"closest": {}, "any": {"any_hit": True},
+          "inclusive": {"any_hit": True, "inclusive": True}}[mode]
+    want = pt.traverse_plain(cs.trace_rows, *rays, **kw)
+    got = pt.traverse(cs.trace_rows, *rays, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    walks = rays[3] >= rays[2]
+    assert (want[6][~walks] == 0).all()
+    if kind in ("sparse", "zero_dir"):
+        assert (want[1][walks] > 0).any()
+
+
+def test_traverse_rejects_unaligned_rows():
+    """K6 reads a row's columns 16 bytes at a time: a table that does not
+    start on a 16-byte boundary is refused."""
+    dev = cuda_device()
+    cs = to_device(_scene(MESHBOX_SMALL), dev)
+    o, d, tmin, tmax = (torch.from_numpy(x).to(dev) for x in random_rays(cs, 64, seed=1))
+    flat = torch.empty(cs.trace_rows.numel() + 1, device=dev)
+    shifted = flat[1:].view(cs.trace_rows.shape)
+    shifted.copy_(cs.trace_rows)
+    with pytest.raises(ValueError):
+        pt.traverse(shifted, o, d, tmin, tmax)

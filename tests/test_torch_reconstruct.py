@@ -85,6 +85,46 @@ def test_normalize_film():
     np.testing.assert_array_equal(normalize_film(film).numpy(), [[[1.0, 2.0, 3.0]]])
 
 
+def _chunk(H, W, S, seed, nan_frac):
+    ins = [_inputs(H, W, seed + s, nan_frac) for s in range(S)]
+    return [np.stack([x[i] for x in ins]) for i in range(3)]
+
+
+@pytest.mark.parametrize("H,W,B,seed,nan_frac", CASES)
+def test_chunk_plain_equals_summed_sweeps(H, W, B, seed, nan_frac):
+    """The chunk form (S = 3 sweeps in one call) on the CPU: bit for bit the
+    three reconstruct_sweep deltas summed in sweep order (total = a_0, then
+    total + a_s), as the chained renderer summed them before K3 took a
+    chunk."""
+    color, normal, so = _chunk(H, W, 3, seed, nan_frac)
+    got = prc.reconstruct(torch.from_numpy(color), torch.from_numpy(normal), so, block_size=B)
+    want = None
+    for s in range(3):
+        c = torch.from_numpy(color[s])
+        d = reconstruct_sweep(c, torch.from_numpy(normal[s]), torch.zeros_like(c), so[s],
+                              block_size=B)
+        want = d if want is None else want + d
+    assert torch.equal(got, want)
+    assert torch.equal(prc.reconstruct_plain(torch.from_numpy(color), torch.from_numpy(normal), so,
+                                             block_size=B), want)
+
+
+@pytest.mark.parametrize("H,W,B,seed,nan_frac", CASES)
+def test_chunk_matches_pallas_kernel_summed(H, W, B, seed, nan_frac):
+    """The chunk form against JAX's reconstruct_pallas (interpret mode) per
+    sweep, summed as JAX's chained renderer sums them
+    (hijiki_tpu/render/renderer.py: delta = a_0, then delta + a_s)."""
+    color, normal, so = _chunk(H, W, 3, seed + 7, nan_frac)
+    want = None
+    for s in range(3):
+        d = reconstruct_pallas(jnp.asarray(color[s]), jnp.asarray(normal[s]), jnp.asarray(so[s]),
+                               block_size=B, interpret=True)
+        want = d if want is None else want + d
+    got = prc.reconstruct(torch.from_numpy(color), torch.from_numpy(normal), so, block_size=B)
+    assert got.shape == (H, W, 4) and np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
 def test_cpu_twin_counts_no_launch():
     before = dict(prc.LAUNCHES)
     color, normal, so = _inputs(16, 16, 9, 0.0)

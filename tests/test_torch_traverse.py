@@ -21,7 +21,7 @@ from hijiki_tpu.ops.intersect import intersect_rows as j_rows, occluded_rows as 
 from hijiki_tpu.ops.pallas_traverse import traverse_packets as j_traverse
 from hijiki_tpu_torch.ops import pallas_traverse as pt
 from hijiki_tpu_torch.ops.intersect import intersect_rows, occluded_rows
-from torch_port_helpers import random_rays, scene_pair, t
+from torch_port_helpers import random_rays, scene_pair, sparse_rays, t
 
 SCENES = ["meshbox_small", "cornell-glass", "mixed"]
 N = 2048
@@ -160,3 +160,47 @@ def test_rows_any_hit_at_tmax(case):
     # the inclusive mode of the plain walk is K6's any-hit, and only any-hit
     with pytest.raises(ValueError):
         pt.traverse(pd.trace_rows, *map(t, (o, d, tmin, at)), inclusive=True)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_sparse_walkers_match_pallas_kernel(case, any_hit):
+    """A late bounce's launch: every lane dead (tmax -3e38) but about 1%,
+    scattered, the rays K6's packed launch queues. The dead lanes return
+    their tmax and a miss; the walking ones agree with the Pallas kernel
+    within the module's bounds."""
+    name, jd, pd, rays = case
+    o, d, tmin, tmax = sparse_rays(rays, seed=len(name) + 11)
+    want = [np.asarray(x) for x in j_traverse(jd.trace_rows, o, d, tmin, tmax, any_hit=any_hit,
+                                              interpret=True)]
+    got = [x.numpy() for x in pt.traverse_packets(pd.trace_rows, t(o), t(d), t(tmin), t(tmax),
+                                                  any_hit=any_hit)]
+    walks = tmax >= tmin
+    assert 4 <= walks.sum() <= 0.03 * len(walks)
+    np.testing.assert_array_equal(got[1] >= 0, want[1] >= 0)
+    np.testing.assert_array_equal(got[0][~walks], tmax[~walks])
+    assert (got[1][~walks] == -1).all()
+    if not any_hit:
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[4], want[4])
+        np.testing.assert_array_equal(got[5], want[5])
+        _close(got[0], want[0])
+        _close(got[2], want[2], atol=1e-5)
+        _close(got[3], want[3], atol=1e-5)
+    assert (got[1][walks] >= 0).any()
+
+
+def test_sparse_walkers_match_lockstep_walks(case):
+    """The same sparse launch through intersect_rows/occluded_rows (K6's
+    twin on the CPU) against the JAX lockstep walks; the twin visits no row
+    for a dead lane."""
+    name, jd, pd, rays = case
+    o, d, tmin, tmax = sparse_rays(rays, seed=len(name) + 12)
+    jh = j_rows(o, d, tmin, tmax, scene=jd)
+    h = intersect_rows(t(o), t(d), t(tmin), t(tmax), scene=pd)
+    np.testing.assert_array_equal(h.valid.numpy(), np.asarray(jh.valid))
+    np.testing.assert_array_equal(h.prim_slot.numpy(), np.asarray(jh.prim_slot))
+    _close(h.t.numpy(), np.asarray(jh.t))
+    occ = occluded_rows(t(o), t(d), t(tmin), t(tmax), scene=pd)
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(j_occ(o, d, tmin, tmax, scene=jd)))
+    walked = pt.traverse_plain(pd.trace_rows, t(o), t(d), t(tmin), t(tmax))[6].numpy()
+    assert (walked[tmax < tmin] == 0).all() and (walked[tmax >= tmin] >= 1).all()

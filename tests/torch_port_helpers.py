@@ -149,3 +149,15 @@ def random_rays(scene, n, seed):
 def t(x):
     """numpy (or jax) array -> CPU tensor (a copy)."""
     return torch.from_numpy(np.array(x))
+
+
+def sparse_rays(rays, seed, walking=0.01):
+    """``rays`` (random_rays' o, d, tmin, tmax) with every lane dead (tmax
+    -3e38) but a scattered ``walking`` share, as at a late bounce of the
+    sync driver; at least four lanes walk."""
+    o, d, tmin, tmax = rays
+    rng = np.random.default_rng(seed)
+    keep = rng.random(len(tmax)) < walking
+    keep[rng.choice(len(tmax), 4, replace=False)] = True
+    tmax = np.where(keep, np.where(tmax < 0, np.float32(np.inf), tmax), np.float32(-3.0e38))
+    return o, d, tmin, tmax.astype(np.float32)

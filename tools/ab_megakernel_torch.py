@@ -1,8 +1,10 @@
-"""A/B of the megakernel's chained camera launch (K4) and resume launch (K2),
-and of the walk they share, between the package's csrc/ and another build,
-on one CUDA card.
+"""A/B of hand-written kernels between the package's csrc/ and another build,
+on one CUDA card: the megakernel's chained camera launch (K4) and resume
+launch (K2) and the walk they share, and (``--kernels``) the reconstruction
+stencil (K3) and the trace-row walk (K6).
 
-    python tools/ab_megakernel_torch.py PARENT_CSRC [--variants walk,loop,NAME=DIR]
+    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse]
+                                        [--variants walk,loop,NAME=DIR]
                                         [--reps 10] [--json PATH] [--sass DIR]
 
 PARENT_CSRC is a directory holding another commit's
@@ -12,38 +14,50 @@ runs the tool (the ignored ``build/`` is a good place):
     mkdir -p build/ab/parent
     git archive <commit> hijiki_tpu_torch/csrc | tar -x --strip-components=2 -C build/ab/parent
 
-Each library is built from ``megakernel.cu``, ``probe_walk.cu`` and the
-headers of its tree (``utils.build.build``, one nvcc per source, all
-libraries at once, never from the cache: its ptxas report is wanted) and
-loaded with ctypes; its K4, K2 and K10b (``walk_isolate``) are called at
-their C entry points, K4 into zeroed outputs. A library whose
-``mk_start_chained`` is persistent (it exports ``mk_occupancy``) takes a
-work counter for it, zeroed before each launch. ``--variants`` adds
-libraries built from mixed trees: ``walk`` (the parent with the package's
-walk.cuh: the row step alone), ``loop`` (the package with the parent's
-walk.cuh: the persistent loop alone), ``NAME=DIR`` (the csrc files in
-DIR).
+``--kernels`` (default ``megakernel``) picks the libraries' sources: the
+megakernel group builds ``megakernel.cu`` and ``probe_walk.cu``, the
+``reconstruct`` and ``traverse`` group ``reconstruct.cu`` and
+``traverse.cu``, each with the headers of its tree (``utils.build.build``,
+one nvcc per source, all libraries at once, never from the cache: its
+ptxas report is wanted), loaded with ctypes and called at their C entry
+points. ``--variants`` adds libraries built from mixed trees: ``walk`` (the
+parent with the package's walk.cuh and row.cuh: the row step alone),
+``loop`` (the package with the parent's walk.cuh: the persistent loop
+alone), ``NAME=DIR`` (the csrc files in DIR). Every library's outputs must
+equal the parent's bit for bit (int32 views). Times: CUDA events around
+each call, the libraries in turn, ``--reps`` rounds after a warm-up; min
+and median, and each library's ratio to the parent. Also printed: the
+card's name and power limit; ptxas' registers and spill stores of each
+kernel and its resident warps an SM; SASS counts (cuobjdump; the SASS is
+written to ``--sass``, default ``build/ab_megakernel/sass``). Needs a CUDA
+card and nvcc; imports only the port and chip_smoke's helpers.
 
-What it replays: the chained chunk of ``chip_smoke.py`` phase 6 (the
-meshbox + cbox spheres at 1024x1024, 8 sweeps, chain cap 8, max_bounces
-1000), recorded through the package's wrappers: its K4 launch and its two
-K2 launches (capacities 2,097,152 and 524,288 lanes, caps 48 and 1000); and
-``walk_isolate`` on 1024x1024 camera rays and 1M random rays (32-column
-table, one thread a ray). Every library's outputs must equal the parent's
-bit for bit (int32 views). Times: CUDA events around each launch, the
-libraries in turn, ``--reps`` rounds after a warm-up; min and median, and
-each library's ratio to the parent.
+The megakernel group replays the chained chunk of ``chip_smoke.py`` phase 6
+(the meshbox + cbox spheres at 1024x1024, 8 sweeps, chain cap 8,
+max_bounces 1000), recorded through the package's wrappers: its K4 launch
+and its two K2 launches (capacities 2,097,152 and 524,288 lanes, caps 48
+and 1000); and ``walk_isolate`` on 1024x1024 camera rays and 1M random rays
+(32-column table, one thread a ray). A library whose ``mk_start_chained``
+is persistent (it exports ``mk_occupancy``) takes a work counter for it,
+zeroed before each launch. It prints the warp-iteration ratios of the chunk
+(``mk.warp_iterations`` of K4's ``segs``) and each K4 and K2 kernel's count
+of BSSY/BSYNC/WARPSYNC/VOTE/SHFL/ATOM instructions and the loops of K10b's
+walk (instructions by opcode).
 
-Also printed: the card's name and power limit; ptxas' registers and spill
-stores of each K4, K2 and K10b kernel, and their resident warps an SM (the
-runtime's answer where the library exports ``mk_occupancy``, else from the
-registers) and K4's blocks; the warp-iteration ratios of the chunk (``mk.warp_iterations``
-of K4's ``segs``: what the whole-sample loop, a per-lane loop and perfect
-packing cost in warp-bounces); and, where cuobjdump exists, each K4 and K2
-kernel's count of BSSY/BSYNC/WARPSYNC/VOTE/SHFL/ATOM instructions and the
-loops of K10b's walk (instructions by opcode), with their SASS written to
-``--sass`` (default ``build/ab_megakernel/sass``). Needs a CUDA card and
-nvcc; imports only the port and chip_smoke's helpers.
+The reconstruct group replays K3 on the same chunk's 8 sweeps (radiance,
+normals, offsets): a library whose K3 takes one sweep a launch runs 8
+launches and 7 torch adds in the event window (the renderer's sum in sweep
+order), one that takes a chunk one launch (and, beside it, the same
+library one sweep a launch with the adds: what the chunk launch saves);
+and one 1024x1024 sweep, 20 launches back to back in a stream. Its SASS
+count: the instructions of the loop that holds the most taps over its taps
+(one MUFU.EX2 a tap's expf). The traverse group replays K6 on five calls of
+one 1024x1024 sync sweep recorded through the package's wrapper (bounce
+1's closest and shadow walks, the closest walks of bounces 9, 30 and 200),
+with each call's count of walking rays and its bound (chip_smoke's); then
+the whole sweep with the parent's and the package's K6 in turn (parent,
+new, new, parent) under torch.profiler, K6's device time summed. Its SASS:
+the walk loops.
 """
 
 from __future__ import annotations
@@ -71,19 +85,25 @@ KERNELS = {"K4": ("mk_start_chained_kernel",),
 SASS_OPS = ("BSSY", "BSYNC", "WARPSYNC", "VOTE", "SHFL", "ATOM", "RED")
 
 
-def stage(name: str, csrc: Path, walk_from: Path | None = None) -> Path:
+MEGA_FILES = ("megakernel.cu", "probe_walk.cu")
+K36_FILES = ("reconstruct.cu", "traverse.cu")
+
+
+def stage(name: str, csrc: Path, walk_from: Path | None = None, files=MEGA_FILES) -> Path:
     """A directory holding what the library ``name`` builds from: csrc's
-    megakernel.cu, probe_walk.cu and headers (walk.cuh taken from
-    ``walk_from`` if given), its cached build removed."""
+    ``files`` and headers (walk.cuh and row.cuh taken from ``walk_from`` if
+    given), its cached build removed."""
     from hijiki_tpu_torch.utils import build
 
     out = build.BUILD_ROOT.parent / "ab_megakernel" / name
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    for f in [csrc / "megakernel.cu", csrc / "probe_walk.cu", *csrc.glob("*.cuh")]:
+    for f in [*(csrc / f for f in files), *csrc.glob("*.cuh")]:
         shutil.copy(f, out / f.name)
     if walk_from is not None:
-        shutil.copy(walk_from / "walk.cuh", out / "walk.cuh")
+        for h in ("walk.cuh", "row.cuh"):
+            if (walk_from / h).exists():
+                shutil.copy(walk_from / h, out / h)
     shutil.rmtree(build.BUILD_ROOT / build.cache_key(out), ignore_errors=True)
     return out
 
@@ -169,50 +189,94 @@ def summary(ms_list) -> dict:
     return {"min_ms": min(ms_list), "median_ms": statistics.median(ms_list), "n": len(ms_list)}
 
 
+def build_libraries(parent: Path, variants: str, files, make_lib) -> list:
+    """Stage and build the parent's, the package's and each variant's
+    library from ``files`` (all at once); returns (make_lib(name, path,
+    ptxas report, staged tree), build seconds) of each, the parent's first."""
+    from hijiki_tpu_torch.utils import build
+
+    trees = {"parent": stage("parent", parent, files=files), "new": stage("new", build.CSRC, files=files)}
+    for v in filter(None, variants.split(",")):
+        if v == "walk" and files == MEGA_FILES:
+            trees[v] = stage(v, parent, walk_from=build.CSRC, files=files)
+        elif v == "loop" and files == MEGA_FILES:
+            trees[v] = stage(v, build.CSRC, walk_from=parent, files=files)
+        elif "=" in v:
+            name, tree = v.split("=", 1)
+            trees[name] = stage(name, Path(tree).resolve(), files=files)
+        else:
+            raise SystemExit(f"unknown variant {v!r} for {files}")
+    with ThreadPoolExecutor(len(trees)) as ex:
+        built = dict(zip(trees, ex.map(build.build, trees.values())))
+    return [(make_lib(name, path, report, trees[name]), secs)
+            for name, (path, secs, report) in built.items()]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
+    ap.add_argument("--kernels", default="megakernel",
+                    help="comma-separated groups: megakernel, reconstruct, traverse")
     ap.add_argument("--variants", default="",
-                    help="comma-separated: walk, loop, NAME=DIR")
+                    help="comma-separated: walk, loop (megakernel group), NAME=DIR")
     ap.add_argument("--reps", type=int, default=10, help="timed launches a library (>= 10)")
     ap.add_argument("--json", help="write the results here")
     ap.add_argument("--sass", type=Path, default=Path(HERE).parent / "build" / "ab_megakernel" / "sass",
-                    help="write the K4, K2 and K10b kernels' SASS here")
+                    help="write the kernels' SASS here")
     args = ap.parse_args(argv)
+    groups = set(filter(None, args.kernels.split(",")))
+    if not groups or groups - {"megakernel", "reconstruct", "traverse"}:
+        ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("error: needs a CUDA card", file=sys.stderr)
         return 2
+    from hijiki_tpu_torch.probes import card
+
+    print(card(), flush=True)
+    parent = args.parent.resolve()
+    need = (MEGA_FILES if "megakernel" in groups else ()) + (
+        K36_FILES if groups & {"reconstruct", "traverse"} else ())
+    missing = [f for f in need if not (parent / f).exists()]
+    if missing:
+        print(f"error: {parent} holds no {', '.join(missing)}", file=sys.stderr)
+        return 2
+    result, ok = {"card": card()}, True
+    if "megakernel" in groups:
+        part, good = mega_ab(args, parent)
+        result.update(part)
+        ok &= good
+    if groups & {"reconstruct", "traverse"}:
+        part, good = k36_ab(args, parent, groups)
+        result["k3_k6"] = part
+        ok &= good
+    if args.json:
+        Path(args.json).write_text(json.dumps(result, indent=1, default=str))
+    if not ok:
+        print("FAIL: a library's outputs differ from the parent's", flush=True)
+        return 1
+    return 0
+
+
+def mega_ab(args, parent: Path) -> tuple:
+    """The megakernel group (K4, K2, K10b); returns (its results, whether
+    every library's outputs equal the parent's)."""
+    import numpy as np
+    import torch
+
     from hijiki_tpu_torch.ops import megakernel as mk
     from hijiki_tpu_torch.probes import card, op_counts, sass_functions
     from hijiki_tpu_torch.probes import walk_probe as pwk
     from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer, render_sweeps_chained
     from hijiki_tpu_torch.scene.compile import compile_scene
     from hijiki_tpu_torch.scene.obj import load_obj_scene
-    from hijiki_tpu_torch.utils import build
 
-    print(card(), flush=True)
-    parent = args.parent.resolve()
-    if not (parent / "megakernel.cu").exists():
-        print(f"error: {parent} holds no megakernel.cu", file=sys.stderr)
-        return 2
-    trees = {"parent": stage("parent", parent), "new": stage("new", build.CSRC)}
-    for v in filter(None, args.variants.split(",")):
-        if v == "walk":
-            trees[v] = stage(v, parent, walk_from=build.CSRC)
-        elif v == "loop":
-            trees[v] = stage(v, build.CSRC, walk_from=parent)
-        elif "=" in v:
-            name, tree = v.split("=", 1)
-            trees[name] = stage(name, Path(tree).resolve())
-        else:
-            raise SystemExit(f"unknown variant {v!r}")
-    with ThreadPoolExecutor(len(trees)) as ex:
-        built = dict(zip(trees, ex.map(build.build, trees.values())))
-    libs = [Lib(name, path, report) for name, (path, _, report) in built.items()]
+    pairs = build_libraries(parent, args.variants, MEGA_FILES,
+                            lambda name, path, report, tree: Lib(name, path, report))
+    libs = [lib for lib, _ in pairs]
+    built = {lib.name: (lib.path, secs, lib.report) for lib, secs in pairs}
     dev = torch.device("cuda")
     result = {"card": card(), "libraries": {}}
     print("library: K4 / K2 / K10b registers, spill stores, resident warps an SM, persistent blocks")
@@ -360,12 +424,318 @@ def main(argv=None) -> int:
                     if any(op.startswith("LDG") for op in lp["ops"]):  # the walk's row loads
                         print(f"    loop [{lp['start']}, {lp['end']}] {lp['end'] - lp['start'] + 1} "
                               f"instructions: {lp['ops']}")
-    if args.json:
-        Path(args.json).write_text(json.dumps(result, indent=1, default=str))
-    if not ok:
-        print("FAIL: a library's outputs differ from the parent's", flush=True)
-        return 1
-    return 0
+    return result, ok
+
+
+# the K3/K6 kernels reported, by a part of their mangled names
+K36_KERNELS = {"K3": ("reconstruct_kernel",), "K6": ("traverse_kernel",)}
+# K6's recorded calls of one sync sweep: closest and shadow walk of bounce
+# 1, then the closest walks of bounces 9, 30 and 200 (two calls a bounce)
+K6_CALLS = (0, 1, 16, 58, 398)
+
+
+class K36Lib:
+    """One built K3 + K6 library and its C entries: a K3 that takes one
+    sweep a launch (so_x, so_y) or a chunk (host offsets, S), and K6."""
+
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
+        self.name, self.path, self.report = name, path, report
+        self.cdll = ctypes.CDLL(str(path))
+        self.chunk = "const float* offsets" in (tree / "reconstruct.cu").read_text()
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        k3 = [P, P, P, I, F, I, I, I, P, P] if self.chunk else [P, P, F, F, F, I, I, I, P, P]
+        for fn, argtypes in (("reconstruct", k3), ("traverse", [P, I, P, P, P, P, I, I, I, P, P])):
+            getattr(self.cdll, fn).argtypes = argtypes
+            getattr(self.cdll, fn).restype = ctypes.c_int
+
+    @staticmethod
+    def _rc(what, rc):
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUDA error {rc}")
+
+    def k3(self, color, normal, offs, block, gauss, outs, chunk=True):
+        """The (S, H, W, 3) sweeps' summed delta: one launch into outs[0]
+        (a library that takes a chunk, unless ``chunk`` is False), or one
+        launch a sweep into outs[s] and the renderer's torch adds."""
+        import torch
+
+        S, H, W = color.shape[:3]
+        stream = torch.cuda.current_stream().cuda_stream
+        if self.chunk and chunk:
+            self._rc(f"{self.name} K3", self.cdll.reconstruct(
+                color.data_ptr(), normal.data_ptr(), offs.ctypes.data, S, gauss, H, W, block,
+                outs[0].data_ptr(), stream))
+            return outs[0]
+        delta = None
+        for s in range(S):
+            so = (offs[s:s + 1].ctypes.data, 1) if self.chunk else (float(offs[s, 0]), float(offs[s, 1]))
+            self._rc(f"{self.name} K3", self.cdll.reconstruct(
+                color[s].data_ptr(), normal[s].data_ptr(), *so, gauss, H, W, block,
+                outs[s].data_ptr(), stream))
+            delta = outs[s] if delta is None else delta + outs[s]
+        return delta
+
+    def k6(self, args, mode, out):
+        """K6 on the recorded call ``args`` into ``out``."""
+        import torch
+
+        rows, o, d, tmin, tmax = args
+        self._rc(f"{self.name} K6", self.cdll.traverse(
+            rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+            tmax.data_ptr(), o.shape[0], int(mode.get("any_hit", False)),
+            int(mode.get("inclusive", False)), out.data_ptr(), torch.cuda.current_stream().cuda_stream))
+        return out
+
+    def occupancy(self) -> dict:
+        """{kernel: resident warps an SM} from the library's occupancy
+        entries where it has them."""
+        out = (ctypes.c_int * 5)()
+        ptr = ctypes.cast(out, ctypes.c_void_p)
+        res = {}
+        for fn, k in (("reconstruct_occupancy", "reconstruct_kernel"),
+                      ("traverse_occupancy", "traverse_kernel")):
+            if not hasattr(self.cdll, fn):
+                continue
+            getattr(self.cdll, fn).argtypes = [ctypes.c_void_p]
+            self._rc(fn, getattr(self.cdll, fn)(ptr))
+            res[k] = out[1] * out[2] // 32
+        return res
+
+
+def k36_ab(args, parent: Path, groups) -> tuple:
+    """The reconstruct and traverse groups (K3, K6); returns (their results,
+    whether every library's outputs equal the parent's)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import bound, k6_bytes_ops
+    from hijiki_tpu_torch.ops import megakernel as mk
+    from hijiki_tpu_torch.ops import pallas_traverse as pt
+    from hijiki_tpu_torch.ops.camera import camera_rays
+    from hijiki_tpu_torch.ops.integrate import integrate
+    from hijiki_tpu_torch.ops.rng import from_bits, seed_rng, to_bits
+    from hijiki_tpu_torch.probes import op_counts, sass_functions
+    from hijiki_tpu_torch.probes import walk_probe as pwk
+    from hijiki_tpu_torch.render.blocks import per_pixel_seeds_device
+    from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
+    from hijiki_tpu_torch.scene.compile import compile_scene, to_device
+    from hijiki_tpu_torch.scene.obj import load_obj_scene
+    from hijiki_tpu_torch.utils import build
+
+    with ThreadPoolExecutor(1) as ex:  # the package's own build (to record the calls) meanwhile
+        pkg = ex.submit(build.build)
+        pairs = build_libraries(parent, args.variants, K36_FILES, K36Lib)
+        pkg.result()
+    libs = [lib for lib, _ in pairs]
+    result = {"libraries": {}, "times": {}, "sass": {}, "calls": []}
+    print("library: registers, spill stores, resident warps an SM of each K3/K6 kernel")
+    for lib, secs in pairs:
+        table = ptxas_table(lib.report)
+        occ = lib.occupancy()
+        ks = {}
+        for n, (regs, spill) in table.items():
+            k = next((p for parts in K36_KERNELS.values() for p in parts if p in n), None)
+            if k:
+                ks[n] = {"kernel": k, "registers": regs, "spill_bytes": spill,
+                         "warps_per_sm": occ.get(k, warps_from_registers(
+                             regs, 256 if k == "reconstruct_kernel" else 128))}
+        result["libraries"][lib.name] = {"build_s": secs, "chunk_k3": lib.chunk, "kernels": ks}
+        print(f"  {lib.name:10s} built in {secs:.1f} s; " + "; ".join(
+            f"{v['kernel']}{n[n.index('ILb'):n.index('ILb') + 10] if 'ILb' in n else ''} "
+            f"{v['registers']} regs, {v['spill_bytes']} B spilled, {v['warps_per_sm']} warps/SM"
+            for n, v in ks.items()), flush=True)
+
+    dev = torch.device("cuda")
+    scene = load_obj_scene(pwk.SCENE)
+    scene.put_cbox_spheres()
+    cs = compile_scene(scene)
+    cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
+                       use_bvh=True, driver="mega")
+    r = Renderer(cs, cfg, device="cuda")
+    H = W = 1024
+    yy = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
+    xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
+
+    def frame_of(sched):
+        so = np.asarray(sched.sample_offset, np.float32)
+        return ((xx + float(so[0])).reshape(-1).contiguous(),
+                (yy + float(so[1])).reshape(-1).contiguous(),
+                to_bits(per_pixel_seeds_device(W, H, 128, sched.block_seeds, dev).reshape(-1)), so)
+
+    ok = True
+    cases = {}  # name -> (make outputs(lib), run(lib, outs) -> result to compare)
+    if "reconstruct" in groups:
+        frames = [frame_of(r.scheduler.sweep(cfg.spp + 1 + s)) for s in range(mk.CHAIN_SWEEPS_CUDA)]
+        cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
+        offs = np.stack([f[3] for f in frames]).astype(np.float32)
+        t, nrm = mk.render_waves_chained(r.scene, cpx, cpy, cseeds, max_bounces=1000)[:2]
+        S = offs.shape[0]
+        color = t.reshape(S, H, W, 3).contiguous()
+        normal = nrm.reshape(S, H, W, 3).contiguous()
+        gauss = float(np.float32(-1.0 / (2.0 * cfg.reconstruction_stddev ** 2)))
+        k3_outs = lambda lib: [torch.empty((H, W, 4), device=dev) for _ in range(1 if lib.chunk else S)]
+        cases[f"K3 chunk ({S} x {H}x{W}, block 128)"] = (
+            k3_outs, lambda lib, outs: (lib.k3(color, normal, offs, 128, gauss, outs),))
+        cases[f"K3 chunk, one launch a sweep + {S - 1} adds"] = (
+            lambda lib: [torch.empty((H, W, 4), device=dev) for _ in range(S)],
+            lambda lib, outs: (lib.k3(color, normal, offs, 128, gauss, outs, chunk=False),))
+        one = (color[:1], normal[:1], offs[:1])
+        reps = 20
+
+        def k3_stream(lib, outs):
+            for _ in range(reps):
+                got = lib.k3(*one, 128, gauss, outs)
+            return (got,)
+
+        cases[f"K3 one sweep ({H}x{W}), per launch of {reps} back to back"] = (
+            lambda lib: [torch.empty((H, W, 4), device=dev)], k3_stream)
+    if "traverse" in groups:
+        csd = to_device(cs, dev)
+        kpx, kpy, kseeds, _ = frame_of(r.scheduler.sweep(cfg.spp + 21))
+        ko, kd, ktmin, ktmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
+                                           torch.stack([kpx, kpy], -1), (W, H))
+        real_traverse, recorded, count = pt.traverse, [], [0]
+
+        def traverse_recorded(rows, o, d, tmin, tmax, **mode):
+            if count[0] in K6_CALLS:
+                recorded.append((count[0], (rows, o.clone(), d.clone(), tmin.clone(), tmax.clone()),
+                                 mode))
+            count[0] += 1
+            return real_traverse(rows, o, d, tmin, tmax, **mode)
+
+        pt.traverse = traverse_recorded
+        try:
+            sweep = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)), max_bounces=1000)
+        finally:
+            pt.traverse = real_traverse
+        if [c[0] for c in recorded] != list(K6_CALLS):
+            raise SystemExit(f"the sync sweep made {count[0]} K6 calls ({sweep.iterations} bounces): "
+                             f"too few to record calls {K6_CALLS}")
+        for idx, a, mode in recorded:
+            kind = "closest" if not mode.get("any_hit") else (
+                "inclusive any-hit" if mode.get("inclusive") else "any-hit")
+            walking = int((a[4] >= a[3]).sum())
+            nb, ops = k6_bytes_ops(a, real_traverse(*a, **mode))
+            b_ms, b_by = bound(nb, ops)
+            label = f"K6 call {idx} ({kind}, bounce {idx // 2 + 1}, {walking} of {a[1].shape[0]} walking)"
+            result["calls"].append({"call": idx, "mode": kind, "walking": walking,
+                                    "bound_ms": b_ms, "bound_by": b_by})
+            print(f"{label}: bound {b_ms:.4f} ms ({b_by})", flush=True)
+            n = a[1].shape[0]
+            cases[label] = (lambda lib, n=n: [torch.empty((pt.OUT_CH, n), device=dev)],
+                            lambda lib, outs, a=a, mode=mode: (lib.k6(a, mode, outs[0]),))
+
+    # first calls: every library's outputs against the parent's
+    for c, (make, run) in cases.items():
+        want = None
+        for lib in libs:
+            got = [x.clone() for x in run(lib, make(lib))]
+            torch.cuda.synchronize()
+            if want is None:
+                want = got
+                continue
+            same = all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want))
+            ok &= same
+            print(f"{lib.name} {c}: {'bit-equal to' if same else 'DIFFERS from'} the parent's outputs",
+                  flush=True)
+
+    # timing: the libraries in turn, each call between two events
+    def event_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    held = {(c, lib.name): make(lib) for c, (make, _) in cases.items() for lib in libs}
+    times = {c: {lib.name: [] for lib in libs} for c in cases}
+    for rep in range(args.reps + 1):  # round 0 warms up
+        for c, (_, run) in cases.items():
+            for lib in (libs if rep % 2 else libs[::-1]):  # alternate the order
+                t_ms = event_ms(lambda: run(lib, held[(c, lib.name)]))
+                if rep:
+                    times[c][lib.name].append(t_ms / (reps if c.startswith("K3 one") else 1))
+    del held
+    for c, by_lib in times.items():
+        base = summary(by_lib["parent"])
+        result["times"][c] = {}
+        for name, ts in by_lib.items():
+            sm = summary(ts)
+            sm["ratio_min"] = sm["min_ms"] / base["min_ms"]
+            sm["ratio_median"] = sm["median_ms"] / base["median_ms"]
+            result["times"][c][name] = sm
+            print(f"{c:64s} {name:10s} min {sm['min_ms']:9.4f} ms, median {sm['median_ms']:9.4f} ms "
+                  f"(x{sm['ratio_min']:.4f} / x{sm['ratio_median']:.4f} the parent's)", flush=True)
+
+    if "traverse" in groups:  # one whole sync sweep with each library's K6
+        result["sweep"] = {}
+        order = [libs[0], libs[1], libs[1], libs[0]]  # the parent's and the package's
+        for lib in order:
+            def traverse_lib(rows, o, d, tmin, tmax, lib=lib, **mode):
+                out = torch.empty((pt.OUT_CH, o.shape[0]), device=dev)
+                return lib.k6((rows, o, d, tmin, tmax), mode, out)
+
+            pt.traverse = traverse_lib
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    sw = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)),
+                                   max_bounces=1000)
+                    torch.cuda.synchronize()
+            finally:
+                pt.traverse = real_traverse
+            if not torch.equal(sw.state, sweep.state) or not torch.equal(sw.total, sweep.total):
+                ok = False
+                print(f"{lib.name}: the sync sweep with its K6 DIFFERS from the package's", flush=True)
+            evs = list(prof.key_averages())
+            dt = lambda e: getattr(e, "self_device_time_total", 0) / 1e3
+            k6 = [e for e in evs if "traverse" in e.key]
+            entry = {"k6_ms": sum(dt(e) for e in k6), "k6_kernels": sum(e.count for e in k6),
+                     "device_ms": sum(dt(e) for e in evs), "bounces": sw.iterations}
+            result["sweep"].setdefault(lib.name, []).append(entry)
+            print(f"sync sweep with {lib.name}'s K6: K6 {entry['k6_ms']:.3f} ms of "
+                  f"device time in {entry['k6_kernels']} kernels, all kernels {entry['device_ms']:.3f} "
+                  f"ms, {sw.iterations} bounces", flush=True)
+
+    # SASS: K3's sweep body a tap, K6's walk loops
+    args.sass.mkdir(parents=True, exist_ok=True)
+    for lib in libs:
+        every = sass_functions("", lib.path)
+        for k, parts in K36_KERNELS.items():
+            for i, (fname, (code, loops, text)) in enumerate(every.items()):
+                if not any(p in fname for p in parts):
+                    continue
+                short = next(p for p in parts if p in fname)
+                (args.sass / f"{lib.name}_{short}_{i}.sass").write_text(text)
+                ex2 = lambda ops: sum(1 for op, _ in ops if op.startswith("MUFU.EX2"))
+                entry = {"instructions": len(code), "ex2": ex2(code)}
+                if k == "K3":
+                    # the loop holding the most expf (one MUFU.EX2 a tap; the
+                    # shortest of those), else the function
+                    s0, e0 = max(loops, key=lambda lp: (ex2(code[lp[0]:lp[1] + 1]), lp[0] - lp[1]),
+                                 default=(0, len(code) - 1))
+                    body = code[s0:e0 + 1]
+                    if not ex2(body):
+                        body = code
+                    entry.update(body_instructions=len(body), body_taps=ex2(body),
+                                 per_tap=len(body) / max(1, ex2(body)),
+                                 body_ops=dict(sorted(op_counts(body).items(), key=lambda kv: -kv[1])[:16]))
+                    print(f"SASS {lib.name} {short}: {len(code)} instructions; tap loop {len(body)} "
+                          f"instructions over {ex2(body)} taps = {entry['per_tap']:.1f} a tap; "
+                          f"top ops {entry['body_ops']}", flush=True)
+                else:
+                    entry["loops"] = [{"start": s0, "end": e0, "ops": op_counts(code[s0:e0 + 1])}
+                                      for s0, e0 in loops if e0 - s0 < 300 and any(
+                                          op.startswith("LDG") for op, _ in code[s0:e0 + 1])]
+                    print(f"SASS {lib.name} {fname}: {len(code)} instructions", flush=True)
+                    for lp in entry["loops"]:
+                        print(f"    loop [{lp['start']}, {lp['end']}] {lp['end'] - lp['start'] + 1} "
+                              f"instructions: {lp['ops']}", flush=True)
+                result["sass"][f"{lib.name} {fname}"] = entry
+    return result, ok
 
 
 if __name__ == "__main__":
