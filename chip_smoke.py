@@ -74,8 +74,9 @@ Phases, each printing as it goes; any failure exits non-zero:
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
    then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
    replayed through the kernel and through the twin, held to the phase-4
-   bounds, bit-equal on every output, and timed; the registers, resident
-   warps an SM and launch blocks of K4 (persistent) and K2 (mk_occupancy),
+   bounds, bit-equal on every output, and timed; the registers, local
+   (spill) bytes, resident warps an SM and launch blocks of K4 and K1
+   (persistent), K2 and the sorted K1/K2/K5 (mk_occupancy),
    and the warp-iteration ratios of the chunk's K4 (mk.warp_iterations of
    its segs); K5 on the 1M-path frame likewise (bit-equal), K3 on a sweep
    to its bound, and on the chained chunk's 8 sweeps in one launch as path
@@ -1100,12 +1101,14 @@ def main() -> int:
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
     print(f"K4's zeroed pool + flush buffer ({cpx.numel()} slots): {t_zero:.3f} ms per chunk")
-    for name in ("mk_start_chained", "mk_resume"):
+    for name in ("mk_start_chained", "mk_start", "mk_resume", "mk_start_sorted", "mk_resume_sorted",
+                 "mk_tiles_sorted"):
         occ = mk.occupancy(name)
-        launch = (f"{occ['blocks_per_sm'] * occ['sms']} blocks a launch (persistent)"
-                  if name == "mk_start_chained" else "a block per 128 lanes")
-        print(f"{name}: {occ['registers']} registers, {occ['local_bytes']} bytes of local memory, "
-              f"{occ['warps_per_sm']} resident warps an SM, {launch}")
+        launch = (f"at most {occ['blocks_per_sm'] * occ['sms']} blocks a launch (persistent)"
+                  if name in ("mk_start_chained", "mk_start") else f"a block per {occ['threads']} lanes")
+        print(f"{name}: {occ['registers']} registers, {occ['spill_bytes']} bytes spilled, "
+              f"{occ['local_bytes']} bytes of local memory, {occ['warps_per_sm']} resident warps an SM, "
+              f"{launch}")
     pool, _, chain_out = c_out.pop("mk_start_chained")
     wi = mk.warp_iterations(mk.chained_segs(pool, chain_out, cpx.shape[0]))
     print("K4's chunk, warp-bounces a warp of 32 consecutive lanes: whole samples a thread "

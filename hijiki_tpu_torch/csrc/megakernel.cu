@@ -2,7 +2,7 @@
 // wavefront driver, chained or not, and the single-launch render.
 //
 // Replaces, in hijiki_tpu/ops/pallas_megakernel.py:
-//   _megakernel_start          -> mk_start          (K1)
+//   _megakernel_start          -> mk_start          (K1, persistent: note below)
 //   _megakernel_resume         -> mk_resume         (K2)
 //   _megakernel_start_chained  -> mk_start_chained  (K4, persistent: note below)
 //   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5)
@@ -22,10 +22,10 @@
 // exit pointer in column 10 — the reference GLSL's stackless walk), reading
 // the table from global memory (it fits in the 50 MB L2 many times over).
 // With octant table sets each thread takes the table of its own direction
-// signs. K1, K2 and K5 trace a whole path per thread; K4 is persistent and
-// bounce-granular (a thread whose path stopped takes the next slot one
-// bounce later; note below); render_waves compacts the survivors between
-// phases.
+// signs. K2 and K5 trace a whole path per thread; K4 and K1 are persistent
+// and bounce-granular (a thread whose path stopped takes the next slot one
+// bounce later; note below); the sorted kernels run a block's paths in
+// lockstep; render_waves compacts the survivors between phases.
 //
 // What bounds it: the walk is a chain of dependent global loads (latency)
 // and threads of a warp walk different rows (divergence); the walk's row
@@ -230,44 +230,48 @@ __device__ void camera_init(const Scene& S, float px, float py, uint32_t seed,
 }
 
 // ---------------------------------------------------------------- stash ----
-// K4 keeps in shared memory, for the two walks of a bounce, what the bounce
-// carries across them but the walks never read: the path (29 words and the
-// RNG) around both walks, and eight shading values (the uv, the material
-// tag and index, the NEE cosine and importance) around the shadow walk. In
+// K4 and K1 (and the sorted kernels, in their block's exchange buffer) keep
+// in shared memory, for the two walks of a bounce, what the bounce carries
+// across them but the walks never read: the path (29 words and the RNG)
+// around both walks, and eight shading values (the uv, the material tag
+// and index, the NEE cosine and importance) around the shadow walk. In
 // registers they count on top of the walks' own, and they set the kernel's
 // peak; stashed, K4 fits in 80 registers a thread (24 warps an SM) with no
-// spill, where it needed 96. A thread's words lie kThreads apart (no bank
-// conflict). The accesses are volatile so that the compiler reloads the
-// values after the walk instead of keeping them live in registers. Pure data
-// movement: the outputs are unchanged bit for bit.
+// spill, where it needed 96. A thread's words lie kStride apart, the
+// block's width (no bank conflict). The accesses are volatile so that the
+// compiler reloads the values after the walk instead of keeping them live
+// in registers. Pure data movement: the outputs are unchanged bit for bit.
 constexpr int kStashPath = kNState + 1;     // the path's words: state, RNG
 constexpr int kStashWords = kStashPath + 8;  // and the shading values
 #define SHADE_STASH(X)                                                         \
   X(0, uvx) X(1, uvy) X(2, tag) X(3, midx) X(4, cosw) X(5, impr) X(6, impg)    \
   X(7, impb)
 
+template <int kStride>
 __device__ __forceinline__ void put_path(const Path& p, volatile float* my) {
-#define PUT_FIELD(c, f) my[(c) * kThreads] = p.f;
+#define PUT_FIELD(c, f) my[(c) * kStride] = p.f;
   STATE_FIELDS(PUT_FIELD)
 #undef PUT_FIELD
-  my[kNState * kThreads] = __uint_as_float(p.rng);
+  my[kNState * kStride] = __uint_as_float(p.rng);
 }
 
+template <int kStride>
 __device__ __forceinline__ void get_path(Path& p, const volatile float* my) {
-#define GET_FIELD(c, f) p.f = my[(c) * kThreads];
+#define GET_FIELD(c, f) p.f = my[(c) * kStride];
   STATE_FIELDS(GET_FIELD)
 #undef GET_FIELD
-  p.rng = __float_as_uint(my[kNState * kThreads]);
+  p.rng = __float_as_uint(my[kNState * kStride]);
 }
 
 // One bounce of a live path (the body of _bounce_loop). kStash: keep the
-// stash above in `my` (this thread's first word of the block's stash).
-template <bool kStash = false>
+// stash above in `my` (this thread's first word of the block's stash, whose
+// words lie kStride apart).
+template <bool kStash = false, int kStride = kThreads>
 __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   Hit h;
-  if constexpr (kStash) put_path(p, my);
+  if constexpr (kStash) put_path<kStride>(p, my);
   trace_closest(S, p, h);
-  if constexpr (kStash) get_path(p, my);
+  if constexpr (kStash) get_path<kStride>(p, my);
   if (!h.found) {
     p.alive = 0.0f;
     p.bounce = p.bounce + 1.0f;
@@ -420,18 +424,18 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   bool gate = difish && (imp_len > kEps) && (cosw > 0.0f);
   float nit_s = 0.0f;
   if constexpr (kStash) {
-    put_path(p, my);
-    volatile float* x = my + kStashPath * kThreads;
-#define PUT_LOCAL(c, v) x[(c) * kThreads] = v;
+    put_path<kStride>(p, my);
+    volatile float* x = my + kStashPath * kStride;
+#define PUT_LOCAL(c, v) x[(c) * kStride] = v;
     SHADE_STASH(PUT_LOCAL)
 #undef PUT_LOCAL
   }
   bool occluded = trace_any(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
                             gate ? sdist - kEps : -1.0f, nit_s);
   if constexpr (kStash) {
-    get_path(p, my);
-    volatile float* x = my + kStashPath * kThreads;
-#define GET_LOCAL(c, v) v = x[(c) * kThreads];
+    get_path<kStride>(p, my);
+    volatile float* x = my + kStashPath * kStride;
+#define GET_LOCAL(c, v) v = x[(c) * kStride];
     SHADE_STASH(GET_LOCAL)
 #undef GET_LOCAL
   }
@@ -575,7 +579,7 @@ __device__ __forceinline__ bool going(const Path& p, float cap) {
   return p.alive > 0.0f && p.bounce < cap;
 }
 
-// a whole path to `cap` (K1, K5)
+// a whole path to `cap` (K2, K5)
 __device__ void bounce_loop(const Scene& S, Path& p, float cap) {
   while (going(p, cap)) bounce(S, p);
 }
@@ -615,14 +619,32 @@ __device__ __forceinline__ void write_state(const Path& p, float* st,
 // rows, and dead paths gather at the end of the tile, so whole warps idle
 // instead of a few lanes in every warp.
 //
+// What bounds it: as K1, the walk's dependent loads; on top, each pass
+// costs the block a wait for its slowest warp, the sort's 36 stages (6
+// through shared memory, each behind a barrier) and the exchange of every
+// path. The design, for the H100:
+// * occupancy: the bounce stashes the path in shared memory around its
+//   walks, as K4 does, in the exchange buffer itself (a thread's column, the
+//   block's stride), so 3 blocks of 256 threads fit an SM at 80 registers
+//   (24 warps, no spill) in 41 KB of shared memory a block;
+// * one word a sort stage: the key and the source lane are packed into one
+//   int32 (hijiki_sort::block_sort_packed: the same network and tie rule,
+//   so the same permutation);
+// * the exchange takes no barrier of its own: each thread writes its path
+//   and id to its own column before the sort (whose first barrier publishes
+//   them) and reads its source lane's column after it; the loop's barrier
+//   keeps the next pass's writes after every read (the id waits in the
+//   column across the bounce, so no register holds it there).
+// After the last pass the paths go back to their own lanes through the
+// columns once more, so that a warp's writes to the outputs stay coalesced:
+// writing each path straight to its own column of the outputs (a
+// permutation within the tile's 256 columns) saves that exchange but read
+// 0.1-3% slower (PERF.md).
+//
 // The tile: kSortTile = 256 lanes (a block of 256 threads). The TPU sorted
 // its 1024-lane tile; any tile gives the same outputs (a pure permutation),
 // and a 1024-thread block would cap the megakernel at 64 registers a thread
-// (65,536 per SM). The exchange buffer holds the tile's 29 state words, RNG
-// and path id (31 words a path, 31 KB at 256 lanes) in dynamic shared
-// memory, with the sort's own 4 KB beside it: 35 KB, under the 48 KB a
-// launch gets without opting in (larger tiles opt in, see launch_paths).
-// ops/megakernel.py::SORT_TILE must equal kSortTile.
+// (65,536 per SM). ops/megakernel.py::SORT_TILE must equal kSortTile.
 //
 // Every thread reaches every barrier: a thread past the last path (i >= n)
 // carries a dead path, takes part in the sorts and writes nothing.
@@ -634,12 +656,20 @@ __device__ __forceinline__ void write_state(const Path& p, float* st,
 // render path passes null.
 
 constexpr int kSortTile = 256;
-constexpr int kSortWords = kNState + 2;  // the state, the RNG, the path id
 constexpr int kDeadKey = 1 << 20;
+// resident blocks an SM asked of ptxas for the sorted kernels: 768 threads
+// (24 warps, 80 registers a thread) as K4
+constexpr int kSortMinBlocks = 768 / kSortTile > 0 ? 768 / kSortTile : 1;
+static_assert(kSortTile >= 64,
+              "the sort's shared stages publish the exchange's writes");
+// a column's word that holds the id of its path, past the stash's words
+constexpr int kPidWord = kStashWords;
 
 struct SortShared {
-  hijiki_sort::Scratch<kSortTile> sort;
-  uint32_t path[kSortWords][kSortTile];
+  hijiki_sort::PackedScratch<kSortTile> sort;
+  // a thread's column: its bounce's stash, then the path between the
+  // passes' sorts; and the path's id
+  float path[kPidWord + 1][kSortTile];
 };
 
 // clip(int32(x), 0, 3) as XLA computes it (saturating, NaN -> 0), clamped
@@ -659,104 +689,99 @@ __device__ __forceinline__ int lane_key(const Scene& S, const Path& p) {
   return oct + 8 * (qx + 4 * (qy + 4 * qz));
 }
 
-// every thread writes its path (and id) to slot `dst` and takes the path
-// in slot `src`
-__device__ __forceinline__ void move_path(Path& p, int& pid, int dst, int src,
-                                          SortShared& sh) {
-#define PUT_FIELD(c, f) sh.path[c][dst] = __float_as_uint(p.f);
-  STATE_FIELDS(PUT_FIELD)
-#undef PUT_FIELD
-  sh.path[kNState][dst] = p.rng;
-  sh.path[kNState + 1][dst] = static_cast<uint32_t>(pid);
-  __syncthreads();
-#define GET_FIELD(c, f) p.f = __uint_as_float(sh.path[c][src]);
-  STATE_FIELDS(GET_FIELD)
-#undef GET_FIELD
-  p.rng = sh.path[kNState][src];
-  pid = static_cast<int>(sh.path[kNState + 1][src]);
-  __syncthreads();
-}
-
-// thread i of the block holds path i of the tile; `order` (nullable): the
-// record of the last sort, at order[i] and order[n + i]
-__device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int i,
-                                   int n, int* order) {
+// The block's paths in the sorted lockstep: thread `lane` holds path `lane`
+// of the tile, i = blockIdx.x * kSortTile + lane of n, before and after;
+// `order` (nullable): the record of the last sort, at order[i] and
+// order[n + i].
+__device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
+                                   int* order) {
   extern __shared__ __align__(16) unsigned char smem[];
   SortShared& sh = *reinterpret_cast<SortShared*>(smem);
   const int lane = threadIdx.x;
+  volatile float* my = &sh.path[0][lane];
   int pid = lane;
   while (__syncthreads_or(going(p, cap))) {
-    if (going(p, cap)) bounce(S, p);
+    my[kPidWord * kSortTile] = __int_as_float(pid);  // held here across the bounce
+    if (going(p, cap)) bounce<true, kSortTile>(S, p, my);
     int key = lane_key(S, p);
-    const int src = hijiki_sort::block_sort<kSortTile>(key, sh.sort);
-    move_path(p, pid, lane, src, sh);
+    put_path<kSortTile>(p, my);
+    const int src = hijiki_sort::block_sort_packed<kSortTile, kDeadKey>(key, lane, sh.sort);
+    get_path<kSortTile>(p, my + (src - lane));
+    pid = __float_as_int(my[kPidWord * kSortTile + (src - lane)]);
   }
+  const int i = blockIdx.x * kSortTile + lane;
   if (order != nullptr && i < n) {
     order[i] = blockIdx.x * kSortTile + pid;
     order[n + i] = lane_key(S, p);
   }
-  move_path(p, pid, pid, lane, sh);  // back to the path's own lane
+  // back to the path's own lane (the loop's last barrier follows every
+  // read of the last pass)
+  put_path<kSortTile>(p, my + (pid - lane));
+  __syncthreads();
+  get_path<kSortTile>(p, my);
 }
 
-// a path's bounces to `cap`: alone, or in the block's sorted lockstep
-template <bool kSort>
-__device__ __forceinline__ void run_path(const Scene& S, Path& p, float cap,
-                                         int i, int n, int* order) {
-  if constexpr (kSort)
-    bounce_loop_sorted(S, p, cap, i, n, order);
-  else
-    bounce_loop(S, p, cap);
-}
-
-// K1 and K2, and with kSort their lane-sorted variants (mk_start_sorted,
-// mk_resume_sorted). A sorted block's threads past the last path carry a
-// dead path to the end.
-template <bool kSort>
-__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
-    mk_start_kernel(Scene S, const float* px, const float* py,
-                    const uint32_t* seeds, int n, float cap, float* st_out,
-                    uint32_t* rng_out, int* order) {
+// K2, the resume launch: one path a thread
+__global__ void __launch_bounds__(kThreads)
+    mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
+                     float cap, float* st_out, uint32_t* rng_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kSort && i >= n) return;
+  if (i >= n) return;
+  Path p{};
+  read_state(st_in, rng_in, i, n, p);
+  bounce_loop(S, p, cap);
+  write_state(p, st_out, rng_out, i, n);
+}
+
+// The sorted K1 and K2 (mk_start_sorted, mk_resume_sorted): a block's
+// threads past the last path carry a dead path to the end.
+__global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
+    mk_start_sorted_kernel(Scene S, const float* px, const float* py,
+                           const uint32_t* seeds, int n, float cap, float* st_out,
+                           uint32_t* rng_out, int* order) {
+  const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  run_path<kSort>(S, p, cap, i, n, order);
+  bounce_loop_sorted(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
-template <bool kSort>
-__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
-    mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
-                     float cap, float* st_out, uint32_t* rng_out, int* order) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kSort && i >= n) return;
+__global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
+    mk_resume_sorted_kernel(Scene S, const float* st_in, const uint32_t* rng_in,
+                            int n, float cap, float* st_out, uint32_t* rng_out,
+                            int* order) {
+  const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) read_state(st_in, rng_in, i, n, p);
-  run_path<kSort>(S, p, cap, i, n, order);
+  bounce_loop_sorted(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
 // K4, the chained camera launch (_megakernel_start_chained with the chain
-// block of _bounce_loop, pallas_megakernel.py:2618-2681): a persistent,
-// bounce-granular path loop.
+// block of _bounce_loop, pallas_megakernel.py:2618-2681), and K1, the
+// unchained one (_megakernel_start): a persistent, bounce-granular path
+// loop.
 //
 // The work items are the nsamp * n slots in slot order samp * n + lane, so
 // that a warp's run of consecutive slots is consecutive pixels of one
-// sample (coherent camera rays). The launch holds as many blocks as the SMs
-// keep resident at once (the occupancy of the kernel as built). Each thread
-// loops: if it holds no path it takes a slot, if it holds one it runs ONE
-// bounce of it, and when that path has stopped (dead, or at `cap`) it
-// writes it out. Slots are fetched by the warp: a ballot of the lanes that
-// need one, one atomicAdd of their number on a device counter (zeroed by
-// the wrapper on the stream), the base broadcast by a shuffle, each such
-// lane taking base + its rank among them. A lane past the last slot stays
-// idle; a warp leaves when the counter is spent and none of its lanes holds
-// a path. Every lane reaches both ballots in every iteration (the SASS
-// closes every divergent region of the loop body, BSSY/BSYNC, before them),
-// so the warp is converged there.
+// sample (coherent camera rays); K1 is the loop at nsamp = 1, slot = path.
+// The launch holds as many blocks as the SMs keep resident at once (the
+// occupancy of the kernel as built). Each thread loops: if it holds no path
+// it takes a slot, if it holds one it runs ONE bounce of it, and when that
+// path has stopped (dead, or at `cap`) it writes it out. Slots are fetched
+// by the warp: a ballot of the lanes that need one, one atomicAdd of their
+// number on a device counter (zeroed by the wrapper on the stream), the
+// base broadcast by a shuffle, each such lane taking base + its rank among
+// them. A lane past the last slot stays idle; a warp leaves when the
+// counter is spent and none of its lanes holds a path. Every lane reaches
+// both ballots in every iteration (the SASS closes every divergent region
+// of the loop body, BSSY/BSYNC, before them), so the warp is converged
+// there.
 //
 // A slot's sample starts as a fresh camera ray from pxs/pys/seeds[slot]
-// and, when it stops, is
+// and, when it stops, K1 writes its state to column `slot` of its (29, n)
+// output and its RNG to the (n,) RNG output, as one path a thread would.
+// K4's stopped sample is
 //   * parked, if still alive: its full state goes to column `slot` of the
 //     (29, nsamp*n) pool and of the (nsamp*n,) RNG pool, and the compaction
 //     phases resume it later (no sample is dropped), or
@@ -774,25 +799,25 @@ __global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
 // separate sweeps. Which thread traces a slot, and when, does not change
 // the outputs: a slot's path depends only on its inputs.
 //
-// What bounds it: as K1, the dependent loads of the walk and the
-// divergence of a warp's threads. A loop of whole samples per thread keeps a
-// warp on each sample until its slowest lane's path ends (nvcc wraps that
-// bounce loop in BSSY/BSYNC: lanes whose sample stopped wait at the BSYNC),
-// a cost of the sum over samples of the warp's longest path; here a lane
-// takes its next slot one bounce after its path stops, as the TPU kernel's
-// chain block respawned a lane. On the H100, at 1024x1024 x 8 samples, the
-// whole-sample loop costs 1.61x the warp-bounces of perfect packing
-// (mk.warp_iterations), yet this loop alone gains only ~3% over it
-// (tools/ab_megakernel_torch.py): a warp-bounce with few lanes active moves
-// fewer rows, so idle lanes cost less than their count, and a warp's lanes
-// no longer share their sample's coherent camera bounce. The inlined slot
-// start and finish raise the kernel to 120 registers (16 warps an SM);
-// capped at 96 (20 warps, no spill) the loop gains ~14%, and with the stash
-// at 80 (24 warps, no spill) another ~5% (PERF.md).
+// What bounds it: the dependent loads of the walk and the divergence of a
+// warp's threads. A loop of whole samples per thread keeps a warp on each
+// sample until its slowest lane's path ends (nvcc wraps that bounce loop in
+// BSSY/BSYNC: lanes whose sample stopped wait at the BSYNC), a cost of the
+// sum over samples of the warp's longest path; here a lane takes its next
+// slot one bounce after its path stops, as the TPU kernel's chain block
+// respawned a lane. On the H100, at 1024x1024 x 8 samples, the whole-sample
+// loop costs 1.61x the warp-bounces of perfect packing (mk.warp_iterations),
+// yet this loop alone gains only ~3% over it (tools/ab_megakernel_torch.py):
+// a warp-bounce with few lanes active moves fewer rows, so idle lanes cost
+// less than their count, and a warp's lanes no longer share their sample's
+// coherent camera bounce. The inlined slot start and finish raise the
+// kernel to 120 registers (16 warps an SM); capped at 96 (20 warps, no
+// spill) the loop gains ~14%, and with the stash at 80 (24 warps, no spill)
+// another ~5% (PERF.md).
 
-// resident blocks an SM asked of ptxas for K4 (__launch_bounds__' second
-// argument: it caps the registers a thread, 80 at 6 blocks); with the stash
-// 6 is the most that spills nothing
+// resident blocks an SM asked of ptxas for K4 and K1 (__launch_bounds__'
+// second argument: it caps the registers a thread, 80 at 6 blocks); with
+// the stash 6 is the most that spills nothing
 constexpr int kPersistMinBlocks = 6;
 
 // a slot's fresh camera path (its sample: slot / n)
@@ -805,29 +830,44 @@ __device__ __forceinline__ void chain_start(const Scene& S, const float* pxs,
   if (s != 0) p.samp = static_cast<float>(s);  // sample 0 keeps px * 0
 }
 
-// park or flush a stopped path at `slot` of the sn slots
-__device__ __forceinline__ void chain_finish(const Path& p, int slot, int sn,
-                                             float* pool, uint32_t* pool_rng,
-                                             float* chain_out) {
-  pool_rng[slot] = p.rng;
-  if (p.alive > 0.0f) {  // park
+// K4's finish: park or flush a stopped path at `slot` of the sn slots
+struct ChainFinish {
+  int sn;
+  float* pool;
+  uint32_t* pool_rng;
+  float* chain_out;
+  __device__ __forceinline__ void operator()(const Path& p, int slot) const {
+    pool_rng[slot] = p.rng;
+    if (p.alive > 0.0f) {  // park
 #define PARK_FIELD(c, f) pool[static_cast<size_t>(c) * sn + slot] = p.f;
-    STATE_FIELDS(PARK_FIELD)
+      STATE_FIELDS(PARK_FIELD)
 #undef PARK_FIELD
-  } else {  // flush
-    const float vals[kChainOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3,
-                                   p.depth, p.segs, p.rows, p.ar, p.ag, p.ab};
+    } else {  // flush
+      const float vals[kChainOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3,
+                                     p.depth, p.segs, p.rows, p.ar, p.ag, p.ab};
 #pragma unroll
-    for (int c = 0; c < kChainOut; ++c)
-      chain_out[static_cast<size_t>(c) * sn + slot] = vals[c];
+      for (int c = 0; c < kChainOut; ++c)
+        chain_out[static_cast<size_t>(c) * sn + slot] = vals[c];
+    }
   }
-}
+};
 
-__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
-    mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
-                            const uint32_t* seeds, int n, int nsamp, float cap,
-                            float* pool, uint32_t* pool_rng, float* chain_out,
-                            int* next) {
+// K1's finish: the state of the stopped path at column `slot` of n
+struct StateFinish {
+  int n;
+  float* st;
+  uint32_t* rng;
+  __device__ __forceinline__ void operator()(const Path& p, int slot) const {
+    write_state(p, st, rng, slot, n);
+  }
+};
+
+template <typename Finish>
+__device__ __forceinline__ void persistent_paths(const Scene& S, const float* pxs,
+                                                 const float* pys,
+                                                 const uint32_t* seeds, int n,
+                                                 int nsamp, float cap, int* next,
+                                                 const Finish& finish) {
   const int sn = nsamp * n;
   const unsigned lane = threadIdx.x % 32u;
   const unsigned below = (1u << lane) - 1u;  // the lanes ranked before this one
@@ -854,37 +894,67 @@ __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     if (slot >= 0) {
       if (going(p, cap)) bounce<true>(S, p, my);
       if (!going(p, cap)) {
-        chain_finish(p, slot, sn, pool, pool_rng, chain_out);
+        finish(p, slot);
         slot = -1;
       }
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
+    mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
+                            const uint32_t* seeds, int n, int nsamp, float cap,
+                            float* pool, uint32_t* pool_rng, float* chain_out,
+                            int* next) {
+  persistent_paths(S, pxs, pys, seeds, n, nsamp, cap, next,
+                   ChainFinish{nsamp * n, pool, pool_rng, chain_out});
+}
+
+__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
+    mk_start_kernel(Scene S, const float* px, const float* py,
+                    const uint32_t* seeds, int n, float cap, float* st_out,
+                    uint32_t* rng_out, int* next) {
+  persistent_paths(S, px, py, seeds, n, 1, cap, next, StateFinish{n, st_out, rng_out});
+}
+
 // K5, the single-launch render (_megakernel/_megakernel_body): camera ray
 // and bounces to `cap`, then only the 7 result channels (Lr,Lg,Lb,
-// n1,n2,n3, depth) and the RNG; no 29-channel state. kSort:
-// mk_tiles_sorted.
-template <bool kSort>
-__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)
-    mk_tiles_kernel(Scene S, const float* px, const float* py,
-                    const uint32_t* seeds, int n, float cap, float* out,
-                    uint32_t* rng_out, int* order) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (!kSort && i >= n) return;
-  Path p{};
-  if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  run_path<kSort>(S, p, cap, i, n, order);
-  if (i >= n) return;
+// n1,n2,n3, depth) and the RNG; no 29-channel state. One path a thread, or
+// sorted (mk_tiles_sorted).
+__device__ __forceinline__ void write_tile(const Path& p, float* out,
+                                           uint32_t* rng_out, int i, int n) {
   const float vals[kTileOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3, p.depth};
 #pragma unroll
   for (int c = 0; c < kTileOut; ++c) out[static_cast<size_t>(c) * n + i] = vals[c];
   rng_out[i] = p.rng;
 }
 
-// the launch of K1/K2/K5: blocks of kThreads paths, or of kSortTile with
-// the exchange buffer in dynamic shared memory for the sorted kernels
-// (opting in past 48 KB, which only tiles of 512 lanes and more need)
+__global__ void __launch_bounds__(kThreads)
+    mk_tiles_kernel(Scene S, const float* px, const float* py,
+                    const uint32_t* seeds, int n, float cap, float* out,
+                    uint32_t* rng_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Path p{};
+  camera_init(S, px[i], py[i], seeds[i], p);
+  bounce_loop(S, p, cap);
+  write_tile(p, out, rng_out, i, n);
+}
+
+__global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
+    mk_tiles_sorted_kernel(Scene S, const float* px, const float* py,
+                           const uint32_t* seeds, int n, float cap, float* out,
+                           uint32_t* rng_out, int* order) {
+  const int i = blockIdx.x * kSortTile + threadIdx.x;
+  Path p{};
+  if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
+  bounce_loop_sorted(S, p, cap, n, order);
+  if (i < n) write_tile(p, out, rng_out, i, n);
+}
+
+// the launch of K2/K5: blocks of kThreads paths, or of kSortTile with the
+// exchange buffer in dynamic shared memory for the sorted kernels (opting
+// in past 48 KB, which only tiles of 512 lanes and more need)
 template <bool kSort, typename... Params, typename... Args>
 int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
   constexpr int block = kSort ? kSortTile : kThreads;
@@ -899,6 +969,24 @@ int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// the launch of K4 and K1: the SMs times the blocks an SM holds at once, no
+// more blocks than the `slots` fill
+template <typename... Params, typename... Args>
+int launch_persistent(void (*kernel)(Params...), int slots, void* stream,
+                      Args... args) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess)
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int fill = (slots + kThreads - 1) / kThreads;
+  const int blocks = fill < sms * per_sm ? fill : sms * per_sm;
+  kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K1/K2/K5 and their sorted variants; `order` (sorted only) may be null
@@ -908,83 +996,69 @@ int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
 #define RESUME_ARGS                                                            \
   SCENE_ARGS, const float *st_in, const uint32_t *rng_in, int n, int cap
 
-extern "C" int mk_start(START_ARGS, float* st_out, uint32_t* rng_out,
+// K1; `next`: the work counter, zeroed on the stream
+extern "C" int mk_start(START_ARGS, float* st_out, uint32_t* rng_out, int* next,
                         void* stream) {
-  return launch_paths<false>(mk_start_kernel<false>, n, stream, SCENE_CALL, px,
-                             py, seeds, n, static_cast<float>(cap), st_out,
-                             rng_out, nullptr);
+  return launch_persistent(mk_start_kernel, n, stream, SCENE_CALL, px, py, seeds,
+                           n, static_cast<float>(cap), st_out, rng_out, next);
 }
 
 extern "C" int mk_start_sorted(START_ARGS, float* st_out, uint32_t* rng_out,
                                int* order, void* stream) {
-  return launch_paths<true>(mk_start_kernel<true>, n, stream, SCENE_CALL, px,
+  return launch_paths<true>(mk_start_sorted_kernel, n, stream, SCENE_CALL, px,
                             py, seeds, n, static_cast<float>(cap), st_out,
                             rng_out, order);
 }
 
 extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                          void* stream) {
-  return launch_paths<false>(mk_resume_kernel<false>, n, stream, SCENE_CALL,
-                             st_in, rng_in, n, static_cast<float>(cap), st_out,
-                             rng_out, nullptr);
+  return launch_paths<false>(mk_resume_kernel, n, stream, SCENE_CALL, st_in,
+                             rng_in, n, static_cast<float>(cap), st_out, rng_out);
 }
 
 extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                                 int* order, void* stream) {
-  return launch_paths<true>(mk_resume_kernel<true>, n, stream, SCENE_CALL,
+  return launch_paths<true>(mk_resume_sorted_kernel, n, stream, SCENE_CALL,
                             st_in, rng_in, n, static_cast<float>(cap), st_out,
                             rng_out, order);
 }
 
 extern "C" int mk_tiles(START_ARGS, float* out, uint32_t* rng_out,
                         void* stream) {
-  return launch_paths<false>(mk_tiles_kernel<false>, n, stream, SCENE_CALL, px,
-                             py, seeds, n, static_cast<float>(cap), out,
-                             rng_out, nullptr);
+  return launch_paths<false>(mk_tiles_kernel, n, stream, SCENE_CALL, px, py,
+                             seeds, n, static_cast<float>(cap), out, rng_out);
 }
 
 extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
                                int* order, void* stream) {
-  return launch_paths<true>(mk_tiles_kernel<true>, n, stream, SCENE_CALL, px,
+  return launch_paths<true>(mk_tiles_sorted_kernel, n, stream, SCENE_CALL, px,
                             py, seeds, n, static_cast<float>(cap), out, rng_out,
                             order);
 }
 
-// K4; `next`: the work counter, zeroed on the stream. The launch: the SMs
-// times the blocks an SM holds at once, no more blocks than the slots fill.
+// K4; `next`: the work counter, zeroed on the stream
 extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
                                 const uint32_t* seeds, int n, int nsamp, int cap,
                                 float* pool, uint32_t* pool_rng, float* chain_out,
                                 int* next, void* stream) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t rc = cudaGetDevice(&dev);
-  if (rc == cudaSuccess)
-    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mk_start_chained_kernel,
-                                                       kThreads, 0);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int fill = (nsamp * n + kThreads - 1) / kThreads;
-  const int blocks = fill < sms * per_sm ? fill : sms * per_sm;
-  mk_start_chained_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      SCENE_CALL, pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool, pool_rng,
-      chain_out, next);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(mk_start_chained_kernel, nsamp * n, stream, SCENE_CALL,
+                           pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool,
+                           pool_rng, chain_out, next);
 }
 
 namespace {
 template <typename... Params>
-int occupancy(void (*kernel)(Params...), int* out) {
+int occupancy(void (*kernel)(Params...), int threads, int smem, int* out) {
   cudaFuncAttributes attr{};
   int dev = 0;
   cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, kThreads, 0);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], kernel, threads, smem);
   if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess)
     rc = cudaDeviceGetAttribute(&out[3], cudaDevAttrMultiProcessorCount, dev);
   out[0] = attr.numRegs;
-  out[2] = kThreads;
+  out[2] = threads;
   out[4] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(rc);
 }
@@ -993,14 +1067,20 @@ int occupancy(void (*kernel)(Params...), int* out) {
 // What the card makes of a megakernel as built: out[0] registers a thread,
 // out[1] resident blocks an SM, out[2] threads a block, out[3] SMs, out[4]
 // local (spill) bytes a thread. which: 0 K1 mk_start, 1 K2 mk_resume, 2 K4
-// mk_start_chained, 3 K5 mk_tiles. K4, persistent, launches out[1] * out[3]
-// blocks (fewer where its slots fill fewer).
+// mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
+// kSortTile threads with launch_paths' dynamic shared memory). K4 and K1,
+// persistent, launch out[1] * out[3] blocks (fewer where their slots fill
+// fewer).
 extern "C" int mk_occupancy(int which, int* out) {
+  constexpr int sorted_smem = static_cast<int>(sizeof(SortShared));
   switch (which) {
-    case 0: return occupancy(mk_start_kernel<false>, out);
-    case 1: return occupancy(mk_resume_kernel<false>, out);
-    case 2: return occupancy(mk_start_chained_kernel, out);
-    case 3: return occupancy(mk_tiles_kernel<false>, out);
+    case 0: return occupancy(mk_start_kernel, kThreads, 0, out);
+    case 1: return occupancy(mk_resume_kernel, kThreads, 0, out);
+    case 2: return occupancy(mk_start_chained_kernel, kThreads, 0, out);
+    case 3: return occupancy(mk_tiles_kernel, kThreads, 0, out);
+    case 4: return occupancy(mk_start_sorted_kernel, kSortTile, sorted_smem, out);
+    case 5: return occupancy(mk_resume_sorted_kernel, kSortTile, sorted_smem, out);
+    case 6: return occupancy(mk_tiles_sorted_kernel, kSortTile, sorted_smem, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,7 +21,9 @@
 // payload through that permutation.
 //
 // What bounds it: barrier latency (a stage is a few instructions between
-// two barriers); it touches no device memory.
+// two barriers); it touches no device memory. block_sort_packed (below) is
+// the same network on one packed word a lane, for keys that leave room for
+// the payload's bits (the lane-sorted megakernels' keys, at most 2^20).
 
 #pragma once
 
@@ -79,6 +81,64 @@ __device__ __forceinline__ int block_sort(int& key, Scratch<kTile>& s) {
     }
   }
   return src;
+}
+
+// shared memory of one block's packed sort: two buffers of packed words
+template <int kTile>
+struct PackedScratch {
+  int buf[2][kTile];
+};
+
+// log2 of a power of two
+__host__ __device__ constexpr int log2_exact(int x) { return x == 1 ? 0 : 1 + log2_exact(x >> 1); }
+
+// The same network on keys in [0, kMaxKey] with a payload below kTile
+// packed into one word, (key << log2(kTile)) | payload: an in-warp stage
+// shuffles one word where block_sort shuffles two, a shared stage stores
+// one int. The compare reads the key field alone, so the tie rule, and
+// with it the permutation, is block_sort's bit for bit. On return `key` is
+// the sorted key at lane threadIdx.x; the result is the payload that came
+// with it (a thread passing its own lane gets block_sort's source lane).
+// The same barrier rule as block_sort. Unrolled in full: the stages are a
+// chain of dependent shuffles, and a block that sorts every pass for a few
+// live paths waits on that chain, so each stage keeps only its shuffle (or
+// shared exchange), the compare and the select, with j, k and the buffer
+// known at compile time.
+template <int kTile, int kMaxKey>
+__device__ __forceinline__ int block_sort_packed(int& key, int payload,
+                                                 PackedScratch<kTile>& s) {
+  static_assert(kTile >= 32 && (kTile & (kTile - 1)) == 0,
+                "the tile is a power of two of at least one warp");
+  constexpr int kBits = log2_exact(kTile);
+  static_assert(kMaxKey >= 0 && kMaxKey <= (0x7fffffff - (kTile - 1)) >> kBits,
+                "a key and a payload fit one non-negative int32");
+  // the lane, read where the sort runs: a plain threadIdx.x lets the
+  // compiler hoist the unrolled stages' lane masks out of the caller's
+  // loop, and hold them in registers across its bounce (a spill at 80)
+  int i;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(i));
+  int v = (key << kBits) | payload;
+  int b = 0;
+#pragma unroll
+  for (int lk = 1; lk <= kBits; ++lk) {
+    const int k = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+      int pv;
+      if (j >= 32) {
+        s.buf[b][i] = v;
+        __syncthreads();
+        pv = s.buf[b][i ^ j];
+        b ^= 1;  // the next shared stage writes the other buffer
+      } else {
+        pv = __shfl_xor_sync(0xffffffffu, v, j);
+      }
+      if (take_partner(i, k, j, v >> kBits, pv >> kBits)) v = pv;
+    }
+  }
+  key = v >> kBits;
+  return v & (kTile - 1);
 }
 
 }  // namespace hijiki_sort

@@ -26,8 +26,9 @@ tile's last sort left, shows the sort itself. The chained launch never
 sorts (nor does JAX's).
 
 On a CUDA tensor the launches run the hand-written kernels of
-``csrc/megakernel.cu`` (one thread per path, the stackless walk over the
-trace rows; see the note there). On a CPU tensor they run the plain twin
+``csrc/megakernel.cu`` (a path a thread at a time, the stackless walk over
+the trace rows; K1 and K4 persistent, the sorted launches a block's paths
+in lockstep; see the notes there). On a CPU tensor they run the plain twin
 below: a vectorized per-lane transcription of ``_camera_init``,
 ``_bounce_loop`` (with its chain block), ``_analytic_pretest``, the walk
 and ``_resolve_winners`` that computes, lane by lane, what one CUDA thread
@@ -1015,8 +1016,8 @@ def check_rows_aligned(rows):
 def _launch(fn_name, ms, ins, ints, outs, persistent=False):
     """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
     stream: scene, input pointers, ``ints``, output pointers (None: a null
-    pointer), for the ``persistent`` K4 its work counter zeroed on the
-    stream, then the stream. The first int is the lane count; nothing
+    pointer), for the ``persistent`` K1 and K4 their work counter zeroed on
+    the stream, then the stream. The first int is the lane count; nothing
     launches for 0 lanes. Returns the outputs that are not None."""
     from hijiki_tpu_torch.utils.build import load_library
 
@@ -1068,7 +1069,9 @@ def megakernel_start(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
                      lane_order: bool = False):
     """Camera launch (K1, replaces ``_megakernel_start``): raygen and
     bounces up to ``cap``. px/py (N,) f32, seeds (N,) int32 u32 bits.
-    Returns (state (N_STATE, N) f32, rng (N,) int32 bits).
+    Returns (state (N_STATE, N) f32, rng (N,) int32 bits). The kernel is
+    persistent, as K4 is: its threads take paths from a work counter and
+    bounce them one bounce at a time.
 
     ``lane_sort``: the lane-sorted variant (K7 inside, ``mk_start_sorted``).
     ``lane_order`` (with ``lane_sort``) appends the permutation of each
@@ -1082,7 +1085,8 @@ def megakernel_start(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
         name, extra = _entry("mk_start", lane_sort, lane_order, n, dev)
         st = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
         rng = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch(name, ms, [px, py, seeds], [n, cap], [st, rng, *extra])
+        return _launch(name, ms, [px, py, seeds], [n, cap], [st, rng, *extra],
+                       persistent=not lane_sort)
     return megakernel_start_plain(ms, px, py, seeds, cap, lane_sort, lane_order)
 
 
@@ -1172,28 +1176,36 @@ def warp_iterations(segs, warp: int = 32) -> dict:
 
 
 # mk_occupancy's kernel numbers (csrc/megakernel.cu)
-_OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3}
+_OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3,
+                 "mk_start_sorted": 4, "mk_resume_sorted": 5, "mk_tiles_sorted": 6}
 
 
 def occupancy(name: str, lib=None) -> dict:
-    """What the card makes of the megakernel ``name`` (``mk_start``,
-    ``mk_resume``, ``mk_start_chained``, ``mk_tiles``) as built (``lib``:
-    another build's library; default the package's): registers a thread,
-    local-memory bytes a thread (its stack frame, spills included: ptxas'
-    report tells the spills apart), resident blocks and warps an SM, and SMs
-    (the persistent K4 launches blocks_per_sm x sms blocks at most)."""
+    """What the card makes of the megakernel ``name`` (a key of
+    ``_OCCUPANCY_OF``: K1, K2, K4, K5 and the sorted K1/K2/K5) as built
+    (``lib``: another build's library; default the package's): registers a
+    thread, local-memory bytes a thread (its stack frame, spills
+    included), spill-store bytes a thread (ptxas' report of the package's
+    build; None for another library), threads a block, resident blocks and
+    warps an SM at the kernel's launch (a sorted kernel with its dynamic
+    shared memory), and SMs (a persistent kernel launches blocks_per_sm x
+    sms blocks at most)."""
     import ctypes
 
-    from hijiki_tpu_torch.utils.build import load_library
+    from hijiki_tpu_torch.utils.build import build, load_library, spill_stores
 
+    spill = None
+    if lib is None:
+        report = build()[2]
+        spill = spill_stores(report, f"{name}_kernel") if report else None
     out = (ctypes.c_int * 5)()
     lib = lib if lib is not None else load_library()
     rc = lib.mk_occupancy(_OCCUPANCY_OF[name], ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
         raise RuntimeError(f"mk_occupancy({name}) failed: CUDA error {rc}")
     regs, per_sm, threads, sms, local = out
-    return {"registers": regs, "local_bytes": local, "warps_per_sm": per_sm * threads // 32,
-            "blocks_per_sm": per_sm, "sms": sms}
+    return {"registers": regs, "local_bytes": local, "spill_bytes": spill, "threads": threads,
+            "warps_per_sm": per_sm * threads // 32, "blocks_per_sm": per_sm, "sms": sms}
 
 
 def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = False,

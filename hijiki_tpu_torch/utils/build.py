@@ -25,6 +25,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build" / "kernels"
 LIB_NAME = "libhijiki_kernels.so"
+REPORT_NAME = "ptxas.txt"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -39,9 +40,9 @@ _F = ctypes.c_float
 _SCENE = [_P, _P] + [_I] * 10
 # argtypes of every C entry point: each pointer and the stream as c_void_p
 SIGNATURES = {
-    "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
+    # K1 and K4 are persistent: the pointer before the stream is the work counter
+    "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
-    # K4 is persistent: the pointer before the stream is its work counter
     "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "mk_occupancy": [_I, _P],
     "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
@@ -95,11 +96,13 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     """Compile the kernels of ``csrc`` (the package's sources, or an edited
     copy of them such as tools/probe_sort_tile.py's variants) unless the
     cached library exists. Returns (library path, seconds spent compiling,
-    compiler report)."""
+    compiler report: ptxas' registers and spills of every kernel, kept
+    beside a cached library)."""
     out_dir = BUILD_ROOT / cache_key(csrc)
     lib = out_dir / LIB_NAME
     if lib.exists():
-        return lib, 0.0, ""
+        saved = out_dir / REPORT_NAME
+        return lib, 0.0, saved.read_text() if saved.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     pid = os.getpid()
@@ -127,8 +130,28 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     for obj in objs:
         obj.unlink()
     secs = time.monotonic() - t0
+    (out_dir / f"{REPORT_NAME}.{pid}").write_text(report)
+    os.replace(out_dir / f"{REPORT_NAME}.{pid}", out_dir / REPORT_NAME)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib, secs, report
+
+
+def spill_stores(report: str, kernel: str) -> int:
+    """The spill-store bytes ptxas reports, in ``report``, for the kernel
+    function named ``kernel`` (not a template, in any namespace: its
+    mangled name holds <length><kernel>E); raises if the report has none."""
+    import re
+
+    frag = f"{len(kernel)}{kernel}E"
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name and frag in name:
+            return int(m.group(1))
+    raise KeyError(f"ptxas reported no kernel {kernel}")
 
 
 def load_library(path: Path | None = None) -> ctypes.CDLL:

@@ -14,11 +14,12 @@ K6 bit-equal to its twin on every channel of every ray, so the sync
 driver's film is the same bit for bit whichever walk it runs; K8
 (sort_tiles) bit-equal to its plain version; the lane-sorted K1/K2/K5 (K7
 inside) bit-equal to the unsorted kernels on every output (a pure
-permutation of whole paths); K6's strict and inclusive any-hit bit-equal
+permutation of whole paths), also on 397 tiles and on heavy dead-key ties; K6's strict and inclusive any-hit bit-equal
 to the plain walk at tmax = the closest hit's t; K9 (reconstruct_old) to
 K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
 bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions; the
-persistent K4 (into NaN-filled outputs: it writes every slot it owns), K2 at caps
+persistent K4 (into NaN-filled outputs: it writes every slot it owns) and
+K1 (n = 1, 127, 129, 4097 at caps 1, 5, 1000), K2 at caps
 12, 48 and 1000, and K2 and K10b on axis-aligned rays (the slab test's NaN
 path) bit-equal to their twins on every output; K3 on an 8-sweep chunk
 bit-equal to its one-sweep launches summed in sweep order (B = 1, 2, 3, 4,
@@ -723,15 +724,81 @@ def test_wrapper_rejects_unaligned_rows():
 
 
 def test_megakernels_occupancy():
-    """mk_occupancy answers for the four unsorted megakernels: registers,
-    resident warps and the card's SMs; K4 holds 24 warps an SM."""
+    """mk_occupancy answers for all seven megakernels (K1, K2, K4, K5 and
+    the sorted K1/K2/K5, these in blocks of SORT_TILE threads with their
+    shared memory): registers, resident warps and the card's SMs. K4 and K1
+    (the stash, 6 blocks of 128) and the sorted kernels (the stash in the
+    exchange buffer, 3 blocks of 256) hold 24 warps an SM, and ptxas
+    spilled no bytes of them."""
     cuda_device()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for name in ("mk_start", "mk_resume", "mk_start_chained", "mk_tiles"):
+    for name in mk._OCCUPANCY_OF:
         occ = mk.occupancy(name)
+        threads = mk.SORT_TILE if name.endswith("_sorted") else 128
         assert 0 < occ["registers"] <= 255 and occ["warps_per_sm"] >= 4
-        assert occ["warps_per_sm"] == occ["blocks_per_sm"] * 4 and occ["sms"] == sms
-    assert mk.occupancy("mk_start_chained")["warps_per_sm"] == 24
+        assert occ["threads"] == threads and occ["sms"] == sms
+        assert occ["warps_per_sm"] == occ["blocks_per_sm"] * threads // 32
+    for name in ("mk_start", "mk_start_chained", "mk_start_sorted", "mk_resume_sorted",
+                 "mk_tiles_sorted"):
+        occ = mk.occupancy(name)
+        assert occ["warps_per_sm"] == 24 and occ["spill_bytes"] == 0, (name, occ)
+
+
+@pytest.mark.parametrize("cap", [1, 5, 1000])
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+def test_persistent_start_kernel_bit_equal_to_twin(n, cap):
+    """K1, persistent (threads take paths from a work counter, a bounce at
+    a time), on n paths (fewer than a warp, than a block, more than a
+    block, a tail past 32 blocks) to ``cap``: into outputs filled with NaN
+    first (it writes every path's column) and through the wrapper, state
+    and RNG bit-equal to megakernel_start_plain."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 65, 65, dev)
+    px, py, seeds = (a[:n].contiguous() for a in _frame(65, dev))
+    nan = float("nan")
+    outs = [torch.full((mk.N_STATE, n), nan, device=dev),
+            torch.full((n,), nan, device=dev).view(torch.int32)]
+    before = mk.LAUNCHES["mk_start"]
+    got = mk._launch("mk_start", ms, [px, py, seeds], [n, cap], outs, persistent=True)
+    wrapped = mk.megakernel_start(ms, px, py, seeds, cap)
+    assert mk.LAUNCHES["mk_start"] == before + 2
+    want = mk.megakernel_start_plain(ms, px, py, seeds, cap)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    assert all(torch.equal(g, w) for g, w in zip(_bits(wrapped), _bits(want)))
+
+
+@pytest.mark.parametrize("frame", ["odd_tiles", "dead_ties"])
+def test_sorted_kernels_bit_equal_on_large_frames(frame):
+    """The sorted K1 (cap 5), K2 (resume to 24) and K5 (to 24) on 397 tiles
+    less 13 lanes: no multiple of the 3 x 132 blocks of 256 an H100 holds at
+    once, so a block runs alone in a second wave, and the last tile is
+    padded. ``dead_ties``: K2 resumes a state in which 7 of 8 paths are
+    dead, so most keys tie at the dead key. Every output bit-equal to the
+    unsorted kernel's, and the order record of the last sort bit-equal to
+    the sorted plain version's."""
+    dev = cuda_device()
+    n = 397 * mk.SORT_TILE - 13
+    ms = mk.mega_scene(_scene(MESHBOX), 320, 320, dev)
+    px, py, seeds = (a[:n].contiguous() for a in _frame(320, dev))
+    st, rng = mk.megakernel_start(ms, px, py, seeds, 5 if frame == "odd_tiles" else 2)
+    if frame == "dead_ties":
+        st = st.clone()
+        kill = torch.from_numpy(np.random.default_rng(3).random(n) < 0.875).to(dev)
+        st[0, kill] = 0.0
+    calls = [(mk.megakernel_resume, mk.megakernel_resume_plain, (st, rng, 24))]
+    if frame == "odd_tiles":
+        calls += [(mk.megakernel_start, mk.megakernel_start_plain, (px, py, seeds, 5)),
+                  (mk.megakernel_tiles, mk.megakernel_tiles_plain, (px, py, seeds, 24))]
+    for kernel, plain, args in calls:
+        got = kernel(ms, *args, lane_sort=True, lane_order=True)
+        _assert_same_sort(got[:2], kernel(ms, *args))
+        want = plain(ms, *args, lane_sort=True, lane_order=True)
+        _assert_same_sort(got, want)
+        pid = got[2][0]
+        assert not torch.equal(pid, torch.arange(n, dtype=pid.dtype, device=dev))
+    if frame == "dead_ties":
+        key = got[2][1]
+        assert float((key == 1 << 20).float().mean()) > 0.8
 
 
 @pytest.mark.parametrize("B,S", [(1, 8), (2, 8), (3, 8), (4, 8), (128, 8), (3, 20)])

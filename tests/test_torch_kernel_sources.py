@@ -1,0 +1,77 @@
+"""What the card tools read out of the kernel sources, checked on the CPU.
+
+The A/B tool (tools/ab_megakernel_torch.py) builds its per-part variants
+of this tree by rewriting copies of csrc/ (``PATH_VARIANTS``), and
+tools/probe_sort_tile.py rewrites megakernel.cu's sort lines: each text
+they replace must still occur in the sources as often as they expect, or
+the card run stops. ``build.spill_stores`` reads ptxas' report, which
+``mk.occupancy`` passes on as a kernel's spill bytes."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+from hijiki_tpu_torch.ops import megakernel as mk
+from hijiki_tpu_torch.utils import build
+
+TOOLS = Path(__file__).resolve().parents[1] / "tools"
+sys.path.insert(0, str(TOOLS))
+
+import ab_megakernel_torch as ab  # noqa: E402
+import probe_sort_tile  # noqa: E402
+
+OWN_VARIANTS = sorted(v for v, (base, _, _) in ab.PATH_VARIANTS.items() if base == "new")
+
+
+@pytest.mark.parametrize("variant", OWN_VARIANTS)
+def test_ab_variants_apply_to_the_sources(variant):
+    """Every text a variant of this tree replaces occurs in csrc/ as often
+    as the variant says, and the variant changes the file."""
+    _, edits, _ = ab.PATH_VARIANTS[variant]
+    for fname, subs in edits.items():
+        text = (build.CSRC / fname).read_text()
+        for old, new, times in subs:
+            assert text.count(old) == times, (variant, fname, old)
+            assert new != old
+
+
+def test_probe_sort_tile_lines_occur_once():
+    """tools/probe_sort_tile.py's tile, key and sort lines each occur once
+    in megakernel.cu, and its lockstep key removes the whole exchange."""
+    src = (build.CSRC / "megakernel.cu").read_text()
+    for line in (probe_sort_tile.TILE_LINE, probe_sort_tile.KEY_LINE, probe_sort_tile.SORT_LINES):
+        assert src.count(line) == 1, line
+    assert "block_sort_packed" in probe_sort_tile.SORT_LINES and "get_path" in probe_sort_tile.SORT_LINES
+
+
+REPORT = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122mk_start_sorted_kernelENS_5SceneEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122mk_start_sorted_kernelENS_5SceneEPKf
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_start_kernelENS_5SceneEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115mk_start_kernelENS_5SceneEPKf
+    40 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 40 bytes cumulative stack size
+"""
+
+
+@pytest.mark.parametrize("kernel,spill", [("mk_start_sorted_kernel", 0), ("mk_start_kernel", 4)])
+def test_spill_stores_reads_the_report(kernel, spill):
+    """Each kernel's spill stores by its own name: mk_start_kernel is not
+    read off mk_start_sorted_kernel's lines, and a kernel the report lacks
+    raises."""
+    assert build.spill_stores(REPORT, kernel) == spill
+    with pytest.raises(KeyError):
+        build.spill_stores(REPORT, "mk_tiles_kernel")
+
+
+def test_occupancy_names_match_the_kernel_source():
+    """mk.occupancy's names are mk_occupancy's cases, each kernel of the
+    name queried with its block (SORT_TILE threads for the sorted ones)."""
+    src = (build.CSRC / "megakernel.cu").read_text()
+    for name, which in mk._OCCUPANCY_OF.items():
+        threads = "kSortTile" if name.endswith("_sorted") else "kThreads"
+        assert f"case {which}: return occupancy({name}_kernel, {threads}," in src, name
+    assert len(mk._OCCUPANCY_OF) == 7

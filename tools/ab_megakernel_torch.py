@@ -80,7 +80,7 @@ from chip_smoke import bit_equal, record_calls  # noqa: E402
 
 # the kernels reported, by a part of their mangled names
 KERNELS = {"K4": ("mk_start_chained_kernel",),
-           "K2": ("mk_resume_kernelILb0E",),
+           "K2": ("mk_resume_kernelILb0E", "16mk_resume_kernelE"),  # a template on kSort, or not
            "K10b": ("walk_isolate_kernelILi32ELb1ELi1E",)}
 SASS_OPS = ("BSSY", "BSYNC", "WARPSYNC", "VOTE", "SHFL", "ATOM", "RED")
 
@@ -185,6 +185,22 @@ class Lib:
         return out
 
 
+def sweep_frame(sched, W: int, H: int, dev) -> tuple:
+    """(px, py, seeds as int32 bits, the sample offset) of one W x H sweep
+    of the scheduler's ``sched``, block size 128 (chip_smoke's frames)."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.ops.rng import to_bits
+    from hijiki_tpu_torch.render.blocks import per_pixel_seeds_device
+
+    so = np.asarray(sched.sample_offset, np.float32)
+    yy = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
+    xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
+    return ((xx + float(so[0])).reshape(-1).contiguous(), (yy + float(so[1])).reshape(-1).contiguous(),
+            to_bits(per_pixel_seeds_device(W, H, 128, sched.block_seeds, dev).reshape(-1)), so)
+
+
 def summary(ms_list) -> dict:
     return {"min_ms": min(ms_list), "median_ms": statistics.median(ms_list), "n": len(ms_list)}
 
@@ -197,17 +213,27 @@ def build_libraries(parent: Path, variants: str, files, make_lib) -> list:
 
     trees = {"parent": stage("parent", parent, files=files), "new": stage("new", build.CSRC, files=files)}
     for v in filter(None, variants.split(",")):
-        if v == "walk" and files == MEGA_FILES:
+        if v in ("walk", "loop") and files != MEGA_FILES or v in PATH_VARIANTS and files != PATH_FILES:
+            continue  # another group's variant
+        if v == "walk":
             trees[v] = stage(v, parent, walk_from=build.CSRC, files=files)
-        elif v == "loop" and files == MEGA_FILES:
+        elif v == "loop":
             trees[v] = stage(v, build.CSRC, walk_from=parent, files=files)
+        elif v in PATH_VARIANTS:
+            base, edits, _ = PATH_VARIANTS[v]
+            trees[v] = rewrite(stage(v, parent if base == "parent" else build.CSRC, files=files), edits)
         elif "=" in v:
             name, tree = v.split("=", 1)
             trees[name] = stage(name, Path(tree).resolve(), files=files)
         else:
             raise SystemExit(f"unknown variant {v!r} for {files}")
-    with ThreadPoolExecutor(len(trees)) as ex:
-        built = dict(zip(trees, ex.map(build.build, trees.values())))
+    keys = {name: build.cache_key(tree) for name, tree in trees.items()}
+    unique = {}  # trees of equal sources build once (two builds of one key would collide)
+    for name, key in keys.items():
+        unique.setdefault(key, trees[name])
+    with ThreadPoolExecutor(len(unique)) as ex:
+        by_key = dict(zip(unique, ex.map(build.build, unique.values())))
+    built = {name: by_key[key] for name, key in keys.items()}
     return [(make_lib(name, path, report, trees[name]), secs)
             for name, (path, secs, report) in built.items()]
 
@@ -216,16 +242,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
     ap.add_argument("--kernels", default="megakernel",
-                    help="comma-separated groups: megakernel, reconstruct, traverse")
+                    help="comma-separated groups: megakernel, reconstruct, traverse, start, sorted")
     ap.add_argument("--variants", default="",
-                    help="comma-separated: walk, loop (megakernel group), NAME=DIR")
+                    help="comma-separated: walk, loop (megakernel group), the names of "
+                         "PATH_VARIANTS (start and sorted groups), NAME=DIR")
     ap.add_argument("--reps", type=int, default=10, help="timed launches a library (>= 10)")
     ap.add_argument("--json", help="write the results here")
     ap.add_argument("--sass", type=Path, default=Path(HERE).parent / "build" / "ab_megakernel" / "sass",
                     help="write the kernels' SASS here")
     args = ap.parse_args(argv)
     groups = set(filter(None, args.kernels.split(",")))
-    if not groups or groups - {"megakernel", "reconstruct", "traverse"}:
+    if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
     import torch
@@ -238,7 +265,8 @@ def main(argv=None) -> int:
     print(card(), flush=True)
     parent = args.parent.resolve()
     need = (MEGA_FILES if "megakernel" in groups else ()) + (
-        K36_FILES if groups & {"reconstruct", "traverse"} else ())
+        K36_FILES if groups & {"reconstruct", "traverse"} else ()) + (
+        PATH_FILES if groups & {"start", "sorted"} else ())
     missing = [f for f in need if not (parent / f).exists()]
     if missing:
         print(f"error: {parent} holds no {', '.join(missing)}", file=sys.stderr)
@@ -251,6 +279,10 @@ def main(argv=None) -> int:
     if groups & {"reconstruct", "traverse"}:
         part, good = k36_ab(args, parent, groups)
         result["k3_k6"] = part
+        ok &= good
+    if groups & {"start", "sorted"}:
+        part, good = paths_ab(args, parent, groups)
+        result["paths"] = part
         ok &= good
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1, default=str))
@@ -514,10 +546,9 @@ def k36_ab(args, parent: Path, groups) -> tuple:
     from hijiki_tpu_torch.ops import pallas_traverse as pt
     from hijiki_tpu_torch.ops.camera import camera_rays
     from hijiki_tpu_torch.ops.integrate import integrate
-    from hijiki_tpu_torch.ops.rng import from_bits, seed_rng, to_bits
+    from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
     from hijiki_tpu_torch.probes import op_counts, sass_functions
     from hijiki_tpu_torch.probes import walk_probe as pwk
-    from hijiki_tpu_torch.render.blocks import per_pixel_seeds_device
     from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
     from hijiki_tpu_torch.scene.compile import compile_scene, to_device
     from hijiki_tpu_torch.scene.obj import load_obj_scene
@@ -554,14 +585,7 @@ def k36_ab(args, parent: Path, groups) -> tuple:
                        use_bvh=True, driver="mega")
     r = Renderer(cs, cfg, device="cuda")
     H = W = 1024
-    yy = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
-    xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
-
-    def frame_of(sched):
-        so = np.asarray(sched.sample_offset, np.float32)
-        return ((xx + float(so[0])).reshape(-1).contiguous(),
-                (yy + float(so[1])).reshape(-1).contiguous(),
-                to_bits(per_pixel_seeds_device(W, H, 128, sched.block_seeds, dev).reshape(-1)), so)
+    frame_of = lambda sched: sweep_frame(sched, W, H, dev)
 
     ok = True
     cases = {}  # name -> (make outputs(lib), run(lib, outs) -> result to compare)
@@ -735,6 +759,326 @@ def k36_ab(args, parent: Path, groups) -> tuple:
                         print(f"    loop [{lp['start']}, {lp['end']}] {lp['end'] - lp['start'] + 1} "
                               f"instructions: {lp['ops']}", flush=True)
                 result["sass"][f"{lib.name} {fname}"] = entry
+    return result, ok
+
+
+# ---- the start and sorted groups: K1, and the lane-sorted K1/K2/K5 (K7) ----
+
+PATH_FILES = ("megakernel.cu", "sort.cu")
+# the kernels of the start and sorted groups, by a part of their mangled
+# names (a parent whose K1/K2/K5 are templates on kSort, or its own
+# kernels), and their mk_occupancy names
+PATH_KERNELS = {"K1": (("mk_start_kernelILb0E", "15mk_start_kernelE"), "mk_start"),
+                "K1 sorted": (("mk_start_kernelILb1E", "mk_start_sorted_kernel"), "mk_start_sorted"),
+                "K2": (("mk_resume_kernelILb0E", "16mk_resume_kernelE"), "mk_resume"),
+                "K2 sorted": (("mk_resume_kernelILb1E", "mk_resume_sorted_kernel"), "mk_resume_sorted"),
+                "K5": (("mk_tiles_kernelILb0E", "15mk_tiles_kernelE"), "mk_tiles"),
+                "K5 sorted": (("mk_tiles_kernelILb1E", "mk_tiles_sorted_kernel"), "mk_tiles_sorted")}
+
+# The start/sorted groups' variants: {name: (tree it rewrites, {file:
+# [(old text, new text, times it occurs)]}, whether its order record must
+# equal the parent's)}. The parent's three split its lane-sorted lockstep:
+# nosort (the network replaced by the identity permutation: the exchange
+# still runs, moving every path onto its own lane), noexchange (no key, no
+# sort, no exchange: the block's barrier a pass, the lockstep, is what is
+# left) and bounds3 (ptxas held to 3 blocks of 256 threads an SM).
+_SORT = "    const int src = hijiki_sort::block_sort<kSortTile>(key, sh.sort);\n"
+_MOVE = "    move_path(p, pid, lane, src, sh);\n"
+_BACK = "  move_path(p, pid, pid, lane, sh);  // back to the path's own lane\n"
+_BOUNDS = "__global__ void __launch_bounds__(kSort ? kSortTile : kThreads)\n"
+PATH_VARIANTS = {
+    "nosort": ("parent", {"megakernel.cu": [(_SORT, "    const int src = lane;\n", 1)]}, False),
+    "noexchange": ("parent", {"megakernel.cu": [(_SORT, "", 1), (_MOVE, "", 1), (_BACK, "", 1)]}, False),
+    "bounds3": ("parent", {"megakernel.cu": [
+        (_BOUNDS, "__global__ void __launch_bounds__(kSort ? kSortTile : kThreads, kSort ? 3 : 1)\n", 3)]},
+        True),
+    # the package's parts, each taken back alone: K1 one path a thread
+    # with the launch bounds and the stash (no persistent loop); the sorted
+    # kernels without the minimum of 3 blocks; the packed network not
+    # unrolled; two shuffles a stage (the packed word split in two); each
+    # path written straight to its own column after the last pass, without
+    # the exchange back to its own lane
+    "k1_onepath": ("new", {"megakernel.cu": [
+        ("  persistent_paths(S, px, py, seeds, n, 1, cap, next, StateFinish{n, st_out, rng_out});\n",
+         "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
+         "  __shared__ float stash[kStashWords * kThreads];\n"
+         "  if (i >= n) return;\n"
+         "  Path p{};\n"
+         "  camera_init(S, px[i], py[i], seeds[i], p);\n"
+         "  while (going(p, cap)) bounce<true>(S, p, stash + threadIdx.x);\n"
+         "  write_state(p, st_out, rng_out, i, n);\n", 1),
+        ("  return launch_persistent(mk_start_kernel, n, stream,",
+         "  return launch_paths<false>(mk_start_kernel, n, stream,", 1)]}, True),
+    "sorted_nobounds": ("new", {"megakernel.cu": [
+        ("__global__ void __launch_bounds__(kSortTile, kSortMinBlocks)\n",
+         "__global__ void __launch_bounds__(kSortTile)\n", 3)]}, True),
+    "rolled": ("new", {"sort.cuh": [
+        ("#pragma unroll\n  for (int lk = 1;", "#pragma unroll 1\n  for (int lk = 1;", 1),
+        ("#pragma unroll\n    for (int lj = lk - 1;", "#pragma unroll 1\n    for (int lj = lk - 1;", 1)]},
+        True),
+    "twoshuffle": ("new", {"sort.cuh": [
+        ("        pv = __shfl_xor_sync(0xffffffffu, v, j);\n",
+         "        pv = (__shfl_xor_sync(0xffffffffu, v >> kBits, j) << kBits) |\n"
+         "             __shfl_xor_sync(0xffffffffu, v & (kTile - 1), j);\n", 1)]}, True),
+    "direct": ("new", {"megakernel.cu": [
+        ("__device__ void bounce_loop_sorted(", "__device__ int bounce_loop_sorted(", 1),
+        ("  // back to the path's own lane (the loop's last barrier follows every\n"
+         "  // read of the last pass)\n"
+         "  put_path<kSortTile>(p, my + (pid - lane));\n"
+         "  __syncthreads();\n"
+         "  get_path<kSortTile>(p, my);\n}\n", "  return pid;\n}\n", 1),
+        ("  bounce_loop_sorted(S, p, cap, n, order);\n  if (i < n) write_state(p, st_out, rng_out, i, n);\n",
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted(S, p, cap, n, order);\n"
+         "  if (g < n) write_state(p, st_out, rng_out, g, n);\n", 2),
+        ("  bounce_loop_sorted(S, p, cap, n, order);\n  if (i < n) write_tile(p, out, rng_out, i, n);\n",
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted(S, p, cap, n, order);\n"
+         "  if (g < n) write_tile(p, out, rng_out, g, n);\n", 1)]}, True),
+}
+
+
+def rewrite(tree: Path, edits: dict) -> Path:
+    """Apply a variant's text edits to the staged ``tree``; each old text
+    must occur as often as the edit says (else the source moved on and the
+    variant needs updating)."""
+    from hijiki_tpu_torch.utils import build
+
+    for fname, subs in edits.items():
+        text = (tree / fname).read_text()
+        for old, new, times in subs:
+            if text.count(old) != times:
+                raise SystemExit(f"{tree.name}: {fname} holds {text.count(old)} of {old!r}, not {times}")
+            text = text.replace(old, new)
+        (tree / fname).write_text(text)
+    shutil.rmtree(build.BUILD_ROOT / build.cache_key(tree), ignore_errors=True)
+    return tree
+
+
+class PathLib:
+    """One built megakernel.cu + sort.cu library: K1, K2, K5, their sorted
+    variants, K8 and the occupancy query. ``k1_counter``: its K1 is
+    persistent and takes a work counter before the stream."""
+
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
+        from hijiki_tpu_torch.utils import build
+
+        self.name, self.path, self.report = name, path, report
+        self.cdll = ctypes.CDLL(str(path))
+        src = (tree / "megakernel.cu").read_text()
+        entry = src[src.index('extern "C" int mk_start('):]
+        self.k1_counter = "next" in entry[:entry.index(")")]
+        self.order_like_parent = PATH_VARIANTS.get(name, (None, None, True))[2]
+        for fn in ("mk_start", "mk_resume", "mk_tiles", "mk_start_sorted", "mk_resume_sorted",
+                   "mk_tiles_sorted", "sort_tiles", "mk_occupancy"):
+            sig = fn
+            if fn == "mk_start":  # K1 takes K5's arguments, and a counter (a pointer) if persistent
+                sig = "mk_start_sorted" if self.k1_counter else "mk_tiles"
+            getattr(self.cdll, fn).argtypes = list(build.SIGNATURES[sig])
+            getattr(self.cdll, fn).restype = ctypes.c_int
+
+    def call(self, fn: str, ms, *args, counter=None):
+        import torch
+
+        from hijiki_tpu_torch.ops import megakernel as mk
+
+        ptr = lambda a: a.data_ptr() if torch.is_tensor(a) else a
+        tail = []
+        if fn == "mk_start" and self.k1_counter:
+            counter.zero_()
+            tail = [counter.data_ptr()]
+        scene = (ms.rows.data_ptr(), ms.consts.data_ptr(), *mk._scene_args(ms)) if fn != "sort_tiles" else ()
+        rc = getattr(self.cdll, fn)(*scene, *map(ptr, args), *tail, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
+
+    def kernels(self) -> dict:
+        """{K1, K1 sorted, ...: registers, spill store bytes, local bytes,
+        resident warps an SM} from ptxas and the occupancy query (ptxas'
+        registers alone where the library's query does not know the
+        kernel)."""
+        from hijiki_tpu_torch.ops import megakernel as mk
+
+        table = ptxas_table(self.report)
+        out = {}
+        for k, (parts, occ_name) in PATH_KERNELS.items():
+            hits = [v for n, v in table.items() if any(p in n for p in parts)]
+            if not hits:
+                raise RuntimeError(f"{self.name}: ptxas reported no {k} kernel ({parts})")
+            regs, spill = hits[0]
+            try:
+                occ = mk.occupancy(occ_name, self.cdll)
+                warps, local = occ["warps_per_sm"], occ["local_bytes"]
+            except RuntimeError:  # a library whose query does not know the kernel
+                warps, local = warps_from_registers(regs, 256 if "sorted" in k else 128), None
+            out[k] = {"registers": regs, "spill_bytes": spill, "local_bytes": local, "warps_per_sm": warps}
+        return out
+
+
+def paths_ab(args, parent: Path, groups) -> tuple:
+    """The start and sorted groups: K1 on the unchained 1024x1024 sweep's
+    camera launch; the sorted K1, the sweep's three K2 calls unsorted and
+    sorted, K5 unsorted and sorted on the 1M-path frame, and K8 on 1M lanes
+    x 31 channels. Returns (their results, whether every library's outputs,
+    and its order records where it must, equal the parent's)."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+    from hijiki_tpu_torch.probes import walk_probe as pwk
+    from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
+    from hijiki_tpu_torch.scene.compile import compile_scene
+    from hijiki_tpu_torch.scene.obj import load_obj_scene
+    from hijiki_tpu_torch.utils import build
+
+    with ThreadPoolExecutor(1) as ex:  # the package's own build (to record the calls) meanwhile
+        pkg = ex.submit(build.build)
+        pairs = build_libraries(parent, args.variants, PATH_FILES, PathLib)
+        pkg.result()
+    libs = [lib for lib, _ in pairs]
+    result = {"libraries": {}, "times": {}, "checks": {}}
+    print("library: registers, spill stores, local bytes, resident warps an SM of each kernel")
+    for lib, secs in pairs:
+        ks = lib.kernels()
+        result["libraries"][lib.name] = {"build_s": secs, "k1_persistent": lib.k1_counter, "kernels": ks}
+        print(f"  {lib.name:14s} built in {secs:.1f} s; " + "; ".join(
+            f"{k} {v['registers']}/{v['spill_bytes']}/{v['local_bytes']}/{v['warps_per_sm']}"
+            for k, v in ks.items()), flush=True)
+
+    dev = torch.device("cuda")
+    scene = load_obj_scene(pwk.SCENE)
+    scene.put_cbox_spheres()
+    cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
+                       use_bvh=True, driver="mega")
+    r = Renderer(compile_scene(scene), cfg, device="cuda")
+    ms = r.scene
+    # chip_smoke's unchained sweep, its K1 and K2 calls recorded through the package
+    px, py, seeds, _ = sweep_frame(r.scheduler.sweep(cfg.spp + 1 + mk.CHAIN_SWEEPS_CUDA), 1024, 1024, dev)
+    calls = record_calls(mk, ["mk_start", "mk_resume"],
+                         lambda: mk.render_waves(ms, px, py, seeds, max_bounces=1000))
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    n = px.numel()
+    g = np.random.default_rng(5)
+    T8, C8 = n // 1024, mk.N_STATE + 2  # K8: chip_smoke's 1M lanes x 31 channels
+    key8 = torch.from_numpy(g.integers(0, 1 << 10, (T8, 1024)).astype(np.int32)).to(dev)
+    key8[:, ::3] = 1 << 20
+    ch8 = torch.from_numpy(g.integers(-2**31, 2**31 - 1, (C8, T8, 1024)).astype(np.int32)).to(dev)
+
+    def state_outs(lanes, ch):
+        return [torch.empty((ch, lanes), dtype=torch.float32, device=dev),
+                torch.empty(lanes, dtype=torch.int32, device=dev)]
+
+    cases = {}  # label -> (entry, args before the outputs, lanes, output channels)
+    for name, a in calls:
+        if name == "mk_start" and "start" in groups:
+            cases[f"K1 ({n} lanes, cap {a[-1]})"] = ("mk_start", (*a[:3], n, a[-1]), n, mk.N_STATE)
+        if "sorted" in groups:
+            lanes = a[-2].numel()
+            label = f"K{1 if name == 'mk_start' else 2} ({lanes} lanes, cap {a[-1]})"
+            if name == "mk_resume":
+                cases[label] = ("mk_resume", (*a[:2], lanes, a[-1]), lanes, mk.N_STATE)
+            cases[label + " sorted"] = (name + "_sorted", (*a[:-1], lanes, a[-1]), lanes, mk.N_STATE)
+    if "sorted" in groups:
+        for suffix in ("", "_sorted"):
+            cases[f"K5 ({n} paths to 1000){suffix.replace('_', ' ')}"] = (
+                "mk_tiles" + suffix, (px, py, seeds, n, 1000), n, len(mk._TILE_CH))
+        cases[f"K8 sort_tiles ({T8} x 1024 lanes, {C8} channels)"] = ("sort_tiles", (key8, ch8, T8, C8), 0, 0)
+
+    def make(entry, lanes, ch):
+        if entry == "sort_tiles":
+            return [torch.empty_like(key8), torch.empty_like(ch8)]
+        return state_outs(lanes, ch) + ([None] if entry.endswith("_sorted") else [])
+
+    def run(lib, entry, a, outs):
+        lib.call(entry, ms, *a, *outs, counter=counter)
+        return [o for o in outs if o is not None]
+
+    # first launches: every library's outputs (and order records) against the parent's
+    ok = True
+    want = {}
+    for c, (entry, a, lanes, ch) in cases.items():
+        for lib in libs:
+            got = [x.clone() for x in run(lib, entry, a, make(entry, lanes, ch))]
+            rec = None
+            if entry.endswith("_sorted"):
+                outs = make(entry, lanes, ch)
+                outs[-1] = torch.empty((2, lanes), dtype=torch.int32, device=dev)
+                rec = run(lib, entry, a, outs)
+            torch.cuda.synchronize()
+            if lib.name == "parent":
+                want[c] = (got, rec)
+                if rec is not None and not bit_equal(rec[:2], got):
+                    print(f"parent {c}: the launch with the order record DIFFERS from the one without")
+                    ok = False
+                continue
+            same = bit_equal(got, want[c][0])
+            line = f"{lib.name} {c}: {'bit-equal to' if same else 'DIFFERS from'} the parent's outputs"
+            ok &= same
+            if rec is not None:
+                same_rec = bit_equal(rec, want[c][1])
+                line += f"; order record {'equal to' if same_rec else 'differs from'} the parent's"
+                if lib.order_like_parent:
+                    ok &= same_rec and bit_equal(rec[:2], got)
+                else:
+                    line += " (a diagnostic variant: expected)"
+            result["checks"][f"{lib.name} {c}"] = line
+            print(line, flush=True)
+    for c, (entry, a, lanes, ch) in cases.items():  # a sorted launch equals the unsorted one
+        if entry.endswith("_sorted"):
+            plain_c = c[:-len(" sorted")]
+            if plain_c not in want:  # K1: the sorted group without the start group
+                continue
+            same = bit_equal(want[c][0], want[plain_c][0])
+            ok &= same
+            print(f"parent {c}: {'bit-equal to' if same else 'DIFFERS from'} its unsorted launch", flush=True)
+    del want
+
+    def event_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    held = {(c, lib.name): make(e, lanes, ch) for c, (e, _, lanes, ch) in cases.items() for lib in libs}
+    times = {c: {lib.name: [] for lib in libs} for c in cases}
+    for rep in range(args.reps + 1):  # round 0 warms up
+        for c, (entry, a, _, _) in cases.items():
+            for lib in (libs if rep % 2 else libs[::-1]):  # alternate the order
+                t_ms = event_ms(lambda: run(lib, entry, a, held[(c, lib.name)]))
+                if rep:
+                    times[c][lib.name].append(t_ms)
+    del held
+    for c, by_lib in times.items():
+        base = summary(by_lib["parent"])
+        result["times"][c] = {}
+        for name, ts in by_lib.items():
+            sm = summary(ts)
+            sm["ratio_min"] = sm["min_ms"] / base["min_ms"]
+            sm["ratio_median"] = sm["median_ms"] / base["median_ms"]
+            result["times"][c][name] = sm
+            print(f"{c:52s} {name:14s} min {sm['min_ms']:9.4f} ms, median {sm['median_ms']:9.4f} ms "
+                  f"(x{sm['ratio_min']:.4f} / x{sm['ratio_median']:.4f} the parent's)", flush=True)
+
+    # the parent's sorted lockstep split into its parts (min times), where
+    # the diagnostic variants ran
+    names = {lib.name for lib in libs}
+    if {"nosort", "noexchange"} <= names:
+        result["split"] = {}
+        tmin = lambda c, name: result["times"][c][name]["min_ms"]
+        for c in cases:
+            if not c.endswith(" sorted") or c[:-len(" sorted")] not in cases:
+                continue
+            split = {"sorted": tmin(c, "parent"), "sort": tmin(c, "parent") - tmin(c, "nosort"),
+                     "exchange": tmin(c, "nosort") - tmin(c, "noexchange"),
+                     "lockstep": tmin(c, "noexchange") - tmin(c[:-len(" sorted")], "parent"),
+                     "unsorted": tmin(c[:-len(" sorted")], "parent")}
+            if "bounds3" in names:
+                split["bounds3"] = tmin(c, "bounds3") - tmin(c, "parent")
+            result["split"][c] = split
+            print(f"split of {c} (min ms): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items()),
+                  flush=True)
     return result, ok
 
 

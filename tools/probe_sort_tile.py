@@ -46,8 +46,10 @@ from chip_smoke import bit_equal, order_mismatch, record_calls, timed  # noqa: E
 TILE_LINE = "constexpr int kSortTile = 256;"
 KEY_LINE = "  if (!(p.alive > 0.0f)) return kDeadKey;"
 SORT_LINES = ("    int key = lane_key(S, p);\n"
-              "    const int src = hijiki_sort::block_sort<kSortTile>(key, sh.sort);\n"
-              "    move_path(p, pid, lane, src, sh);\n")
+              "    put_path<kSortTile>(p, my);\n"
+              "    const int src = hijiki_sort::block_sort_packed<kSortTile, kDeadKey>(key, lane, sh.sort);\n"
+              "    get_path<kSortTile>(p, my + (src - lane));\n"
+              "    pid = __float_as_int(my[kPidWord * kSortTile + (src - lane)]);\n")
 KEYS = {"full": {}, "dead": {KEY_LINE: "  return p.alive > 0.0f ? 0 : kDeadKey;"},
         "identity": {KEY_LINE: "  return threadIdx.x;"}, "lockstep": {SORT_LINES: ""}}
 
