@@ -75,10 +75,12 @@ Phases, each printing as it goes; any failure exits non-zero:
    then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
    replayed through the kernel and through the twin, held to the phase-4
    bounds, bit-equal on every output, and timed; the registers, local
-   (spill) bytes, resident warps an SM and launch blocks of K4 and K1
+   (spill) bytes, resident warps an SM and launch blocks of K4, K1 and K5
    (persistent), K2 and the sorted K1/K2/K5 (mk_occupancy),
    and the warp-iteration ratios of the chunk's K4 (mk.warp_iterations of
-   its segs); K5 on the 1M-path frame likewise (bit-equal), K3 on a sweep
+   its segs); K5 on the 1M-path frame likewise (bit-equal), timed beside
+   its tail floor (K5 on the frame's 32 paths of the most bounces, one
+   warp: the longest chain, which no schedule shortens), K3 on a sweep
    to its bound, and on the chained chunk's 8 sweeps in one launch as path
    (a) runs it: to its bound against the plain version, bit-equal to its 8
    one-sweep launches summed in sweep order, timed;
@@ -1101,11 +1103,12 @@ def main() -> int:
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
     print(f"K4's zeroed pool + flush buffer ({cpx.numel()} slots): {t_zero:.3f} ms per chunk")
-    for name in ("mk_start_chained", "mk_start", "mk_resume", "mk_start_sorted", "mk_resume_sorted",
-                 "mk_tiles_sorted"):
+    for name in ("mk_start_chained", "mk_start", "mk_tiles", "mk_resume", "mk_start_sorted",
+                 "mk_resume_sorted", "mk_tiles_sorted"):
         occ = mk.occupancy(name)
         launch = (f"at most {occ['blocks_per_sm'] * occ['sms']} blocks a launch (persistent)"
-                  if name in ("mk_start_chained", "mk_start") else f"a block per {occ['threads']} lanes")
+                  if name in ("mk_start_chained", "mk_start", "mk_tiles")
+                  else f"a block per {occ['threads']} lanes")
         print(f"{name}: {occ['registers']} registers, {occ['spill_bytes']} bytes spilled, "
               f"{occ['local_bytes']} bytes of local memory, {occ['warps_per_sm']} resident warps an SM, "
               f"{launch}")
@@ -1129,11 +1132,19 @@ def main() -> int:
     k5_err = agree_tiles(f"K5 mk_tiles ({upx.numel()} lanes, cap 1000)", got, want)
     if not bit_equal(got, want):
         fail("K5 mk_tiles: the kernel's outputs differ from the twin's bit for bit")
-    # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's rows
-    k5_rows = float(mk.megakernel_start(ms, upx, upy, useeds, 1000)[0][23].sum())
+    # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's
+    # rows, its bounce counter (segs) picks the tail floor's 32 longest paths
+    k5_state = mk.megakernel_start(ms, upx, upy, useeds, 1000)[0]
+    k5_rows = float(k5_state[23].sum())
     k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * ROW_OPS)
-    print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, twin {t_k5p:.3f} ms, "
+    top = torch.argsort(k5_state[27], descending=True)[:32]
+    tail = [a[top].contiguous() for a in (upx, upy, useeds)]
+    t_floor, _ = timed(lambda: mk.megakernel_tiles(ms, *tail, 1000), reps=3)
+    print(f"K5 mk_tiles ({upx.numel()} lanes to 1000): {t_k5:.3f} ms, tail floor {t_floor:.3f} ms "
+          f"(the 32 paths of the most bounces, {int(k5_state[27][top].min())}-"
+          f"{int(k5_state[27][top].max())}, alone), twin {t_k5p:.3f} ms, "
           f"bound {bound(*k5_work)[0]:.4f} ms ({bound(*k5_work)[1]})")
+    del k5_state
 
     # K7: the sweep's K1/K2 calls through the sorted kernels
     k7_ms, k7_unsorted, k7_plain, k7_err = [], [], [], 0.0

@@ -5,7 +5,7 @@
 //   _megakernel_start          -> mk_start          (K1, persistent: note below)
 //   _megakernel_resume         -> mk_resume         (K2)
 //   _megakernel_start_chained  -> mk_start_chained  (K4, persistent: note below)
-//   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5)
+//   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5, persistent)
 // and, with lane_sort=True (K7, _lane_sort with pallas_sort.py's network
 // inside the bounce loop), the lane-sorted K1/K2/K5:
 //   mk_start_sorted, mk_resume_sorted, mk_tiles_sorted (note below).
@@ -22,7 +22,7 @@
 // exit pointer in column 10 — the reference GLSL's stackless walk), reading
 // the table from global memory (it fits in the 50 MB L2 many times over).
 // With octant table sets each thread takes the table of its own direction
-// signs. K2 and K5 trace a whole path per thread; K4 and K1 are persistent
+// signs. K2 traces a whole path per thread; K4, K1 and K5 are persistent
 // and bounce-granular (a thread whose path stopped takes the next slot one
 // bounce later; note below); the sorted kernels run a block's paths in
 // lockstep; render_waves compacts the survivors between phases.
@@ -265,8 +265,10 @@ __device__ __forceinline__ void get_path(Path& p, const volatile float* my) {
 
 // One bounce of a live path (the body of _bounce_loop). kStash: keep the
 // stash above in `my` (this thread's first word of the block's stash, whose
-// words lie kStride apart).
-template <bool kStash = false, int kStride = kThreads>
+// words lie kStride apart). kGate: trace the shadow ray (and stash around
+// it) only where NEE gates it in; elsewhere its tmax is -1, so it hits
+// nothing and visits no row, and skipping it changes no output (K5).
+template <bool kStash = false, int kStride = kThreads, bool kGate = false>
 __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   Hit h;
   if constexpr (kStash) put_path<kStride>(p, my);
@@ -423,21 +425,24 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   float cosw = dot3(sdx, sdy, sdz, nx, ny, nz);
   bool gate = difish && (imp_len > kEps) && (cosw > 0.0f);
   float nit_s = 0.0f;
-  if constexpr (kStash) {
-    put_path<kStride>(p, my);
-    volatile float* x = my + kStashPath * kStride;
+  bool occluded = false;
+  if (!kGate || gate) {
+    if constexpr (kStash) {
+      put_path<kStride>(p, my);
+      volatile float* x = my + kStashPath * kStride;
 #define PUT_LOCAL(c, v) x[(c) * kStride] = v;
-    SHADE_STASH(PUT_LOCAL)
+      SHADE_STASH(PUT_LOCAL)
 #undef PUT_LOCAL
-  }
-  bool occluded = trace_any(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
-                            gate ? sdist - kEps : -1.0f, nit_s);
-  if constexpr (kStash) {
-    get_path<kStride>(p, my);
-    volatile float* x = my + kStashPath * kStride;
+    }
+    occluded = trace_any(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
+                         gate ? sdist - kEps : -1.0f, nit_s);
+    if constexpr (kStash) {
+      get_path<kStride>(p, my);
+      volatile float* x = my + kStashPath * kStride;
 #define GET_LOCAL(c, v) v = x[(c) * kStride];
-    SHADE_STASH(GET_LOCAL)
+      SHADE_STASH(GET_LOCAL)
 #undef GET_LOCAL
+    }
   }
 
   // eval BSDF for NEE (material.glsl:18-30)
@@ -579,7 +584,7 @@ __device__ __forceinline__ bool going(const Path& p, float cap) {
   return p.alive > 0.0f && p.bounce < cap;
 }
 
-// a whole path to `cap` (K2, K5)
+// a whole path to `cap` (K2)
 __device__ void bounce_loop(const Scene& S, Path& p, float cap) {
   while (going(p, cap)) bounce(S, p);
 }
@@ -758,13 +763,14 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
 }
 
 // K4, the chained camera launch (_megakernel_start_chained with the chain
-// block of _bounce_loop, pallas_megakernel.py:2618-2681), and K1, the
-// unchained one (_megakernel_start): a persistent, bounce-granular path
-// loop.
+// block of _bounce_loop, pallas_megakernel.py:2618-2681), K1, the
+// unchained one (_megakernel_start), and K5, the single-launch render
+// (_megakernel/_megakernel_body): a persistent, bounce-granular path loop.
 //
 // The work items are the nsamp * n slots in slot order samp * n + lane, so
 // that a warp's run of consecutive slots is consecutive pixels of one
-// sample (coherent camera rays); K1 is the loop at nsamp = 1, slot = path.
+// sample (coherent camera rays); K1 and K5 are the loop at nsamp = 1,
+// slot = path.
 // The launch holds as many blocks as the SMs keep resident at once (the
 // occupancy of the kernel as built). Each thread loops: if it holds no path
 // it takes a slot, if it holds one it runs ONE bounce of it, and when that
@@ -780,7 +786,8 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
 //
 // A slot's sample starts as a fresh camera ray from pxs/pys/seeds[slot]
 // and, when it stops, K1 writes its state to column `slot` of its (29, n)
-// output and its RNG to the (n,) RNG output, as one path a thread would.
+// output and its RNG to the (n,) RNG output, as one path a thread would;
+// K5 writes its 7 result channels and its RNG likewise (write_tile).
 // K4's stopped sample is
 //   * parked, if still alive: its full state goes to column `slot` of the
 //     (29, nsamp*n) pool and of the (nsamp*n,) RNG pool, and the compaction
@@ -815,7 +822,7 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
 // spill) the loop gains ~14%, and with the stash at 80 (24 warps, no spill)
 // another ~5% (PERF.md).
 
-// resident blocks an SM asked of ptxas for K4 and K1 (__launch_bounds__'
+// resident blocks an SM asked of ptxas for K4, K1 and K5 (__launch_bounds__'
 // second argument: it caps the registers a thread, 80 at 6 blocks); with
 // the stash 6 is the most that spills nothing
 constexpr int kPersistMinBlocks = 6;
@@ -862,7 +869,27 @@ struct StateFinish {
   }
 };
 
-template <typename Finish>
+// K5's result: only the 7 channels (Lr,Lg,Lb, n1,n2,n3, depth) and the RNG
+// of the path at column i of n; no 29-channel state
+__device__ __forceinline__ void write_tile(const Path& p, float* out,
+                                           uint32_t* rng_out, int i, int n) {
+  const float vals[kTileOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3, p.depth};
+#pragma unroll
+  for (int c = 0; c < kTileOut; ++c) out[static_cast<size_t>(c) * n + i] = vals[c];
+  rng_out[i] = p.rng;
+}
+
+// K5's finish: the result of the stopped path at column `slot` of n
+struct TileFinish {
+  int n;
+  float* out;
+  uint32_t* rng;
+  __device__ __forceinline__ void operator()(const Path& p, int slot) const {
+    write_tile(p, out, rng, slot, n);
+  }
+};
+
+template <bool kGate = false, typename Finish>
 __device__ __forceinline__ void persistent_paths(const Scene& S, const float* pxs,
                                                  const float* pys,
                                                  const uint32_t* seeds, int n,
@@ -892,7 +919,7 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
     }
     if (__ballot_sync(kFull, slot >= 0) == 0u) return;
     if (slot >= 0) {
-      if (going(p, cap)) bounce<true>(S, p, my);
+      if (going(p, cap)) bounce<true, kThreads, kGate>(S, p, my);
       if (!going(p, cap)) {
         finish(p, slot);
         slot = -1;
@@ -918,27 +945,25 @@ __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
 }
 
 // K5, the single-launch render (_megakernel/_megakernel_body): camera ray
-// and bounces to `cap`, then only the 7 result channels (Lr,Lg,Lb,
-// n1,n2,n3, depth) and the RNG; no 29-channel state. One path a thread, or
-// sorted (mk_tiles_sorted).
-__device__ __forceinline__ void write_tile(const Path& p, float* out,
-                                           uint32_t* rng_out, int i, int n) {
-  const float vals[kTileOut] = {p.Lr, p.Lg, p.Lb, p.n1, p.n2, p.n3, p.depth};
-#pragma unroll
-  for (int c = 0; c < kTileOut; ++c) out[static_cast<size_t>(c) * n + i] = vals[c];
-  rng_out[i] = p.rng;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// and bounces to `cap`, then only the result (write_tile). Persistent, as
+// K1 is, or sorted (mk_tiles_sorted).
+//
+// What bounds it, beside the walk's chain: a few paths of a frame (trapped
+// inside the mirror sphere, where Russian roulette's q stays at 0.99)
+// bounce hundreds of times. One path a thread held each such path's warp,
+// and its slot on the SM, to the end; here the warp's other lanes take new
+// paths meanwhile. What no schedule shortens is the longest path's own
+// chain from the time its slot is taken (tools/ab_megakernel_torch.py
+// times K5 on a frame's 32 longest paths alone: the tail floor). That
+// chain is ~60% of K5 on the H100, and the stash adds to each of its
+// bounces; so K5 traces a shadow ray, and stashes around it, only where NEE
+// needs one (kGate: a path in the mirror sphere needs none). Leaving the
+// warp's votes once the counter is spent read no faster (PERF.md).
+__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_tiles_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* out,
-                    uint32_t* rng_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Path p{};
-  camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop(S, p, cap);
-  write_tile(p, out, rng_out, i, n);
+                    uint32_t* rng_out, int* next) {
+  persistent_paths<true>(S, px, py, seeds, n, 1, cap, next, TileFinish{n, out, rng_out});
 }
 
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
@@ -952,7 +977,7 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   if (i < n) write_tile(p, out, rng_out, i, n);
 }
 
-// the launch of K2/K5: blocks of kThreads paths, or of kSortTile with the
+// the launch of K2: blocks of kThreads paths, or of kSortTile with the
 // exchange buffer in dynamic shared memory for the sorted kernels (opting
 // in past 48 KB, which only tiles of 512 lanes and more need)
 template <bool kSort, typename... Params, typename... Args>
@@ -969,7 +994,7 @@ int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the launch of K4 and K1: the SMs times the blocks an SM holds at once, no
+// the launch of K4, K1 and K5: the SMs times the blocks an SM holds at once, no
 // more blocks than the `slots` fill
 template <typename... Params, typename... Args>
 int launch_persistent(void (*kernel)(Params...), int slots, void* stream,
@@ -1023,10 +1048,11 @@ extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                             rng_out, order);
 }
 
-extern "C" int mk_tiles(START_ARGS, float* out, uint32_t* rng_out,
+// K5; `next`: the work counter, zeroed on the stream
+extern "C" int mk_tiles(START_ARGS, float* out, uint32_t* rng_out, int* next,
                         void* stream) {
-  return launch_paths<false>(mk_tiles_kernel, n, stream, SCENE_CALL, px, py,
-                             seeds, n, static_cast<float>(cap), out, rng_out);
+  return launch_persistent(mk_tiles_kernel, n, stream, SCENE_CALL, px, py, seeds,
+                           n, static_cast<float>(cap), out, rng_out, next);
 }
 
 extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
@@ -1068,9 +1094,9 @@ int occupancy(void (*kernel)(Params...), int threads, int smem, int* out) {
 // out[1] resident blocks an SM, out[2] threads a block, out[3] SMs, out[4]
 // local (spill) bytes a thread. which: 0 K1 mk_start, 1 K2 mk_resume, 2 K4
 // mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
-// kSortTile threads with launch_paths' dynamic shared memory). K4 and K1,
-// persistent, launch out[1] * out[3] blocks (fewer where their slots fill
-// fewer).
+// kSortTile threads with launch_paths' dynamic shared memory). K4, K1 and
+// K5, persistent, launch out[1] * out[3] blocks (fewer where their slots
+// fill fewer).
 extern "C" int mk_occupancy(int which, int* out) {
   constexpr int sorted_smem = static_cast<int>(sizeof(SortShared));
   switch (which) {

@@ -18,12 +18,15 @@
 // go through shared memory, double-buffered so one __syncthreads() per stage
 // is enough (15 of the 55 stages at 1024 lanes). The sort returns the
 // source lane of the key each thread ends with: the caller moves its own
-// payload through that permutation.
+// payload through that permutation. Both sorts are unrolled in full, so a
+// stage keeps only its exchange, the compare and the select, with j, k and
+// the buffer known at compile time.
 //
-// What bounds it: barrier latency (a stage is a few instructions between
-// two barriers); it touches no device memory. block_sort_packed (below) is
-// the same network on one packed word a lane, for keys that leave room for
-// the payload's bits (the lane-sorted megakernels' keys, at most 2^20).
+// What bounds it: barrier latency and issue (a stage is a few instructions,
+// 15 of them behind a barrier); it touches no device memory. block_sort
+// is K8's; block_sort_packed (below) is the same network on one packed word
+// a lane, for keys that leave room for the payload's bits (the lane-sorted
+// megakernels' keys, at most 2^20).
 
 #pragma once
 
@@ -58,9 +61,9 @@ __device__ __forceinline__ int block_sort(int& key, Scratch<kTile>& s) {
   const int i = threadIdx.x;
   int src = i;
   int b = 0;
-#pragma unroll 1
+#pragma unroll
   for (int k = 2; k <= kTile; k <<= 1) {
-#pragma unroll 1
+#pragma unroll
     for (int j = k >> 1; j >= 1; j >>= 1) {
       int pkey, psrc;
       if (j >= 32) {

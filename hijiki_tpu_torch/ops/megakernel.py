@@ -27,9 +27,9 @@ sorts (nor does JAX's).
 
 On a CUDA tensor the launches run the hand-written kernels of
 ``csrc/megakernel.cu`` (a path a thread at a time, the stackless walk over
-the trace rows; K1 and K4 persistent, the sorted launches a block's paths
-in lockstep; see the notes there). On a CPU tensor they run the plain twin
-below: a vectorized per-lane transcription of ``_camera_init``,
+the trace rows; K1, K4 and K5 persistent, the sorted launches a block's
+paths in lockstep; see the notes there). On a CPU tensor they run the
+plain twin below: a vectorized per-lane transcription of ``_camera_init``,
 ``_bounce_loop`` (with its chain block), ``_analytic_pretest``, the walk
 and ``_resolve_winners`` that computes, lane by lane, what one CUDA thread
 computes. Differences to the TPU kernel, all per-lane semantics of the
@@ -1016,8 +1016,8 @@ def check_rows_aligned(rows):
 def _launch(fn_name, ms, ins, ints, outs, persistent=False):
     """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
     stream: scene, input pointers, ``ints``, output pointers (None: a null
-    pointer), for the ``persistent`` K1 and K4 their work counter zeroed on
-    the stream, then the stream. The first int is the lane count; nothing
+    pointer), for the ``persistent`` K1, K4 and K5 their work counter zeroed
+    on the stream, then the stream. The first int is the lane count; nothing
     launches for 0 lanes. Returns the outputs that are not None."""
     from hijiki_tpu_torch.utils.build import load_library
 
@@ -1188,8 +1188,8 @@ def occupancy(name: str, lib=None) -> dict:
     included), spill-store bytes a thread (ptxas' report of the package's
     build; None for another library), threads a block, resident blocks and
     warps an SM at the kernel's launch (a sorted kernel with its dynamic
-    shared memory), and SMs (a persistent kernel launches blocks_per_sm x
-    sms blocks at most)."""
+    shared memory), and SMs (a persistent kernel, K1, K4 or K5, launches
+    blocks_per_sm x sms blocks at most)."""
     import ctypes
 
     from hijiki_tpu_torch.utils.build import build, load_library, spill_stores
@@ -1214,7 +1214,9 @@ def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
     ``_megakernel_body``): raygen and bounces up to ``cap``, keeping only
     the result (``lane_sort``, ``lane_order``: as for ``megakernel_start``,
     ``mk_tiles_sorted``). Returns (out (7, N) f32: Lr,Lg,Lb, n1,n2,n3,
-    depth; rng (N,) int32 bits)."""
+    depth; rng (N,) int32 bits). The kernel is persistent, as K1 is: its
+    threads take paths from a work counter and bounce them one bounce at a
+    time."""
     n = px.shape[0]
     if px.device.type == "cuda":
         _check_camera_inputs(ms, px, py, seeds, (n,))
@@ -1222,7 +1224,8 @@ def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
         name, extra = _entry("mk_tiles", lane_sort, lane_order, n, dev)
         out = torch.empty((len(_TILE_CH), n), dtype=torch.float32, device=dev)
         rng = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch(name, ms, [px, py, seeds], [n, cap], [out, rng, *extra])
+        return _launch(name, ms, [px, py, seeds], [n, cap], [out, rng, *extra],
+                       persistent=not lane_sort)
     return megakernel_tiles_plain(ms, px, py, seeds, cap, lane_sort, lane_order)
 
 

@@ -9,7 +9,8 @@ order ties otherwise).
 
 * ``sort_tiles`` (K8) sorts T tiles of 1024 lanes: on a CUDA tensor it
   launches ``csrc/sort.cu::sort_tiles`` (one block of 1024 threads per
-  tile), on a CPU tensor it runs ``sort_tiles_plain``.
+  tile, the channels copied into shared memory in batches, the first ones
+  while the keys sort), on a CPU tensor it runs ``sort_tiles_plain``.
 * Inside the megakernel the same network runs as ``csrc/sort.cuh``
   (K7, the lane-sorted K1/K2/K5); the megakernel's plain version sorts with
   ``sort_tiles_plain`` between bounces (``ops/megakernel.py::_lane_sort``).
@@ -81,6 +82,8 @@ def sort_tiles(key, channels):
             raise ValueError(f"{name}: expected int32 {shape}, got {t.dtype} {tuple(t.shape)}")
         if t.device != key.device or not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor on {key.device}")
+    if channels.data_ptr() % 16:  # the kernel copies each channel's tile 16 bytes at a time
+        raise ValueError("channels: expected a tensor that starts on a 16-byte boundary")
     from hijiki_tpu_torch.utils.build import load_library
 
     key_out = torch.empty_like(key)

@@ -40,12 +40,12 @@ _F = ctypes.c_float
 _SCENE = [_P, _P] + [_I] * 10
 # argtypes of every C entry point: each pointer and the stream as c_void_p
 SIGNATURES = {
-    # K1 and K4 are persistent: the pointer before the stream is the work counter
+    # K1, K4 and K5 are persistent: the pointer before the stream is the work counter
     "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
     "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "mk_occupancy": [_I, _P],
-    "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P],
+    "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "mk_start_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     "mk_resume_sorted": _SCENE + [_P, _P, _I, _I, _P, _P, _P, _P],
     "mk_tiles_sorted": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],

@@ -18,13 +18,18 @@ permutation of whole paths), also on 397 tiles and on heavy dead-key ties; K6's 
 to the plain walk at tmax = the closest hit's t; K9 (reconstruct_old) to
 K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
 bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions; the
-persistent K4 (into NaN-filled outputs: it writes every slot it owns) and
-K1 (n = 1, 127, 129, 4097 at caps 1, 5, 1000), K2 at caps
+persistent K4 (into NaN-filled outputs: it writes every slot it owns),
+K1 (n = 1, 127, 129, 4097 at caps 1, 5, 1000) and K5 (n = 1, 31, 129,
+4097 at caps 5 and 1000, likewise into NaN-filled outputs, and a 256x256
+frame to 1000), K2 at caps
 12, 48 and 1000, and K2 and K10b on axis-aligned rays (the slab test's NaN
 path) bit-equal to their twins on every output; K3 on an 8-sweep chunk
 bit-equal to its one-sweep launches summed in sweep order (B = 1, 2, 3, 4,
 128); K6 bit-equal to its twin on dead, sparse, NaN-bound and
-zero-direction rays in all three modes."""
+zero-direction rays in all three modes; K8 bit-equal to its plain version
+for T = 1, 3, 300 tiles and C = 0, 1, 8, 31, 33 channels (none a whole
+number of its batches but 8) on random keys, all-equal keys, ties with
+dead keys and INT_MIN/INT_MAX."""
 
 import numpy as np
 import pytest
@@ -726,8 +731,8 @@ def test_wrapper_rejects_unaligned_rows():
 def test_megakernels_occupancy():
     """mk_occupancy answers for all seven megakernels (K1, K2, K4, K5 and
     the sorted K1/K2/K5, these in blocks of SORT_TILE threads with their
-    shared memory): registers, resident warps and the card's SMs. K4 and K1
-    (the stash, 6 blocks of 128) and the sorted kernels (the stash in the
+    shared memory): registers, resident warps and the card's SMs. K4, K1
+    and K5 (the stash, 6 blocks of 128) and the sorted kernels (the stash in the
     exchange buffer, 3 blocks of 256) hold 24 warps an SM, and ptxas
     spilled no bytes of them."""
     cuda_device()
@@ -738,7 +743,7 @@ def test_megakernels_occupancy():
         assert 0 < occ["registers"] <= 255 and occ["warps_per_sm"] >= 4
         assert occ["threads"] == threads and occ["sms"] == sms
         assert occ["warps_per_sm"] == occ["blocks_per_sm"] * threads // 32
-    for name in ("mk_start", "mk_start_chained", "mk_start_sorted", "mk_resume_sorted",
+    for name in ("mk_start", "mk_start_chained", "mk_tiles", "mk_start_sorted", "mk_resume_sorted",
                  "mk_tiles_sorted"):
         occ = mk.occupancy(name)
         assert occ["warps_per_sm"] == 24 and occ["spill_bytes"] == 0, (name, occ)
@@ -765,6 +770,90 @@ def test_persistent_start_kernel_bit_equal_to_twin(n, cap):
     want = mk.megakernel_start_plain(ms, px, py, seeds, cap)
     assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
     assert all(torch.equal(g, w) for g, w in zip(_bits(wrapped), _bits(want)))
+
+
+@pytest.mark.parametrize("cap", [5, 1000])
+@pytest.mark.parametrize("n", [1, 31, 129, 4097])
+def test_persistent_tiles_kernel_bit_equal_to_twin(n, cap):
+    """K5, persistent as K1 is, on n paths (fewer than a warp, less than a
+    warp short of one, more than a block, a tail past 32 blocks) to
+    ``cap``: into outputs filled with NaN first (every path's column is
+    written) and through the wrapper, result and RNG bit-equal to
+    megakernel_tiles_plain."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 65, 65, dev)
+    px, py, seeds = (a[:n].contiguous() for a in _frame(65, dev))
+    nan = float("nan")
+    outs = [torch.full((len(mk._TILE_CH), n), nan, device=dev),
+            torch.full((n,), nan, device=dev).view(torch.int32)]
+    before = mk.LAUNCHES["mk_tiles"]
+    got = mk._launch("mk_tiles", ms, [px, py, seeds], [n, cap], outs, persistent=True)
+    wrapped = mk.megakernel_tiles(ms, px, py, seeds, cap)
+    assert mk.LAUNCHES["mk_tiles"] == before + 2
+    want = mk.megakernel_tiles_plain(ms, px, py, seeds, cap)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    assert all(torch.equal(g, w) for g, w in zip(_bits(wrapped), _bits(want)))
+
+
+def test_persistent_tiles_kernel_bit_equal_on_a_frame():
+    """K5 on a 256x256 frame of the meshbox with the cbox spheres to 1000
+    bounces: result and RNG bit-equal to the plain version, and equal to
+    K1's state at that cap on the same channels."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX), 256, 256, dev)
+    px, py, seeds = _frame(256, dev)
+    got = mk.megakernel_tiles(ms, px, py, seeds, 1000)
+    want = mk.megakernel_tiles_plain(ms, px, py, seeds, 1000)
+    assert all(torch.equal(g, w) for g, w in zip(_bits(got), _bits(want)))
+    st, rng = mk.megakernel_start(ms, px, py, seeds, 1000)
+    assert torch.equal(got[0].view(torch.int32), st[list(mk._TILE_CH)].view(torch.int32))
+    assert torch.equal(got[1], rng)
+
+
+def _sort_keys(kind, T, rng):
+    """(T, TILE) int32 keys of one kind: random over the whole int32 range,
+    all equal, few values tied with many dead keys (1 << 20), or only
+    INT_MIN and INT_MAX with a few values between."""
+    shape = (T, srt.TILE)
+    if kind == "random":
+        return rng.integers(-2**31, 2**31, shape)
+    if kind == "equal":
+        return np.full(shape, 7)
+    if kind == "dead_ties":
+        key = rng.integers(0, 8, shape)
+        key[rng.random(shape) < 0.4] = 1 << 20
+        return key
+    key = np.where(rng.random(shape) < 0.5, -2**31, 2**31 - 1)
+    key[rng.random(shape) < 0.05] = 0
+    return key
+
+
+@pytest.mark.parametrize("kind", ["random", "equal", "dead_ties", "extremes"])
+@pytest.mark.parametrize("C", [0, 1, 8, 31, 33])
+@pytest.mark.parametrize("T", [1, 3, 300])
+def test_sort_tiles_kernel_bit_equal_to_plain(T, C, kind):
+    """K8 on T tiles and C channels (C = 0: the keys alone; 1, 31, 33: a
+    last batch of channels that is not full) with keys of ``kind``: keys
+    and channels bit-equal to sort_tiles_plain."""
+    dev = cuda_device()
+    rng = np.random.default_rng(1000 * T + 10 * C + len(kind))
+    key = torch.from_numpy(_sort_keys(kind, T, rng).astype(np.int32)).to(dev)
+    ch = torch.from_numpy(rng.integers(-2**31, 2**31, (C, T, srt.TILE)).astype(np.int32)).to(dev)
+    got = srt.sort_tiles(key, ch)
+    want = srt.sort_tiles_plain(key, ch)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_sort_tiles_rejects_unaligned_channels():
+    """K8 copies each channel's tile 16 bytes at a time: channels that do
+    not start on a 16-byte boundary raise instead of launching."""
+    dev = cuda_device()
+    key = torch.zeros((2, srt.TILE), dtype=torch.int32, device=dev)
+    ch = torch.zeros(2 * srt.TILE + 1, dtype=torch.int32, device=dev)[1:].view(1, 2, srt.TILE)
+    before = srt.LAUNCHES["sort_tiles"]
+    with pytest.raises(ValueError):
+        srt.sort_tiles(key, ch)
+    assert srt.LAUNCHES["sort_tiles"] == before
 
 
 @pytest.mark.parametrize("frame", ["odd_tiles", "dead_ties"])

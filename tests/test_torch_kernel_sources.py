@@ -5,8 +5,11 @@ of this tree by rewriting copies of csrc/ (``PATH_VARIANTS``), and
 tools/probe_sort_tile.py rewrites megakernel.cu's sort lines: each text
 they replace must still occur in the sources as often as they expect, or
 the card run stops. ``build.spill_stores`` reads ptxas' report, which
-``mk.occupancy`` passes on as a kernel's spill bytes."""
+``mk.occupancy`` passes on as a kernel's spill bytes. ctypes calls a C
+entry with the argument types of ``build.SIGNATURES`` whatever the entry
+takes, so each entry's parameter count is read off its source here."""
 
+import re
 import sys
 from pathlib import Path
 
@@ -75,3 +78,38 @@ def test_occupancy_names_match_the_kernel_source():
         threads = "kSortTile" if name.endswith("_sorted") else "kThreads"
         assert f"case {which}: return occupancy({name}_kernel, {threads}," in src, name
     assert len(mk._OCCUPANCY_OF) == 7
+
+
+def _entries():
+    """{C entry name: its parameter count} of every ``extern "C"`` function
+    in csrc/*.cu, with the sources' argument macros (SCENE_ARGS,
+    START_ARGS, ...) expanded."""
+    macros, entries = {}, {}
+    for f in build.sources():
+        text = f.read_text()
+        for m in re.finditer(r"^#define (\w+)((?:[^\n]*\\\n)*[^\n]*)", text, re.M):
+            macros[m.group(1)] = m.group(2).replace("\\\n", " ")
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            entries[m.group(1)] = m.group(2)
+    out = {}
+    for name, params in entries.items():
+        for _ in range(4):  # macros inside macros
+            params = re.sub(r"\b[A-Z_]+_ARGS\b", lambda m: macros[m.group(0)], params)
+        out[name] = len([p for p in params.split(",") if p.strip()])
+    return out
+
+
+ENTRIES = _entries()
+
+
+def test_every_entry_has_a_signature():
+    """The C entries of csrc/*.cu are the keys of build.SIGNATURES."""
+    assert sorted(ENTRIES) == sorted(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_entry_arity_matches_its_signature(name):
+    """Each C entry takes as many parameters as build.SIGNATURES gives
+    ctypes (a work counter added to an entry, such as K5's, or dropped,
+    shows here)."""
+    assert ENTRIES.get(name) == len(build.SIGNATURES[name]), name
