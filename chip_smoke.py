@@ -69,6 +69,21 @@ Phases, each printing as it goes; any failure exits non-zero:
        rows' bit for bit (256x256); bvh and brute at 64x64 on
        meshbox_small against rows (RNG bit-equal on >= 99.5% of paths);
    (j) K8 alone: sort_tiles on 1,024 tiles (1M lanes) x 31 channels;
+   (l) multi-device, the mega driver: MegaMultiChipRenderer over
+       [cuda:0, cuda:0] (two row bands of 512 rows, each on its own stream)
+       at (a)'s configuration, chained (K4, K2 and the weighted K3 a band,
+       no unweighted K3), its film against (a)'s at rtol 1e-4 / atol 1e-5
+       with the largest error, the pixels that differ and how many of them
+       lie within R rows of the seam; then 3 fresh renders each of (a) and
+       (l) in turns, their warm Mrays/s and medians;
+   (m) multi-device, the sync driver: MultiChipRenderer over the same two
+       entries at 1024x1024, 1 spp (K6 and the weighted K3, no megakernel),
+       against (f)'s film after its first sweep at rtol 5e-4 / atol 5e-5;
+   (n) multi-host: MultiHostMegaRenderer in two processes sharing the card,
+       joined over gloo through a file:// store, 256x256, 4 spp, each its
+       stride of the sweeps on one band; both ranks' merged films bit-equal
+       and held to the single 256x256 film at rtol 1e-4 / atol 1e-5; the
+       launches are the two processes' own, reported by them;
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
@@ -83,7 +98,11 @@ Phases, each printing as it goes; any failure exits non-zero:
    warp: the longest chain, which no schedule shortens), K3 on a sweep
    to its bound, and on the chained chunk's 8 sweeps in one launch as path
    (a) runs it: to its bound against the plain version, bit-equal to its 8
-   one-sweep launches summed in sweep order, timed;
+   one-sweep launches summed in sweep order, timed; K3's weighted mode on
+   a band's chunk as (l) launches it (8 x 768 x 1024: 512 rows between
+   128 rows of padding at weight 0) to K3's bound against its plain
+   version, bit-equal to its one-sweep launches summed, at weight 1
+   bit-equal to the unweighted kernel, timed beside the unweighted chunk;
    K6's calls of one 1024x1024 sync sweep (K6_CALLS): the first bounce's
    closest walk (1M rays), its shadow any-hit walk and the closest walks of
    bounces 9, 30 and 200, each replayed through the kernel and the twin,
@@ -117,7 +136,8 @@ errors and times come from phase 6 (K3's: the chained chunk's launch;
 its error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
 (b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
-K8 from (j), the probes from (k)); each entry has its bound (bound_ms: the
+K8 from (j), K3's weighted mode from (l), the probes from (k)); each entry
+has its bound (bound_ms: the
 larger of the bytes this run's data needs at 3.35 TB/s and its f32
 operations at 67 TFLOP/s, counted from this run's row-visit counters at
 ROW_OPS per row; a K2 resume counts every lane's alive flag and the state
@@ -179,6 +199,83 @@ PROBE_THREADS = 1 << 20
 # then shadow): bounce 1's closest and shadow walks, the closest walks of
 # bounces 9, 30 and 200
 K6_CALLS = (0, 1, 16, 58, 398)
+
+
+# path (n): the host stride in two processes sharing the card
+HOSTS_CFG = dict(width=256, height=256, spp=4, max_bounces=1000, block_size=128, use_bvh=True,
+                 driver="mega")
+HOST_WORKER = r"""
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+
+here, rank, store, out, cfg = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+sys.path.insert(0, here)
+dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank)
+from hijiki_tpu_torch.ops import megakernel as mk
+from hijiki_tpu_torch.parallel.multihost import MultiHostMegaRenderer
+from hijiki_tpu_torch.render import pallas_reconstruct as prc
+from hijiki_tpu_torch.render.renderer import RenderConfig
+from hijiki_tpu_torch.scene.compile import compile_scene
+from hijiki_tpu_torch.scene.obj import load_obj_scene
+
+scene = load_obj_scene(f"{here}/scenes/meshbox/meshbox.obj")
+scene.put_cbox_spheres()
+r = MultiHostMegaRenderer(compile_scene(scene), RenderConfig(**json.loads(cfg)))
+for d in (mk.LAUNCHES, prc.LAUNCHES):
+    for k in d:
+        d[k] = 0
+m = r.render()
+torch.cuda.synchronize()
+launches = {**mk.LAUNCHES, **prc.LAUNCHES}
+np.save(f"{out}.{rank}.npy", r.merged_film().cpu().numpy())
+dist.destroy_process_group()
+print(json.dumps(dict(rank=rank, host_id=r.host_id, num_hosts=r.num_hosts, sweeps=r.sweep_ids,
+                      devices=m["devices"], launches=launches)), flush=True)
+"""
+
+
+def two_process_render(out_dir: str):
+    """Path (n): MultiHostMegaRenderer in two processes on the card, joined
+    over gloo through a file:// store (the rank and world size given, no
+    network); each renders its stride of the sweeps on its one band and
+    gathers the merged film. Returns (the merged film, which both ranks
+    must hold bit for bit, the launches summed over the two processes)."""
+    import numpy as np
+
+    script = os.path.join(out_dir, "host_worker.py")
+    with open(script, "w") as f:
+        f.write(HOST_WORKER)
+    store, out = os.path.join(out_dir, "hosts.store"), os.path.join(out_dir, "hosts")
+    for path in (store, out + ".0.npy", out + ".1.npy"):
+        if os.path.exists(path):
+            os.remove(path)
+    procs = [subprocess.Popen([sys.executable, script, HERE, str(rank), store, out,
+                               json.dumps(HOSTS_CFG)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:  # no process outlives the phase
+            p.kill()
+            p.wait()
+    counts = {}
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"(n) rank {rank} exited {p.returncode}:\n{log[-3000:]}")
+        rec = json.loads(log.strip().splitlines()[-1])
+        print(f"(n) rank {rank}: host {rec['host_id']} of {rec['num_hosts']}, sweeps "
+              f"{rec['sweeps']}, {rec['devices']} band(s)")
+        if (rec["host_id"], rec["num_hosts"]) != (rank, 2):
+            fail(f"(n) rank {rank} took the topology {rec['host_id']} of {rec['num_hosts']}")
+        for k, v in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    m0, m1 = np.load(out + ".0.npy"), np.load(out + ".1.npy")
+    if not np.array_equal(m0, m1):
+        fail("(n) the two ranks hold different merged films")
+    return m0, counts
 
 
 def fail(msg: str) -> None:
@@ -606,6 +703,7 @@ def main() -> int:
     try:
         import numpy as np
         import torch
+        import torch.nn.functional as F
 
         from hijiki_tpu_torch.ops import megakernel as mk
         from hijiki_tpu_torch.ops import pallas_traverse as pt
@@ -615,6 +713,7 @@ def main() -> int:
             bounce_step, integrate, make_intersectors, start_lanes,
         )
         from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
+        from hijiki_tpu_torch.parallel.multichip import MegaMultiChipRenderer, MultiChipRenderer
         from hijiki_tpu_torch.probes import ablate_walker as pab
         from hijiki_tpu_torch.probes import chain_latency_probe as pcl
         from hijiki_tpu_torch.probes import gather_probe as pga
@@ -921,6 +1020,36 @@ def main() -> int:
         fail("(d) the resumed film differs from the uninterrupted render")
     print("(d) resumed film == the uninterrupted render, bit for bit")
 
+    # (l) the mega driver on two row bands of the one card, each on its own
+    # stream: K4/K2 per band, the weighted K3 on its extended canvas
+    bands = [dev, dev]
+    rl = MegaMultiChipRenderer(cs, RenderConfig(**slice_cfg), devices=bands)
+    ml, counts_l = drive("(l) two row bands on cuda:0: MegaMultiChipRenderer 1024x1024, 8 spp, "
+                         "chaining auto", rl.render)
+    check_render("(l) bands", rl, ml, counts_l,
+                 ("mk_start_chained", "mk_resume", "reconstruct_weighted"))
+    if counts_l["reconstruct"] or ml["devices"] != 2:
+        fail("(l) the bands launched the unweighted K3, or did not run on two devices")
+    fl = rl.film.cpu().numpy()
+    band, R = slice_cfg["height"] // 2, prc.R
+    diff = (fl != fa).any(-1)
+    near_seam = diff[band - R:band + R].sum()
+    print(f"(l) against (a)'s film: max abs err {np.abs(fl - fa).max():.3e}, {int(diff.sum())} "
+          f"pixels differ, {int(near_seam)} of them within {R} rows of the seam (rows "
+          f"{band - R}..{band + R - 1})")
+    if not np.allclose(fl, fa, rtol=1e-4, atol=1e-5):
+        fail("(l) the banded film differs from the single film beyond rtol 1e-4 / atol 1e-5")
+    # warm rates in this process: fresh renderers in turns, (a) then (l)
+    warm = {"(a)": [], "(l)": []}
+    for _ in range(3):
+        for key, make in (("(a)", lambda: Renderer(cs, RenderConfig(**slice_cfg), device="cuda")),
+                          ("(l)", lambda: MegaMultiChipRenderer(cs, RenderConfig(**slice_cfg),
+                                                                devices=bands))):
+            warm[key].append(make().render()["mrays_per_second"])
+    print("warm Mrays/s, 3 renders each in turns: " + "; ".join(
+        f"{k} median {float(np.median(v)):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for k, v in warm.items()), flush=True)
+
     H = W = 1024
     yy = torch.arange(H, dtype=torch.float32, device=dev).view(-1, 1).expand(H, W)
     xx = torch.arange(W, dtype=torch.float32, device=dev).view(1, -1).expand(H, W)
@@ -955,6 +1084,8 @@ def main() -> int:
     snap = {}
 
     def keep_film(done, total):
+        if done == 1:
+            snap["first"] = rf.film.clone()
         if done == WAVEFRONT_SWEEPS:
             snap["film"] = rf.film.clone()
 
@@ -1015,6 +1146,32 @@ def main() -> int:
     print(f"(g) sorted wavefront == sync at 256x256 (bit-equal {torch.equal(rw.film, rs.film)}), "
           f"launches {counts_gs}")
 
+    rm = MultiChipRenderer(cs, RenderConfig(**dict(sync_cfg, spp=1)), devices=bands)
+    mm, counts_m = drive("(m) the sync driver's blocks over two entries of cuda:0: "
+                         "MultiChipRenderer 1024x1024, 1 spp", rm.render)
+    check_render("(m) sync blocks", rm, mm, counts_m, ("traverse", "reconstruct_weighted"))
+    if any(counts_m[k] for k in mk.LAUNCHES) or counts_m["reconstruct"]:
+        fail(f"(m) the sharded sync sweep launched a megakernel or the unweighted K3: {counts_m}")
+    fm, f1 = rm.film.cpu().numpy(), snap["first"].cpu().numpy()
+    print(f"(m) against (f)'s film after its first sweep: max abs err {np.abs(fm - f1).max():.3e}, "
+          f"{int((fm != f1).any(-1).sum())} pixels differ; {mm['render_seconds']:.3f} s against "
+          f"(f)'s {mf['render_seconds'] / 8:.3f} s a sweep")
+    if not np.allclose(fm, f1, rtol=5e-4, atol=5e-5):
+        fail("(m) the sharded sync film differs from the single one beyond rtol 5e-4 / atol 5e-5")
+
+    phase("(n) two processes on cuda:0 over gloo: MultiHostMegaRenderer 256x256, 4 spp")
+    merged, counts_n = two_process_render(out_dir)
+    rn = Renderer(cs, RenderConfig(**HOSTS_CFG), device="cuda")
+    rn.render()
+    fn = rn.film.cpu().numpy()
+    print(f"(n) merged film against the single 256x256 film: max abs err "
+          f"{np.abs(merged - fn).max():.3e}; launches in the two processes {counts_n}")
+    if not np.isfinite(merged).all() or not np.allclose(merged, fn, rtol=1e-4, atol=1e-5):
+        fail("(n) the merged film differs from the single one beyond rtol 1e-4 / atol 1e-5")
+    for k in ("mk_start", "mk_resume", "reconstruct_weighted"):
+        if counts_n[k] <= 0:
+            fail(f"(n) the two processes did not launch {k}")
+
     rh = Renderer(cs, RenderConfig(**small_sync, driver="sync", fixed_albedo=True), device="cuda")
     _, counts_h = drive("(h) fixed albedo (sync, 256x256), packet traversal, bvh and brute",
                         rh.render)
@@ -1045,6 +1202,8 @@ def main() -> int:
 
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
     phase("kernels vs twins at the main path's shapes")
+    print(f"device memory: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved by the caching allocator")
     real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
             "mk_start_chained": mk.megakernel_start_chained}
     plain = {"mk_start": mk.megakernel_start_plain, "mk_resume": mk.megakernel_resume_plain,
@@ -1232,7 +1391,34 @@ def main() -> int:
     print(f"K3 reconstruct, the chained chunk ({S3} sweeps, one launch, mean of 10): {t_k3:.4f} ms, "
           f"bit-equal to its {S3} one-sweep launches summed in sweep order; twin {t_k3p:.3f} ms, "
           f"bound {bound(*k3_work)[0]:.4f} ms ({bound(*k3_work)[1]})")
-    del ctot, cnrm, k3_sum
+    # K3's weighted mode as path (l) launches it: a band's chunk (the upper
+    # 512 rows of the 8 sweeps) on its canvas padded by a block above and
+    # below, weight 0 there
+    Bk, bnd = 128, H // 2
+    wtot, wnrm = (F.pad(a[:, :bnd], (0, 0, 0, 0, Bk, Bk)) for a in (ctot, cnrm))
+    wgt = F.pad(torch.ones((bnd, W), device=dev), (0, 0, Bk, Bk))
+    t_k3w, got = timed(lambda: prc.reconstruct(wtot, wnrm, coffs, block_size=128,
+                                               sample_weight=wgt), reps=10)
+    t_k3wp, want = timed(lambda: prc.reconstruct_plain(wtot, wnrm, coffs, block_size=128,
+                                                       sample_weight=wgt), reps=1, warm=False)
+    k3w_err = check_k3(f"K3 weighted on a band's chunk ({S3} x {bnd + 2 * Bk}x{W}, one launch)",
+                       got, want)
+    k3w_sum = None
+    for s in range(S3):
+        d = prc.reconstruct(wtot[s], wnrm[s], coffs[s], block_size=128, sample_weight=wgt)
+        k3w_sum = d if k3w_sum is None else k3w_sum + d
+    if not bit_equal([got], [k3w_sum]):
+        fail("K3 weighted: the chunk launch differs from its one-sweep launches summed")
+    ones = torch.ones((H, W), device=dev)
+    if not bit_equal([prc.reconstruct(ctot, cnrm, coffs, block_size=128, sample_weight=ones)],
+                     [prc.reconstruct(ctot, cnrm, coffs, block_size=128)]):
+        fail("K3 weighted at weight 1 differs from the unweighted kernel")
+    k3w_work = (nbytes(wtot, wnrm, wgt, got), S3 * (bnd + 2 * Bk) * W * 25 * TAP_OPS)
+    print(f"K3 weighted, a band's chunk ({S3} sweeps, one launch, mean of 10): {t_k3w:.4f} ms "
+          f"beside the unweighted 1024x1024 chunk's {t_k3:.4f} ms; bit-equal to its {S3} "
+          f"one-sweep launches summed, at weight 1 bit-equal to the unweighted kernel; plain "
+          f"{t_k3wp:.3f} ms, bound {bound(*k3w_work)[0]:.4f} ms ({bound(*k3w_work)[1]})")
+    del ctot, cnrm, k3_sum, wtot, wnrm, k3w_sum
 
     # K6: the device time of every call of one 1024x1024 sync sweep, from
     # torch.profiler (CUDA events around each call would add the host's
@@ -1355,6 +1541,10 @@ def main() -> int:
              replaces="hijiki_tpu/render/pallas_reconstruct.py:42",
              launches=counts_a["reconstruct"], max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p,
              **summed([k3_work])),
+        dict(name="reconstruct_weighted", route="cuda", source=src + "reconstruct.cu",
+             replaces="hijiki_tpu/render/pallas_reconstruct.py:42",
+             launches=counts_l["reconstruct_weighted"], max_abs_err=k3w_err, ms=t_k3w,
+             plain_ms=t_k3wp, **summed([k3w_work])),
         dict(name="traverse", route="cuda", source=src + "traverse.cu",
              replaces="hijiki_tpu/ops/pallas_traverse.py:41", launches=counts_f["traverse"],
              max_abs_err=k6_err, ms=sum(k6_ms), plain_ms=sum(k6_plain), **summed(k6_work)),

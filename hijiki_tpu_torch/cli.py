@@ -6,7 +6,10 @@ Usage:
         --driver mega -w 1024 -H 1024 -s 8 -o out.exr
 
 The port's default driver is ``mega`` (the card's fast path); the JAX
-package's is ``sync``. All three compute the same estimator.
+package's is ``sync``. All three compute the same estimator. ``--devices
+N`` shards each sweep over N devices (``parallel/multichip.py``: row bands
+for the mega driver, blocks otherwise): the first N cards, or N virtual
+devices with ``--device cpu``.
 
 Flags of ``hijiki_tpu.cli`` that are not ported yet are refused with an
 error that says so.
@@ -23,9 +26,10 @@ import time
 # hijiki_tpu.cli flags the port does not have yet (any value is refused)
 NOT_PORTED = (
     "--packed-leaf", "--mega-packet", "--mega-groups", "--spec-resolve",
-    "--mega-trunk", "--mega-window", "--mega-shadow", "--profile-dir", "--devices",
-    "--platform",
+    "--mega-trunk", "--mega-window", "--mega-shadow", "--profile-dir",
 )
+# --platform names the device as JAX names its platform
+PLATFORM_DEVICE = {"cpu": "cpu", "gpu": "cuda"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,6 +88,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "this path; load in chrome://tracing or ui.perfetto.dev")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their plain twins)")
+    p.add_argument("--platform", default=None, choices=("cpu", "gpu", "tpu"),
+                   help="An alias of --device: cpu, or gpu (= cuda); tpu is the JAX "
+                   "package's platform")
+    p.add_argument("--devices", type=int, default=1,
+                   help="Shard each sweep over this many devices: row bands (mega driver) "
+                   "or blocks (sync, wavefront); the first N CUDA cards, or N virtual "
+                   "devices with --device cpu")
     return p
 
 
@@ -97,6 +108,12 @@ def main(argv=None) -> int:
     if args.fixed_albedo and args.driver == "wavefront":
         print("--fixed-albedo requires the sync or mega driver", file=sys.stderr)
         return 2
+    if args.platform == "tpu":
+        print("--platform tpu: the port runs on CUDA cards or the CPU; the TPU is the "
+              "JAX package's (python -m hijiki_tpu.cli)", file=sys.stderr)
+        return 2
+    if args.platform:
+        args.device = PLATFORM_DEVICE[args.platform]
 
     from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
     from hijiki_tpu_torch.scene.compile import compile_scene
@@ -135,12 +152,20 @@ def main(argv=None) -> int:
         chain_sweeps=args.chain_sweeps,
         live_preview=args.live_preview,
     )
+    cls, kwargs = Renderer, {}
+    if args.devices > 1:
+        from hijiki_tpu_torch.parallel.multichip import MegaMultiChipRenderer, MultiChipRenderer
+
+        cls = MegaMultiChipRenderer if args.driver == "mega" else MultiChipRenderer
+        kwargs = dict(num_devices=args.devices)
     if args.checkpoint and os.path.exists(args.checkpoint):
-        renderer = Renderer.resume_checkpoint(compiled, args.checkpoint, config,
-                                              device=args.device)
+        # the checkpoint holds the whole film and the sweep cursor, so it
+        # resumes across device counts
+        renderer = cls.resume_checkpoint(compiled, args.checkpoint, config, device=args.device,
+                                         **kwargs)
         print(f"Resumed from {args.checkpoint} at sweep {renderer.sweeps_done}")
     else:
-        renderer = Renderer(compiled, config, device=args.device)
+        renderer = cls(compiled, config, device=args.device, **kwargs)
     print("Starting to render...")
     if args.trace_json:
         from hijiki_tpu_torch.utils.tracing import SpanTracer
@@ -177,6 +202,7 @@ def main(argv=None) -> int:
             f"Integrated {metrics['primary_rays']} rays in {metrics['render_seconds']:.3f}s "
             f"({metrics['mrays_per_second']:.3f} Mrays/s, "
             f"{metrics['spp_per_second']:.2f} spp/s) on {args.device}"
+            + (f" x {args.devices} devices" if args.devices > 1 else "")
         )
         if "mean_path_length" in metrics:
             print(f"Mean path length {metrics['mean_path_length']:.2f} segments/sample")
@@ -190,6 +216,7 @@ def main(argv=None) -> int:
             sweeps_done=renderer.sweeps_done,
             interrupted=interrupted,
             device=args.device,
+            devices=args.devices,
             config=dict(width=args.width, height=args.height, spp=args.sample_count,
                         seed=args.seed, driver=args.driver, block_size=args.block_size,
                         max_bounces=args.max_bounces, use_bvh=args.use_bvh,

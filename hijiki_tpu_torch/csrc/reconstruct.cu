@@ -9,9 +9,17 @@
 // once per block and sweep with the twin's f32 operations (spatial_weights),
 // with the reference's block-splat masks (no left/top spill; zero center
 // normal on spill pixels), out-of-image taps masked (the Pallas roll wraps;
-// its mask hides the wrap) and NaN contributions rejected. The sample weight
-// is 1, so the fourth output channel accumulates w itself. Taps accumulate
+// its mask hides the wrap) and NaN contributions rejected. Taps accumulate
 // in the Pallas kernel's order: dy outer, dx inner.
+//
+// The sample weight: 1 in reconstruct (kWeighted = false), so the fourth
+// output channel accumulates w itself; reconstruct_weighted takes an
+// (H, W) f32 weight (the Pallas kernel's sample_weight: 0 on the padding of
+// a multi-device band's canvas), one plane that a launch's S sweeps share,
+// and splats w (color wt, wt) as the twin does (wt = 1 gives the
+// unweighted result bit for bit). The weight rides in the radiance tile's
+// unused fourth word, and the parameter comes last, so the unweighted
+// kernel compiles to the code it had before the weight existed.
 //
 // One launch takes S sweeps (a chained chunk's, up to kMaxSweeps; the C
 // entry launches more in turn) and writes their deltas summed in sweep
@@ -21,7 +29,8 @@
 // Design: 32 x 8 threads a block, one output pixel a thread (2 and 4 rows
 // a thread read slower: more registers, fewer resident warps). Per sweep
 // the block stages the (H, W, 3) radiance and normals with a 2-pixel halo
-// in shared memory as float4s (r, g, b, 0) and (nx, ny, nz, 0), so a tap
+// in shared memory as float4s (r, g, b, 0) (weighted: (r wt, g wt, b wt,
+// wt)) and (nx, ny, nz, 0), so a tap
 // reads two 128-bit words, and each input value is read from device memory
 // about once. The block-splat geometry is hoisted out of the taps: each
 // thread computes its five column and five row terms with two divisions
@@ -66,11 +75,12 @@ __device__ __forceinline__ int block_origin(int bp, int rp, int d, int B) {
   return (bp + (v >= B) + (v >= 2 * B) - (v < 0) - (v < -B)) * B;
 }
 
+template <bool kWeighted>
 __global__ void __launch_bounds__(kTx * kTy)
     reconstruct_kernel(const float* __restrict__ color,
                        const float* __restrict__ normal, Offsets offs, int S,
                        float gauss_fac, int H, int W, int B, int accumulate,
-                       float* __restrict__ out) {
+                       float* __restrict__ out, const float* __restrict__ weight) {
   __shared__ float4 rgb[kSh][kSw];
   __shared__ float4 nrm[kSh][kSw];
   __shared__ float taps[kMaxSweeps][kTaps];
@@ -129,8 +139,13 @@ __global__ void __launch_bounds__(kTx * kTy)
       const int gy = y0 + ty - kR, gx = x0 + tx - kR;
       float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f), n = c;
       if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const size_t off = (static_cast<size_t>(gy) * W + gx) * 3;
-        c = make_float4(cs[off], cs[off + 1], cs[off + 2], 0.0f);
+        const size_t px = static_cast<size_t>(gy) * W + gx, off = px * 3;
+        if constexpr (kWeighted) {
+          const float wt = weight[px];
+          c = make_float4(cs[off] * wt, cs[off + 1] * wt, cs[off + 2] * wt, wt);
+        } else {
+          c = make_float4(cs[off], cs[off + 1], cs[off + 2], 0.0f);
+        }
         n = make_float4(ns[off], ns[off + 1], ns[off + 2], 0.0f);
       }
       rgb[ty][tx] = c;
@@ -154,13 +169,14 @@ __global__ void __launch_bounds__(kTx * kTy)
         const float w = taps[s][t] * expf(-(sq * 2.0f));
         const float4 p = rgb[cy + dy][cx + dx];
         const float c0 = w * p.x, c1 = w * p.y, c2 = w * p.z;
+        const float c3 = kWeighted ? w * p.w : w;
         // short-circuit: the NaN tests only for a valid tap (branchless
         // bitwise tests took 8 more registers and read 3% slower)
-        const bool ok = ((valid >> t) & 1u) && !(isnan(c0) || isnan(c1) || isnan(c2) || isnan(w));
+        const bool ok = ((valid >> t) & 1u) && !(isnan(c0) || isnan(c1) || isnan(c2) || isnan(c3));
         a0 = ok ? a0 + c0 : a0;
         a1 = ok ? a1 + c1 : a1;
         a2 = ok ? a2 + c2 : a2;
-        a3 = ok ? a3 + w : a3;
+        a3 = ok ? a3 + c3 : a3;
       }
     }
     if (s == 0 && !accumulate) {
@@ -175,14 +191,10 @@ __global__ void __launch_bounds__(kTx * kTy)
   if (here) reinterpret_cast<float4*>(out)[static_cast<size_t>(y) * W + x] = total;
 }
 
-}  // namespace
-
-// color, normal: (S, H, W, 3) f32 device; offsets: the S sweeps' sample
-// offsets, (S, 2) f32 on the host; gauss_fac: -1 / (2 stddev^2) as f32;
-// out: (H, W, 4) f32 device, the S deltas summed in sweep order.
-extern "C" int reconstruct(const float* color, const float* normal,
-                           const float* offsets, int S, float gauss_fac, int H,
-                           int W, int B, float* out, void* stream) {
+template <bool kWeighted>
+int launch(const float* color, const float* normal, const float* weight,
+           const float* offsets, int S, float gauss_fac, int H, int W, int B,
+           float* out, void* stream) {
   const dim3 block(kTx, kTy);
   const dim3 grid((W + kTx - 1) / kTx, (H + kTy - 1) / kTy);
   const size_t plane = static_cast<size_t>(H) * W * 3;
@@ -191,13 +203,35 @@ extern "C" int reconstruct(const float* color, const float* normal,
     Offsets offs{};
     for (int k = 0; k < ns; ++k)
       offs.so[k] = make_float2(offsets[2 * (s0 + k)], offsets[2 * (s0 + k) + 1]);
-    reconstruct_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    reconstruct_kernel<kWeighted><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
         color + s0 * plane, normal + s0 * plane, offs, ns, gauss_fac, H, W, B, s0 > 0,
-        out);
+        out, weight);
     const cudaError_t rc = cudaGetLastError();
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
   return 0;
+}
+
+}  // namespace
+
+// color, normal: (S, H, W, 3) f32 device; offsets: the S sweeps' sample
+// offsets, (S, 2) f32 on the host; gauss_fac: -1 / (2 stddev^2) as f32;
+// out: (H, W, 4) f32 device, the S deltas summed in sweep order.
+extern "C" int reconstruct(const float* color, const float* normal,
+                           const float* offsets, int S, float gauss_fac, int H,
+                           int W, int B, float* out, void* stream) {
+  return launch<false>(color, normal, nullptr, offsets, S, gauss_fac, H, W, B, out,
+                       stream);
+}
+
+// reconstruct with a sample weight: weight (H, W) f32 device, shared by the
+// S sweeps.
+extern "C" int reconstruct_weighted(const float* color, const float* normal,
+                                    const float* weight, const float* offsets,
+                                    int S, float gauss_fac, int H, int W, int B,
+                                    float* out, void* stream) {
+  return launch<true>(color, normal, weight, offsets, S, gauss_fac, H, W, B, out,
+                      stream);
 }
 
 // What the card makes of K3 as built: out[0] registers a thread, out[1]
@@ -206,9 +240,9 @@ extern "C" int reconstruct(const float* color, const float* normal,
 extern "C" int reconstruct_occupancy(int* out) {
   cudaFuncAttributes attr;
   int dev = 0;
-  cudaError_t rc = cudaFuncGetAttributes(&attr, reconstruct_kernel);
+  cudaError_t rc = cudaFuncGetAttributes(&attr, reconstruct_kernel<false>);
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], reconstruct_kernel,
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], reconstruct_kernel<false>,
                                                        kTx * kTy, 0);
   if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess)

@@ -1,0 +1,347 @@
+"""Multi-device rendering: one process over a list of ``torch.device``s.
+
+Port of ``hijiki_tpu/parallel/multichip.py``. JAX shards a sweep over a
+1-D device mesh from one controller; here one process drives a list of
+devices, each with its own copy of the scene and its own stream, and the
+list may name one device twice (two bands on one card, the counterpart of
+the tests' virtual 8-device CPU mesh). Sample accumulation is associative
+addition, and each path is traced alone, so a sharded film equals the
+single-device film up to the order of its float sums. Two layouts:
+
+* ``MultiChipRenderer`` (the sync driver): each sweep's static block list,
+  padded with dummy blocks to a multiple of the device count, is split into
+  contiguous shares; each device traces its blocks through
+  ``ops/integrate.py`` (``rows``/``packet`` walk with K6 on a card) and
+  reconstructs them into a full-size partial film whose unrendered pixels
+  carry sample weight 0; the partials are summed into the film.
+* ``MegaMultiChipRenderer`` (the mega driver): the frame splits into row
+  bands, one a device; each band traces its pixels with ``render_waves``
+  (K1, K2) or, chained, ``render_waves_chained`` (K4, K2), and
+  reconstructs them with K3 on a canvas extended by one block above and
+  below, at sample weight 0 there. A sample splats at most R rows beyond
+  its band, into pixels whose center features the reference zeroes
+  anyway ("spill"), so each band's R-row edge strips are exact and are
+  added into its neighbours' bands; only those O(R W) strips cross
+  devices. Each band's film stays on its device and is concatenated once,
+  at readback.
+
+Both ride ``Renderer.render``: the same chunk loop, chain policy
+(``resolve_chain_sweeps``), previews, checkpoints and overflow invariant.
+``Renderer._settle_overflow`` is the counterpart of JAX's
+``settle_mega_overflow``: one host read of the chunks' summed counters
+(every band's), and on any drop every recorded chunk is traced again at
+full capacity on every band. Per-sweep RNG comes from the same host
+schedule as the single device, so the device count never changes the
+estimate. No band falls back to the CPU: a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from hijiki_tpu_torch.ops.camera import camera_rays
+from hijiki_tpu_torch.ops.integrate import integrate
+from hijiki_tpu_torch.ops.megakernel import mega_scene, render_waves, render_waves_chained
+from hijiki_tpu_torch.ops.rng import MASK32, seed_rng
+from hijiki_tpu_torch.render.blocks import upload
+from hijiki_tpu_torch.render.pallas_reconstruct import R as RADIUS, reconstruct
+from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
+from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer, chunk_inputs
+from hijiki_tpu_torch.scene.compile import CompiledScene, to_device
+
+
+def resolve_devices(num_devices: Optional[int] = None, devices=None, device="cuda") -> list:
+    """The devices to render on: ``devices`` as given (a name may repeat),
+    else the first ``num_devices`` CUDA devices (all of them for None or 0;
+    more than ``torch.cuda.device_count()`` raises), or ``num_devices``
+    entries of the CPU for ``device="cpu"``."""
+    if devices is None:
+        device = torch.device(device)
+        if device.type == "cuda":
+            count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            n = num_devices or count
+            if not 0 < n <= count:
+                raise ValueError(f"{n or 'all'} CUDA devices asked for, {count} present")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            devices = [device] * (num_devices or 1)
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("devices: an empty list")
+    for d in devices:
+        if d.type == "cuda":
+            count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+            if (d.index or 0) >= count:
+                raise ValueError(f"{d} asked for, {count} CUDA devices present")
+    return [torch.device("cuda", d.index or 0) if d.type == "cuda" else d for d in devices]
+
+
+def trace_blocks(scene, origins, dims, seeds, sample_offset, config: RenderConfig):
+    """Trace k blocks (block_size^2 lanes each) of one sweep and
+    reconstruct them into a full-size partial film delta (H, W, 4): the
+    unit each device runs. ``scene``: a device ``CompiledScene``; origins,
+    dims (k, 2) int block origins (x, y) and clipped dims (w, h), a dummy
+    block at (W, H); seeds (k,) u32 block seeds. Returns (delta, bounce
+    iterations)."""
+    c = config
+    dev = scene.trace_rows.device
+    H, W, B = c.height, c.width, c.block_size
+    k = len(origins)
+    org = upload(np.asarray(origins, np.int64), dev)
+    clip_w = upload(np.asarray(dims, np.int64)[:, 0], dev)
+    ly = torch.arange(B, device=dev).view(1, B, 1)
+    lx = torch.arange(B, device=dev).view(1, 1, B)
+    gx, gy = torch.broadcast_tensors(org[:, 0, None, None] + lx, org[:, 1, None, None] + ly)
+    # per-pixel seed = block_seed + lx + ly * clipped block width
+    # (render.glsl:156-157)
+    bs = upload(np.asarray(seeds, np.uint32).astype(np.int64), dev)
+    state = seed_rng(((bs[:, None, None] + lx + ly * clip_w[:, None, None]) & MASK32).reshape(-1))
+    so = np.asarray(sample_offset, np.float32)
+    px = torch.stack([gx.float() + float(so[0]), gy.float() + float(so[1])], -1).reshape(-1, 2)
+    o, d, tmin, tmax = camera_rays(scene.cam_position, scene.cam_rotation, scene.cam_fov, px,
+                                   (W, H))
+    out = integrate(scene, o, d, tmin, tmax, state, max_bounces=c.max_bounces,
+                    use_bvh=c.use_bvh, leaf_size=c.leaf_size,
+                    traversal=c.traversal or ("rows" if c.use_bvh else "brute"),
+                    albedo_aov=c.fixed_albedo)
+
+    # the tiles into a canvas padded by a block (it absorbs the dummy blocks
+    # at (W, H) and edge blocks' overdraw), then cropped
+    flat = (gy * (W + B) + gx).reshape(-1)
+
+    def scatter(tiles):
+        canvas = tiles.new_zeros(((H + B) * (W + B), tiles.shape[-1]))
+        canvas[flat] = tiles
+        return canvas.view(H + B, W + B, -1)[:H, :W].contiguous()
+
+    color, normal = scatter(out.total), scatter(out.normal)
+    ones = scatter(torch.ones((k * B * B, 1), device=dev))[..., 0].contiguous()
+    if c.reconstruction_radius == 2 and not c.fixed_albedo:
+        delta = reconstruct(color, normal, so, block_size=B, stddev=c.reconstruction_stddev,
+                            sample_weight=ones)
+    else:
+        delta = reconstruct_sweep(color, normal, scatter(out.albedo), so, block_size=B,
+                                  radius=c.reconstruction_radius,
+                                  stddev=c.reconstruction_stddev, sample_weight=ones)
+    return delta, out.iterations
+
+
+# a side stream a (device, band), one set a process: a renderer made after
+# another takes over its streams, and with them the memory the caching
+# allocator keeps for them (a fresh stream's first allocations go to
+# cudaMalloc, which waits for the card)
+_STREAMS: dict = {}
+
+
+def _band_stream(device, band: int):
+    key = (device.index, band)
+    if key not in _STREAMS:
+        _STREAMS[key] = torch.cuda.Stream(device)
+    return _STREAMS[key]
+
+
+class _MultiDevice(Renderer):
+    """What both layouts share: the device list, a stream a band, the
+    synchronisation of every device, the device count in the metrics."""
+
+    def __init__(self, compiled: CompiledScene, config: RenderConfig, devices: list):
+        self.devices = devices
+        self.n_dev = len(devices)
+        super().__init__(compiled, config, device=devices[0])
+        self._streams = [_band_stream(d, i) if d.type == "cuda" else None
+                         for i, d in enumerate(devices)]
+
+    def _on(self, i: int):
+        """Band i's context: its device, and its own stream, which first
+        waits for what that device's current stream has queued (the film,
+        and the reads of the band's last outputs, whose memory it reuses)."""
+        s = self._streams[i]
+        if s is None:
+            return contextlib.nullcontext()
+        d = self.devices[i]
+        s.wait_stream(torch.cuda.current_stream(d))
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(d))
+        stack.enter_context(torch.cuda.stream(s))
+        return stack
+
+    def _join(self) -> None:
+        """Each device's current stream waits for its bands' streams."""
+        for d, s in zip(self.devices, self._streams):
+            if s is not None:
+                torch.cuda.current_stream(d).wait_stream(s)
+
+    def _sync(self):
+        for d in dict.fromkeys(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def render(self, progress=None):
+        m = super().render(progress)
+        m["devices"] = self.n_dev
+        return m
+
+
+class MultiChipRenderer(_MultiDevice):
+    """The sync driver with each sweep's blocks sharded over devices. The
+    ``wavefront`` driver traces the same estimator through the sync
+    integrator here, as in JAX; the mega driver has
+    ``MegaMultiChipRenderer``."""
+
+    def __init__(self, compiled: CompiledScene, config: RenderConfig,
+                 num_devices: Optional[int] = None, devices=None, device="cuda"):
+        if config.driver == "mega":
+            raise ValueError("MultiChipRenderer traces the sync driver; the mega driver "
+                             "shards with MegaMultiChipRenderer")
+        super().__init__(compiled, config, resolve_devices(num_devices, devices, device))
+        self.scenes = [self.scene] + [to_device(compiled, d) for d in self.devices[1:]]
+        c = config
+        # the static block list (origins, clipped dims), padded to a
+        # multiple of the device count with dummy blocks at (W, H)
+        ox, oy = np.meshgrid(np.arange(0, c.width, c.block_size),
+                             np.arange(0, c.height, c.block_size))
+        origins = np.stack([ox.ravel(), oy.ravel()], axis=-1).astype(np.int32)
+        dims = np.stack([np.minimum(c.block_size, c.width - origins[:, 0]),
+                         np.minimum(c.block_size, c.height - origins[:, 1])],
+                        axis=-1).astype(np.int32)
+        self.n_real_blocks = origins.shape[0]
+        pad = (-origins.shape[0]) % self.n_dev
+        if pad:
+            origins = np.concatenate([origins, np.tile([[c.width, c.height]], (pad, 1))])
+            dims = np.concatenate([dims, np.ones((pad, 2), np.int32)])
+        self.block_origins = origins.astype(np.int32)
+        self.block_dims = dims
+
+    def _chain(self) -> int:
+        return 1
+
+    def _run_chunk(self, kind, block_seeds, sample_offset, phase_shrink):
+        """One sweep: each device traces its share of the blocks; the
+        partial films are summed on the first device."""
+        seeds = np.asarray(block_seeds, np.uint32).reshape(-1)
+        seeds = np.concatenate([seeds, np.zeros(len(self.block_origins) - len(seeds), np.uint32)])
+        k = len(self.block_origins) // self.n_dev
+        deltas, iterations = [], []
+        for i, scene in enumerate(self.scenes):
+            share = slice(i * k, (i + 1) * k)
+            with self._on(i):
+                delta, it = trace_blocks(scene, self.block_origins[share], self.block_dims[share],
+                                         seeds[share], sample_offset, self.config)
+            deltas.append(delta)
+            iterations.append(it)
+        self._join()
+        delta = deltas[0]
+        for d in deltas[1:]:
+            delta = delta + d.to(self.device, non_blocking=True)
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        # the sync integrator drops no path and counts no segments
+        return delta, dict(wave_overflow=zero, path_segments=zero, rows_visited=zero,
+                           iterations=max(iterations))
+
+
+class MegaMultiChipRenderer(_MultiDevice):
+    """The mega driver with the frame sharded in row bands, one a device."""
+
+    def __init__(self, compiled: CompiledScene, config: RenderConfig,
+                 num_devices: Optional[int] = None, devices=None, device="cuda"):
+        c = config
+        if c.driver != "mega":
+            raise ValueError("MegaMultiChipRenderer renders with the mega driver "
+                             f"(config.driver={c.driver!r})")
+        if c.reconstruction_radius != 2 or c.fixed_albedo:
+            raise ValueError("MegaMultiChipRenderer reconstructs with K3: radius 2, no albedo")
+        devices = resolve_devices(num_devices, devices, device)
+        if c.height % len(devices):
+            raise ValueError("height must divide evenly into device bands")
+        self.band = c.height // len(devices)
+        if self.band % c.block_size:
+            # reconstruction blocks must not straddle bands: the filter reads
+            # a block's center features from the band that owns it
+            raise ValueError(
+                f"band height {self.band} must be a multiple of block_size {c.block_size}"
+            )
+        super().__init__(compiled, config, devices)
+        self.scenes = [self.scene] + [mega_scene(compiled, c.width, c.height, d)
+                                      for d in self.devices[1:]]
+        B = c.block_size
+        # the band canvas' sample weight: 1 on the band's rows, 0 on the
+        # block of padding above and below (it holds no samples)
+        self._weights = [F.pad(torch.ones((self.band, c.width), device=d), (0, 0, B, B))
+                         for d in self.devices]
+
+    # the film: a band a device, concatenated at readback
+    @property
+    def film(self):
+        return torch.cat([f.to(self.device) for f in self._bands])
+
+    @film.setter
+    def film(self, value):
+        b = self.band
+        self._bands = [value[i * b:(i + 1) * b].to(d).contiguous()
+                       for i, d in enumerate(self.devices)]
+
+    def _snapshot(self):
+        return list(self._bands)
+
+    def _restore(self, snapshot) -> None:
+        self._bands = list(snapshot)
+
+    def _accumulate(self, delta) -> None:
+        self._bands = [f + d for f, d in zip(self._bands, delta)]
+
+    def _run_chunk(self, kind, block_seeds, offsets, phase_shrink):
+        """One chunk on every band: ("sweep", (bh, bw) seeds, (2,) offset)
+        traced by render_waves, or ("chained", (S, bh, bw), (S, 2)) by one
+        render_waves_chained; each band's S sweeps reconstructed in one K3
+        launch on its extended canvas, then the halo exchange. Returns (the
+        bands' deltas, stats with the overflow summed over bands)."""
+        c = self.config
+        B, band, W = c.block_size, self.band, c.width
+        if kind == "sweep":
+            block_seeds, offsets = np.asarray(block_seeds)[None], np.asarray(offsets)[None]
+        offs = np.asarray(offsets, np.float32)
+        S = len(offs)
+        kw = dict(max_bounces=c.max_bounces, **({"phase_shrink": phase_shrink} if phase_shrink else {}))
+        if S > 1 and c.mega_chain_cap:
+            kw["chain_cap"] = c.mega_chain_cap
+        exts, ovfs, segs, rows = [], [], [], []
+        for i, ms in enumerate(self.scenes):
+            with self._on(i):
+                pxs, pys, seeds = chunk_inputs(W, band, B, block_seeds, offs, self.devices[i],
+                                               row0=i * band)
+                if S == 1:
+                    out = render_waves(ms, pxs[0], pys[0], seeds[0], lane_sort=c.sort_lanes, **kw)
+                else:
+                    out = render_waves_chained(ms, pxs, pys, seeds, **kw)
+                pad = lambda a: F.pad(a.reshape(S, band, W, 3), (0, 0, 0, 0, B, B))
+                exts.append(reconstruct(pad(out[0]), pad(out[1]), offs, block_size=B,
+                                        stddev=c.reconstruction_stddev,
+                                        sample_weight=self._weights[i]))
+                ovfs.append(out[4])
+                segs.append(out[5].sum() / S)
+                rows.append(out[6].sum() / S)
+        self._join()
+        to0 = lambda ts: sum(t.to(self.device, non_blocking=True) for t in ts)
+        return self._exchange(exts), dict(wave_overflow=to0(ovfs), path_segments=to0(segs),
+                                          rows_visited=to0(rows))
+
+    def _exchange(self, exts):
+        """Each band's own rows of its (band + 2B, W, 4) canvas delta (the
+        sum over a chunk's sweeps: strips add, so a chained chunk pays one
+        exchange), with its neighbours' R-row spill strips added: the strip
+        below the band above, the strip above the band below. The first
+        band's upper strip and the last band's lower one lie outside the
+        frame and are dropped, as the full-frame filter clips them."""
+        B, band, R = self.config.block_size, self.band, RADIUS
+        own = [e[B:B + band] for e in exts]
+        for i, d in enumerate(self.devices):
+            if i > 0:
+                own[i][:R] += exts[i - 1][B + band:B + band + R].to(d, non_blocking=True)
+            if i + 1 < self.n_dev:
+                own[i][band - R:] += exts[i + 1][B - R:B].to(d, non_blocking=True)
+        return own

@@ -66,16 +66,23 @@ def upload(array: np.ndarray, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def per_pixel_seeds_device(width, height, block_size, block_seeds, device=None):
+def per_pixel_seeds_device(width, height, block_size, block_seeds, device=None, row0=0):
     """Expand the (..., nby, nbx) block seeds to (..., H, W) per-pixel seeds
     on ``device`` (the tensor twin of ``per_pixel_seeds``; leading dims, such
     as a chained chunk's sweeps, expand in the same few ops). Returns an
-    int64 tensor holding u32 values (see ``ops/rng.py``)."""
+    int64 tensor holding u32 values (see ``ops/rng.py``).
+
+    ``row0``: the seeds of pixel rows row0 .. row0 + height of the frame
+    whose block seeds these are (a multi-device band), the very values the
+    whole frame gives those rows; only the block rows they touch are
+    uploaded."""
     B = block_size
-    bs = upload(np.asarray(block_seeds, dtype=np.uint32).astype(np.int64), device)
+    r0 = row0 // B
+    bs = np.asarray(block_seeds, dtype=np.uint32)[..., r0:cdiv(row0 + height, B), :]
+    bs = upload(bs.astype(np.int64), device)
     base = bs.repeat_interleave(B, dim=-2).repeat_interleave(B, dim=-1)
-    base = base[..., :height, :width]
-    y = torch.arange(height, device=base.device).view(-1, 1)
+    base = base[..., row0 - r0 * B:row0 - r0 * B + height, :width]
+    y = torch.arange(row0, row0 + height, device=base.device).view(-1, 1)
     x = torch.arange(width, device=base.device).view(1, -1)
     bx = x // B
     lx = x - bx * B

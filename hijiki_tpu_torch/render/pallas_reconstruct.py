@@ -13,6 +13,12 @@ total = total + a_s, as JAX's renderer sums a chained chunk):
 * on a CPU tensor it runs the plain twin, ``render/reconstruct.py::
   reconstruct_sweep`` with the reference's zero albedo, sweep by sweep.
 
+``sample_weight`` ((H, W) f32, shared by the S sweeps; the Pallas kernel's
+argument of that name) weights each sample: the multi-device bands give
+their canvas' padding weight 0. With it the wrapper launches the kernel's
+weighted mode (``reconstruct_weighted``, counted apart); without it the
+unweighted kernel, unchanged.
+
 The kernel computes the spatial weights itself, with the twin's f32
 operations (``spatial_weights``), so the two differ only by ``expf``
 rounding.
@@ -27,11 +33,13 @@ from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
 
 R = 2  # RECONSTRUCTION_RADIUS (src/main.rs:1284)
 
-# launches of the CUDA kernel (CPU twin calls are not counted)
-LAUNCHES = {"reconstruct": 0}
+# launches of the CUDA kernel, unweighted and weighted (CPU twin calls are
+# not counted)
+LAUNCHES = {"reconstruct": 0, "reconstruct_weighted": 0}
 
 
-def reconstruct_plain(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5):
+def reconstruct_plain(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5,
+                      sample_weight=None):
     """The plain version of ``reconstruct`` (any device): ``reconstruct_sweep``
     of each sweep, summed in sweep order."""
     if color.dim() == 3:
@@ -39,17 +47,19 @@ def reconstruct_plain(color, normal, sample_offset, *, block_size: int, stddev: 
     delta = None
     for c, n, so in zip(color, normal, sample_offset):
         d = reconstruct_sweep(c, n, torch.zeros_like(c), so, block_size=block_size,
-                              radius=R, stddev=stddev)
+                              radius=R, stddev=stddev, sample_weight=sample_weight)
         delta = d if delta is None else delta + d
     return delta
 
 
-def reconstruct(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5):
+def reconstruct(color, normal, sample_offset, *, block_size: int, stddev: float = 0.5,
+                sample_weight=None):
     """Radius-2 reconstruction of S sweeps ((S, H, W, 3) inputs, (S, 2)
-    offsets) or one ((H, W, 3), (2,)); returns the (H, W, 4) delta."""
+    offsets) or one ((H, W, 3), (2,)), each sample weighted by
+    ``sample_weight`` ((H, W), default 1); returns the (H, W, 4) delta."""
     if color.device.type != "cuda":
         return reconstruct_plain(color, normal, sample_offset, block_size=block_size,
-                                 stddev=stddev)
+                                 stddev=stddev, sample_weight=sample_weight)
     from hijiki_tpu_torch.utils.build import load_library
 
     shape = tuple(color.shape)
@@ -67,16 +77,24 @@ def reconstruct(color, normal, sample_offset, *, block_size: int, stddev: float 
         raise ValueError(f"sample_offset: expected {S} offsets of 2, got {offs.size} values")
     if block_size < 1:
         raise ValueError(f"block_size: expected >= 1, got {block_size}")
+    weight = () if sample_weight is None else (sample_weight.data_ptr(),)
+    if weight:
+        w = sample_weight
+        if w.dtype != torch.float32 or tuple(w.shape) != (H, W) or w.device != color.device:
+            raise ValueError(f"sample_weight: expected f32 {(H, W)} on {color.device}")
+        if not w.is_contiguous():
+            raise ValueError("sample_weight: expected a contiguous tensor")
     gauss_fac = float(np.float32(-1.0 / (2.0 * stddev * stddev)))
     out = torch.empty((H, W, 4), dtype=torch.float32, device=color.device)
     if H * W:
+        name = "reconstruct_weighted" if weight else "reconstruct"
         lib = load_library()
         stream = torch.cuda.current_stream(color.device).cuda_stream
-        rc = lib.reconstruct(
-            color.data_ptr(), normal.data_ptr(), offs.ctypes.data, S, gauss_fac,
+        rc = getattr(lib, name)(
+            color.data_ptr(), normal.data_ptr(), *weight, offs.ctypes.data, S, gauss_fac,
             H, W, block_size, out.data_ptr(), stream,
         )
-        LAUNCHES["reconstruct"] += 1
+        LAUNCHES[name] += 1
         if rc != 0:
-            raise RuntimeError(f"reconstruct launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out

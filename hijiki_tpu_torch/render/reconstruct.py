@@ -55,8 +55,13 @@ def reconstruct_sweep(
     block_size: int,
     radius: int = 2,
     stddev: float = 0.5,
+    sample_weight=None,  # (H,W) mask of locally rendered pixels, default all 1
 ):
-    """One sweep's reconstruction: returns the (H,W,4) film delta."""
+    """One sweep's reconstruction: returns the (H,W,4) film delta.
+
+    ``sample_weight`` serves multi-device partial films: pixels a device did
+    not render (a band canvas' padding) carry weight 0, so their (rgb*w, w)
+    contribution vanishes."""
     f32 = torch.float32
     dev = color.device
     H, W = color.shape[0], color.shape[1]
@@ -64,8 +69,11 @@ def reconstruct_sweep(
 
     w_sps = spatial_weights(sample_offset, R, stddev).tolist()
 
-    # the integrator's sample value vec4(total, 1)
-    w_ch = torch.ones((H, W, 1), dtype=f32, device=dev)
+    # the integrator's sample value vec4(total, 1), times the sample weight
+    if sample_weight is None:
+        w_ch = torch.ones((H, W, 1), dtype=f32, device=dev)
+    else:
+        w_ch = sample_weight.to(f32)[..., None]
     cw = torch.cat([color * w_ch, w_ch], dim=-1)
 
     py = torch.arange(H, device=dev).view(-1, 1)

@@ -170,10 +170,23 @@ def resolve_chain_sweeps(config: RenderConfig, device, sweeps_done: int = 0) -> 
     return chain_chunk_size(c.spp - sweeps_done, CHAIN_SWEEPS_CUDA)
 
 
-def _pixel_grid(width, height, device):
-    y = torch.arange(height, dtype=torch.float32, device=device).view(-1, 1).expand(height, width)
+def _pixel_grid(width, height, device, row0=0):
+    y = torch.arange(row0, row0 + height, dtype=torch.float32, device=device)
+    y = y.view(-1, 1).expand(height, width)
     x = torch.arange(width, dtype=torch.float32, device=device).view(1, -1).expand(height, width)
     return x.reshape(-1), y.reshape(-1)
+
+
+def chunk_inputs(width, height, block_size, block_seeds, offsets, device, row0=0):
+    """The mega driver's inputs of S sweeps over pixel rows row0 .. row0 +
+    height of the frame whose block seeds ``block_seeds`` (S, nby, nbx) are:
+    jittered pixel coordinates pxs, pys (S, N) f32 and seeds (S, N) int32
+    u32 bits, built in a few batched ops over S (per-sweep ops would leave
+    the card idle while the host enqueues them)."""
+    x, y = _pixel_grid(width, height, device, row0)
+    offs_d = upload(np.asarray(offsets, np.float32), device)
+    seeds = per_pixel_seeds_device(width, height, block_size, block_seeds, device, row0)
+    return x + offs_d[:, 0:1], y + offs_d[:, 1:2], to_bits(seeds.reshape(len(offsets), -1))
 
 
 def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
@@ -256,17 +269,10 @@ def render_sweeps_chained(ms, block_seeds, sample_offsets, config: RenderConfig,
     ``sample_offsets`` (S, 2) f32. Returns (film_delta (H, W, 4): the S
     sweeps' deltas summed in sweep order, stats: per-sweep averages)."""
     c = config
-    dev = ms.rows.device
     H, W = c.height, c.width
     S = len(block_seeds)
     offs = np.asarray(sample_offsets, np.float32)
-    # the chunk's inputs in a few batched ops over S: per-sweep ops would
-    # leave the card idle while the host enqueues them
-    x, y = _pixel_grid(W, H, dev)
-    offs_d = upload(offs, dev)
-    pxs = x + offs_d[:, 0:1]
-    pys = y + offs_d[:, 1:2]
-    seeds = to_bits(per_pixel_seeds_device(W, H, c.block_size, block_seeds, dev).reshape(S, -1))
+    pxs, pys, seeds = chunk_inputs(W, H, c.block_size, block_seeds, offs, ms.rows.device)
     t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
         ms, pxs, pys, seeds, max_bounces=c.max_bounces,
         **({"chain_cap": c.mega_chain_cap} if c.mega_chain_cap else {}),
@@ -327,14 +333,43 @@ class Renderer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # What a render call traces and how its film accumulates. The
+    # multi-device renderers (parallel/multichip.py) and the host stride
+    # (parallel/multihost.py) override these.
+
+    def _todo(self) -> list:
+        """The sweeps this render call traces, in order."""
+        return list(range(self.sweeps_done, self.config.spp))
+
+    def _schedule(self, sweep: int):
+        """The seeds and jitter of ``sweep`` (the scheduler draws in order)."""
+        return self.scheduler.sweep(sweep)
+
+    def _total(self) -> int:
+        """The sweeps of the whole render (the progress callback's total)."""
+        return self.config.spp
+
+    def _chain(self) -> int:
+        return resolve_chain_sweeps(self.config, self.device, self.sweeps_done)
+
+    def _snapshot(self):
+        """The film as it stands, to rebuild from (an overflow retry)."""
+        return self.film
+
+    def _restore(self, snapshot) -> None:
+        self.film = snapshot
+
+    def _accumulate(self, delta) -> None:
+        self.film = self.film + delta
+
     def render(self, progress: Optional[Callable[[int, int], None]] = None):
         """Run the remaining sweeps (all of them unless resumed)."""
         c = self.config
         start = time.monotonic()
         sweep_marks = []
         resume_start = self.sweeps_done
-        chain = resolve_chain_sweeps(c, self.device, self.sweeps_done)
-        sweep = self.sweeps_done
+        todo = self._todo()
+        chain = self._chain()
         ps = tuple(c.phase_shrink or ())
         # overflow == 0 is an INVARIANT: each chunk's inputs and overflow
         # counter are recorded; if any path was dropped by a phase-capacity
@@ -344,44 +379,47 @@ class Renderer:
         # (one host sync, never per chunk) and before any mid-render
         # checkpoint (save_checkpoint), so a checkpoint never holds a biased
         # film.
-        self._ovf_film_start = self.film
+        self._ovf_film_start = self._snapshot()
         self._ovf_records: list = []
         self._ovf_counters: list = []
         self._ovf_retried_total = 0
         self._rendering = True
-        while sweep < c.spp:
-            n_chunk = min(chain, c.spp - sweep) if chain > 1 else 1
+        i = 0
+        while i < len(todo):
+            n_chunk = min(chain, len(todo) - i) if chain > 1 else 1
+            ids = todo[i:i + n_chunk]
             if n_chunk > 1:
                 # one chained launch traces n_chunk sweeps; their deltas are
                 # summed in sweep order before the film add
-                scheds = [self.scheduler.sweep(si) for si in range(sweep, sweep + n_chunk)]
+                scheds = [self._schedule(si) for si in ids]
                 rec = ("chained", np.stack([sc.block_seeds for sc in scheds]),
                        np.stack([sc.sample_offset for sc in scheds]))
                 span = maybe_span(self.tracer, "dispatch chained chunk",
-                                  sweeps=f"{sweep}..{sweep + n_chunk - 1}")
+                                  sweeps=f"{ids[0]}..{ids[-1]}")
             else:
-                sched = self.scheduler.sweep(sweep)
+                sched = self._schedule(ids[0])
                 rec = ("sweep", sched.block_seeds, sched.sample_offset)
-                span = maybe_span(self.tracer, "dispatch sweep", sweep=sweep)
+                span = maybe_span(self.tracer, "dispatch sweep", sweep=ids[0])
             with span:
                 delta, stats = self._run_chunk(*rec, ps)
             self._last_stats = stats
             self._ovf_records.append(rec)
             self._ovf_counters.append(stats["wave_overflow"])
-            self.film = self.film + delta
-            prev_done = sweep
-            sweep += n_chunk
-            self.sweeps_done = sweep
+            self._accumulate(delta)
+            i += n_chunk
+            prev_done = self.sweeps_done
+            self.sweeps_done += n_chunk
+            done = self.sweeps_done
             if progress is not None:
-                progress(self.sweeps_done, c.spp)
+                progress(done, self._total())
             # interval CROSSINGS, not modulo: a chunk advances sweeps_done by
             # n_chunk, so "done % interval == 0" could skip every preview
             if c.preview_interval and (
-                prev_done // c.preview_interval != sweep // c.preview_interval
+                prev_done // c.preview_interval != done // c.preview_interval
             ):
                 self.save_png(c.preview_path)
-            if c.live_preview and prev_done // c.live_preview != sweep // c.live_preview:
-                self._term_preview().update(self.image(), f"{self.sweeps_done}/{c.spp} sweeps")
+            if c.live_preview and prev_done // c.live_preview != done // c.live_preview:
+                self._term_preview().update(self.image(), f"{done}/{self._total()} sweeps")
             sweep_marks.append(time.monotonic() - start)
         with maybe_span(self.tracer, "overflow check (host sync)") as sp:
             self._settle_overflow()
@@ -453,15 +491,14 @@ class Renderer:
                 "every pending chunk at full capacity (phase_shrink=1) with the "
                 "same seeds, so the film stays unbiased"
             )
-            film = self._ovf_film_start
+            self._restore(self._ovf_film_start)
             for kind, a, b in self._ovf_records:
                 with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind):
                     delta, stats = self._run_chunk(kind, a, b, (1,) * 8)
                 self._last_stats = stats
-                film = film + delta
-            self.film = film
+                self._accumulate(delta)
             self._ovf_retried_total += seen
-        self._ovf_film_start = self.film
+        self._ovf_film_start = self._snapshot()
         self._ovf_records = []
         self._ovf_counters = []
         return seen
@@ -507,10 +544,14 @@ class Renderer:
         path: str,
         config: "RenderConfig | None" = None,
         device="cuda",
+        **kwargs,
     ) -> "Renderer":
         """Resume a checkpointed render. ``config`` may override the saved
         one (a higher spp renders the extra sweeps), but the fields that
-        shape the accumulated film (``_CHECKPOINT_FIXED``) must match."""
+        shape the accumulated film (``_CHECKPOINT_FIXED``) must match. The
+        checkpoint holds the whole film, so a render saved by one renderer
+        class (or device count) resumes in another; ``kwargs`` go to
+        ``cls`` (``num_devices``, ``devices``, ``host_id``, ...)."""
         data = np.load(path, allow_pickle=False)
         saved = json.loads(str(data["config"]))
         saved["phase_shrink"] = tuple(saved.get("phase_shrink") or ())  # JSON gave a list
@@ -523,11 +564,14 @@ class Renderer:
                         f"checkpoint resume: {f}={a!r} conflicts with the "
                         f"checkpointed render's {f}={b!r}"
                     )
-        r = cls(compiled, config or ckpt_config, device=device)
-        r.film = torch.from_numpy(data["film"]).to(r.device)
-        r.sweeps_done = int(data["sweeps_done"])
+        r = cls(compiled, config or ckpt_config, device=device, **kwargs)
+        r._resume(torch.from_numpy(data["film"]), int(data["sweeps_done"]))
+        return r
+
+    def _resume(self, film, sweeps_done: int) -> None:
+        self.film = film.to(self.device)
+        self.sweeps_done = sweeps_done
         # replay the scheduler so the remaining sweeps get the seeds they
         # would have had uninterrupted
-        for s in range(r.sweeps_done):
-            r.scheduler.sweep(s)
-        return r
+        for s in range(sweeps_done):
+            self.scheduler.sweep(s)

@@ -52,6 +52,8 @@ SIGNATURES = {
     "sort_tiles": [_P, _P, _I, _I, _P, _P, _P],
     # K3 takes its S sweeps' (S, 2) offsets as a host pointer
     "reconstruct": [_P, _P, _P, _I, _F, _I, _I, _I, _P, _P],
+    # ... and with an (H, W) sample weight, the third pointer
+    "reconstruct_weighted": [_P, _P, _P, _P, _I, _F, _I, _I, _I, _P, _P],
     "traverse": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     "reconstruct_occupancy": [_P],
     "traverse_occupancy": [_P],

@@ -34,7 +34,7 @@ def test_cli_builtin_scene(tmp_path):
     assert read_exr(str(out)).shape == (16, 16, 3)
 
 
-@pytest.mark.parametrize("flags", [["--mega-packet=1024"], ["--devices", "2"], ["--mega-groups", "2"],
+@pytest.mark.parametrize("flags", [["--mega-packet=1024"], ["--profile-dir", "p"], ["--mega-groups", "2"],
                                    ["--spec-resolve", "1", "--driver", "mega"]])
 def test_cli_refuses_unported_flags(flags, capsys):
     assert cli.main(["builtin:cornell", *flags]) == 2
@@ -105,3 +105,47 @@ def test_cli_module_entry_point(tmp_path):
     )
     assert r.returncode == 0, r.stderr
     assert out.exists() and "Wrote" in r.stdout
+
+
+@pytest.mark.parametrize("driver", ["mega", "sync"])
+def test_cli_devices_resume_across_device_counts(driver, tmp_path, capsys):
+    """--devices 2 with --platform cpu (the alias of --device cpu): two row
+    bands (mega) or the blocks over two devices (sync). A checkpoint of the
+    one-device render resumes on two devices, and the image equals the
+    one-device render of all the sweeps (the films' float sums aside)."""
+    base = [MESHBOX_SMALL, "--put-cbox-spheres", "--use-bvh", "--driver", driver,
+            "-w", "32", "-H", "128", "--block-size", "64", "--max-bounces", "8"]
+    one, two, ck, mj = (tmp_path / n for n in ("1.exr", "2.exr", "ck.npz", "m.json"))
+    assert cli.main(base + ["-s", "2", "--device", "cpu", "-o", str(one)]) == 0
+    assert cli.main(base + ["-s", "1", "--device", "cpu", "--checkpoint", str(ck),
+                            "-o", str(two)]) == 0
+    capsys.readouterr()
+    assert cli.main(base + ["-s", "2", "--platform", "cpu", "--devices", "2", "--checkpoint",
+                            str(ck), "-o", str(two), "--metrics-json", str(mj)]) == 0
+    out = capsys.readouterr().out
+    assert "Resumed from" in out and "x 2 devices" in out
+    m = json.loads(mj.read_text())
+    assert m["devices"] == 2 and m["metrics"]["devices"] == 2 and m["device"] == "cpu"
+    assert m["metrics"]["primary_rays"] == 32 * 128
+    np.testing.assert_allclose(read_exr(str(two)), read_exr(str(one)), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("flags,error", [
+    (["--devices", "3", "-H", "128"], "divide evenly into device bands"),
+    (["--devices", "2", "-H", "128", "--block-size", "128"],
+     "band height 64 must be a multiple of block_size 128"),
+    (["--devices", "2", "--device", "cuda"], "CUDA devices"),
+])
+def test_cli_devices_errors(flags, error):
+    """A band that does not divide raises the reference's error; so does
+    asking for more CUDA devices than are present (the card machine has
+    one)."""
+    argv = ["builtin:cornell", "-w", "32", "--block-size", "64", "-s", "1", "--device", "cpu",
+            *flags]
+    with pytest.raises(ValueError, match=error):
+        cli.main(argv)
+
+
+def test_cli_platform_tpu_refused(capsys):
+    assert cli.main(["builtin:cornell", "--platform", "tpu"]) == 2
+    assert "the TPU is the JAX package's" in capsys.readouterr().err

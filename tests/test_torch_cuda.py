@@ -972,3 +972,73 @@ def test_traverse_rejects_unaligned_rows():
     shifted.copy_(cs.trace_rows)
     with pytest.raises(ValueError):
         pt.traverse(shifted, o, d, tmin, tmax)
+
+
+@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("H,W,B", [(768, 1024, 128), (67 + 128, 131, 64)])
+def test_weighted_reconstruct_kernel_matches_plain(H, W, B, S):
+    """K3's weighted mode (a multi-device band's canvas: the band's rows
+    between B rows of zero padding at weight 0, NaN pixels in the band)
+    against its plain version (rtol 1e-5 / atol 1e-6); its S = 8 launch
+    bit-equal to its S = 1 launches summed in sweep order; weight 1
+    everywhere bit-equal to the unweighted kernel; each counted apart."""
+    dev = cuda_device()
+    rng = np.random.default_rng(H + S)
+    band = H - 2 * B
+    pad = lambda a: np.pad(a, [(0, 0), (B, B)] + [(0, 0)] * (a.ndim - 2))
+    color = (rng.random((S, band, W, 3)) * 2).astype(np.float32)
+    color[rng.random((S, band, W)) < 1e-3] = np.nan
+    normal = rng.standard_normal((S, band, W, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    so = rng.random((S, 2)).astype(np.float32)
+    c, n = (torch.from_numpy(pad(a)).to(dev) for a in (color, normal))
+    w = torch.from_numpy(pad(np.ones((1, band, W), np.float32))[0]).to(dev)
+    before = dict(prc.LAUNCHES)
+    got = prc.reconstruct(c, n, so, block_size=B, sample_weight=w)
+    assert prc.LAUNCHES["reconstruct_weighted"] == before["reconstruct_weighted"] + 1
+    assert prc.LAUNCHES["reconstruct"] == before["reconstruct"]
+    plain = prc.reconstruct_plain(c, n, so, block_size=B, sample_weight=w)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), plain.cpu().numpy(), rtol=1e-5, atol=1e-6)
+    assert not got[:B].any() and not got[B + band + prc.R:].any()
+    if S > 1:
+        want = None
+        for s in range(S):
+            d = prc.reconstruct(c[s], n[s], so[s], block_size=B, sample_weight=w)
+            want = d if want is None else want + d
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    ones = torch.ones_like(w)
+    assert torch.equal(prc.reconstruct(c, n, so, block_size=B, sample_weight=ones).view(torch.int32),
+                       prc.reconstruct(c, n, so, block_size=B).view(torch.int32))
+
+
+@pytest.mark.parametrize("chain", [1, 4])
+def test_two_bands_on_one_card_match_single(chain):
+    """MegaMultiChipRenderer over [cuda:0, cuda:0]: two row bands, each on
+    its own stream of the one card (K1/K2 or K4/K2, weighted K3), against
+    the single Renderer at rtol 1e-4 / atol 1e-5; the sync
+    MultiChipRenderer over the same two entries against the single sync
+    film at rtol 5e-4 / atol 5e-5."""
+    from hijiki_tpu_torch.parallel.multichip import MegaMultiChipRenderer, MultiChipRenderer
+
+    cuda_device()
+    cs = _scene(MESHBOX)
+    cfg = RenderConfig(width=256, height=256, spp=4, block_size=128, chain_sweeps=chain)
+    single = Renderer(cs, cfg, device="cuda")
+    single.render()
+    before = dict(prc.LAUNCHES)
+    bands = MegaMultiChipRenderer(cs, cfg, devices=["cuda:0", "cuda:0"])
+    m = bands.render()
+    assert m["devices"] == 2 and m["wave_overflow"] == 0 and m["chain_chunk_sweeps"] == chain
+    assert prc.LAUNCHES["reconstruct"] == before["reconstruct"]
+    assert prc.LAUNCHES["reconstruct_weighted"] == before["reconstruct_weighted"] + 2 * 4 // chain
+    np.testing.assert_allclose(bands.film.cpu().numpy(), single.film.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    if chain == 1:
+        sync = dict(width=128, height=128, spp=1, block_size=64, driver="sync", max_bounces=50)
+        one = Renderer(cs, RenderConfig(**sync), device="cuda")
+        one.render()
+        two = MultiChipRenderer(cs, RenderConfig(**sync), devices=["cuda:0", "cuda:0"])
+        two.render()
+        np.testing.assert_allclose(two.film.cpu().numpy(), one.film.cpu().numpy(),
+                                   rtol=5e-4, atol=5e-5)

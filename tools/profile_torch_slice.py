@@ -3,7 +3,7 @@ goes (kernels by name, host gaps) and the device's busy share.
 
     python tools/profile_torch_slice.py [--driver mega|sync|wavefront] [--size 1024]
                                         [--spp 8] [--chain-sweeps 0] [--sort-lanes]
-                                        [--trace out.json]
+                                        [--bands 1] [--trace out.json]
 
 Renders the meshbox (+ cbox spheres) once to warm up, then renders again
 under torch.profiler (CPU + CUDA activities) and prints device time by
@@ -15,7 +15,11 @@ share), the device-to-host and host-to-device copies (each host read of a
 device value is one and waits for the device) and the peak device memory. ``--chain-sweeps`` (mega driver): 0 =
 auto (chained, 8 sweeps per launch, on a card), 1 = unchained, S = S
 sweeps. ``--sort-lanes``: the lane-sorted launches (K7 inside K1/K2; the
-mega driver then runs unchained). Needs a CUDA card; imports only the port.
+mega driver then runs unchained). ``--bands N`` (mega driver): N row bands
+on the one card, a stream each (``MegaMultiChipRenderer`` over N entries of
+cuda:0); their kernels may overlap, so the device time of the kernels'
+union is printed beside their sum. Needs a CUDA card; imports only the
+port.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def main(argv=None) -> int:
                    help="sweeps per chained launch: 0 = auto, 1 = unchained")
     p.add_argument("--sort-lanes", action="store_true",
                    help="lane-sorted megakernel launches (K7; unchained)")
+    p.add_argument("--bands", type=int, default=1,
+                   help="mega driver: row bands on the one card, a stream each")
     p.add_argument("--trace", default=None, help="write a Chrome trace here")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,8 +73,14 @@ def main(argv=None) -> int:
     cs = compile_scene(scene)
     cfg = RenderConfig(width=args.size, height=args.size, spp=args.spp, driver=args.driver,
                        chain_sweeps=args.chain_sweeps, sort_lanes=args.sort_lanes)
-    Renderer(cs, cfg, device="cuda").render()  # warm-up: build, caches, allocator
-    r = Renderer(cs, cfg, device="cuda")
+    if args.bands > 1:
+        from hijiki_tpu_torch.parallel.multichip import MegaMultiChipRenderer
+
+        make = lambda: MegaMultiChipRenderer(cs, cfg, devices=["cuda:0"] * args.bands)
+    else:
+        make = lambda: Renderer(cs, cfg, device="cuda")
+    make().render()  # warm-up: build, caches, allocator
+    r = make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -111,6 +123,15 @@ def main(argv=None) -> int:
         print(f"{m['iterations_last_sweep']} bounce iterations in the last sweep")
     print(f"device busy {busy_us / 1e6:.4f} s of {wall:.4f} s wall: busy share {busy_us / 1e6 / wall:.3f}; "
           f"per chunk {busy_us / 1e3 / chunks:.3f} ms busy, {(wall * 1e6 - busy_us) / 1e3 / chunks:.3f} ms idle")
+    # the union of the device events' intervals: kernels on two streams
+    # that run at once count once
+    union, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if str(e.device_type).endswith("CUDA")):
+        union += max(0.0, b - max(a, end))
+        end = max(end, b)
+    print(f"device busy (union of intervals) {union / 1e6:.4f} s: busy share {union / 1e6 / wall:.3f}, "
+          f"overlap {(busy_us - union) / 1e3 / chunks:.3f} ms per chunk")
     if args.trace:
         prof.export_chrome_trace(args.trace)
         print(f"trace: {args.trace}")
