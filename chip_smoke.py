@@ -34,6 +34,14 @@ Phases, each printing as it goes; any failure exits non-zero:
    its lane and hold lane_sort_key of each path's written state
    (order_mismatch); once more on a K2 input whose lanes alive at the cap
    have NaN, +-inf, +-1e30, box-bound and outside origins;
+4b. the trace-row formats: K1 (cap 5), K2 (resume to 24), K5 (to 24) and
+   K4 (3 samples, chain cap 8) bit-equal to their twins on meshbox_small +
+   spheres compiled with packed_leaf 1 (SLIM), 3, 4 and 12 (octant tables)
+   at 128x128, and on the meshbox with the dedicated shadow table and
+   without the shadow-visibility boxes at 64x64 (phase 4 ran them with the
+   boxes, JAX's default compile); the sorted K1/K2/K5 bit-equal to the
+   unsorted kernels on each; K1 with the boxes and with the shadow table
+   bit-equal to K1 without the boxes but for fewer rows visited;
 5. the paths, each driven with the launch counts set to 0 just before and
    read just after, each with a finite film, mean > 0, overflow 0 and
    every kernel of the path launched:
@@ -46,6 +54,14 @@ Phases, each printing as it goes; any failure exits non-zero:
    (i) the lane-sorted slice: Renderer(sort_lanes=True) at 1024x1024, 8
        spp (chaining off by rule: the sorted K1 and K2, K3), its film
        bit-equal to (b)'s;
+   (a0) (a) without the shadow-visibility boxes (the configuration before them)
+       and (o) (a) with the dedicated shadow table (mega_shadow=1): each
+       film bit-equal to (a)'s;
+   (p) the 2-level 4-to-1 split of meshbox + spheres (100,384 triangles,
+       scene/bigscene.py), compiled by auto (PACKED4) and as classic rows
+       at leaf 4 (the same tree), compile seconds and table bytes printed:
+       the two films bit-equal; then 3 fresh renders each of (a), (a0),
+       (o) and the two (p) in turns: warm Mrays/s, medians, rows visited;
    (c) the overflow retry at 256x256, 8 spp, chain cap 2, phase_shrink
        (9999,): paths drop and are re-rendered; the film bit-equal to the
        same render at phase_shrink (1,)*8;
@@ -117,7 +133,13 @@ Phases, each printing as it goes; any failure exits non-zero:
    version with the phase-4 bounds and its order record bit-equal to the
    plain version's, and timed beside the unsorted one), K5 sorted on the
    frame likewise; K8 at 1M lanes x 31 channels, bit-equal to
-   its plain version, timed beside torch.sort(stable=True) + gather;
+   its plain version, timed beside torch.sort(stable=True) + gather; each
+   trace-row format (classic with and without the boxes and with the
+   shadow table, 1, 3, 4, 12) on the meshbox: its chained chunk and
+   unchained sweep recorded and replayed through K4, K1 and K2, and K5
+   over the frame, timed with rows visited and bound; (p)'s chained chunk
+   (8 x 1M slots on its 100,384-triangle PACKED4 table) recorded and every
+   K4 and K2 call replayed through the kernel and the twin, bit-equal;
 7. probes: K9/K10/K11 vs plain, then timed (hijiki_tpu_torch/probes/): each
    of walk_ablate (K10a), walk_isolate (K10b), latency_chain and
    staged_chase (K11a), alu_issue, dtype_elementwise (f32, bf16, bf16x2)
@@ -136,7 +158,9 @@ errors and times come from phase 6 (K3's: the chained chunk's launch;
 its error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
 (b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
-K8 from (j), K3's weighted mode from (l), the probes from (k)); each entry
+K8 from (j), K3's weighted mode from (l), the probes from (k)); K1, K2, K4
+and K5 also name the formats they were held on (``formats``) and their
+time and bound per format (``ms_by_format``); each entry
 has its bound (bound_ms: the
 larger of the bytes this run's data needs at 3.35 TB/s and its f32
 operations at 67 TFLOP/s, counted from this run's row-visit counters at
@@ -283,8 +307,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Print the phase's name and the seconds since the script started."""
+    print(f"== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
 
 
 def timed(fn, reps: int = 1, warm: bool = True):
@@ -909,6 +937,71 @@ def main() -> int:
     if not bit_equal(got[:2], mk.megakernel_resume(ms_small, st_key, rng0, 8)):
         fail("the sorted K2 differs from the unsorted kernel on the key-test state")
 
+    # ---- 4b. the trace-row formats, the boxes and the shadow table ----
+    phase("K1/K2/K4/K5 vs twin on each packed format (meshbox_small, 128x128), with the "
+          "shadow table and without the boxes (meshbox, 64x64)")
+    small_scene = load_obj_scene(SCENE_SMALL)
+    small_scene.put_cbox_spheres()
+    fmt_err = {k: 0.0 for k in ("mk_start", "mk_resume", "mk_tiles", "mk_start_chained")}
+    # the formats each kernel was held to its twin on (phase 4: classic rows
+    # with the boxes of JAX's default compile)
+    held = {k: ["classic+boxes"] for k in fmt_err}
+
+    def hold_formats(label, ms_f, fpx, fpy, fseeds, fpxs, fpys, fsds):
+        """K1 (cap 5), K2 (resume to 24), K5 (to 24), K4 (3 samples, chain
+        cap 8) against their twins (bit for bit), the sorted K1/K2/K5
+        bit-equal to the unsorted kernels; returns K1's output."""
+        f1 = mk.megakernel_start(ms_f, fpx, fpy, fseeds, 5)
+        runs = (("mk_start", agree, f1, mk.megakernel_start_plain(ms_f, fpx, fpy, fseeds, 5)),
+                ("mk_resume", agree, mk.megakernel_resume(ms_f, *f1, 24),
+                 mk.megakernel_resume_plain(ms_f, *f1, 24)),
+                ("mk_tiles", agree_tiles, mk.megakernel_tiles(ms_f, fpx, fpy, fseeds, 24),
+                 mk.megakernel_tiles_plain(ms_f, fpx, fpy, fseeds, 24)),
+                ("mk_start_chained", agree_chained,
+                 mk.megakernel_start_chained(ms_f, fpxs, fpys, fsds, 8),
+                 mk.megakernel_start_chained_plain(ms_f, fpxs, fpys, fsds, 8)))
+        for name, check_fn, got, want in runs:
+            fmt_err[name] = max(fmt_err[name], check_fn(f"{label} {name}", got, want))
+            if not bit_equal(got, want):
+                fail(f"{label} {name}: the kernel differs from its twin bit for bit")
+            held[name].append(label)
+        for fn, args, un in ((mk.megakernel_start, (fpx, fpy, fseeds, 5), f1),
+                             (mk.megakernel_resume, (*f1, 24), runs[1][2]),
+                             (mk.megakernel_tiles, (fpx, fpy, fseeds, 24), runs[2][2])):
+            if not bit_equal(fn(ms_f, *args, lane_sort=True), un):
+                fail(f"{label}: the sorted {fn.__name__} differs from the unsorted kernel")
+        print(f"{label}: the sorted K1/K2/K5 bit-equal to the unsorted kernels", flush=True)
+        return f1
+
+    F_ = 128
+    fy, fx = np.mgrid[0:F_, 0:F_]
+    fpxs = torch.from_numpy(np.stack([(fx + j[0]).ravel() for j in jit]).astype(np.float32)).to(dev)
+    fpys = torch.from_numpy(np.stack([(fy + j[1]).ravel() for j in jit]).astype(np.float32)).to(dev)
+    fsds = torch.from_numpy(frame.integers(0, 1 << 32, size=(3, F_ * F_), dtype=np.uint32)
+                            .view(np.int32)).to(dev)
+    fpx, fpy, fseeds = fpxs[0].contiguous(), fpys[0].contiguous(), fsds[0].contiguous()
+    for fmt, label in ((1, "slim"), (3, "packed3"), (4, "packed4"), (12, "packed12")):
+        cs_f = compile_scene(small_scene, packed_leaf=fmt)
+        if cs_f.mega_packed_static != fmt or cs_f.mega_num_tables_static != 8:
+            fail(f"meshbox_small at packed_leaf={fmt}: format {cs_f.mega_packed_static}, "
+                 f"{cs_f.mega_num_tables_static} tables")
+        print(f"{label}: {tuple(cs_f.trace_rows_mega.shape)} rows (8 walk tables of "
+              f"{cs_f.mega_tbl_rows_static} + {cs_f.mega_pay_rows_static} payload rows)")
+        hold_formats(label, mk.mega_scene(cs_f, F_, F_, dev), fpx, fpy, fseeds, fpxs, fpys, fsds)
+    ms_tbl = mk.launch_scene(ms_small, shadow_tbl=True)
+    print(f"shadow_tbl: meshbox's dedicated table, {ms_tbl.shadow_n} PACKED3 rows")
+    t1 = hold_formats("shadow_tbl", ms_tbl, px, py, seeds, pxs, pys, sds)
+    off = mk.megakernel_start(mk.launch_scene(ms_small, shadow_vis=False), px, py, seeds, 5)
+    keep = [i for i in range(mk.N_STATE) if i != mk._STATE_CH.index("rows")]
+    for label, got in (("shadow_tbl", t1), ("boxes", k1)):
+        if not (bit_equal([got[0][keep], got[1]], [off[0][keep], off[1]])
+                and float(got[0][23].sum()) < float(off[0][23].sum())):
+            fail(f"K1 with {label}: not bit-equal to K1 without the boxes but for fewer rows")
+    print(f"K1 (cap 5) rows visited at 64x64: {float(off[0][23].sum()):.0f} without the boxes, "
+          f"{float(k1[0][23].sum()):.0f} with them, {float(t1[0][23].sum()):.0f} with them and the "
+          "shadow table; every other channel and the RNG bit-equal")
+    hold_formats("noboxes", mk.launch_scene(ms_small, shadow_vis=False), px, py, seeds, pxs, pys, sds)
+
     # ---- 5. the paths ----
     def drive(label, fn):
         """Run one path with every launch count set to 0 just before;
@@ -979,6 +1072,72 @@ def main() -> int:
         fail("(i) the lane-sorted film differs from the unsorted film (b)")
     print(f"(i) film == (b)'s bit for bit; {mi['render_seconds'] / 8:.4f} s per sweep against (b)'s "
           f"{mb['render_seconds'] / 8:.4f} s")
+
+    # (a0) (a)'s scene without the boxes; (o) (a)
+    # with the dedicated shadow table. Each film bit-equal to (a)'s.
+    cs0 = compile_scene(scene, shadow_vis_boxes=False)
+    ra0 = Renderer(cs0, RenderConfig(**slice_cfg), device="cuda")
+    ma0, counts_a0 = drive("(a0) (a) without the shadow-visibility boxes: 1024x1024, 8 spp",
+                           ra0.render)
+    check_render("(a0) no boxes", ra0, ma0, counts_a0, ("mk_start_chained", "mk_resume", "reconstruct"))
+    ro = Renderer(cs, RenderConfig(**slice_cfg, mega_shadow=1), device="cuda")
+    mo, counts_o = drive("(o) (a) with the dedicated shadow table (mega_shadow=1): 1024x1024, 8 spp",
+                         ro.render)
+    check_render("(o) shadow table", ro, mo, counts_o, ("mk_start_chained", "mk_resume", "reconstruct"))
+    for name, r_ in (("(a0)", ra0), ("(o)", ro)):
+        if not torch.equal(r_.film, ra.film):
+            fail(f"{name}'s film differs from (a)'s")
+    print("(a0) and (o) films == (a)'s bit for bit")
+
+    # (p) the 2-level split meshbox + spheres (100,384 triangles): JAX's
+    # default compile packs it (PACKED4); held bit for bit to the same
+    # scene compiled classic at leaf 4 (the same tree)
+    from hijiki_tpu_torch.scene.bigscene import split_scene
+
+    big = split_scene(scene, 2)
+    compiled_big = {}
+    for key, kw in (("(p) PACKED4", {}), ("(p) classic leaf 4", dict(packed_leaf=0, leaf_size=4))):
+        t_c = time.monotonic()
+        cb = compile_scene(big, **kw)
+        secs_c = time.monotonic() - t_c
+        tb_bytes = cb.trace_rows_mega.nbytes + (cb.shadow_rows_mega.nbytes
+                                                if cb.shadow_rows_mega is not None else 0)
+        print(f"{key}: {cb.num_triangles} triangles compiled in {secs_c:.1f} s; format "
+              f"{cb.mega_packed_static}, {tuple(cb.trace_rows_mega.shape)} trace rows, "
+              f"{cb.mega_num_tables_static} table(s), {tb_bytes / 2**20:.2f} MiB of tables "
+              f"(the shadow table's {0 if cb.shadow_rows_mega is None else cb.shadow_rows_mega.shape[0]} "
+              f"rows included), {int(cb.shadow_vis_static[0]) if cb.shadow_vis_static else 0} boxes",
+              flush=True)
+        compiled_big[key] = cb
+    if compiled_big["(p) PACKED4"].mega_packed_static != 4 or big.bulk_tris.shape[0] != 100384:
+        fail("(p): the split scene is not 100,384 triangles compiled PACKED4 by auto")
+    renders_p = {}
+    for key, cb in compiled_big.items():
+        rp_ = Renderer(cb, RenderConfig(**slice_cfg), device="cuda")
+        mp_, counts_p = drive(f"{key}: 1024x1024, 8 spp, chaining auto", rp_.render)
+        check_render(key, rp_, mp_, counts_p, ("mk_start_chained", "mk_resume", "reconstruct"))
+        renders_p[key] = rp_
+    if not torch.equal(renders_p["(p) PACKED4"].film, renders_p["(p) classic leaf 4"].film):
+        fail("(p): the PACKED4 film differs from the classic leaf-4 film")
+    print("(p) PACKED4 film == the classic leaf-4 film bit for bit")
+
+    # warm Mrays/s and rows of (a), (a0), (o), (p): fresh renderers in turns
+    warm_cfgs = {"(a)": (cs, {}), "(a0)": (cs0, {}), "(o)": (cs, dict(mega_shadow=1)),
+                 "(p) PACKED4": (compiled_big["(p) PACKED4"], {}),
+                 "(p) classic leaf 4": (compiled_big["(p) classic leaf 4"], {})}
+    warm_pr = {k: [] for k in warm_cfgs}
+    for _ in range(3):
+        for key, (c_, kw) in warm_cfgs.items():
+            m_ = Renderer(c_, RenderConfig(**slice_cfg, **kw), device="cuda").render()
+            # a chunk's rows_visited is its per-sweep mean: times the sweeps
+            warm_pr[key].append((m_["mrays_per_second"],
+                                 m_["rows_visited_last_sweep"] * slice_cfg["spp"]))
+    for key, v in warm_pr.items():
+        rates = [x[0] for x in v]
+        print(f"warm {key}: median {float(np.median(rates)):.3f} Mrays/s "
+              f"({', '.join(f'{x:.3f}' for x in rates)}), rows visited {v[0][1]:.6e} a render",
+              flush=True)
+    del renders_p, ra0, ro
 
     small = dict(width=256, height=256, spp=8, max_bounces=1000, block_size=128, driver="mega")
     rc_ = Renderer(cs, RenderConfig(**small, mega_chain_cap=2, phase_shrink=(9999,)), device="cuda")
@@ -1182,8 +1341,6 @@ def main() -> int:
     if not torch.equal(rp.film, rs.film):
         fail("(h) the packet traversal's film differs from rows'")
     print(f"(h) fixed albedo film finite (launches {counts_h}); packet film == rows film, bit for bit")
-    small_scene = load_obj_scene(SCENE_SMALL)
-    small_scene.put_cbox_spheres()
     css = to_device(compile_scene(small_scene), dev)
     so_ = camera_rays(css.cam_position, css.cam_rotation, css.cam_fov,
                       torch.stack([px, py], -1), (S, S))
@@ -1210,14 +1367,17 @@ def main() -> int:
              "mk_start_chained": mk.megakernel_start_chained_plain}
     check = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chained}
 
-    def work(name, args, got):
-        """(bytes, f32 operations) of one megakernel call: the table once,
+    def work(name, args, got, scene=None):
+        """(bytes, f32 operations) of one megakernel call: the table once
+        (the dedicated shadow table too where the launch reads it),
         ROW_OPS per trace row the call's paths visited (state channel 23 /
         flush channel 8 count them), and its inputs and outputs once. K2
         passes a lane that is not alive through unchanged, so a resume
         counts every lane's alive flag and the state and RNG of the live
-        lanes, read and written."""
-        table = nbytes(ms.rows, ms.consts)
+        lanes, read and written. ``scene``: the launch's MegaScene (default
+        the slice's)."""
+        sc = ms if scene is None else scene
+        table = nbytes(sc.rows, sc.consts) + (nbytes(sc.shadow_rows) if sc.shadow_tbl else 0)
         rows = got[0][23].sum()
         if name == "mk_resume":
             st, rng_in = args[0], args[1]
@@ -1231,13 +1391,15 @@ def main() -> int:
         tensors = [a for a in args if torch.is_tensor(a)] + list(got)
         return table + nbytes(*tensors), float(rows) * ROW_OPS
 
-    def replay(tag, calls):
-        """Each call through the kernel and the twin; returns per kernel its
-        times, the twin's, its error, its work, and its last call's outputs."""
+    def replay(tag, calls, scene=None):
+        """Each call through the kernel and the twin (on ``scene``, default
+        the slice's); returns per kernel its times, the twin's, its error,
+        its work, and its last call's outputs."""
+        sc = ms if scene is None else scene
         ms_of, plain_of, err_of, work_of, out_of = {}, {}, {}, {}, {}
         for name, args in calls:
-            t_k, got = timed(lambda: real[name](ms, *args), reps=3)
-            t_p, want = timed(lambda: plain[name](ms, *args), reps=1, warm=False)
+            t_k, got = timed(lambda: real[name](sc, *args), reps=3)
+            t_p, want = timed(lambda: plain[name](sc, *args), reps=1, warm=False)
             lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
             label = f"{tag} {name} ({lanes} lanes, cap {args[-1]})"
             err_of[name] = max(err_of.get(name, 0.0), check[name](label, got, want))
@@ -1245,7 +1407,7 @@ def main() -> int:
                 fail(f"{label}: the kernel's outputs differ from the twin's bit for bit")
             ms_of.setdefault(name, []).append(t_k)
             plain_of.setdefault(name, []).append(t_p)
-            work_of.setdefault(name, []).append(work(name, args, got))
+            work_of.setdefault(name, []).append(work(name, args, got, sc))
             out_of[name] = got
             b_ms, b_by = bound(*work_of[name][-1])
             print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
@@ -1271,6 +1433,10 @@ def main() -> int:
         print(f"{name}: {occ['registers']} registers, {occ['spill_bytes']} bytes spilled, "
               f"{occ['local_bytes']} bytes of local memory, {occ['warps_per_sm']} resident warps an SM, "
               f"{launch}")
+        # the other formats' instantiations: registers / spill bytes / warps
+        others = {f: mk.occupancy(name, fmt=f) for f in mk.KERNEL_FORMATS if f != "classic"}
+        print(f"  {name} by format (registers/spill bytes/warps an SM): " + ", ".join(
+            f"{f} {o['registers']}/{o['spill_bytes']}/{o['warps_per_sm']}" for f, o in others.items()))
     pool, _, chain_out = c_out.pop("mk_start_chained")
     wi = mk.warp_iterations(mk.chained_segs(pool, chain_out, cpx.shape[0]))
     print("K4's chunk, warp-bounces a warp of 32 consecutive lanes: whole samples a thread "
@@ -1516,27 +1682,97 @@ def main() -> int:
         b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
         return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    # the formats at the main path's shapes: meshbox + spheres compiled
+    # with each packed_leaf (and classic with the boxes, without them, with
+    # the dedicated shadow table); each format's chained chunk (K4 to cap 8
+    # and its K2 resumes) and unchained sweep (K1 to cap 5, K2 to 12, 48,
+    # 1000) recorded and replayed through the kernels, and K5 over the frame
+    # to 1000, each timed (mean of 3) beside its rows visited and its bound
+    # (the classic rows' plain-version times are the calls above)
+    phase("K1/K2/K4/K5 per trace-row format at the main path's shapes")
+    fmt_ms, fmt_bound = {}, {}
+    for label, pl_, vis, tbl in (("classic+boxes", 0, True, False), ("classic", 0, False, False),
+                                 ("shadow_tbl", 0, True, True), ("slim", 1, True, False),
+                                 ("packed3", 3, True, False), ("packed4", 4, True, False),
+                                 ("packed12", 12, True, False)):
+        cs_f = cs if pl_ == 0 else compile_scene(scene, packed_leaf=pl_)
+        ms_f = mk.launch_scene(mk.mega_scene(cs_f, W, H, dev), shadow_vis=vis, shadow_tbl=tbl)
+        opts = dict(shadow_vis=vis, shadow_tbl=tbl)
+        calls_f = record_calls(mk, real, lambda: mk.render_waves_chained(
+            ms_f, cpx, cpy, cseeds, max_bounces=1000, **opts))
+        calls_f += record_calls(mk, real, lambda: mk.render_waves(
+            ms_f, upx, upy, useeds, max_bounces=1000, **opts))
+        times, works = {}, {}
+        for name, args in calls_f:
+            t_k, got = timed(lambda: real[name](ms_f, *args), reps=3)
+            times.setdefault(name, []).append(t_k)
+            works.setdefault(name, []).append(work(name, args, got, ms_f))
+        t5, got5 = timed(lambda: mk.megakernel_tiles(ms_f, upx, upy, useeds, 1000), reps=3)
+        rows5 = float(mk.megakernel_start(ms_f, upx, upy, useeds, 1000)[0][23].sum())
+        table = nbytes(ms_f.rows, ms_f.consts) + (nbytes(ms_f.shadow_rows) if tbl else 0)
+        works["mk_tiles"] = [(table + nbytes(upx, upy, useeds, *got5), rows5 * ROW_OPS)]
+        times["mk_tiles"] = [t5]
+        sweep_k2 = " + ".join(f"{t:.3f}" for t in times["mk_resume"][-3:])
+        # K2 as the report counts it: the chunk's resumes (the sweep's 3 follow)
+        times["mk_resume"], works["mk_resume"] = times["mk_resume"][:-3], works["mk_resume"][:-3]
+        fmt_ms[label] = {k: sum(v) for k, v in times.items()}
+        fmt_bound[label] = {k: summed(v)["bound_ms"] for k, v in works.items()}
+        k4_rows = sum(w[1] for w in works["mk_start_chained"]) / ROW_OPS
+        print(f"{label} ({tuple(cs_f.trace_rows_mega.shape)} rows, {ms_f.ntab} table(s), "
+              f"{ms_f.nbox} boxes{', shadow table' if tbl else ''}): chunk K4 "
+              f"{times['mk_start_chained'][0]:.3f} ms + K2 "
+              f"{' + '.join(f'{t:.3f}' for t in times['mk_resume'])} ms "
+              f"(K4 rows {k4_rows:.6e}, bound {fmt_bound[label]['mk_start_chained']:.4f} ms); sweep "
+              f"K1 {times['mk_start'][0]:.3f} ms + K2 {sweep_k2} ms; K5 to 1000 "
+              f"{t5:.3f} ms (rows {rows5:.6e}, bound {fmt_bound[label]['mk_tiles']:.4f} ms)",
+              flush=True)
+        del ms_f, calls_f, got5
+
+    # (p)'s chained chunk at the main path's shapes (8 x 1M slots of the
+    # 100,384-triangle PACKED4 table), as path (p) launches it: every K4
+    # and K2 call recorded and replayed through the kernel and the twin,
+    # bit-equal
+    ms_p = mk.mega_scene(compiled_big["(p) PACKED4"], W, H, dev)
+    p_calls = record_calls(mk, real, lambda: mk.render_waves_chained(
+        ms_p, cpx, cpy, cseeds, max_bounces=1000))
+    _, _, p_err, _, _ = replay("(p) PACKED4 chained chunk:", p_calls, ms_p)
+    for name in ("mk_start_chained", "mk_resume"):
+        if name not in p_err:
+            fail(f"(p) PACKED4 chained chunk: no {name} call recorded")
+        fmt_err[name] = max(fmt_err[name], p_err[name])
+        held[name].append("(p) packed4, 100,384 triangles, 8 x 1024x1024")
+    del ms_p, p_calls
+
     probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd)
+
+    def by_format(name):
+        """{format: [ms, bound ms]} of a kernel at the main path's shapes"""
+        return {f: [fmt_ms[f][name], fmt_bound[f][name]] for f in fmt_ms}
 
     src = "hijiki_tpu_torch/csrc/"
     mkpy = "hijiki_tpu/ops/pallas_megakernel.py"
     kernels = [
         dict(name="mk_start", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3000", launches=counts_b["mk_start"],
-             max_abs_err=u_err["mk_start"], ms=sum(u_ms["mk_start"]),
-             plain_ms=sum(u_plain["mk_start"]), **summed(u_work["mk_start"])),
+             max_abs_err=max(u_err["mk_start"], fmt_err["mk_start"]), ms=sum(u_ms["mk_start"]),
+             plain_ms=sum(u_plain["mk_start"]), **summed(u_work["mk_start"]),
+             formats=held["mk_start"], ms_by_format=by_format("mk_start")),
         dict(name="mk_resume", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3041", launches=counts_a["mk_resume"],
-             max_abs_err=max(c_err["mk_resume"], u_err["mk_resume"]),
+             max_abs_err=max(c_err["mk_resume"], u_err["mk_resume"], fmt_err["mk_resume"]),
              ms=sum(c_ms["mk_resume"]), plain_ms=sum(c_plain["mk_resume"]),
-             **summed(c_work["mk_resume"])),
+             **summed(c_work["mk_resume"]),
+             formats=held["mk_resume"], ms_by_format=by_format("mk_resume")),
         dict(name="mk_start_chained", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3015", launches=counts_a["mk_start_chained"],
-             max_abs_err=c_err["mk_start_chained"], ms=sum(c_ms["mk_start_chained"]),
-             plain_ms=sum(c_plain["mk_start_chained"]), **summed(c_work["mk_start_chained"])),
+             max_abs_err=max(c_err["mk_start_chained"], fmt_err["mk_start_chained"]),
+             ms=sum(c_ms["mk_start_chained"]),
+             plain_ms=sum(c_plain["mk_start_chained"]), **summed(c_work["mk_start_chained"]),
+             formats=held["mk_start_chained"], ms_by_format=by_format("mk_start_chained")),
         dict(name="mk_tiles", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:2778", launches=counts_e["mk_tiles"],
-             max_abs_err=k5_err, ms=t_k5, plain_ms=t_k5p, **summed([k5_work])),
+             max_abs_err=max(k5_err, fmt_err["mk_tiles"]), ms=t_k5, plain_ms=t_k5p,
+             **summed([k5_work]), formats=held["mk_tiles"], ms_by_format=by_format("mk_tiles")),
         dict(name="reconstruct", route="cuda", source=src + "reconstruct.cu",
              replaces="hijiki_tpu/render/pallas_reconstruct.py:42",
              launches=counts_a["reconstruct"], max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p,

@@ -25,8 +25,8 @@ import time
 
 # hijiki_tpu.cli flags the port does not have yet (any value is refused)
 NOT_PORTED = (
-    "--packed-leaf", "--mega-packet", "--mega-groups", "--spec-resolve",
-    "--mega-trunk", "--mega-window", "--mega-shadow", "--profile-dir",
+    "--mega-packet", "--mega-groups", "--spec-resolve",
+    "--mega-trunk", "--mega-window", "--profile-dir",
 )
 # --platform names the device as JAX names its platform
 PLATFORM_DEVICE = {"cpu": "cpu", "gpu": "cuda"}
@@ -58,6 +58,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview-image", default="preview.png")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--block-size", type=int, default=128)
+    p.add_argument(
+        "--packed-leaf",
+        default="auto",
+        help="Megakernel trace-row format: auto (pack 4-prim 64-col rows for scenes "
+        "whose classic table passes 8 MiB, classic rows otherwise), 0 = classic, "
+        "1 = SLIM 16-col rows, 2-3 = 32-col 3-prim rows, 4 = 64-col 4-prim rows, "
+        "5+ = 128-col 12-prim rows (scene/compile.py packed_leaf)",
+    )
+    p.add_argument(
+        "--mega-shadow",
+        type=int,
+        default=0,
+        help="Dedicated any-hit shadow table for the megakernel's NEE walk (the same "
+        "image; fewer shadow row visits): 0 = auto (off), 1 = on, -1 = off",
+    )
     p.add_argument("--max-bounces", type=int, default=1000)
     p.add_argument("--metrics-json", default=None,
                    help="Write render metrics as one JSON object to this path ('-' for stdout)")
@@ -130,7 +145,10 @@ def main(argv=None) -> int:
         scene.put_cbox_spheres()
     if args.put_dielectric_sphere:
         scene.put_dielectric_sphere()
-    compiled = compile_scene(scene)
+    packed_leaf = args.packed_leaf
+    if packed_leaf != "auto":
+        packed_leaf = int(packed_leaf)
+    compiled = compile_scene(scene, packed_leaf=packed_leaf)
     print(
         f"Compiled scene: {compiled.num_spheres} spheres, {compiled.num_quads} quads, "
         f"{compiled.num_triangles} triangles, {compiled.num_emitters} emitters, "
@@ -151,6 +169,7 @@ def main(argv=None) -> int:
         fixed_albedo=args.fixed_albedo,
         chain_sweeps=args.chain_sweeps,
         live_preview=args.live_preview,
+        mega_shadow=args.mega_shadow,
     )
     cls, kwargs = Renderer, {}
     if args.devices > 1:

@@ -45,6 +45,19 @@
 // Counters: `rows` counts the trace rows THIS thread visited (closest walk,
 // winner fetch, shadow walk). The TPU kernel counted per-packet row unions,
 // so its values differ by design.
+//
+// The scene's trace-row format (scene/compile.py, _prim_test's packed and
+// the shadow_ref branch of _bounce_loop): the classic 32-column rows, or
+// a packed table of 1, 3, 4 or 12 triangles a row with its payload section
+// (walk.cuh::walk_packed; trace_closest resolves a packed winner from its
+// payload row), and, with classic rows, the dedicated PACKED3 any-hit
+// table that shadow rays walk instead of the main one (trace_any<kSh>).
+// Each kernel is a template on the format, <kFmt, kSh>, whose default
+// <0, false> is the classic rows, and each C entry launches the
+// instantiation of the scene's format (FMT_KERNEL). The
+// shadow-visibility boxes are read at run time (nbox of them, 0 when the
+// launch reads none): a lane whose NEE origin lies in a box skips its
+// shadow walk. None of these changes an output but the rows counter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -149,15 +162,28 @@ struct Hit {
   float pay[15];
 };
 
-// closest hit: analytic pretest, walk, winner resolve
+// closest hit: analytic pretest, walk, winner resolve. kFmt: the trace-row
+// format (0 classic; 1, 3, 4, 12 packed: the winner is a payload slot, its
+// row at ntab * tbl_rows + slot (SLIM: two rows a slot) holds kind, tag,
+// midx and the 15 payload floats in columns 0-17, and winners encode from
+// n_pay)
+template <int kFmt = 0>
 __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
-  const int enc = S.total_rows;
+  const int enc = kFmt == 0 ? S.total_rows : S.n_pay;
   float bt = kBig, bu = 0.0f, bv = 0.0f;
   int wrow = enc + S.na;
-  analytic_pretest(S, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, bt, bu, bv, wrow);
+  analytic_pretest(S, enc, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, bt, bu, bv,
+                   wrow);
   bool unused = false;
-  h.nit = walk(S, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, kBig, false,
-               unused, bt, bu, bv, wrow);
+  if constexpr (kFmt == 0) {
+    h.nit = walk(S, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz, p.tmin, kBig, false,
+                 unused, bt, bu, bv, wrow);
+  } else {
+    const int base = octant_base(S, p.dx, p.dy, p.dz);
+    h.nit = walk_packed<kFmt>(S.rows, base, base + S.tbl_rows, p.ox, p.oy, p.oz,
+                              p.dx, p.dy, p.dz, p.tmin, kBig, false, unused, bt,
+                              bu, bv, wrow);
+  }
   h.t = bt;
   h.u = bu;
   h.v = bv;
@@ -165,12 +191,25 @@ __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
   h.kind = h.tag = h.midx = 0.0f;
   for (int j = 0; j < 15; ++j) h.pay[j] = 0.0f;
   if (wrow < enc) {
-    const float* r = S.rows + static_cast<size_t>(wrow) * kRowW;
-    h.kind = r[9];
-    h.tag = r[12];
-    h.midx = r[13];
-    bool tri = h.kind == 2.0f;
-    for (int j = 0; j < 15; ++j) h.pay[j] = tri ? r[14 + j] : (j < 9 ? r[j] : 0.0f);
+    if constexpr (kFmt == 0) {
+      const float* r = S.rows + static_cast<size_t>(wrow) * kRowW;
+      h.kind = r[9];
+      h.tag = r[12];
+      h.midx = r[13];
+      bool tri = h.kind == 2.0f;
+      for (int j = 0; j < 15; ++j) h.pay[j] = tri ? r[14 + j] : (j < 9 ? r[j] : 0.0f);
+    } else {
+      constexpr int kW = packed_width<kFmt>();
+      const size_t at = static_cast<size_t>(S.ntab) * S.tbl_rows +
+                        static_cast<size_t>(wrow) * (kFmt == 1 ? 2 : 1);
+      const float* r = S.rows + at * kW;
+      h.kind = r[0];
+      h.tag = r[1];
+      h.midx = r[2];
+      // SLIM: payload 0-11 in the slot's first row, 12-14 in its second
+      for (int j = 0; j < 15; ++j)
+        h.pay[j] = (kFmt == 1 && j >= 12) ? r[kW + j - 12] : r[3 + j];
+    }
     h.nit = h.nit + 1.0f;
   } else if (h.found) {
     const float* a = S.consts + S.ana_off + (wrow - enc) * kAnaStride;
@@ -181,7 +220,10 @@ __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
   }
 }
 
-// any hit in [tmin, tmax): returns whether occluded, adds rows visited
+// any hit in [tmin, tmax): returns whether occluded, adds rows visited.
+// kSh: walk the dedicated PACKED3 shadow table (one table, no payload)
+// instead of the main one
+template <int kFmt = 0, bool kSh = false>
 __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx,
                           float dy, float dz, float tmin, float tmax, float& nit) {
   bool hit = false;
@@ -193,7 +235,16 @@ __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx
   }
   float bt = 0.0f, bu = 0.0f, bv = 0.0f;
   int wrow = 0;
-  nit = walk(S, ox, oy, oz, dx, dy, dz, tmin, tmax, true, hit, bt, bu, bv, wrow);
+  if constexpr (kSh) {
+    nit = walk_packed<3>(S.shadow_rows, 0, S.shadow_n, ox, oy, oz, dx, dy, dz, tmin,
+                         tmax, true, hit, bt, bu, bv, wrow);
+  } else if constexpr (kFmt == 0) {
+    nit = walk(S, ox, oy, oz, dx, dy, dz, tmin, tmax, true, hit, bt, bu, bv, wrow);
+  } else {
+    const int base = octant_base(S, dx, dy, dz);
+    nit = walk_packed<kFmt>(S.rows, base, base + S.tbl_rows, ox, oy, oz, dx, dy, dz,
+                            tmin, tmax, true, hit, bt, bu, bv, wrow);
+  }
   return hit;
 }
 
@@ -268,11 +319,14 @@ __device__ __forceinline__ void get_path(Path& p, const volatile float* my) {
 // words lie kStride apart). kGate: trace the shadow ray (and stash around
 // it) only where NEE gates it in; elsewhere its tmax is -1, so it hits
 // nothing and visits no row, and skipping it changes no output (K5).
-template <bool kStash = false, int kStride = kThreads, bool kGate = false>
+// kFmt, kSh: the trace-row format and the dedicated shadow table
+// (trace_closest, trace_any).
+template <bool kStash = false, int kStride = kThreads, bool kGate = false,
+          int kFmt = 0, bool kSh = false>
 __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   Hit h;
   if constexpr (kStash) put_path<kStride>(p, my);
-  trace_closest(S, p, h);
+  trace_closest<kFmt>(S, p, h);
   if constexpr (kStash) get_path<kStride>(p, my);
   if (!h.found) {
     p.alive = 0.0f;
@@ -424,9 +478,20 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   float imp_len = sqrtf(dot3(impr, impg, impb, impr, impg, impb));
   float cosw = dot3(sdx, sdy, sdz, nx, ny, nz);
   bool gate = difish && (imp_len > kEps) && (cosw > 0.0f);
+  // the shadow-visibility boxes (_bounce_loop, pallas_megakernel.py:
+  // 2360-2378): a lane whose NEE origin lies in a box proven unoccluded
+  // (closed f32 compares) skips its walk, visible; nbox is 0 when the
+  // launch reads no box
+  bool walk_gate = gate;
+  for (int k = 0; k < S.nbox && walk_gate; ++k) {
+    const float* b = S.consts + S.box_off + 6 * k;
+    if (hx >= b[0] && hx <= b[3] && hy >= b[1] && hy <= b[4] && hz >= b[2] &&
+        hz <= b[5])
+      walk_gate = false;
+  }
   float nit_s = 0.0f;
   bool occluded = false;
-  if (!kGate || gate) {
+  if (!kGate || walk_gate) {
     if constexpr (kStash) {
       put_path<kStride>(p, my);
       volatile float* x = my + kStashPath * kStride;
@@ -434,8 +499,8 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
       SHADE_STASH(PUT_LOCAL)
 #undef PUT_LOCAL
     }
-    occluded = trace_any(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
-                         gate ? sdist - kEps : -1.0f, nit_s);
+    occluded = trace_any<kFmt, kSh>(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
+                                    walk_gate ? sdist - kEps : -1.0f, nit_s);
     if constexpr (kStash) {
       get_path<kStride>(p, my);
       volatile float* x = my + kStashPath * kStride;
@@ -585,8 +650,9 @@ __device__ __forceinline__ bool going(const Path& p, float cap) {
 }
 
 // a whole path to `cap` (K2)
+template <int kFmt = 0, bool kSh = false>
 __device__ void bounce_loop(const Scene& S, Path& p, float cap) {
-  while (going(p, cap)) bounce(S, p);
+  while (going(p, cap)) bounce<false, kThreads, false, kFmt, kSh>(S, p);
 }
 
 __device__ __forceinline__ void read_state(const float* st, const uint32_t* rng,
@@ -698,6 +764,7 @@ __device__ __forceinline__ int lane_key(const Scene& S, const Path& p) {
 // of the tile, i = blockIdx.x * kSortTile + lane of n, before and after;
 // `order` (nullable): the record of the last sort, at order[i] and
 // order[n + i].
+template <int kFmt = 0, bool kSh = false>
 __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
                                    int* order) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -707,7 +774,7 @@ __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
   int pid = lane;
   while (__syncthreads_or(going(p, cap))) {
     my[kPidWord * kSortTile] = __int_as_float(pid);  // held here across the bounce
-    if (going(p, cap)) bounce<true, kSortTile>(S, p, my);
+    if (going(p, cap)) bounce<true, kSortTile, false, kFmt, kSh>(S, p, my);
     int key = lane_key(S, p);
     put_path<kSortTile>(p, my);
     const int src = hijiki_sort::block_sort_packed<kSortTile, kDeadKey>(key, lane, sh.sort);
@@ -727,6 +794,7 @@ __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
 }
 
 // K2, the resume launch: one path a thread
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kThreads)
     mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
                      float cap, float* st_out, uint32_t* rng_out) {
@@ -734,12 +802,13 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n) return;
   Path p{};
   read_state(st_in, rng_in, i, n, p);
-  bounce_loop(S, p, cap);
+  bounce_loop<kFmt, kSh>(S, p, cap);
   write_state(p, st_out, rng_out, i, n);
 }
 
 // The sorted K1 and K2 (mk_start_sorted, mk_resume_sorted): a block's
 // threads past the last path carry a dead path to the end.
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_start_sorted_kernel(Scene S, const float* px, const float* py,
                            const uint32_t* seeds, int n, float cap, float* st_out,
@@ -747,10 +816,11 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop_sorted(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_resume_sorted_kernel(Scene S, const float* st_in, const uint32_t* rng_in,
                             int n, float cap, float* st_out, uint32_t* rng_out,
@@ -758,7 +828,7 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) read_state(st_in, rng_in, i, n, p);
-  bounce_loop_sorted(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
@@ -889,7 +959,7 @@ struct TileFinish {
   }
 };
 
-template <bool kGate = false, typename Finish>
+template <bool kGate = false, int kFmt = 0, bool kSh = false, typename Finish>
 __device__ __forceinline__ void persistent_paths(const Scene& S, const float* pxs,
                                                  const float* pys,
                                                  const uint32_t* seeds, int n,
@@ -919,7 +989,7 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
     }
     if (__ballot_sync(kFull, slot >= 0) == 0u) return;
     if (slot >= 0) {
-      if (going(p, cap)) bounce<true, kThreads, kGate>(S, p, my);
+      if (going(p, cap)) bounce<true, kThreads, kGate, kFmt, kSh>(S, p, my);
       if (!going(p, cap)) {
         finish(p, slot);
         slot = -1;
@@ -928,20 +998,23 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
   }
 }
 
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
                             const uint32_t* seeds, int n, int nsamp, float cap,
                             float* pool, uint32_t* pool_rng, float* chain_out,
                             int* next) {
-  persistent_paths(S, pxs, pys, seeds, n, nsamp, cap, next,
-                   ChainFinish{nsamp * n, pool, pool_rng, chain_out});
+  persistent_paths<false, kFmt, kSh>(S, pxs, pys, seeds, n, nsamp, cap, next,
+                                     ChainFinish{nsamp * n, pool, pool_rng, chain_out});
 }
 
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_start_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* st_out,
                     uint32_t* rng_out, int* next) {
-  persistent_paths(S, px, py, seeds, n, 1, cap, next, StateFinish{n, st_out, rng_out});
+  persistent_paths<false, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,
+                                     StateFinish{n, st_out, rng_out});
 }
 
 // K5, the single-launch render (_megakernel/_megakernel_body): camera ray
@@ -959,13 +1032,16 @@ __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
 // bounces; so K5 traces a shadow ray, and stashes around it, only where NEE
 // needs one (kGate: a path in the mirror sphere needs none). Leaving the
 // warp's votes once the counter is spent read no faster (PERF.md).
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_tiles_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* out,
                     uint32_t* rng_out, int* next) {
-  persistent_paths<true>(S, px, py, seeds, n, 1, cap, next, TileFinish{n, out, rng_out});
+  persistent_paths<true, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,
+                                    TileFinish{n, out, rng_out});
 }
 
+template <int kFmt = 0, bool kSh = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_tiles_sorted_kernel(Scene S, const float* px, const float* py,
                            const uint32_t* seeds, int n, float cap, float* out,
@@ -973,9 +1049,38 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop_sorted(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
   if (i < n) write_tile(p, out, rng_out, i, n);
 }
+
+// the scene's trace-row format is one the kernels have
+__host__ __forceinline__ bool known_format(const Scene& S) {
+  const bool fmt = S.packed == 0 || S.packed == 1 || S.packed == 3 ||
+                   S.packed == 4 || S.packed == 12;
+  // the dedicated shadow table goes with classic rows only (compile_scene)
+  return fmt && (S.shadow_rows == nullptr || S.packed == 0);
+}
+// a format's index among each kernel's instantiations: 0 the classic rows,
+// 1-4 the packed tables of 1, 3, 4 and 12 prims a row, 5 the classic rows
+// with the dedicated shadow table
+constexpr int kFormats = 6;
+__host__ __forceinline__ int fmt_index(const Scene& S) {
+  return S.packed == 1    ? 1
+         : S.packed == 3  ? 2
+         : S.packed == 4  ? 3
+         : S.packed == 12 ? 4
+         : S.shadow_rows  ? 5
+                          : 0;
+}
+// the instantiation of the kernel template `k` for the format of index f
+#define FMT_KERNEL_AT(f, k)                                                    \
+  ((f) == 1   ? &k<1, false>                                                   \
+   : (f) == 2 ? &k<3, false>                                                   \
+   : (f) == 3 ? &k<4, false>                                                   \
+   : (f) == 4 ? &k<12, false>                                                  \
+   : (f) == 5 ? &k<0, true>                                                    \
+              : &k<0, false>)
+#define FMT_KERNEL(S, k) FMT_KERNEL_AT(fmt_index(S), k)
 
 // the launch of K2: blocks of kThreads paths, or of kSortTile with the
 // exchange buffer in dynamic shared memory for the sorted kernels (opting
@@ -1024,42 +1129,51 @@ int launch_persistent(void (*kernel)(Params...), int slots, void* stream,
 // K1; `next`: the work counter, zeroed on the stream
 extern "C" int mk_start(START_ARGS, float* st_out, uint32_t* rng_out, int* next,
                         void* stream) {
-  return launch_persistent(mk_start_kernel, n, stream, SCENE_CALL, px, py, seeds,
-                           n, static_cast<float>(cap), st_out, rng_out, next);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_persistent(FMT_KERNEL(S, mk_start_kernel), n, stream, S, px, py, seeds, n,
+                           static_cast<float>(cap), st_out, rng_out, next);
 }
 
 extern "C" int mk_start_sorted(START_ARGS, float* st_out, uint32_t* rng_out,
                                int* order, void* stream) {
-  return launch_paths<true>(mk_start_sorted_kernel, n, stream, SCENE_CALL, px,
-                            py, seeds, n, static_cast<float>(cap), st_out,
-                            rng_out, order);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_paths<true>(FMT_KERNEL(S, mk_start_sorted_kernel), n, stream, S, px, py,
+                            seeds, n, static_cast<float>(cap), st_out, rng_out, order);
 }
 
 extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                          void* stream) {
-  return launch_paths<false>(mk_resume_kernel, n, stream, SCENE_CALL, st_in,
-                             rng_in, n, static_cast<float>(cap), st_out, rng_out);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_paths<false>(FMT_KERNEL(S, mk_resume_kernel), n, stream, S, st_in, rng_in,
+                             n, static_cast<float>(cap), st_out, rng_out);
 }
 
 extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                                 int* order, void* stream) {
-  return launch_paths<true>(mk_resume_sorted_kernel, n, stream, SCENE_CALL,
-                            st_in, rng_in, n, static_cast<float>(cap), st_out,
-                            rng_out, order);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_paths<true>(FMT_KERNEL(S, mk_resume_sorted_kernel), n, stream, S, st_in,
+                            rng_in, n, static_cast<float>(cap), st_out, rng_out, order);
 }
 
 // K5; `next`: the work counter, zeroed on the stream
 extern "C" int mk_tiles(START_ARGS, float* out, uint32_t* rng_out, int* next,
                         void* stream) {
-  return launch_persistent(mk_tiles_kernel, n, stream, SCENE_CALL, px, py, seeds,
-                           n, static_cast<float>(cap), out, rng_out, next);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_persistent(FMT_KERNEL(S, mk_tiles_kernel), n, stream, S, px, py, seeds, n,
+                           static_cast<float>(cap), out, rng_out, next);
 }
 
 extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
                                int* order, void* stream) {
-  return launch_paths<true>(mk_tiles_sorted_kernel, n, stream, SCENE_CALL, px,
-                            py, seeds, n, static_cast<float>(cap), out, rng_out,
-                            order);
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_paths<true>(FMT_KERNEL(S, mk_tiles_sorted_kernel), n, stream, S, px, py,
+                            seeds, n, static_cast<float>(cap), out, rng_out, order);
 }
 
 // K4; `next`: the work counter, zeroed on the stream
@@ -1067,7 +1181,9 @@ extern "C" int mk_start_chained(SCENE_ARGS, const float* pxs, const float* pys,
                                 const uint32_t* seeds, int n, int nsamp, int cap,
                                 float* pool, uint32_t* pool_rng, float* chain_out,
                                 int* next, void* stream) {
-  return launch_persistent(mk_start_chained_kernel, nsamp * n, stream, SCENE_CALL,
+  const Scene S = SCENE_CALL;
+  if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_persistent(FMT_KERNEL(S, mk_start_chained_kernel), nsamp * n, stream, S,
                            pxs, pys, seeds, n, nsamp, static_cast<float>(cap), pool,
                            pool_rng, chain_out, next);
 }
@@ -1092,21 +1208,23 @@ int occupancy(void (*kernel)(Params...), int threads, int smem, int* out) {
 
 // What the card makes of a megakernel as built: out[0] registers a thread,
 // out[1] resident blocks an SM, out[2] threads a block, out[3] SMs, out[4]
-// local (spill) bytes a thread. which: 0 K1 mk_start, 1 K2 mk_resume, 2 K4
-// mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
-// kSortTile threads with launch_paths' dynamic shared memory). K4, K1 and
-// K5, persistent, launch out[1] * out[3] blocks (fewer where their slots
-// fill fewer).
+// local (spill) bytes a thread. which % 8: 0 K1 mk_start, 1 K2 mk_resume,
+// 2 K4 mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
+// kSortTile threads with launch_paths' dynamic shared memory); which / 8:
+// the instantiation's format (fmt_index). K4, K1 and K5, persistent,
+// launch out[1] * out[3] blocks (fewer where their slots fill fewer).
 extern "C" int mk_occupancy(int which, int* out) {
   constexpr int sorted_smem = static_cast<int>(sizeof(SortShared));
-  switch (which) {
-    case 0: return occupancy(mk_start_kernel, kThreads, 0, out);
-    case 1: return occupancy(mk_resume_kernel, kThreads, 0, out);
-    case 2: return occupancy(mk_start_chained_kernel, kThreads, 0, out);
-    case 3: return occupancy(mk_tiles_kernel, kThreads, 0, out);
-    case 4: return occupancy(mk_start_sorted_kernel, kSortTile, sorted_smem, out);
-    case 5: return occupancy(mk_resume_sorted_kernel, kSortTile, sorted_smem, out);
-    case 6: return occupancy(mk_tiles_sorted_kernel, kSortTile, sorted_smem, out);
+  const int f = which / 8;
+  if (which < 0 || f >= kFormats) return static_cast<int>(cudaErrorInvalidValue);
+  switch (which % 8) {
+    case 0: return occupancy(FMT_KERNEL_AT(f, mk_start_kernel), kThreads, 0, out);
+    case 1: return occupancy(FMT_KERNEL_AT(f, mk_resume_kernel), kThreads, 0, out);
+    case 2: return occupancy(FMT_KERNEL_AT(f, mk_start_chained_kernel), kThreads, 0, out);
+    case 3: return occupancy(FMT_KERNEL_AT(f, mk_tiles_kernel), kThreads, 0, out);
+    case 4: return occupancy(FMT_KERNEL_AT(f, mk_start_sorted_kernel), kSortTile, sorted_smem, out);
+    case 5: return occupancy(FMT_KERNEL_AT(f, mk_resume_sorted_kernel), kSortTile, sorted_smem, out);
+    case 6: return occupancy(FMT_KERNEL_AT(f, mk_tiles_sorted_kernel), kSortTile, sorted_smem, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -176,7 +176,7 @@ __global__ void walk_isolate_kernel(Scene S, const float* __restrict__ o,
     bt = kBig;
     bu = bv = 0.0f;
     wrow = S.total_rows + S.na;
-    analytic_pretest(S, ox, oy, oz, dx, dy, dz, tmin, bt, bu, bv, wrow);
+    analytic_pretest(S, S.total_rows, ox, oy, oz, dx, dy, dz, tmin, bt, bu, bv, wrow);
     bool unused = false;
     nit = walk<kW, kNrm, kTest, kG>(S, ox, oy, oz, dx, dy, dz, tmin, kBig, false, unused,
                                     bt, bu, bv, wrow);

@@ -25,6 +25,19 @@
 // tools/walk_probe.py::make_w16_scene (normal in columns 11-13), the walk
 // without its prim test (every prim row misses, as patch_no_test does) and
 // the warp walking as one 32-ray packet.
+//
+// walk_packed<kFmt> is the walk over the packed trace-row formats of
+// scene/compile.py::build_packed_trace_rows (_prim_test with packed = 1, 3,
+// 4, 12): a prim row holds 1, 3, 4 or 12 triangles in a 16-, 32-, 64- or
+// 128-column row; interior rows are the classic ones (box in columns 0-5,
+// -1 in 9, exit in 10). Its prims are tested one at a time and reduced by
+// a strict-min-t tournament in which the earlier prim wins a tie (the
+// sequential walk's outcome over the same leaf), so a pad (a duplicate in
+// format 4, a zero triangle in 3 and 12) never wins; the winner's payload
+// slot replaces the row index as the winner. The prims' columns are not
+// 16-byte aligned past the first (format 3 at 0, 11, 20; 12 at 0 and every
+// 9 from 11; 4 at 12 + 13k): the first prim comes from the row step's
+// float4s, the others by scalar loads.
 
 #pragma once
 
@@ -45,7 +58,13 @@ struct Scene {
   const float* consts;
   int total_rows, tbl_rows, ntab, analytic_mode;
   int na, ne, nd, ncb, ndl, nem;
-  int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off;
+  // the packed format (0: classic rows), the payload section's rows (it
+  // starts at ntab * tbl_rows), the shadow-visibility boxes a launch tests,
+  // the dedicated PACKED3 shadow table (null: shadow rays walk `rows`)
+  int packed, n_pay, nbox;
+  const float* shadow_rows;
+  int shadow_n;
+  int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off, box_off;
 };
 
 // the vote of a group of kG threads: a thread alone (1) or a warp (32)
@@ -92,11 +111,13 @@ __device__ __forceinline__ bool analytic_test(const float* a, float ox, float oy
 }
 
 // _analytic_pretest: every baked prim against the ray, closest accept into
-// (bt, bu, bv, wrow = total_rows + k); the caller sets the miss values
-__device__ __forceinline__ void analytic_pretest(const Scene& S, float ox, float oy,
-                                                 float oz, float dx, float dy,
-                                                 float dz, float tmin, float& bt,
-                                                 float& bu, float& bv, int& wrow) {
+// (bt, bu, bv, wrow = enc + k; enc: total_rows, or a packed table's n_pay);
+// the caller sets the miss values
+__device__ __forceinline__ void analytic_pretest(const Scene& S, int enc, float ox,
+                                                 float oy, float oz, float dx,
+                                                 float dy, float dz, float tmin,
+                                                 float& bt, float& bu, float& bv,
+                                                 int& wrow) {
   for (int k = 0; k < S.na; ++k) {
     const float* a = S.consts + S.ana_off + k * kAnaStride;
     float pt, pu, pv;
@@ -105,7 +126,7 @@ __device__ __forceinline__ void analytic_pretest(const Scene& S, float ox, float
       bt = pt;
       bu = pu;
       bv = pv;
-      wrow = S.total_rows + k;
+      wrow = enc + k;
     }
   }
 }
@@ -237,9 +258,151 @@ __device__ float walk(const Scene& S, float ox, float oy, float oz, float dx,
   return nit;
 }
 
+// ---------------------------------------------------------- packed rows ----
+
+// a packed format's prims a row and row width in floats (1: SLIM, 16
+// columns; 3: PACKED3, 32; 4: PACKED4, 64; 12: PACKED12, 128)
+template <int kFmt>
+__host__ __device__ constexpr int packed_n() {
+  return kFmt == 1 ? 1 : kFmt == 3 ? 3 : kFmt == 4 ? 4 : 12;
+}
+template <int kFmt>
+__host__ __device__ constexpr int packed_width() {
+  return kFmt == 1 ? 16 : kFmt == 3 ? 32 : kFmt == 4 ? 64 : 128;
+}
+// the first column of prim k; the column of prim 0's slot in the formats
+// whose slots run on from it (the 64-wide format keeps a slot a prim, at
+// its base + 12)
+template <int kFmt>
+__host__ __device__ constexpr int packed_base(int k) {
+  return kFmt == 1 ? 0
+         : kFmt == 3 ? (k == 0 ? 0 : k == 1 ? 11 : 20)
+         : kFmt == 4 ? 12 + 13 * k
+                     : (k == 0 ? 0 : 11 + 9 * (k - 1));
+}
+template <int kFmt>
+__host__ __device__ constexpr int packed_slot_col() {
+  return kFmt == 1 ? 11 : kFmt == 3 ? 29 : 110;
+}
+
+// one triangle of a packed row (v0, edge1, edge2; the plane normal
+// recomputed as the twin and numpy's f32 cross compute it, or baked in
+// the 64-wide format): hit with tmin <= t, the analytic-mode accept
+__device__ __forceinline__ bool packed_tri(float v0x, float v0y, float v0z,
+                                           float v1x, float v1y, float v1z,
+                                           float v2x, float v2y, float v2z,
+                                           float nx, float ny, float nz, float ox,
+                                           float oy, float oz, float dx, float dy,
+                                           float dz, float tmin, float& t,
+                                           float& u, float& v) {
+  float rx = ox - v0x, ry = oy - v0y, rz = oz - v0z;
+  float qx = ry * dz - rz * dy;
+  float qy = rz * dx - rx * dz;
+  float qz = rx * dy - ry * dx;
+  float dd = 1.0f / (dx * nx + dy * ny + dz * nz);
+  u = -dd * (qx * v2x + qy * v2y + qz * v2z);
+  v = dd * (qx * v1x + qy * v1y + qz * v1z);
+  t = -dd * (nx * rx + ny * ry + nz * rz);
+  return (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (tmin <= t);
+}
+
+// _prim_test on a packed prim row whose columns 0-11 are c0, c1, c2: the
+// tournament over its prims -> (hit, t, u, v, the winner's payload slot)
+template <int kFmt>
+__device__ __forceinline__ bool packed_test(const float* r, const float4& c0,
+                                            const float4& c1, const float4& c2,
+                                            float ox, float oy, float oz, float dx,
+                                            float dy, float dz, float tmin, float& pt,
+                                            float& pu, float& pv, float& slot) {
+  bool bhit = false;
+  pt = pu = pv = slot = 0.0f;
+#pragma unroll
+  for (int k = 0; k < packed_n<kFmt>(); ++k) {
+    const int B = packed_base<kFmt>(k);
+    float v[9], nx, ny, nz;
+    if (B == 0) {
+      v[0] = c0.x; v[1] = c0.y; v[2] = c0.z; v[3] = c0.w; v[4] = c1.x;
+      v[5] = c1.y; v[6] = c1.z; v[7] = c1.w; v[8] = c2.x;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 9; ++j) v[j] = __ldg(r + B + j);
+    }
+    if constexpr (kFmt == 4) {
+      nx = __ldg(r + B + 9);
+      ny = __ldg(r + B + 10);
+      nz = __ldg(r + B + 11);
+    } else {
+      nx = v[4] * v[8] - v[5] * v[7];
+      ny = v[5] * v[6] - v[3] * v[8];
+      nz = v[3] * v[7] - v[4] * v[6];
+    }
+    float t, u, w;
+    const bool h = packed_tri(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8],
+                              nx, ny, nz, ox, oy, oz, dx, dy, dz, tmin, t, u, w);
+    if (h && (!bhit || t < pt)) {
+      pt = t;
+      pu = u;
+      pv = w;
+      slot = kFmt == 4 ? __ldg(r + B + 12) : static_cast<float>(k);
+    }
+    bhit = bhit || h;
+  }
+  if constexpr (kFmt == 1) slot = c2.w;  // column 11
+  else if constexpr (kFmt != 4) slot = __ldg(r + packed_slot_col<kFmt>()) + slot;
+  return bhit;
+}
+
+// The stackless walk over rows [cur, end) of a packed table `rows` (the
+// main table's octant table, or the dedicated shadow table); as walk(),
+// with wrow the winner's payload slot. Returns rows visited.
+template <int kFmt>
+__device__ float walk_packed(const float* rows, int cur, int end, float ox, float oy,
+                             float oz, float dx, float dy, float dz, float tmin,
+                             float tmax, bool any_hit, bool& hit, float& bt,
+                             float& bu, float& bv, int& wrow) {
+  if (!(tmax >= 0.0f) || (any_hit && hit)) return 0.0f;
+  float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  float tox = -ox * ix, toy = -oy * iy, toz = -oz * iz;
+  float nit = 0.0f;
+  while (cur < end) {
+    const float* r = rows + static_cast<size_t>(cur) * packed_width<kFmt>();
+    const float4 c0 = row4(r, 0), c1 = row4(r, 4), c2 = row4(r, 8);
+    nit = nit + 1.0f;
+    int nexit = static_cast<int>(c2.z);
+    float best_t = any_hit ? tmax : bt;
+    if (c2.y < 0.0f) {  // interior row: slab test on its box
+      float ax = c0.x * ix + tox, bx = c0.w * ix + tox;
+      float ay = c0.y * iy + toy, by = c1.x * iy + toy;
+      float az = c0.z * iz + toz, bz = c1.y * iz + toz;
+      float t0 = nan_max(nan_max(nan_min(ax, bx), nan_min(ay, by)), nan_min(az, bz));
+      float t1 = nan_min(nan_min(nan_max(ax, bx), nan_max(ay, by)), nan_max(az, bz));
+      bool slab = (t0 < t1 + kEps) && (t0 < best_t) && (t1 > tmin);
+      cur = slab ? cur + 1 : nexit;
+      continue;
+    }
+    float pt, pu, pv, slot;
+    if (packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
+                          slot) &&
+        pt < best_t) {
+      if (any_hit) {
+        hit = true;
+        break;
+      }
+      bt = pt;
+      bu = pu;
+      bv = pv;
+      wrow = static_cast<int>(slot);
+    }
+    cur = nexit;
+  }
+  return nit;
+}
+
 inline Scene make_scene(const float* rows, const float* consts, int total_rows,
                         int tbl_rows, int ntab, int analytic_mode, int na,
-                        int ne, int nd, int ncb, int ndl, int nem) {
+                        int ne, int nd, int ncb, int ndl, int nem, int packed,
+                        int n_pay, int nbox, const float* shadow_rows,
+                        int shadow_n) {
   Scene S;
   S.rows = rows;
   S.consts = consts;
@@ -253,8 +416,14 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
   S.ncb = ncb;
   S.ndl = ndl;
   S.nem = nem;
+  S.packed = packed;
+  S.n_pay = n_pay;
+  S.nbox = nbox;
+  S.shadow_rows = shadow_rows;
+  S.shadow_n = shadow_n;
   // constants buffer: camera (15), analytic, emitters, diffuse, checkerboard,
-  // dielectric, emissive (hijiki_tpu_torch/ops/megakernel.py::mega_scene)
+  // dielectric, emissive, lane-sort key, boxes
+  // (hijiki_tpu_torch/ops/megakernel.py::mega_scene)
   S.ana_off = 15;
   S.em_off = S.ana_off + na * kAnaStride;
   S.d_off = S.em_off + ne * kEmStride;
@@ -262,6 +431,7 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
   S.dl_off = S.cb_off + ncb * 8;
   S.emi_off = S.dl_off + ndl * 4;
   S.sort_off = S.emi_off + nem * 3;  // lane-sort key: box min xyz, scale xyz
+  S.box_off = S.sort_off + 6;        // boxes: x0, y0, z0, x1, y1, z1 each
   return S;
 }
 
@@ -272,7 +442,8 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
 #define SCENE_ARGS                                                             \
   const float *rows, const float *consts, int total_rows, int tbl_rows,        \
       int ntab, int analytic_mode, int na, int ne, int nd, int ncb, int ndl,   \
-      int nem
+      int nem, int packed, int n_pay, int nbox, const float *shadow_rows,      \
+      int shadow_n
 #define SCENE_CALL                                                             \
   make_scene(rows, consts, total_rows, tbl_rows, ntab, analytic_mode, na, ne,  \
-             nd, ncb, ndl, nem)
+             nd, ncb, ndl, nem, packed, n_pay, nbox, shadow_rows, shadow_n)

@@ -14,6 +14,12 @@ Port of ``hijiki_tpu/ops/pallas_megakernel.py``:
 * ``render_tiles`` traces whole paths in one launch (K5 ``mk_tiles``,
   ``_megakernel``/``_megakernel_body``).
 
+Every launch walks any trace-row format of ``scene/compile.py`` (the
+classic rows, SLIM, PACKED3/4/12: ``_packed_test``), skips the shadow walk
+of a lane inside a shadow-visibility box and, when asked, walks shadow rays
+over the dedicated PACKED3 table (``launch_scene``: JAX's ``shadow_vis`` and
+``shadow_tbl``).
+
 With ``lane_sort=True`` (the mega driver's ``--sort-lanes``; JAX's
 ``_lane_sort`` with ``pallas_sort.py::sort_tile_by_key``, K7) the camera
 and resume launches of ``render_waves`` and the single launch of
@@ -55,6 +61,7 @@ CPU torch has no uint32 shifts) and converts at its own boundary.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -63,7 +70,18 @@ import torch
 
 from hijiki_tpu_torch.ops.rng import from_bits, to_bits, wang_hash, xorshift
 from hijiki_tpu_torch.ops.sort import sort_tiles_plain
-from hijiki_tpu_torch.scene.compile import CompiledScene
+from hijiki_tpu_torch.scene.compile import (
+    PACKED3_BASES,
+    PACKED3_SLOT_COL,
+    PACKED12_BASES,
+    PACKED12_SLOT_COL,
+    PACKED_BASE,
+    PACKED_N,
+    PACKED_STRIDE,
+    SLIM_PAY_STRIDE,
+    SLIM_SLOT_COL,
+    CompiledScene,
+)
 
 M_EPS = 1e-4
 M_PI = 3.1415926535897932384626433832795
@@ -144,10 +162,10 @@ class MegaScene:
     TPU kernel's python-float arithmetic did.
     """
 
-    rows: torch.Tensor  # (total_rows, 32) f32
+    rows: torch.Tensor  # (total_rows, row width) f32
     consts: torch.Tensor  # flat f32, layout below
     total_rows: int
-    tbl_rows: int
+    tbl_rows: int  # rows of one walk table (one of ntab octant tables)
     ntab: int
     analytic_mode: bool
     analytic: np.ndarray  # (NA, 16) f32
@@ -167,10 +185,31 @@ class MegaScene:
     # uploads the list from pageable memory, which synchronizes the stream
     # and stalls the host until every queued kernel has finished
     result_ch: torch.Tensor
+    # the trace-row format: prims a packed row (1 SLIM, 3, 4, 12), 0 for
+    # the classic rows; a packed table's payload section starts at row
+    # pay_base = ntab * tbl_rows and holds n_pay rows (winners encode from
+    # n_pay, as the classic ones from total_rows)
+    packed: int = 0
+    pay_base: int = 0
+    n_pay: int = 0
+    # the shadow-visibility boxes (K, 6) f32: x0,y0,z0, x1,y1,z1
+    boxes: np.ndarray = None
+    # the dedicated any-hit shadow table (PACKED3 rows) and its row count
+    shadow_rows: torch.Tensor = None
+    shadow_n: int = 0
+    # what a launch reads (render_*'s shadow_vis and shadow_tbl, as JAX's):
+    # the boxes, the dedicated shadow table
+    shadow_vis: bool = True
+    shadow_tbl: bool = False
 
     @property
     def n_analytic(self) -> int:
         return self.analytic.shape[0]
+
+    @property
+    def nbox(self) -> int:
+        """Boxes a launch tests (0 with shadow_vis off)."""
+        return self.boxes.shape[0] if self.shadow_vis else 0
 
 
 def _analytic_rows(bake) -> np.ndarray:
@@ -251,10 +290,24 @@ def _table(rows, ncols) -> np.ndarray:
     return np.asarray(rows, np.float32).reshape(-1, ncols)
 
 
+# the first column of each prim of a packed row, and the slot column of
+# the formats whose slots run consecutively from one column
+_PACKED_BASES = {
+    1: (0,),
+    3: PACKED3_BASES,
+    4: tuple(PACKED_BASE + PACKED_STRIDE * k for k in range(PACKED_N)),
+    12: PACKED12_BASES,
+}
+_SLOT_COL = {1: SLIM_SLOT_COL, 3: PACKED3_SLOT_COL, 12: PACKED12_SLOT_COL}
+
+
 def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
-    """Bake ``cs`` (numpy or tensor fields) for the megakernel on ``device``."""
-    if cs.mega_packed_static:
-        raise NotImplementedError("packed trace-row formats are not ported yet")
+    """Bake ``cs`` (numpy or tensor fields) for the megakernel on ``device``:
+    its trace rows in any format, its shadow-visibility boxes and its
+    dedicated shadow table (read as ``shadow_vis``/``shadow_tbl`` ask)."""
+    packed = int(cs.mega_packed_static)
+    if packed and packed not in _PACKED_BASES:
+        raise ValueError(f"unknown packed trace-row format {packed}")
     diffuse, cb, diel, emis = cs.material_bake_static
     analytic = _analytic_rows(
         cs.analytic_bake_static if cs.mega_analytic_mode_static else ()
@@ -266,20 +319,29 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
     )
     cam = _camera_consts(cs.camera_static, width, height)
     sort_lo, sort_scale = _lane_sort_consts(cs.bbox_static)
+    vis = tuple(cs.shadow_vis_static or ())
+    nbox = int(vis[0]) if vis else 0
+    # f32(x0) of each bound, as the TPU kernel rounds its python floats
+    boxes = np.asarray(vis[1:1 + 6 * nbox], np.float32).reshape(nbox, 6)
     consts = np.concatenate(
         [cam, analytic.ravel(), emitters.ravel()]
         + [tabs[k].ravel() for k in ("diffuse", "cboard", "diel", "emissive")]
-        + [np.asarray(sort_lo + sort_scale, np.float32)]
+        + [np.asarray(sort_lo + sort_scale, np.float32), boxes.ravel()]
     ).astype(np.float32)
     rows = torch.as_tensor(np.asarray(_cpu(cs.trace_rows_mega), np.float32))
+    ntab = cs.mega_num_tables_static
+    tbl_rows = cs.mega_tbl_rows_static if packed else rows.shape[0] // ntab
+    shadow = cs.shadow_rows_mega
+    if shadow is not None:
+        shadow = torch.as_tensor(np.asarray(_cpu(shadow), np.float32)).to(device).contiguous()
     bmin = np.asarray(_cpu(cs.bvh_aabb_min), np.float32)[0]
     bmax = np.asarray(_cpu(cs.bvh_aabb_max), np.float32)[0]
     return MegaScene(
         rows=rows.to(device).contiguous(),
         consts=torch.from_numpy(consts).to(device),
         total_rows=rows.shape[0],
-        tbl_rows=rows.shape[0] // cs.mega_num_tables_static,
-        ntab=cs.mega_num_tables_static,
+        tbl_rows=tbl_rows,
+        ntab=ntab,
         analytic_mode=bool(cs.mega_analytic_mode_static),
         analytic=analytic,
         emitters=emitters,
@@ -289,8 +351,29 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
         sort_lo=sort_lo,
         sort_scale=sort_scale,
         result_ch=torch.tensor(_RESULT_CH, device=device),
+        packed=packed,
+        pay_base=ntab * tbl_rows if packed else 0,
+        n_pay=int(cs.mega_pay_rows_static) if packed else 0,
+        boxes=boxes,
+        shadow_rows=shadow,
+        shadow_n=int(cs.shadow_tbl_rows_static) if shadow is not None else 0,
         **tabs,
     )
+
+
+def launch_scene(ms: MegaScene, shadow_vis: bool = True, shadow_tbl: bool = False) -> MegaScene:
+    """``ms`` as a launch of ``render_*(shadow_vis=, shadow_tbl=)`` reads it
+    (JAX's options of the same names): ``shadow_vis`` lets NEE skip the
+    shadow walk of a lane whose origin lies in a proven box, ``shadow_tbl``
+    sends the shadow walks to the dedicated table (``_check_shadow_tbl``:
+    the scene must have one). Neither changes the film, RNG or hit records;
+    the ``rows`` counter falls."""
+    if shadow_tbl and ms.shadow_rows is None:
+        raise ValueError(
+            "shadow_tbl requires a scene compiled with a dedicated shadow table "
+            "(compile_scene builds it for classic analytic-mode tables)"
+        )
+    return dataclasses.replace(ms, shadow_vis=bool(shadow_vis), shadow_tbl=bool(shadow_tbl))
 
 
 def _cpu(a):
@@ -459,29 +542,83 @@ def _prim_test(ms, r, o, d, tmin, best_t):
     return phit, pt, pu, pv
 
 
-def _walk(ms, o, d, tmin, tmax, any_hit, best):
+def _packed_test(fmt, r, o, d, tmin):
+    """``_prim_test`` on packed rows ``r`` (n, width): every prim of the row
+    against its lane, reduced by the strict-min-t tournament in which the
+    earliest prim wins a tie (what the sequential walk over the same leaf
+    accepts). Normals recomputed for formats 1, 3 and 12, baked for 4. A pad
+    (a duplicate in format 4, a zero triangle in 3 and 12) never wins.
+    Returns (hit, t, u, v, payload slot as f32; garbage where no hit)."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    col = lambda j: r[:, j]
+    bhit = bt = bu = bv = bsl = None
+    for k, B in enumerate(_PACKED_BASES[fmt]):
+        v0x, v0y, v0z = col(B), col(B + 1), col(B + 2)
+        v1x, v1y, v1z = col(B + 3), col(B + 4), col(B + 5)
+        v2x, v2y, v2z = col(B + 6), col(B + 7), col(B + 8)
+        if fmt == 4:
+            nx, ny, nz = col(B + 9), col(B + 10), col(B + 11)
+        else:
+            nx = v1y * v2z - v1z * v2y
+            ny = v1z * v2x - v1x * v2z
+            nz = v1x * v2y - v1y * v2x
+        rx, ry, rz = ox - v0x, oy - v0y, oz - v0z
+        qx = ry * dz - rz * dy
+        qy = rz * dx - rx * dz
+        qz = rx * dy - ry * dx
+        dd = 1.0 / (dx * nx + dy * ny + dz * nz)
+        u = -dd * (qx * v2x + qy * v2y + qz * v2z)
+        v = dd * (qx * v1x + qy * v1y + qz * v1z)
+        t = -dd * (nx * rx + ny * ry + nz * rz)
+        phit = (u >= 0) & (v >= 0) & (u + v <= 1.0) & (tmin <= t)
+        sl = col(B + 12) if fmt == 4 else torch.full_like(t, float(k))
+        if bhit is None:
+            bhit, bt, bu, bv, bsl = phit, t, u, v, sl
+        else:
+            better = phit & (~bhit | (t < bt))
+            bt = torch.where(better, t, bt)
+            bu = torch.where(better, u, bu)
+            bv = torch.where(better, v, bv)
+            bsl = torch.where(better, sl, bsl)
+            bhit = bhit | phit
+    if fmt == 1:
+        bsl = col(_SLOT_COL[1])
+    elif fmt != 4:  # consecutive slots from prim 0's
+        bsl = col(_SLOT_COL[fmt]) + bsl
+    return bhit, bt, bu, bv, bsl
+
+
+def _walk(ms, o, d, tmin, tmax, any_hit, best, shadow=False):
     """Per-lane stackless walk of the trace rows from each lane's octant
     table: row ``cur``, then ``cur + 1`` (interior row whose box the ray
     enters) or the exit pointer in column 10. ``best`` holds the analytic
-    pretest's result and is updated in place. Returns the rows visited."""
+    pretest's result and is updated in place; a packed table's winner is
+    its payload slot. ``shadow``: walk the dedicated shadow table (one
+    PACKED3 table, any hit) instead. Returns the rows visited."""
     ox, oy, oz = o
     dx, dy, dz = d
     inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
     tox, toy, toz = -ox * inv_x, -oy * inv_y, -oz * inv_z
-    base = _octant_base(ms, dx, dy, dz)
-    end = base + ms.tbl_rows
+    if shadow:
+        rows, fmt, n_rows = ms.shadow_rows, 3, ms.shadow_n
+        base = torch.zeros(dx.shape, dtype=torch.int64, device=dx.device)
+        end = base + n_rows
+    else:
+        rows, fmt, n_rows = ms.rows, ms.packed, ms.total_rows
+        base = _octant_base(ms, dx, dy, dz)
+        end = base + ms.tbl_rows
     # lanes that can accept nothing (tmax < 0) or already hit do not walk
     done = ~(tmax >= 0.0)
     if any_hit:
         done = done | best["hit"]
     cur = torch.where(done, end, base)
     nit = torch.zeros(dx.shape, dtype=torch.float32, device=dx.device)
-    rows = ms.rows
     while True:
         act = cur < end
         if not bool(act.any()):
             break
-        r = rows[torch.clamp_max(cur, ms.total_rows - 1)]
+        r = rows[torch.clamp_max(cur, n_rows - 1)]
         is_prim = r[:, 9] >= 0.0
         nexit = r[:, 10].long()
         best_t = tmax if any_hit else best["t"]
@@ -500,7 +637,10 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best):
             torch.maximum(az, bz),
         )
         slab = (t0 < t1 + _f(M_EPS)) & (t0 < best_t) & (t1 > tmin)
-        phit, pt, pu, pv = _prim_test(ms, r, o, d, tmin, best_t)
+        if fmt:
+            phit, pt, pu, pv, slot = _packed_test(fmt, r, o, d, tmin)
+        else:
+            phit, pt, pu, pv = _prim_test(ms, r, o, d, tmin, best_t)
         accept = act & is_prim & phit & (pt < best_t)
         nxt = torch.where(~is_prim & slab, cur + 1, nexit)
         if any_hit:
@@ -510,16 +650,18 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best):
             best["t"] = torch.where(accept, pt, best["t"])
             best["u"] = torch.where(accept, pu, best["u"])
             best["v"] = torch.where(accept, pv, best["v"])
-            best["wrow"] = torch.where(accept, cur, best["wrow"])
+            best["wrow"] = torch.where(accept, slot.long() if fmt else cur, best["wrow"])
         cur = torch.where(act, nxt, cur)
         nit = nit + act.to(torch.float32)
     return nit
 
 
 def _trace_closest(ms, o, d, tmin, tmax):
-    """Closest hit: analytic pretest, walk, winner resolve. Returns a dict
-    with t, u, v, hitf, kind, tag, midx, pay (15 tensors) and nit."""
-    enc = ms.total_rows
+    """Closest hit: analytic pretest, walk, winner resolve (a packed
+    table's winner from its payload row: col 0 kind, 1 tag, 2 midx, 3-17 the
+    payload; SLIM's spans two rows). Returns a dict with t, u, v, hitf,
+    kind, tag, midx, pay (15 tensors) and nit."""
+    enc = ms.n_pay if ms.packed else ms.total_rows
     NA = ms.n_analytic
     best = dict(
         t=tmax.clone(),
@@ -537,22 +679,33 @@ def _trace_closest(ms, o, d, tmin, tmax):
     nit = _walk(ms, o, d, tmin, tmax, False, best)
     wrow = best["wrow"]
     tab = wrow < enc
-    r = ms.rows[torch.clamp_max(wrow, enc - 1)]
     zero = torch.zeros_like(tmax)
-    kind = torch.where(tab, r[:, 9], zero)
-    is_tri = kind == KIND_TRIANGLE
+    if ms.packed:
+        stride = SLIM_PAY_STRIDE if ms.packed == 1 else 1
+        at = ms.pay_base + torch.clamp_max(wrow, (enc - 1) // stride) * stride
+        r = ms.rows[at]
+        r2 = ms.rows[at + 1] if ms.packed == 1 else None
+        kind = torch.where(tab, r[:, 0], zero)
+        tag, midx = r[:, 1], r[:, 2]
+        pay = [torch.where(tab, r2[:, j - 12] if j >= 12 and r2 is not None else r[:, 3 + j], zero)
+               for j in range(15)]
+    else:
+        r = ms.rows[torch.clamp_max(wrow, enc - 1)]
+        kind = torch.where(tab, r[:, 9], zero)
+        tag, midx = r[:, 12], r[:, 13]
+        is_tri = kind == KIND_TRIANGLE
+        pay = []
+        for j in range(15):
+            geo = r[:, j] if j < 9 else zero
+            pay.append(torch.where(tab, torch.where(is_tri, r[:, 14 + j], geo), zero))
     out = dict(
         t=best["t"], u=best["u"], v=best["v"],
         hitf=wrow < enc + NA,
         kind=kind,
-        tag=torch.where(tab, r[:, 12], zero),
-        midx=torch.where(tab, r[:, 13], zero),
+        tag=torch.where(tab, tag, zero),
+        midx=torch.where(tab, midx, zero),
         nit=nit + tab.to(torch.float32),
     )
-    pay = []
-    for j in range(15):
-        geo = r[:, j] if j < 9 else zero
-        pay.append(torch.where(tab, torch.where(is_tri, r[:, 14 + j], geo), zero))
     for k in range(NA):
         a = ms.analytic[k]
         sel = wrow == enc + k
@@ -565,14 +718,26 @@ def _trace_closest(ms, o, d, tmin, tmax):
 
 
 def _trace_any(ms, o, d, tmin, tmax):
-    """Any hit in (tmin, tmax): returns (hit bool, rows visited)."""
+    """Any hit in (tmin, tmax), over the dedicated shadow table when the
+    launch reads it: returns (hit bool, rows visited)."""
     best = dict(hit=torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device))
     for k in range(ms.n_analytic):
         bt = torch.where(best["hit"], tmin, tmax)
         phit, pt, _, _ = _analytic_test(ms.analytic[k], o, d, tmin, bt)
         best["hit"] = best["hit"] | (phit & (pt < bt))
-    nit = _walk(ms, o, d, tmin, tmax, True, best)
+    nit = _walk(ms, o, d, tmin, tmax, True, best, shadow=ms.shadow_tbl)
     return best["hit"], nit
+
+
+def _proven(ms, hx, hy, hz):
+    """Lanes whose NEE origin lies in a shadow-visibility box (closed f32
+    compares), or None when the launch tests no box."""
+    proven = None
+    for b in ms.boxes[: ms.nbox]:
+        x0, y0, z0, x1, y1, z1 = (float(x) for x in b)
+        inb = (hx >= x0) & (hx <= x1) & (hy >= y0) & (hy <= y1) & (hz >= z0) & (hz <= z1)
+        proven = inb if proven is None else proven | inb
+    return proven
 
 
 # ----------------------------------------------------------------------------
@@ -759,10 +924,13 @@ def _bounce(ms, s):
     impr, impg, impb = epwr * inv_pdf, epwg * inv_pdf, epwb * inv_pdf
     imp_len = torch.sqrt(_dot(impr, impg, impb, impr, impg, impb))
     gate = dif & (imp_len > _f(M_EPS)) & (_dot(sdx, sdy, sdz, nx, ny, nz) > 0)
+    # a lane in a proven box skips its walk: visible (_bounce_loop :2360-2378)
+    proven = _proven(ms, hx, hy, hz)
+    walk_gate = gate if proven is None else gate & ~proven
     occluded, nit_s = _trace_any(
         ms, (hx, hy, hz), (sdx, sdy, sdz),
         torch.full_like(sdist, _f(2.0 * M_EPS)),
-        W(gate, sdist - _f(M_EPS), -1.0),
+        W(walk_gate, sdist - _f(M_EPS), -1.0),
     )
 
     # eval BSDF for NEE (material.glsl:18-30)
@@ -992,10 +1160,18 @@ def megakernel_start_chained_plain(ms: MegaScene, pxs, pys, seeds, cap: int):
 
 
 def _scene_args(ms):
+    """The scene's arguments of a C entry after its rows and constants
+    pointers (csrc/walk.cuh SCENE_ARGS): the table's sizes and the bakes'
+    counts (the first 10, which is all a build before the packed formats
+    takes), the packed format, the payload rows, the boxes a launch tests,
+    and the dedicated shadow table (a null pointer when not read)."""
+    shadow = ms.shadow_rows if ms.shadow_tbl else None
     return (
         ms.total_rows, ms.tbl_rows, ms.ntab, int(ms.analytic_mode),
         ms.n_analytic, ms.emitters.shape[0], ms.diffuse.shape[0],
         ms.cboard.shape[0], ms.diel.shape[0], ms.emissive.shape[0],
+        ms.packed, ms.n_pay, ms.nbox,
+        None if shadow is None else shadow.data_ptr(), 0 if shadow is None else ms.shadow_n,
     )
 
 
@@ -1006,11 +1182,13 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name}: expected a contiguous tensor on {device}")
 
 
-def check_rows_aligned(rows):
+def check_rows_aligned(rows, shadow=None):
     """The walk reads a trace row's columns four at a time (128-bit loads,
-    csrc/walk.cuh): the table must start on a 16-byte boundary."""
-    if rows.data_ptr() % 16:
-        raise ValueError("the trace rows must start on a 16-byte boundary (a fresh tensor does)")
+    csrc/walk.cuh): the table, and the dedicated shadow table it walks, must
+    start on a 16-byte boundary."""
+    for t in (rows, shadow):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the trace rows must start on a 16-byte boundary (a fresh tensor does)")
 
 
 def _launch(fn_name, ms, ins, ints, outs, persistent=False):
@@ -1022,7 +1200,7 @@ def _launch(fn_name, ms, ins, ints, outs, persistent=False):
     from hijiki_tpu_torch.utils.build import load_library
 
     if ints[0]:
-        check_rows_aligned(ms.rows)
+        check_rows_aligned(ms.rows, ms.shadow_rows if ms.shadow_tbl else None)
         lib = load_library()
         stream = torch.cuda.current_stream(ms.rows.device).cuda_stream
         counter = [torch.zeros(1, dtype=torch.int32, device=ms.rows.device)] if persistent else []
@@ -1178,31 +1356,39 @@ def warp_iterations(segs, warp: int = 32) -> dict:
 # mk_occupancy's kernel numbers (csrc/megakernel.cu)
 _OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3,
                  "mk_start_sorted": 4, "mk_resume_sorted": 5, "mk_tiles_sorted": 6}
+# each kernel's instantiations, in mk_occupancy's (fmt_index's) order: the
+# trace-row format and whether shadow rays walk the dedicated shadow table
+KERNEL_FORMATS = {"classic": (0, False), "slim": (1, False), "packed3": (3, False),
+                  "packed4": (4, False), "packed12": (12, False), "shadow_tbl": (0, True)}
 
 
-def occupancy(name: str, lib=None) -> dict:
+def occupancy(name: str, lib=None, fmt: str = "classic") -> dict:
     """What the card makes of the megakernel ``name`` (a key of
     ``_OCCUPANCY_OF``: K1, K2, K4, K5 and the sorted K1/K2/K5) as built
-    (``lib``: another build's library; default the package's): registers a
-    thread, local-memory bytes a thread (its stack frame, spills
-    included), spill-store bytes a thread (ptxas' report of the package's
-    build; None for another library), threads a block, resident blocks and
-    warps an SM at the kernel's launch (a sorted kernel with its dynamic
-    shared memory), and SMs (a persistent kernel, K1, K4 or K5, launches
-    blocks_per_sm x sms blocks at most)."""
+    for the format ``fmt`` (a key of ``KERNEL_FORMATS``; ``lib``: another
+    build's library, asked for the classic rows only; default the
+    package's): registers a thread, local-memory bytes a thread (its stack
+    frame, spills included), spill-store bytes a thread (ptxas' report of
+    the package's build; None for another library), threads a block,
+    resident blocks and warps an SM at the kernel's launch (a sorted kernel
+    with its dynamic shared memory), and SMs (a persistent kernel, K1, K4
+    or K5, launches blocks_per_sm x sms blocks at most)."""
     import ctypes
 
     from hijiki_tpu_torch.utils.build import build, load_library, spill_stores
 
+    packed, sh = KERNEL_FORMATS[fmt]
     spill = None
     if lib is None:
         report = build()[2]
-        spill = spill_stores(report, f"{name}_kernel") if report else None
+        spill = (spill_stores(report, f"{name}_kernel", f"ILi{packed}ELb{int(sh)}E")
+                 if report else None)
     out = (ctypes.c_int * 5)()
     lib = lib if lib is not None else load_library()
-    rc = lib.mk_occupancy(_OCCUPANCY_OF[name], ctypes.cast(out, ctypes.c_void_p))
+    which = _OCCUPANCY_OF[name] + 8 * list(KERNEL_FORMATS).index(fmt)
+    rc = lib.mk_occupancy(which, ctypes.cast(out, ctypes.c_void_p))
     if rc != 0:
-        raise RuntimeError(f"mk_occupancy({name}) failed: CUDA error {rc}")
+        raise RuntimeError(f"mk_occupancy({name}, {fmt}) failed: CUDA error {rc}")
     regs, per_sm, threads, sms, local = out
     return {"registers": regs, "local_bytes": local, "spill_bytes": spill, "threads": threads,
             "warps_per_sm": per_sm * threads // 32, "blocks_per_sm": per_sm, "sms": sms}
@@ -1242,11 +1428,13 @@ def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bo
 
 
 def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000,
-                 lane_sort: bool = False):
+                 lane_sort: bool = False, shadow_vis: bool = True, shadow_tbl: bool = False):
     """Whole paths in one launch to ``max_bounces`` (``render_tiles``).
     ``lane_sort``: sort each tile's paths between bounces (any N: the
     kernel and the plain version pad the last tile with dead paths).
+    ``shadow_vis``, ``shadow_tbl``: as JAX's (``launch_scene``).
     Returns (total (N,3), normal (N,3), depth (N,), state (N,))."""
+    ms = launch_scene(ms, shadow_vis, shadow_tbl)
     out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces, lane_sort)
     return out[0:3].T, out[3:6].T, out[6], rng
 
@@ -1347,6 +1535,8 @@ def render_waves(
     phase_bounces: tuple = (5, 12, 48),
     phase_shrink: tuple = (2, 4, 4),
     lane_sort: bool = False,
+    shadow_vis: bool = True,
+    shadow_tbl: bool = False,
 ):
     """Phased wavefront render (``render_waves``): a camera launch to
     ``phase_bounces[0]``, then compaction phases that resume the survivors
@@ -1354,11 +1544,13 @@ def render_waves(
     after phase k is N / phase_shrink[k]; paths beyond it are dropped and
     counted in ``overflow`` (the renderer re-renders such sweeps).
     ``lane_sort``: every launch sorts its tiles' paths between bounces
-    (K7); the outputs are the same bit for bit.
+    (K7); the outputs are the same bit for bit. ``shadow_vis``,
+    ``shadow_tbl``: as JAX's (``launch_scene``).
 
     Returns (total (N,3), normal (N,3), depth (N,), state (N,), overflow (),
     segs (N,), rows (N,), albedo (N,3)).
     """
+    ms = launch_scene(ms, shadow_vis, shadow_tbl)
     n_req = px.shape[0]
     pad = (-n_req) % TILE
     if pad:
@@ -1392,6 +1584,8 @@ def render_waves_chained(
     chain_cap: int = 8,
     phase_bounces: tuple = (48,),
     phase_shrink: tuple = (4,),
+    shadow_vis: bool = True,
+    shadow_tbl: bool = False,
 ):
     """Chained phased render (``render_waves_chained``): S sweep samples per
     pixel in ONE chained camera launch (K4) that respawns a dead path's lane
@@ -1402,12 +1596,14 @@ def render_waves_chained(
     (S, N) int32 u32 bits.
 
     Per sample exactly what S separate ``render_waves`` sweeps compute (each
-    thread walks alone), as long as nothing overflows.
+    thread walks alone), as long as nothing overflows. ``shadow_vis``,
+    ``shadow_tbl``: as JAX's (``launch_scene``).
 
     Returns per-sweep images: total (S,N,3), normal (S,N,3), depth (S,N),
     state (S,N) (the sample's final RNG), overflow (), segs (S,N), rows (N,)
     (summed over the S samples), albedo (S,N,3).
     """
+    ms = launch_scene(ms, shadow_vis, shadow_tbl)
     S, n_req = pxs.shape
     if S < 2:
         raise ValueError("render_waves_chained needs >= 2 sweeps; use render_waves")

@@ -51,7 +51,9 @@ from hijiki_tpu_torch.ops.rng import MASK32, seed_rng
 from hijiki_tpu_torch.render.blocks import upload
 from hijiki_tpu_torch.render.pallas_reconstruct import R as RADIUS, reconstruct
 from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
-from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer, chunk_inputs
+from hijiki_tpu_torch.render.renderer import (
+    RenderConfig, Renderer, chunk_inputs, resolve_shadow_tbl,
+)
 from hijiki_tpu_torch.scene.compile import CompiledScene, to_device
 
 
@@ -306,7 +308,8 @@ class MegaMultiChipRenderer(_MultiDevice):
             block_seeds, offsets = np.asarray(block_seeds)[None], np.asarray(offsets)[None]
         offs = np.asarray(offsets, np.float32)
         S = len(offs)
-        kw = dict(max_bounces=c.max_bounces, **({"phase_shrink": phase_shrink} if phase_shrink else {}))
+        kw = dict(max_bounces=c.max_bounces, shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
+                  **({"phase_shrink": phase_shrink} if phase_shrink else {}))
         if S > 1 and c.mega_chain_cap:
             kw["chain_cap"] = c.mega_chain_cap
         exts, ovfs, segs, rows = [], [], [], []

@@ -21,7 +21,7 @@ Variants: ``test``/``notest`` (every prim row misses, the tool's
 patch_no_test) x ``w32``/``w16`` (``w16_rows``: columns 0-10 and the plane
 normal in 11-13). t equals the JAX tool's up to the FMA/t-tie class; the
 JAX walk counts packet unions, so its rows visited are not compared. The
-tool's packed/pack3/pack4/slim tables are not ported (Queue 2 item 5).
+tool's packed/pack3/pack4/slim tables are not ported yet (ROADMAP, Queue 2).
 
 Usage (the tool's image size; on the card G = 1 and 32 take the place of
 its groups):

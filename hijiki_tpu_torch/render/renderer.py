@@ -99,6 +99,10 @@ class RenderConfig:
     # in-kernel bounce cap of a chained launch before a path parks for the
     # compaction phases; 0 = render_waves_chained's default (8)
     mega_chain_cap: int = 0
+    # the dedicated any-hit shadow table for the mega driver's NEE walks
+    # (CompiledScene.shadow_rows_mega): 0 = auto (off, as JAX's
+    # resolve_shadow_tbl resolves it), 1 = on, -1 = off; the film is the
+    # same either way
     mega_shadow: int = 0
     # wavefront phase-capacity shrink factors; () = the drivers' defaults
     phase_shrink: tuple = ()
@@ -108,7 +112,6 @@ DRIVERS = ("sync", "wavefront", "mega")
 # fields whose non-default values select code that is not ported yet
 _NOT_PORTED = (
     "mega_packet", "mega_groups", "spec_resolve", "mega_trunk", "mega_window",
-    "mega_shadow",
 )
 
 # fields that change an accumulated film: a resumed render must match them
@@ -170,6 +173,19 @@ def resolve_chain_sweeps(config: RenderConfig, device, sweeps_done: int = 0) -> 
     return chain_chunk_size(c.spp - sweeps_done, CHAIN_SWEEPS_CUDA)
 
 
+def resolve_shadow_tbl(requested: int) -> bool:
+    """Whether the mega driver's shadow walks take the dedicated any-hit
+    table (JAX's ``resolve_shadow_tbl``, hijiki_tpu/render/renderer.py:
+    671-689): 0 = auto, which is off; > 0 on (the scene must have one);
+    < 0 off. HIJIKI_SHADOW_TBL overrides the auto choice."""
+    if requested:
+        return requested > 0
+    env = os.environ.get("HIJIKI_SHADOW_TBL")
+    if env:
+        return int(env) > 0
+    return False
+
+
 def _pixel_grid(width, height, device, row0=0):
     y = torch.arange(row0, row0 + height, dtype=torch.float32, device=device)
     y = y.view(-1, 1).expand(height, width)
@@ -209,6 +225,7 @@ def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
     if driver == "mega":
         total, normal, depth, _, overflow, segs, rows, alb = render_waves(
             scene, px, py, to_bits(seeds), max_bounces=max_bounces, lane_sort=c.sort_lanes,
+            shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
             **({"phase_shrink": phase_shrink} if phase_shrink else {}),
         )
         if c.fixed_albedo:
@@ -275,6 +292,7 @@ def render_sweeps_chained(ms, block_seeds, sample_offsets, config: RenderConfig,
     pxs, pys, seeds = chunk_inputs(W, H, c.block_size, block_seeds, offs, ms.rows.device)
     t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
         ms, pxs, pys, seeds, max_bounces=c.max_bounces,
+        shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
         **({"chain_cap": c.mega_chain_cap} if c.mega_chain_cap else {}),
         **({"phase_shrink": phase_shrink} if phase_shrink else {}),
     )

@@ -154,8 +154,10 @@ class CompiledScene:
     # 1 = a single area-ordered table). Each copy is rows/ntab rows; exit
     # pointers are absolute into the concatenated array.
     mega_num_tables_static: int = 1
-    # Prims per packed trace row; 0 = classic unpacked 32-wide rows (the
-    # only format ported so far).
+    # Prims per packed trace row (1 SLIM, 3, 4, 12; build_packed_trace_rows);
+    # 0 = classic unpacked 32-wide rows. A packed trace_rows_mega is the
+    # walk table(s) (ntab * mega_tbl_rows_static rows) followed by the
+    # slot-indexed payload section (mega_pay_rows_static rows).
     mega_packed_static: int = 0
     # True = trace_rows_mega is triangle-only (analytic prims, if any, are
     # baked into analytic_bake_static); False = mixed-kind rows. Pure-
@@ -169,8 +171,8 @@ class CompiledScene:
     # any box skip the any-hit walk exactly. Packed flat as
     # (K, x0,y0,z0,x1,y1,z1, ... K times). () = nothing proven / disabled.
     shadow_vis_static: tuple = ()
-    # Dedicated PACKED3 any-hit shadow table of hijiki_tpu; not ported
-    # (always None here: shadow rays walk the main table).
+    # Dedicated any-hit shadow table: one payload-free PACKED3 flattening
+    # of the triangles (classic analytic-mode tables only; else None).
     shadow_rows_mega: Any = None
     shadow_tbl_rows_static: int = 0
 
@@ -285,10 +287,6 @@ def build_trace_rows(
 # cannot actually co-reside and must stream. HBM streaming at this band
 # runs the measured PACKED4 + G=2 stack (docs/PERF_NOTES.md §9z).
 MEGA_VMEM_TABLE_BYTES = 8 << 20
-# prims per row of the 64-wide packed format "auto" would choose
-PACKED_N = 4
-
-
 def build_octant_trace_tables(bvh, prim_args) -> np.ndarray:
     """Concatenate 8 flattenings of the same tree, one per ray-direction
     octant with near-to-far child ordering (ordered stackless traversal; see
@@ -315,6 +313,211 @@ def build_octant_trace_tables(bvh, prim_args) -> np.ndarray:
         rows_o[:, 10] += np.float32(octant * R)  # absolute exit pointers
         tables.append(rows_o)
     return np.concatenate(tables, axis=0)
+
+
+# --- packed leaf rows (megakernel, analytic mode only) ---------------------
+# A packed trace row carries up to PACKED_N triangles tested in ONE walker
+# iteration (the walker pays its fixed per-iteration cost — slab vote,
+# cursor logic, fetch — once per PACKED_N prims instead of once per prim).
+# Row layout, PACKED_ROW_WIDTH f32 wide:
+#   cols 0-2 / 3-5   aabb min/max (interior rows)
+#   col  9           -1 interior, +1 packed-prim row
+#   col  10          exit row
+#   prim k in 0..PACKED_N-1 at base B = PACKED_BASE + PACKED_STRIDE*k:
+#     B..B+2  v0   B+3..B+5  edge1   B+6..B+8  edge2
+#     B+9..B+11  plane normal edge1 x edge2
+#     B+12  slot (payload-row index; shading data lives in the payload
+#           section appended after the walk tables — see
+#           build_packed_trace_rows)
+# Leaves with fewer than a multiple of PACKED_N prims pad by repeating the
+# last prim: with the walker's strict-< earliest-wins accept, a duplicate
+# can never beat its original, so padding is exact.
+PACKED_ROW_WIDTH = 64
+PACKED_N = 4
+PACKED_BASE = 12
+PACKED_STRIDE = 13
+
+# The 3-prim variant keeps the ORIGINAL 32-col row width — the walk-probe
+# attribution (PERF_NOTES §9s) showed per-iteration cost is fetch-width-
+# bound, not ALU-bound: 64-wide rows cost ~+20%/iteration while the whole
+# prim test costs ~4%. Layout (prim rows; interiors unchanged):
+#   prim0 v0/v1/v2 at cols 0-8 (exactly the unpacked layout)
+#   prim1 at cols 11-19, prim2 at cols 20-28
+#   col 29 = slot of prim0; slots are CONSECUTIVE (slot_k = slot0 + k)
+#   col 9 kind flag, col 10 exit as always
+# Plane normals are recomputed in-kernel (f32 cross — bitwise-identical to
+# the numpy f32 bake); short leaves pad with degenerate all-zero triangles
+# (NaN t can never win the strict-min tournament).
+PACKED3_N = 3
+PACKED3_BASES = (0, 11, 20)
+PACKED3_SLOT_COL = 29
+
+# The 12-prim variant fills the HBM DMA width exactly. Mosaic DMA row slices
+# are 128-lane aligned, so HBM-streamed rows are padded to 128 cols no matter
+# the format — a 64-wide PACKED4 row wastes half of every 512 B row DMA.
+# With in-kernel normal recompute (vector ALU per iteration is nearly free,
+# docs/PERF_NOTES.md §9s) and consecutive slots, 12 triangles fit:
+#   prim0 v0/v1/v2 at cols 0-8 (exactly the unpacked layout)
+#   col 9 kind flag, col 10 exit (as always)
+#   prim k at PACKED12_BASES[k] (9 cols each: v0, edge1, edge2)
+#   col 110 = slot of prim0; slots are CONSECUTIVE (slot_k = slot0 + k)
+# Short leaves pad with degenerate all-zero triangles (NaN t never wins the
+# strict-min tournament).
+PACKED12_N = 12
+PACKED12_BASES = (0,) + tuple(11 + 9 * k for k in range(11))
+PACKED12_SLOT_COL = 110
+PACKED12_ROW_WIDTH = 128
+
+# The 1-prim SLIM format halves the row to 16 cols — the walk reads only
+# cols 0-10 (+ slot): interior aabb at 0-5 or prim v0/v1/v2 at 0-8, kind
+# at 9, exit at 10, payload slot at 11; the plane normal is recomputed
+# in-kernel and the 18-float payload (kind/tag/midx + 15 shading floats)
+# lives in TWO consecutive 16-wide pay rows per prim (row0: kind, tag,
+# midx, pay0-11; row1: pay12-14).
+SLIM_ROW_WIDTH = 16
+SLIM_SLOT_COL = 11
+SLIM_PAY_STRIDE = 2
+
+
+def build_packed_trace_rows(bvh, prim_a, prim_b, prim_c, prim_kind, prim_tag,
+                            prim_midx, prim_payload, nper=PACKED_N):
+    """Flatten a (triangle-only) threaded BVH into packed trace rows plus a
+    slot-indexed payload table.
+
+    Returns ``(rows (R, PACKED_ROW_WIDTH) f32, pay (P, PACKED_ROW_WIDTH)
+    f32)``. Payload rows: col 0 kind, col 1 material tag, col 2 material
+    index, cols 3-17 the 15-float shading payload (build_trace_rows cols
+    14-28). The caller appends ``pay`` after the walk table(s); the
+    megakernel's winner-resolve loop fetches payload by slot from there.
+
+    Same traversal semantics as ``build_trace_rows`` (reference walk:
+    ``shader/scene.glsl:99-133``): a leaf of count prims becomes
+    ceil(count / PACKED_N) consecutive packed rows threaded by exit
+    pointers. Within a row the walker takes the strict-min-t hit with
+    earliest-prim tie-break, which is exactly the sequential per-prim
+    walk's outcome.
+    """
+    assert nper in (1, PACKED3_N, PACKED_N, PACKED12_N)
+    if nper == 1:
+        width = SLIM_ROW_WIDTH
+    elif nper == PACKED3_N:
+        width = TRACE_ROW_WIDTH
+    elif nper == PACKED12_N:
+        width = PACKED12_ROW_WIDTH
+    else:
+        width = PACKED_ROW_WIDTH
+    n_nodes = bvh.aabb_min.shape[0]
+    counts = bvh.count.astype(np.int64)
+    packs_per_leaf = np.where(counts > 0, -(-counts // nper), 0)
+    rows_per_node = np.where(counts > 0, packs_per_leaf, 1)
+    row_start = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.cumsum(rows_per_node, out=row_start[1:])
+    total = int(row_start[-1])
+    n_prims = prim_a.shape[0]
+    assert total < 2**24 and n_prims < 2**24, (
+        "packed trace table exceeds f32 exact-integer indexing"
+    )
+
+    rows = np.zeros((total, width), dtype=np.float32)
+    is_leaf = counts > 0
+    exit_rows = row_start[np.minimum(bvh.exit.astype(np.int64), n_nodes)]
+
+    int_r = row_start[:-1][~is_leaf]
+    rows[int_r, 0:3] = bvh.aabb_min[~is_leaf]
+    rows[int_r, 3:6] = bvh.aabb_max[~is_leaf]
+    rows[int_r, 9] = -1.0
+    rows[int_r, 10] = exit_rows[~is_leaf]
+
+    leaf_nodes = np.nonzero(is_leaf)[0]
+    if leaf_nodes.size:
+        leaf_packs = packs_per_leaf[leaf_nodes]
+        node_rep = np.repeat(leaf_nodes, leaf_packs)  # owning node per row
+        ends = np.cumsum(leaf_packs)
+        j = np.arange(int(ends[-1]), dtype=np.int64) - np.repeat(
+            ends - leaf_packs, leaf_packs
+        )  # pack index within the leaf
+        r = row_start[node_rep] + j
+        rows[r, 9] = 1.0
+        last = j + 1 == np.repeat(leaf_packs, leaf_packs)
+        rows[r, 10] = np.where(last, exit_rows[node_rep], r + 1)
+        if nper == 1:
+            slot = bvh.first[node_rep].astype(np.int64) + j
+            rows[r, 0:3] = prim_a[slot]
+            rows[r, 3:6] = prim_b[slot]
+            rows[r, 6:9] = prim_c[slot]
+            rows[r, SLIM_SLOT_COL] = slot
+        elif nper in (PACKED3_N, PACKED12_N):
+            # consecutive slots from one base col; tails pad with
+            # degenerate all-zero triangles (never hit, NaN t never wins)
+            bases = PACKED3_BASES if nper == PACKED3_N else PACKED12_BASES
+            slot_col = PACKED3_SLOT_COL if nper == PACKED3_N else PACKED12_SLOT_COL
+            rows[r, slot_col] = bvh.first[node_rep] + j * nper
+            for k in range(nper):
+                slot = bvh.first[node_rep].astype(np.int64) + j * nper + k
+                valid = j * nper + k < counts[node_rep]
+                B = bases[k]
+                sl = slot[valid]
+                rv = r[valid]
+                rows[rv, B : B + 3] = prim_a[sl]
+                rows[rv, B + 3 : B + 6] = prim_b[sl]
+                rows[rv, B + 6 : B + 9] = prim_c[sl]
+        else:
+            normals = np.cross(prim_b, prim_c).astype(np.float32)
+            for k in range(nper):
+                # prim k of each pack; short tails repeat the last prim
+                slot = bvh.first[node_rep].astype(np.int64) + np.minimum(
+                    j * nper + k, counts[node_rep] - 1
+                )
+                B = PACKED_BASE + PACKED_STRIDE * k
+                rows[r, B : B + 3] = prim_a[slot]
+                rows[r, B + 3 : B + 6] = prim_b[slot]
+                rows[r, B + 6 : B + 9] = prim_c[slot]
+                rows[r, B + 9 : B + 12] = normals[slot]
+                rows[r, B + 12] = slot
+
+    assert np.all(prim_kind == KIND_TRIANGLE), (
+        "packed trace rows are triangle-only (analytic prims are baked)"
+    )
+    if nper == 1:
+        # SLIM: 18 payload floats across SLIM_PAY_STRIDE consecutive rows
+        pay = np.zeros((n_prims * SLIM_PAY_STRIDE, width), dtype=np.float32)
+        pay[0::2, 0] = prim_kind
+        pay[0::2, 1] = prim_tag
+        pay[0::2, 2] = prim_midx
+        pay[0::2, 3:15] = prim_payload[:, :12]
+        pay[1::2, 0:3] = prim_payload[:, 12:15]
+        return rows, pay
+    pay = np.zeros((n_prims, width), dtype=np.float32)
+    pay[:, 0] = prim_kind
+    pay[:, 1] = prim_tag
+    pay[:, 2] = prim_midx
+    pay[:, 3:18] = prim_payload
+    return rows, pay
+
+
+def build_packed_octant_tables(bvh, prim_args, nper=PACKED_N):
+    """8 packed flattenings (one per ray-direction octant, near-to-far child
+    order) with absolute exit pointers, plus the shared payload table (slots
+    are octant-invariant: all flattenings index the same prim order)."""
+    from hijiki_tpu_torch.accel.bvh import order_children_octant
+
+    tables = []
+    R = None
+    pay = None
+    for octant in range(8):
+        rows_o, pay_o = build_packed_trace_rows(
+            order_children_octant(bvh, octant), *prim_args, nper=nper
+        )
+        if R is None:
+            R, pay = rows_o.shape[0], pay_o
+            assert 8 * R < 2**24, (
+                "packed octant tables exceed f32 exact-integer indexing"
+            )
+        assert rows_o.shape[0] == R, "octant flattenings must agree in size"
+        rows_o[:, 10] += np.float32(octant * R)
+        tables.append(rows_o)
+    return np.concatenate(tables, axis=0), pay
+
 
 
 def emitter_pick_thresholds(pdf: np.ndarray) -> np.ndarray:
@@ -368,22 +571,27 @@ def emitter_pick_thresholds(pdf: np.ndarray) -> np.ndarray:
 
 def compile_scene(
     scene: Scene, leaf_size: int = 1, collapse: int = 1, octant_tables: str = "auto",
-    packed_leaf=0, shadow_vis_boxes: bool = False,
+    packed_leaf="auto", shadow_vis_boxes: bool = True,
 ) -> CompiledScene:
     """Compile a Scene to numpy arrays + baked statics.
 
-    The same compiler as ``hijiki_tpu.scene.compile.compile_scene`` with the
-    classic 32-column trace rows (``packed_leaf=0``) and the numpy BVH
-    builder. Not ported yet, and refused here: the packed row formats
-    (``packed_leaf`` > 0, or "auto" on a scene whose table would pack), the
-    shadow-visibility boxes (``scene/lightvis.py``) and the dedicated
-    PACKED3 any-hit shadow table. The boxes and the shadow table only skip
-    or reorder shadow walks, so leaving them out changes no result.
+    The same compiler as ``hijiki_tpu.scene.compile.compile_scene``, with
+    its defaults, and the numpy BVH builder.
+
+    ``shadow_vis_boxes``: run the shadow-visibility proof sweep
+    (``scene/lightvis.py``; only the megakernel's NEE walk reads the boxes).
+    The sweep costs seconds on a first compile and is cached on disk by
+    scene content; pass False to skip it.
+
+    ``packed_leaf``: the megakernel's trace-row format. 0 = classic 32-column
+    rows; N > 0 = leaves of N triangles packed into one row
+    (``build_packed_trace_rows``: 1 the 16-column SLIM rows, 2-3 the 32-column
+    PACKED3 rows, 4 the 64-column PACKED4 rows, 5+ the 128-column PACKED12
+    rows); "auto" = PACKED4 exactly when the classic table would pass
+    ``MEGA_VMEM_TABLE_BYTES`` (about 43,690 triangles), classic otherwise.
+    A classic analytic-mode table also gets the dedicated PACKED3 any-hit
+    shadow table (``shadow_rows_mega``).
     """
-    if shadow_vis_boxes:
-        raise NotImplementedError("shadow-visibility boxes are not ported yet")
-    if packed_leaf not in (0, "auto"):
-        raise NotImplementedError("packed trace-row formats are not ported yet")
     spheres: list[tuple[Sphere, int]] = []
     quads: list[tuple[Quad, int]] = []
     tris: list[tuple[Triangle, int]] = []
@@ -524,7 +732,18 @@ def compile_scene(
         payload[S + Q :, 11:13] = uvs[tri_idx[:, 1]]
         payload[S + Q :, 13:15] = uvs[tri_idx[:, 2]]
 
+    # shadow-visibility boxes (scene/lightvis.py): regions provably
+    # unoccluded toward the whole emitter set; NEE shadow rays from them
+    # skip the any-hit walk (estimator-exact — see the module's soundness
+    # argument)
     shadow_vis = ()
+    if shadow_vis_boxes:
+        from hijiki_tpu_torch.scene.lightvis import build_shadow_vis_boxes
+
+        shadow_vis = build_shadow_vis_boxes(
+            aabb_min, aabb_max, kind, a, b, c, em_shape,
+            KIND_SPHERE, KIND_QUAD, KIND_TRIANGLE,
+        ) or ()
 
     bvh = build_bvh(aabb_min, aabb_max, leaf_size=leaf_size)
     if collapse:
@@ -607,17 +826,9 @@ def compile_scene(
         analytic_bake = tuple(analytic)
         if T:
             if packed_leaf == "auto":
-                # pack iff the UNPACKED table would stream from HBM — the
-                # renderer's trigger is trace_rows_mega.nbytes >
-                # MEGA_VMEM_TABLE_BYTES (renderer.py aliases the same
-                # constant), and the post-collapse unpacked table measures
-                # ~1.5 rows/tri (bigcbox: 609k rows / 405k tris). PACKED4
-                # measured the on-chip HBM winner (1.091x vs classic;
-                # PACKED12's deeper iteration cut loses to the 128-wide
-                # fetch/resolve tax — PERF_NOTES §9z). VMEM-resident tables
-                # measured 0.91x packed (§9s) and stay unpacked; a
-                # 2 rows/tri estimate here would wrongly pack ~98-125k-tri
-                # scenes whose unpacked tables still fit VMEM.
+                # JAX's rule: pack (PACKED4) iff the classic table would
+                # pass MEGA_VMEM_TABLE_BYTES, estimated at 1.5 rows a
+                # triangle (the collapsed tree's measured ratio)
                 est_unpacked = 3 * T // 2 * TRACE_ROW_WIDTH * 4
                 use_packed = PACKED_N if est_unpacked > MEGA_VMEM_TABLE_BYTES else 0
             else:
@@ -641,15 +852,64 @@ def compile_scene(
                 payload[tri_order],
             )
             if use_packed > 0:
-                raise NotImplementedError(
-                    "packed trace-row formats are not ported yet"
+                # packed leaf rows: nper prims per walk step; the shading
+                # payload in a slot-indexed section appended after the walk
+                # table(s). leaf 1 -> the 16-wide SLIM format; leaf 2-3 ->
+                # the 32-wide PACKED3 format; leaf 4 -> the 64-wide format;
+                # leaf >= 5 -> the 128-wide 12-prim format.
+                if use_packed == 1:
+                    nper, width = 1, SLIM_ROW_WIDTH
+                elif use_packed <= PACKED3_N:
+                    nper, width = PACKED3_N, TRACE_ROW_WIDTH
+                elif use_packed == PACKED_N:
+                    nper, width = PACKED_N, PACKED_ROW_WIDTH
+                else:
+                    nper, width = PACKED12_N, PACKED12_ROW_WIDTH
+                walk, pay = build_packed_trace_rows(
+                    tri_bvh, *tri_prim_args, nper=nper
                 )
-            trace_rows_mega = build_trace_rows(tri_bvh, *tri_prim_args)
-            if want_octants(trace_rows_mega.shape[0]):
-                trace_rows_mega = build_octant_trace_tables(
-                    tri_bvh, tri_prim_args
+                Rp = walk.shape[0]
+                if want_octants(Rp, width, pay_rows=pay.shape[0]):
+                    walk, pay = build_packed_octant_tables(
+                        tri_bvh, tri_prim_args, nper=nper
+                    )
+                    mega_num_tables = 8
+                trace_rows_mega = np.concatenate([walk, pay], axis=0)
+                mega_packed = nper
+                mega_tbl_rows = Rp
+                mega_pay_rows = pay.shape[0]
+            else:
+                trace_rows_mega = build_trace_rows(tri_bvh, *tri_prim_args)
+                if want_octants(trace_rows_mega.shape[0]):
+                    trace_rows_mega = build_octant_trace_tables(
+                        tri_bvh, tri_prim_args
+                    )
+                    mega_num_tables = 8
+                # the dedicated any-hit shadow table: a single PACKED3
+                # flattening over a leaf-3 rebuild of the same triangles,
+                # 3 prims a 32-wide row, no payload and no octant set
+                # (ordering along the ray does not prune a bounded any-hit
+                # query); ~0.55 rows a triangle
+                sh_bvh = build_bvh(
+                    aabb_min[NA:], aabb_max[NA:], leaf_size=PACKED3_N
                 )
-                mega_num_tables = 8
+                if collapse:
+                    sh_bvh = collapse_bvh(sh_bvh, rounds=collapse)
+                sh_bvh = order_children_by_area(sh_bvh)
+                sh_order = sh_bvh.prim_order + NA
+                sh_mats = shape_mats[sh_order]
+                shadow_rows_mega, _sh_pay = build_packed_trace_rows(
+                    sh_bvh,
+                    a[sh_order],
+                    b[sh_order],
+                    c[sh_order],
+                    kind[sh_order],
+                    sh_mats >> MATERIAL_TAG_SHIFT,
+                    sh_mats & midx_mask,
+                    payload[sh_order],
+                    nper=PACKED3_N,
+                )
+                shadow_tbl_rows = shadow_rows_mega.shape[0]
         else:
             # all-analytic scene: one inert interior row (never hit, exits)
             trace_rows_mega = np.zeros((1, TRACE_ROW_WIDTH), dtype=np.float32)
@@ -821,15 +1081,11 @@ def from_reference(arrays: dict, statics: dict) -> CompiledScene:
     """Build the port's CompiledScene from ``hijiki_tpu``'s compile output.
 
     ``arrays`` maps field names to numpy arrays (the reference's jax arrays
-    converted with ``np.asarray``), ``statics`` maps the static fields to
-    their values. Fields the port does not carry (the dedicated shadow
-    table) are dropped, so both packages can be fed one compiled scene.
-    """
+    converted with ``np.asarray``; ``shadow_rows_mega`` among them when the
+    reference built one), ``statics`` maps the static fields to their
+    values (the packed-format, table-size and shadow-visibility bakes
+    included), so both packages can be fed one compiled scene."""
     names = {f.name for f in dataclasses.fields(CompiledScene)}
     kw = {k: np.asarray(v) for k, v in arrays.items() if k in names}
     kw.update({k: v for k, v in statics.items() if k in names})
-    kw["shadow_rows_mega"] = None
-    kw["shadow_tbl_rows_static"] = 0
-    if kw.get("mega_packed_static", 0):
-        raise NotImplementedError("packed trace-row formats are not ported yet")
     return CompiledScene(**kw)

@@ -37,7 +37,9 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SCENE = [_P, _P] + [_I] * 10
+# csrc/walk.cuh SCENE_ARGS: rows, consts, the table's sizes and the bakes'
+# counts (10), the packed format, payload rows, boxes, the shadow table
+_SCENE = [_P, _P] + [_I] * 13 + [_P, _I]
 # argtypes of every C entry point: each pointer and the stream as c_void_p
 SIGNATURES = {
     # K1, K4 and K5 are persistent: the pointer before the stream is the work counter
@@ -138,13 +140,15 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     return lib, secs, report
 
 
-def spill_stores(report: str, kernel: str) -> int:
+def spill_stores(report: str, kernel: str, targs: str = "") -> int:
     """The spill-store bytes ptxas reports, in ``report``, for the kernel
-    function named ``kernel`` (not a template, in any namespace: its
-    mangled name holds <length><kernel>E); raises if the report has none."""
+    function named ``kernel`` in any namespace, or for its instantiation
+    whose mangled template arguments are ``targs`` (``ILi0ELb0E`` for
+    <0, false>): its mangled name holds <length><kernel><targs>E. Raises if
+    the report has none."""
     import re
 
-    frag = f"{len(kernel)}{kernel}E"
+    frag = f"{len(kernel)}{kernel}{targs}E"
     name = None
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)

@@ -149,3 +149,17 @@ def test_cli_devices_errors(flags, error):
 def test_cli_platform_tpu_refused(capsys):
     assert cli.main(["builtin:cornell", "--platform", "tpu"]) == 2
     assert "the TPU is the JAX package's" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [["--packed-leaf", "4"], ["--packed-leaf", "auto", "--mega-shadow", "1"],
+                                   ["--packed-leaf", "12", "--mega-shadow", "-1"]],
+                         ids=["packed4", "auto-shadow", "packed12"])
+def test_cli_packed_leaf_and_mega_shadow(flags, tmp_path):
+    """--packed-leaf and --mega-shadow reach the compile and the renderer:
+    the same EXR as the default flags, bit for bit."""
+    base = [MESHBOX_SMALL, "--put-cbox-spheres", "--driver", "mega", "-w", "24", "-H", "16",
+            "-s", "1", "--max-bounces", "10", "--device", "cpu"]
+    ref, out = tmp_path / "ref.exr", tmp_path / "o.exr"
+    assert cli.main(base + ["-o", str(ref)]) == 0
+    assert cli.main(base + flags + ["-o", str(out)]) == 0
+    np.testing.assert_array_equal(read_exr(str(out)), read_exr(str(ref)))

@@ -749,6 +749,33 @@ def test_megakernels_occupancy():
         assert occ["warps_per_sm"] == 24 and occ["spill_bytes"] == 0, (name, occ)
 
 
+# ptxas' registers and spill-store bytes a thread, and the resident warps
+# an SM, of each megakernel's instantiation for each trace-row format, as
+# built for the NVIDIA H100 80GB HBM3 (chip_smoke.py phase 6 prints them):
+# mk_start, mk_resume, mk_start_chained, mk_tiles and the sorted mk_start,
+# mk_resume, mk_tiles (mk._OCCUPANCY_OF's order)
+FORMAT_OCCUPANCY = {
+    "classic": ((80, 0, 24), (96, 16, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "slim": ((80, 0, 24), (96, 8, 20), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "packed3": ((80, 8, 24), (109, 0, 16), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "packed4": ((80, 16, 24), (113, 0, 16), (80, 12, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24)),
+    "packed12": ((80, 12, 24), (96, 4, 20), (80, 8, 24), (80, 8, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "shadow_tbl": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+}
+
+
+@pytest.mark.parametrize("fmt", list(mk.KERNEL_FORMATS))
+def test_format_kernels_occupancy(fmt):
+    """Each of the seven megakernels' instantiation for ``fmt`` uses no
+    more registers and spills no more bytes than FORMAT_OCCUPANCY records,
+    and holds as many resident warps an SM, or more."""
+    cuda_device()
+    for name, (regs, spill, warps) in zip(mk._OCCUPANCY_OF, FORMAT_OCCUPANCY[fmt], strict=True):
+        occ = mk.occupancy(name, fmt=fmt)
+        assert occ["registers"] <= regs and occ["spill_bytes"] <= spill, (name, fmt, occ)
+        assert occ["warps_per_sm"] >= warps, (name, fmt, occ)
+
+
 @pytest.mark.parametrize("cap", [1, 5, 1000])
 @pytest.mark.parametrize("n", [1, 127, 129, 4097])
 def test_persistent_start_kernel_bit_equal_to_twin(n, cap):
@@ -1042,3 +1069,86 @@ def test_two_bands_on_one_card_match_single(chain):
         two.render()
         np.testing.assert_allclose(two.film.cpu().numpy(), one.film.cpu().numpy(),
                                    rtol=5e-4, atol=5e-5)
+
+
+# the trace-row formats of the megakernel: (packed_leaf, boxes, the
+# dedicated shadow table) on meshbox_small + spheres (octant tables on)
+FORMATS = {"slim": (1, True, False), "packed3": (3, True, False), "packed4": (4, True, False),
+           "packed12": (12, True, False), "shadow_tbl": (0, True, True),
+           "noboxes": (0, False, False), "boxes": (0, True, False)}
+
+
+def _format_scene(config, S, dev):
+    packed, boxes, tbl = FORMATS[config]
+    s = load_obj_scene(MESHBOX_SMALL)
+    s.put_cbox_spheres()
+    cs = compile_scene(s, packed_leaf=packed, shadow_vis_boxes=boxes)
+    assert cs.mega_packed_static == packed and cs.mega_num_tables_static == 8
+    return mk.launch_scene(mk.mega_scene(cs, S, S, dev), shadow_tbl=tbl)
+
+
+@pytest.mark.parametrize("config", list(FORMATS))
+def test_formats_kernels_match_twin(config):
+    """K1 (cap 5), K2 (resume to 24), K5 (to 24) and K4 (3 samples, chain
+    cap 8) on each packed format, with the boxes, with the shadow table and
+    with neither, against their twins: every output bit for bit (the twin
+    rounds as the kernel does); the sorted K1/K2/K5 bit-equal to the
+    unsorted kernels."""
+    dev = cuda_device()
+    S = 64
+    ms = _format_scene(config, S, dev)
+    px, py, seeds = _frame(S, dev)
+    before = dict(mk.LAUNCHES)
+    k1 = mk.megakernel_start(ms, px, py, seeds, 5)
+    k2 = mk.megakernel_resume(ms, *k1, 24)
+    k5 = mk.megakernel_tiles(ms, px, py, seeds, 24)
+    pxs = torch.stack([px, px + 0.25, px - 0.25])
+    pys = torch.stack([py, py - 0.125, py + 0.125])
+    sds = torch.stack([seeds, seeds + 1, seeds + 977])
+    k4 = mk.megakernel_start_chained(ms, pxs, pys, sds, 8)
+    for name in ("mk_start", "mk_resume", "mk_tiles", "mk_start_chained"):
+        assert mk.LAUNCHES[name] == before[name] + 1
+    bits = lambda ts: [t.view(torch.int32) for t in ts]
+    for got, want in ((k1, mk.megakernel_start_plain(ms, px, py, seeds, 5)),
+                      (k2, mk.megakernel_resume_plain(ms, *k1, 24)),
+                      (k5, mk.megakernel_tiles_plain(ms, px, py, seeds, 24)),
+                      (k4, mk.megakernel_start_chained_plain(ms, pxs, pys, sds, 8))):
+        assert all(torch.equal(a, b) for a, b in zip(bits(got), bits(want)))
+    for fn, args, un in ((mk.megakernel_start, (px, py, seeds, 5), k1),
+                         (mk.megakernel_resume, (*k1, 24), k2),
+                         (mk.megakernel_tiles, (px, py, seeds, 24), k5)):
+        got = fn(ms, *args, lane_sort=True)
+        assert all(torch.equal(a, b) for a, b in zip(bits(got), bits(un)))
+
+
+def test_boxes_and_shadow_table_keep_the_film_on_card():
+    """On the full meshbox, render_waves_chained with the boxes, with the
+    shadow table and with neither: every output bit-equal but rows, which
+    both lower."""
+    dev = cuda_device()
+    S = 128
+    ms = mk.mega_scene(_scene(MESHBOX), S, S, dev)
+    px, py, seeds = _frame(S, dev)
+    pxs = torch.stack([px, px + 0.25])
+    pys = torch.stack([py, py - 0.125])
+    sds = torch.stack([seeds, seeds + 977])
+    off = mk.render_waves_chained(ms, pxs, pys, sds, max_bounces=64, shadow_vis=False)
+    for kw in ({}, {"shadow_tbl": True}):
+        on = mk.render_waves_chained(ms, pxs, pys, sds, max_bounces=64, **kw)
+        for i in (0, 1, 2, 3, 5, 7):
+            assert torch.equal(on[i].view(torch.int32), off[i].view(torch.int32)), (kw, i)
+        assert float(on[6].sum()) < float(off[6].sum())
+
+
+def test_wrapper_rejects_unaligned_shadow_table():
+    dev = cuda_device()
+    ms = _format_scene("shadow_tbl", 32, dev)
+    flat = torch.zeros(ms.shadow_rows.numel() + 1, device=dev)
+    shifted = flat[1:].view_as(ms.shadow_rows)
+    shifted.copy_(ms.shadow_rows)
+    import dataclasses
+
+    bad = dataclasses.replace(ms, shadow_rows=shifted)
+    px, py, seeds = _frame(32, dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        mk.megakernel_start(bad, px, py, seeds, 5)

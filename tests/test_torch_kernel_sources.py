@@ -57,27 +57,50 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_start_kernelENS_
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115mk_start_kernelENS_5SceneEPKf
     40 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 80 registers, used 0 barriers, 40 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_tiles_kernelILi0ELb0EEEvNS_5SceneEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115mk_tiles_kernelILi0ELb0EEEvNS_5SceneEPKf
+    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 40 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_tiles_kernelILi12ELb0EEEvNS_5SceneEPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115mk_tiles_kernelILi12ELb0EEEvNS_5SceneEPKf
+    48 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 48 bytes cumulative stack size
 """
 
 
-@pytest.mark.parametrize("kernel,spill", [("mk_start_sorted_kernel", 0), ("mk_start_kernel", 4)])
-def test_spill_stores_reads_the_report(kernel, spill):
-    """Each kernel's spill stores by its own name: mk_start_kernel is not
-    read off mk_start_sorted_kernel's lines, and a kernel the report lacks
-    raises."""
-    assert build.spill_stores(REPORT, kernel) == spill
+@pytest.mark.parametrize("kernel,targs,spill", [("mk_start_sorted_kernel", "", 0),
+                                                ("mk_start_kernel", "", 4),
+                                                ("mk_tiles_kernel", "ILi0ELb0E", 8),
+                                                ("mk_tiles_kernel", "ILi12ELb0E", 16)])
+def test_spill_stores_reads_the_report(kernel, targs, spill):
+    """Each kernel's spill stores by its own name and template arguments:
+    mk_start_kernel is not read off mk_start_sorted_kernel's lines, nor one
+    instantiation off another's, and a kernel the report lacks raises (the
+    template's name alone names none of its instantiations)."""
+    assert build.spill_stores(REPORT, kernel, targs) == spill
+    with pytest.raises(KeyError):
+        build.spill_stores(REPORT, "mk_resume_kernel")
     with pytest.raises(KeyError):
         build.spill_stores(REPORT, "mk_tiles_kernel")
+    with pytest.raises(KeyError):
+        build.spill_stores(REPORT, "mk_tiles_kernel", "ILi4ELb0E")
 
 
 def test_occupancy_names_match_the_kernel_source():
     """mk.occupancy's names are mk_occupancy's cases, each kernel of the
-    name queried with its block (SORT_TILE threads for the sorted ones)."""
+    name queried with its block (SORT_TILE threads for the sorted ones) at
+    the format of index which / 8, and mk.KERNEL_FORMATS lists the formats
+    in the order of the source's FMT_KERNEL_AT, the classic rows first."""
     src = (build.CSRC / "megakernel.cu").read_text()
     for name, which in mk._OCCUPANCY_OF.items():
         threads = "kSortTile" if name.endswith("_sorted") else "kThreads"
-        assert f"case {which}: return occupancy({name}_kernel, {threads}," in src, name
+        assert f"case {which}: return occupancy(FMT_KERNEL_AT(f, {name}_kernel), {threads}," in src, name
     assert len(mk._OCCUPANCY_OF) == 7
+    assert f"constexpr int kFormats = {len(mk.KERNEL_FORMATS)};" in src
+    for f, (packed, sh) in enumerate(mk.KERNEL_FORMATS.values()):
+        inst = f"&k<{packed}, {'true' if sh else 'false'}>"
+        pat = rf"\(f\) == {f}\s+\? {re.escape(inst)}" if f else rf":\s+{re.escape(inst)}\)"
+        assert re.search(pat, src), (f, inst)
 
 
 def _entries():

@@ -252,3 +252,26 @@ def test_multichip_resumed_metrics_count_traced_sweeps(scenes):
     for s in range(3):
         r.scheduler.sweep(s)  # the scheduler replay, as resume_checkpoint does
     assert r.render()["primary_rays"] == 128 * 64
+
+
+@pytest.mark.parametrize("chain", [1, 2])
+def test_mega_multichip_shadow_table_and_boxes(chain):
+    """The bands launch with the boxes of a default compile and, with
+    mega_shadow=1, with the dedicated shadow table: the film bit-equal to the
+    bands' film without either (the boxes and the table skip or reroute
+    shadow walks only)."""
+    from hijiki_tpu_torch.scene.compile import compile_scene
+    from hijiki_tpu_torch.scene.obj import load_obj_scene
+
+    s = load_obj_scene(MESHBOX_SMALL)
+    s.put_cbox_spheres()
+    base = dict(width=32, height=128, spp=2, block_size=64, seed=5, max_bounces=16,
+                driver="mega", chain_sweeps=chain)
+    films = []
+    for boxes, shadow in ((False, 0), (True, 0), (True, 1)):
+        r = MegaMultiChipRenderer(compile_scene(s, shadow_vis_boxes=boxes),
+                                  RenderConfig(**base, mega_shadow=shadow), devices=["cpu", "cpu"])
+        m = r.render()
+        films.append((r.film.clone(), m["rows_visited_last_sweep"]))
+    assert all(torch.equal(f, films[0][0]) for f, _ in films)
+    assert films[2][1] < films[1][1] < films[0][1]

@@ -195,7 +195,7 @@ def test_checkpoint_resume_bit_equal(driver, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mega_trunk", 5), ("mega_groups", 2), ("mega_shadow", 1),
+    ("mega_trunk", 5), ("mega_groups", 2),
     ("mega_window", 2), ("mega_packet", 1024), ("spec_resolve", 1),
 ])
 def test_unported_config_refused(field, value):
@@ -221,3 +221,39 @@ def test_cuda_renderer_requires_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Renderer(_port_scene(), RenderConfig(width=16, height=16), device="cuda")
+
+
+@pytest.mark.parametrize("requested,env", [(0, None), (1, None), (-1, None), (0, "1"), (0, "-1"),
+                                           (-1, "1"), (1, "-1")])
+def test_resolve_shadow_tbl_as_jax(requested, env, monkeypatch):
+    """mega_shadow resolves as JAX's resolve_shadow_tbl does: 0 is auto and
+    off, > 0 on, < 0 off, HIJIKI_SHADOW_TBL overriding the auto choice."""
+    from hijiki_tpu.render.renderer import resolve_shadow_tbl as j_resolve
+    from hijiki_tpu_torch.render.renderer import resolve_shadow_tbl
+
+    if env is None:
+        monkeypatch.delenv("HIJIKI_SHADOW_TBL", raising=False)
+    else:
+        monkeypatch.setenv("HIJIKI_SHADOW_TBL", env)
+    assert resolve_shadow_tbl(requested) == j_resolve(requested, False, None)
+
+
+@pytest.mark.parametrize("chain", [1, 2])
+def test_mega_shadow_keeps_the_film(chain):
+    """The renderer with the dedicated shadow table (mega_shadow=1), chained
+    or not: the film bit-equal to the default render, fewer rows visited;
+    on a scene compiled without a table it raises."""
+    cs = _port_scene()
+    cfg = dict(width=32, height=32, spp=2, seed=4, max_bounces=12, chain_sweeps=chain)
+    a = Renderer(cs, RenderConfig(**cfg), device="cpu")
+    ma = a.render()
+    b = Renderer(cs, RenderConfig(**cfg, mega_shadow=1), device="cpu")
+    mb = b.render()
+    assert torch.equal(a.film, b.film)
+    assert mb["rows_visited_last_sweep"] < ma["rows_visited_last_sweep"]
+    s = load_obj_scene(MESHBOX_SMALL)
+    s.put_cbox_spheres()
+    packed = Renderer(compile_scene(s, packed_leaf=4), RenderConfig(**cfg, mega_shadow=1),
+                      device="cpu")
+    with pytest.raises(ValueError, match="dedicated shadow table"):
+        packed.render()

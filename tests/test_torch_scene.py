@@ -12,21 +12,19 @@ import torch
 from hijiki_tpu.scene.compile import compile_scene as j_compile
 from hijiki_tpu.scene.obj import load_obj_scene as j_load
 from hijiki_tpu.scene.presets import load_preset as j_preset
-from hijiki_tpu_torch.scene.compile import compile_scene, from_reference, to_device
+from hijiki_tpu_torch.scene.compile import compile_scene, to_device
 from hijiki_tpu_torch.scene.obj import load_obj_scene
 from hijiki_tpu_torch.scene.presets import load_preset
 from torch_port_helpers import MESHBOX, MESHBOX_SMALL, REPO, mixed_scene, port_scene
 
-# the dedicated PACKED3 shadow table is not ported (README, ROADMAP)
-_SKIP_FIELDS = ("shadow_rows_mega", "shadow_tbl_rows_static")
-
-
 def assert_same_compiled(a, b):
+    """Every field of the two compiled scenes equal: arrays bit for bit (the
+    dedicated shadow table included, or None in both), statics by value."""
     for f in dataclasses.fields(b):
-        if f.name in _SKIP_FIELDS:
-            continue
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if isinstance(y, np.ndarray):
+        if y is None or x is None:
+            assert x is None and y is None, f.name
+        elif isinstance(y, np.ndarray):
             x = np.asarray(x)
             assert x.dtype == y.dtype, f.name
             np.testing.assert_array_equal(x, y, err_msg=f.name)
@@ -46,24 +44,35 @@ def _scenes(name):
     return a, b
 
 
+_NAMES = ["builtin:cornell", "builtin:cornell-spheres", "builtin:cornell-glass",
+          "meshbox_small", "mixed"]
+
+
 @pytest.mark.parametrize(
-    "name", ["builtin:cornell", "builtin:cornell-spheres", "builtin:cornell-glass",
-             "meshbox_small", "mixed"],
+    "name,boxes",
+    [pytest.param(n, True, id=n) for n in _NAMES]
+    + [pytest.param(n, False, id=f"{n}-noboxes") for n in _NAMES],
 )
-def test_compiled_scene_identical(name):
-    """Every array and bake of compile_scene, bit for bit (the reference
-    compiles with its default native BVH builder; the port's numpy builder
-    produces the same trees on these scenes)."""
+def test_compiled_scene_identical(name, boxes):
+    """Every array and bake of compile_scene, bit for bit, with the
+    shadow-visibility boxes (the default of both packages) and without (the
+    reference compiles with its default native BVH builder; the port's
+    numpy builder produces the same trees on these scenes)."""
     ja, tb = _scenes(name)
-    assert_same_compiled(j_compile(ja, shadow_vis_boxes=False), compile_scene(tb))
+    assert_same_compiled(j_compile(ja, shadow_vis_boxes=boxes),
+                         compile_scene(tb, shadow_vis_boxes=boxes))
 
 
 def test_meshbox_full_compiles_identically():
+    """The JAX package's default compile of the in-repo scene: 16 proven
+    shadow-visibility boxes and the 4,503-row PACKED3 shadow table."""
     ja, tb = _scenes("meshbox")
     cs = compile_scene(tb)
-    assert_same_compiled(j_compile(ja, shadow_vis_boxes=False), cs)
+    assert_same_compiled(j_compile(ja), cs)
     assert 6000 <= cs.num_triangles <= 6500 and cs.num_spheres == 2
     assert cs.mega_num_tables_static == 1  # a single table: too big for 8
+    assert cs.mega_packed_static == 0 and cs.shadow_vis_static[0] == 16
+    assert cs.shadow_rows_mega.shape == (4503, 32) and cs.shadow_tbl_rows_static == 4503
 
 
 def test_meshbox_loads_in_both_packages():
@@ -95,25 +104,17 @@ def test_meshbox_generator_reproduces_committed_files(size, tmp_path):
 
 
 def test_from_reference_and_to_device():
+    """from_reference carries every field, the dedicated shadow table and
+    the boxes included."""
     ja, _ = _scenes("meshbox_small")
-    jcs = j_compile(ja, shadow_vis_boxes=False)
+    jcs = j_compile(ja)
     pcs = port_scene(jcs)
-    assert pcs.shadow_rows_mega is None
+    assert pcs.shadow_rows_mega.shape == (215, 32) and pcs.shadow_vis_static[0] == 16
     assert_same_compiled(jcs, pcs)
     dcs = to_device(pcs, "cpu")
     assert isinstance(dcs.trace_rows_mega, torch.Tensor)
     assert dcs.materials.dtype == torch.int64  # u32 widened
     np.testing.assert_array_equal(dcs.trace_rows_mega.numpy(), pcs.trace_rows_mega)
-
-
-def test_unported_options_raise():
-    s = load_preset("cornell")
-    with pytest.raises(NotImplementedError):
-        compile_scene(s, packed_leaf=4)
-    with pytest.raises(NotImplementedError):
-        compile_scene(s, shadow_vis_boxes=True)
-    with pytest.raises(NotImplementedError):
-        from_reference({}, {"mega_packed_static": 4})
 
 
 def test_port_never_imports_jax():
@@ -130,6 +131,7 @@ def test_port_never_imports_jax():
         "import hijiki_tpu_torch.render.renderer, hijiki_tpu_torch.ops.megakernel\n"
         "import hijiki_tpu_torch.utils.build, hijiki_tpu_torch.scene.compile\n"
         "import hijiki_tpu_torch.probes.walk_probe, hijiki_tpu_torch.scene.obj\n"
+        "import hijiki_tpu_torch.scene.lightvis, hijiki_tpu_torch.scene.bigscene\n"
         "sys.path.insert(0, 'tools')\n"
         "import chip_smoke, ab_megakernel_torch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'hijiki_tpu.'))]\n"
@@ -150,12 +152,12 @@ def test_device_scene_equals_reference(name):
     from hijiki_tpu.scene.compile import scene_to_device
 
     ja, pa = _scenes(name)
-    jd = scene_to_device(j_compile(ja, shadow_vis_boxes=False))
+    jd = scene_to_device(j_compile(ja))
     pd = to_device(compile_scene(pa), "cpu")
     n = 0
     for f in dataclasses.fields(pd):
         y = getattr(pd, f.name)
-        if f.name in _SKIP_FIELDS or not isinstance(y, torch.Tensor):
+        if not isinstance(y, torch.Tensor):
             continue
         x = np.asarray(getattr(jd, f.name))
         np.testing.assert_array_equal(y.numpy(), x.astype(y.numpy().dtype), err_msg=f.name)

@@ -104,9 +104,10 @@ def many_emitter_scene(pkg):
 
 
 def scene_pair(name, leaf_size=1):
-    """One scene compiled by hijiki_tpu and carried to the port: (the JAX
-    device scene, the port's CPU tensor scene). ``name``: "meshbox_small"
-    (with the cbox spheres), "cornell-glass", "mixed" or "many_emitters"."""
+    """One scene compiled by hijiki_tpu (its defaults: the boxes on) and
+    carried to the port: (the JAX device scene, the port's CPU tensor
+    scene). ``name``: "meshbox_small" (with the cbox spheres),
+    "cornell-glass", "mixed" or "many_emitters"."""
     from hijiki_tpu.scene.compile import compile_scene, scene_to_device
 
     from hijiki_tpu_torch.scene.compile import to_device
@@ -124,7 +125,7 @@ def scene_pair(name, leaf_size=1):
         from hijiki_tpu.scene.presets import load_preset
 
         s = load_preset(name)
-    jcs = compile_scene(s, leaf_size=leaf_size, shadow_vis_boxes=False)
+    jcs = compile_scene(s, leaf_size=leaf_size)
     return scene_to_device(jcs), to_device(port_scene(jcs), "cpu")
 
 

@@ -94,9 +94,19 @@ sys.path.insert(0, os.path.join(HERE, ".."))
 
 from chip_smoke import bit_equal, record_calls  # noqa: E402
 
+
+
+def mangled(kernel: str, *older: str) -> tuple:
+    """Parts of a megakernel's mangled name: the classic instantiation
+    <0, false> of this tree's template on the trace-row format, the plain
+    function of a tree from before it, and ``older`` forms."""
+    n = f"{len(kernel)}{kernel}"
+    return (f"{n}ILi0ELb0EE", f"{n}E") + older
+
+
 # the kernels reported, by a part of their mangled names
-KERNELS = {"K4": ("mk_start_chained_kernel",),
-           "K2": ("mk_resume_kernelILb0E", "16mk_resume_kernelE"),  # a template on kSort, or not
+KERNELS = {"K4": mangled("mk_start_chained_kernel"),
+           "K2": mangled("mk_resume_kernel", "mk_resume_kernelILb0E"),  # or a template on kSort
            "K10b": ("walk_isolate_kernelILi32ELb1ELi1E",)}
 SASS_OPS = ("BSSY", "BSYNC", "WARPSYNC", "VOTE", "SHFL", "ATOM", "RED")
 
@@ -151,17 +161,42 @@ def warps_from_registers(regs: int, threads: int = 128) -> int:
     return blocks * threads // 32
 
 
+def old_scene(tree: Path) -> bool:
+    """Whether ``tree``'s C entries take the scene block of the builds
+    before the packed formats: the rows, the constants and 10 ints (no
+    packed format, payload rows, boxes or shadow table)."""
+    return "shadow_rows" not in (tree / "walk.cuh").read_text()
+
+
+def entry_argtypes(fn: str, old: bool) -> list:
+    """build.SIGNATURES[fn], with an old scene block where ``old``."""
+    from hijiki_tpu_torch.utils import build
+
+    argtypes = list(build.SIGNATURES[fn])
+    if old and argtypes[:len(build._SCENE)] == build._SCENE:
+        del argtypes[12:len(build._SCENE)]
+    return argtypes
+
+
+def scene_args(ms, old: bool) -> tuple:
+    """The scene block of a call: rows, constants, mk._scene_args (its first
+    10 for an old library)."""
+    from hijiki_tpu_torch.ops import megakernel as mk
+
+    ints = mk._scene_args(ms)
+    return (ms.rows.data_ptr(), ms.consts.data_ptr(), *(ints[:10] if old else ints))
+
+
 class Lib:
     """One built kernel library and its C entries."""
 
-    def __init__(self, name: str, path: Path, report: str):
-        from hijiki_tpu_torch.utils import build
-
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
         self.name, self.path, self.report = name, path, report
         self.cdll = ctypes.CDLL(str(path))
         self.persistent = hasattr(self.cdll, "mk_occupancy")
+        self.old = old_scene(tree)
         for fn in ["mk_start_chained", "mk_resume", "walk_isolate"] + ["mk_occupancy"] * self.persistent:
-            argtypes = list(build.SIGNATURES[fn])
+            argtypes = entry_argtypes(fn, self.old)
             if fn == "mk_start_chained" and not self.persistent:
                 del argtypes[-2]  # a K4 that is not persistent takes no work counter
             getattr(self.cdll, fn).argtypes = argtypes
@@ -170,12 +205,9 @@ class Lib:
     def call(self, fn: str, ms, *args, counter=None):
         import torch
 
-        from hijiki_tpu_torch.ops import megakernel as mk
-
         ptr = lambda a: a.data_ptr() if torch.is_tensor(a) else a
         tail = [counter.data_ptr()] if (self.persistent and fn == "mk_start_chained") else []
-        rc = getattr(self.cdll, fn)(ms.rows.data_ptr(), ms.consts.data_ptr(), *mk._scene_args(ms),
-                                    *map(ptr, args), *tail,
+        rc = getattr(self.cdll, fn)(*scene_args(ms, self.old), *map(ptr, args), *tail,
                                     torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
@@ -322,7 +354,7 @@ def mega_ab(args, parent: Path) -> tuple:
     from hijiki_tpu_torch.scene.obj import load_obj_scene
 
     pairs = build_libraries(parent, args.variants, MEGA_FILES,
-                            lambda name, path, report, tree: Lib(name, path, report))
+                            lambda name, path, report, tree: Lib(name, path, report, tree))
     libs = [lib for lib, _ in pairs]
     built = {lib.name: (lib.path, secs, lib.report) for lib, secs in pairs}
     dev = torch.device("cuda")
@@ -339,7 +371,7 @@ def mega_ab(args, parent: Path) -> tuple:
     # the chained chunk's K4 and K2 calls, recorded through the package
     scene = load_obj_scene(pwk.SCENE)
     scene.put_cbox_spheres()
-    cs = compile_scene(scene)
+    cs = compile_scene(scene, shadow_vis_boxes=False)  # the parent's configuration
     cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
                        use_bvh=True, driver="mega")
     r = Renderer(cs, cfg, device="cuda")
@@ -596,7 +628,7 @@ def k36_ab(args, parent: Path, groups) -> tuple:
     dev = torch.device("cuda")
     scene = load_obj_scene(pwk.SCENE)
     scene.put_cbox_spheres()
-    cs = compile_scene(scene)
+    cs = compile_scene(scene, shadow_vis_boxes=False)  # the parent's configuration
     cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
                        use_bvh=True, driver="mega")
     r = Renderer(cs, cfg, device="cuda")
@@ -783,15 +815,16 @@ def k36_ab(args, parent: Path, groups) -> tuple:
 PATH_FILES = ("megakernel.cu", "sort.cu")
 K8_BURST = 10  # K8's launches a timed window
 # the kernels of the start and sorted groups, by a part of their mangled
-# names (a parent whose K1/K2/K5 are templates on kSort, or its own
-# kernels), and their mk_occupancy names
-PATH_KERNELS = {"K1": (("mk_start_kernelILb0E", "15mk_start_kernelE"), "mk_start"),
-                "K1 sorted": (("mk_start_kernelILb1E", "mk_start_sorted_kernel"), "mk_start_sorted"),
-                "K2": (("mk_resume_kernelILb0E", "16mk_resume_kernelE"), "mk_resume"),
-                "K2 sorted": (("mk_resume_kernelILb1E", "mk_resume_sorted_kernel"), "mk_resume_sorted"),
-                "K5": (("mk_tiles_kernelILb0E", "15mk_tiles_kernelE"), "mk_tiles"),
-                "K5 sorted": (("mk_tiles_kernelILb1E", "mk_tiles_sorted_kernel"), "mk_tiles_sorted"),
-                "K4": (("mk_start_chained_kernel",), "mk_start_chained"),
+# names (mangled(): the classic instantiation, or a parent's own kernels;
+# older parents' K1/K2/K5 templates on kSort), and their mk_occupancy names
+PATH_KERNELS = {"K1": (mangled("mk_start_kernel", "mk_start_kernelILb0E"), "mk_start"),
+                "K1 sorted": (mangled("mk_start_sorted_kernel", "mk_start_kernelILb1E"), "mk_start_sorted"),
+                "K2": (mangled("mk_resume_kernel", "mk_resume_kernelILb0E"), "mk_resume"),
+                "K2 sorted": (mangled("mk_resume_sorted_kernel", "mk_resume_kernelILb1E"),
+                              "mk_resume_sorted"),
+                "K5": (mangled("mk_tiles_kernel", "mk_tiles_kernelILb0E"), "mk_tiles"),
+                "K5 sorted": (mangled("mk_tiles_sorted_kernel", "mk_tiles_kernelILb1E"), "mk_tiles_sorted"),
+                "K4": (mangled("mk_start_chained_kernel"), "mk_start_chained"),
                 "K8": (("sort_tiles_kernel",), None)}
 
 # The start/sorted groups' variants: {name: (tree it rewrites, {file:
@@ -799,7 +832,8 @@ PATH_KERNELS = {"K1": (("mk_start_kernelILb0E", "15mk_start_kernelE"), "mk_start
 # from the parent's: "order", the sorted launches' order record; "K8", K8's
 # outputs)}. The parent's k8_copy splits its K8: the sort replaced by the
 # identity permutation, so what is left is the copy.
-_K5 = "  persistent_paths<true>(S, px, py, seeds, n, 1, cap, next, TileFinish{n, out, rng_out});\n"
+_K5 = ("  persistent_paths<true, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,\n"
+       "                                    TileFinish{n, out, rng_out});\n")
 _K8_ISSUE = "  for (int b = 0; b < kRing; ++b) issue(sh, payload, T, C, tile, b);  // in flight during the sort\n"
 PATH_VARIANTS = {
     "k8_copy": ("parent", {"sort.cu": [
@@ -815,27 +849,28 @@ PATH_VARIANTS = {
     # identity (the copy alone), its copies issued after the sort, one
     # channel a batch and one batch in flight, its network not unrolled
     "k1_onepath": ("new", {"megakernel.cu": [
-        ("  persistent_paths(S, px, py, seeds, n, 1, cap, next, StateFinish{n, st_out, rng_out});\n",
+        ("  persistent_paths<false, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,\n"
+         "                                     StateFinish{n, st_out, rng_out});\n",
          "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
          "  __shared__ float stash[kStashWords * kThreads];\n"
          "  if (i >= n) return;\n"
          "  Path p{};\n"
          "  camera_init(S, px[i], py[i], seeds[i], p);\n"
-         "  while (going(p, cap)) bounce<true>(S, p, stash + threadIdx.x);\n"
+         "  while (going(p, cap)) bounce<true, kThreads, false, kFmt, kSh>(S, p, stash + threadIdx.x);\n"
          "  write_state(p, st_out, rng_out, i, n);\n", 1),
-        ("  return launch_persistent(mk_start_kernel, n, stream,",
-         "  return launch_paths<false>(mk_start_kernel, n, stream,", 1)]}, ()),
+        ("  return launch_persistent(FMT_KERNEL(S, mk_start_kernel), n, stream,",
+         "  return launch_paths<false>(FMT_KERNEL(S, mk_start_kernel), n, stream,", 1)]}, ()),
     "k5_onepath": ("new", {"megakernel.cu": [
         (_K5, "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
               "  __shared__ float stash[kStashWords * kThreads];\n"
               "  if (i >= n) return;\n"
               "  Path p{};\n"
               "  camera_init(S, px[i], py[i], seeds[i], p);\n"
-              "  while (going(p, cap)) bounce<true, kThreads, true>(S, p, stash + threadIdx.x);\n"
+              "  while (going(p, cap)) bounce<true, kThreads, true, kFmt, kSh>(S, p, stash + threadIdx.x);\n"
               "  write_tile(p, out, rng_out, i, n);\n", 1),
-        ("  return launch_persistent(mk_tiles_kernel, n, stream,",
-         "  return launch_paths<false>(mk_tiles_kernel, n, stream,", 1)]}, ()),
-    "k5_nogate": ("new", {"megakernel.cu": [(_K5, _K5.replace("<true>", "<false>"), 1)]}, ()),
+        ("  return launch_persistent(FMT_KERNEL(S, mk_tiles_kernel), n, stream,",
+         "  return launch_paths<false>(FMT_KERNEL(S, mk_tiles_kernel), n, stream,", 1)]}, ()),
+    "k5_nogate": ("new", {"megakernel.cu": [(_K5, _K5.replace("<true,", "<false,"), 1)]}, ()),
     "k5_nobounds": ("new", {"megakernel.cu": [
         ("__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)\n    mk_tiles_kernel(",
          "__global__ void __launch_bounds__(kThreads)\n    mk_tiles_kernel(", 1)]}, ()),
@@ -870,11 +905,13 @@ PATH_VARIANTS = {
          "  put_path<kSortTile>(p, my + (pid - lane));\n"
          "  __syncthreads();\n"
          "  get_path<kSortTile>(p, my);\n}\n", "  return pid;\n}\n", 1),
-        ("  bounce_loop_sorted(S, p, cap, n, order);\n  if (i < n) write_state(p, st_out, rng_out, i, n);\n",
-         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted(S, p, cap, n, order);\n"
+        ("  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+         "  if (i < n) write_state(p, st_out, rng_out, i, n);\n",
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
          "  if (g < n) write_state(p, st_out, rng_out, g, n);\n", 2),
-        ("  bounce_loop_sorted(S, p, cap, n, order);\n  if (i < n) write_tile(p, out, rng_out, i, n);\n",
-         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted(S, p, cap, n, order);\n"
+        ("  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+         "  if (i < n) write_tile(p, out, rng_out, i, n);\n",
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
          "  if (g < n) write_tile(p, out, rng_out, g, n);\n", 1)]}, ()),
 }
 
@@ -910,16 +947,15 @@ class PathLib:
     tree's entry may lack it: one path a thread)."""
 
     def __init__(self, name: str, path: Path, report: str, tree: Path):
-        from hijiki_tpu_torch.utils import build
-
         self.name, self.path, self.report = name, path, report
         self.cdll = ctypes.CDLL(str(path))
         src = (tree / "megakernel.cu").read_text()
         self.counter = {fn: takes_counter(src, fn) for fn in ("mk_start", "mk_tiles")}
         self.free = PATH_VARIANTS.get(name, (None, None, ()))[2]
+        self.old = old_scene(tree)
         for fn in ("mk_start", "mk_resume", "mk_tiles", "mk_start_sorted", "mk_resume_sorted",
                    "mk_tiles_sorted", "sort_tiles", "mk_occupancy"):
-            argtypes = list(build.SIGNATURES[fn])
+            argtypes = entry_argtypes(fn, self.old)
             if fn in self.counter and not self.counter[fn]:
                 del argtypes[-2]  # the package's entry takes the counter there
             getattr(self.cdll, fn).argtypes = argtypes
@@ -928,14 +964,12 @@ class PathLib:
     def call(self, fn: str, ms, *args, counter=None):
         import torch
 
-        from hijiki_tpu_torch.ops import megakernel as mk
-
         ptr = lambda a: a.data_ptr() if torch.is_tensor(a) else a
         tail = []
         if self.counter.get(fn):
             counter.zero_()
             tail = [counter.data_ptr()]
-        scene = (ms.rows.data_ptr(), ms.consts.data_ptr(), *mk._scene_args(ms)) if fn != "sort_tiles" else ()
+        scene = scene_args(ms, self.old) if fn != "sort_tiles" else ()
         rc = getattr(self.cdll, fn)(*scene, *map(ptr, args), *tail, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
@@ -1023,7 +1057,7 @@ def paths_ab(args, parent: Path, groups) -> tuple:
     scene.put_cbox_spheres()
     cfg = RenderConfig(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
                        use_bvh=True, driver="mega")
-    r = Renderer(compile_scene(scene), cfg, device="cuda")
+    r = Renderer(compile_scene(scene, shadow_vis_boxes=False), cfg, device="cuda")
     ms = r.scene
     # chip_smoke's unchained sweep, its K1 and K2 calls recorded through the package
     px, py, seeds, _ = sweep_frame(r.scheduler.sweep(cfg.spp + 1 + mk.CHAIN_SWEEPS_CUDA), 1024, 1024, dev)

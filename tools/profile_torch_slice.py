@@ -35,7 +35,9 @@ sys.path.insert(0, os.path.join(HERE, ".."))
 # kernel-name fragments of the hand-written kernels, in report order; a
 # kernel counts in the first group one of whose fragments its name holds
 # (the sorted kernels are their own, or, in older trees, K1/K2/K5 templates
-# on <true>)
+# on <true>); the megakernels' instantiations for each trace-row format,
+# mk_start_kernel<0, false> and the like (demangled), count in their
+# kernel's group
 GROUPS = (("K6 traverse", ("traverse_kernel",)), ("K3 reconstruct", ("reconstruct_kernel",)),
           ("K4 mk_start_chained", ("mk_start_chained_kernel",)),
           ("K7 in K1 mk_start_sorted", ("mk_start_sorted_kernel", "mk_start_kernel<true>")),
