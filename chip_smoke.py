@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing as it goes; any failure exits non-zero:
+Phases, each printing as it goes and the seconds the one before took (all
+of them once more before the kernel report); any failure exits non-zero:
 
 1. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit as nvidia-smi reports them;
@@ -34,14 +35,27 @@ Phases, each printing as it goes; any failure exits non-zero:
    its lane and hold lane_sort_key of each path's written state
    (order_mismatch); once more on a K2 input whose lanes alive at the cap
    have NaN, +-inf, +-1e30, box-bound and outside origins;
-4b. the trace-row formats: K1 (cap 5), K2 (resume to 24), K5 (to 24) and
-   K4 (3 samples, chain cap 8) bit-equal to their twins on meshbox_small +
+4b. the trace-row formats: K1 (cap 5), K2 (resume to 8), K5 (to 8) and
+   K4 (2 samples, chain cap 8) bit-equal to their twins on meshbox_small +
    spheres compiled with packed_leaf 1 (SLIM), 3, 4 and 12 (octant tables)
    at 128x128, and on the meshbox with the dedicated shadow table and
    without the shadow-visibility boxes at 64x64 (phase 4 ran them with the
    boxes, JAX's default compile); the sorted K1/K2/K5 bit-equal to the
    unsorted kernels on each; K1 with the boxes and with the shadow table
    bit-equal to K1 without the boxes but for fewer rows visited;
+4c. the shadow-ray occlusion cache on classic rows (boxes on, 64x64, and
+   off), SLIM, PACKED3, PACKED4 and PACKED12 (128x128): K1 (cap 5), K2
+   (to 8), K5 (to 8) and K4 (2 samples, cap 8) with the cache on
+   (mk.launch_scene(shadow_cache=True)) bit-equal to their cache-on twins
+   on every output, rows included, and to the cache-off kernels on every
+   output but rows; the twins count the predictions they tested and those
+   that verified (answered without a walk): a configuration on which none
+   verified fails; the sorted K1/K2/K5 with the
+   cache bit-equal to the unsorted ones, their order records the cache-off
+   kernels' (the cache moves no key); shadow_tbl and shadow_skip_all each
+   with shadow_cache raise;
+   render_waves(shadow_skip_all=True)'s K1/K2 calls bit-equal to their
+   twins, whose shadow walks visit no row;
 5. the paths, each driven with the launch counts set to 0 just before and
    read just after, each with a finite film, mean > 0, overflow 0 and
    every kernel of the path launched:
@@ -70,6 +84,12 @@ Phases, each printing as it goes; any failure exits non-zero:
        uninterrupted render;
    (e) the single-launch render_tiles (K5) over the 1024x1024 frame, then
        lane-sorted (the sorted K5), bit-equal to it;
+   (q) the occlusion cache: render_waves_chained(shadow_cache=True) over
+       one chunk of 8 1024x1024 sweeps, max_bounces 1000 (K4 and K2 with
+       the cache), and render_waves / render_tiles with it over (e)'s frame
+       (K1, K5): every output but rows bit-equal to the calls without the
+       cache (render_tiles: to (e)), rows beside rows; then warm Mrays/s of
+       the chunk, 3 calls with and 3 without the cache in turns, medians;
    (f) the sync slice: Renderer(driver="sync", use_bvh=True) at 1024x1024,
        8 spp, max_bounces 1000 (K6 for every closest and shadow walk, K3;
        no megakernel), EXR round trip, peak device memory; then one
@@ -83,7 +103,11 @@ Phases, each printing as it goes; any failure exits non-zero:
        variant at 256x256 against the sync driver there;
    (h) fixed albedo (sync, 256x256); the packet traversal's film equal to
        rows' bit for bit (256x256); bvh and brute at 64x64 on
-       meshbox_small against rows (RNG bit-equal on >= 99.5% of paths);
+       meshbox_small against rows (RNG bit-equal on >= 99.5% of paths); the
+       CLI at 64x64 on the card with every walker knob (--mega-packet,
+       --mega-groups, --spec-resolve, --mega-trunk, --mega-window) and
+       --profile-dir: its EXR bit-equal to the default command's, and the
+       torch.profiler trace written;
    (j) K8 alone: sort_tiles on 1,024 tiles (1M lanes) x 31 channels;
    (l) multi-device, the mega driver: MegaMultiChipRenderer over
        [cuda:0, cuda:0] (two row bands of 512 rows, each on its own stream)
@@ -103,13 +127,21 @@ Phases, each printing as it goes; any failure exits non-zero:
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
-   then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), each call
-   replayed through the kernel and through the twin, held to the phase-4
-   bounds, bit-equal on every output, and timed; the registers, local
+   then to 1000; K1 to cap 5 and K2 to caps 12, 48, 1000), and so (p)'s
+   chunk on its 100,384-triangle PACKED4 table and (q)'s chunk and the
+   sweep with the occlusion cache; every recorded call, K5 on the
+   unchained sweep's 1M-path frame to 1000 (with the cache too), and the
+   sweep's K1/K2 calls and K5 through the sorted kernels with their order
+   records, through its plain version, held to the phase-4 bounds and
+   bit-equal on every output (rows included; the order records bit-equal
+   to the sorted plain versions'): the plain versions run in TWIN_WORKERS
+   processes at once, each a Python loop of small launches that leaves
+   the card mostly idle alone; then each call timed through the kernel;
+   the registers, local
    (spill) bytes, resident warps an SM and launch blocks of K4, K1 and K5
    (persistent), K2 and the sorted K1/K2/K5 (mk_occupancy),
    and the warp-iteration ratios of the chunk's K4 (mk.warp_iterations of
-   its segs); K5 on the 1M-path frame likewise (bit-equal), timed beside
+   its segs); K5 timed beside
    its tail floor (K5 on the frame's 32 paths of the most bounces, one
    warp: the longest chain, which no schedule shortens), K3 on a sweep
    to its bound, and on the chained chunk's 8 sweeps in one launch as path
@@ -123,25 +155,31 @@ Phases, each printing as it goes; any failure exits non-zero:
    closest walk (1M rays), its shadow any-hit walk and the closest walks of
    bounces 9, 30 and 200, each replayed through the kernel and the twin,
    bit-equal, and timed
-   (plus K6's device time over every call of that sweep, from
-   torch.profiler, beside the sweep's summed bound from its walking rays
-   and rows visited, summed on the device, and a check that three bounces
+   (plus K6's device time over the calls of that sweep's first
+   K6_PROFILE_BOUNCES bounces, from torch.profiler, beside their summed
+   bound from their walking rays and rows visited, summed on the device,
+   and a check that three bounces
    of the sync integrator make no device sync under
    torch.cuda.set_sync_debug_mode("error"));
-   every K1 and K2 call of the unchained sweep replayed through the sorted
-   kernel too (bit-equal to the unsorted kernel, held to its sorted plain
-   version with the phase-4 bounds and its order record bit-equal to the
-   plain version's, and timed beside the unsorted one), K5 sorted on the
-   frame likewise; K8 at 1M lanes x 31 channels, bit-equal to
+   every K1 and K2 call of the unchained sweep and K5 on the frame timed
+   through the sorted kernel too (bit-equal to the unsorted kernel, timed
+   beside it; held to their sorted plain versions above); K8 at 1M lanes x
+   31 channels,
+   bit-equal to
    its plain version, timed beside torch.sort(stable=True) + gather; each
    trace-row format (classic with and without the boxes and with the
    shadow table, 1, 3, 4, 12) on the meshbox: its chained chunk and
    unchained sweep recorded and replayed through K4, K1 and K2, and K5
    over the frame, timed with rows visited and bound; (p)'s chained chunk
-   (8 x 1M slots on its 100,384-triangle PACKED4 table) recorded and every
-   K4 and K2 call replayed through the kernel and the twin, bit-equal;
+   (8 x 1M slots) timed; the chained chunk's and the unchained sweep's
+   recorded calls, and K5 over the frame, through the cache-on kernels
+   beside the cache-off ones (in turns), every output but rows bit-equal,
+   with ms, rows and bound; the sweep's K1/K2 calls with skip-all beside
+   them: the shadow walk's share of their time and rows; (q)'s own
+   cache-on calls timed;
 7. probes: K9/K10/K11 vs plain, then timed (hijiki_tpu_torch/probes/): each
-   of walk_ablate (K10a), walk_isolate (K10b), latency_chain and
+   of walk_ablate (K10a), walk_isolate (K10b, on the classic rows, their
+   16-column copy and the SLIM, PACKED3, PACKED4, PACKED12 tables), latency_chain and
    staged_chase (K11a), alu_issue, dtype_elementwise (f32, bf16, bf16x2)
    and dtype_slab (f32, bf16; rows 8 and 1024) (K11b) bit-equal to its plain
    version at 4096 threads (every mode and variant) and at 1M threads with
@@ -151,14 +189,18 @@ Phases, each printing as it goes; any failure exits non-zero:
    against K3 (the differing pixels counted); then (k) a short run of each
    probe's main() (the walker probes at one warp per SM and at 1M threads,
    slope timings; ab_reconstruct's A/B and in-stream modes; the issue and
-   dtype probes), launches counted as a path's.
+   dtype probes; walk_probe's main on the unpacked and packed tables and
+   its widths mode), launches counted as a path's.
 
 The line before the last is the kernel report {"kernels": [...]}, whose
 errors and times come from phase 6 (K3's: the chained chunk's launch;
 its error also from phase 3) and
 whose launch counts come from phase 5 (K4, K2, K3 from path (a), K1 from
 (b), K5 and the sorted K5 from (e), K6 from (f), the sorted K1+K2 from (i),
-K8 from (j), K3's weighted mode from (l), the probes from (k)); K1, K2, K4
+K8 from (j), K3's weighted mode from (l), the cache-on K1, K2, K4, K5
+(``name+cache``: every number from (q)'s own calls at the main path's
+shapes) from (q), the probes
+from (k), K10b on each packed table as ``walk_isolate_<table>``); K1, K2, K4
 and K5 also name the formats they were held on (``formats``) and their
 time and bound per format (``ms_by_format``); each entry
 has its bound (bound_ms: the
@@ -191,7 +233,9 @@ sys.path.insert(0, HERE)
 SCENE = os.path.join(HERE, "scenes", "meshbox", "meshbox.obj")
 SCENE_SMALL = os.path.join(HERE, "scenes", "meshbox", "meshbox_small.obj")
 # sweeps of the wavefront slice (g), compared with the sync film after as many
-WAVEFRONT_SWEEPS = 8
+# (2: its film is the sync film's bit for bit after any number of sweeps, and
+# each sweep costs ~5 s of the smoke's time)
+WAVEFRONT_SWEEPS = 2
 
 # roofline of one H100 SXM (published peaks): HBM bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -219,10 +263,23 @@ PROBE_OPS = {"walk_ablate": ROW_OPS + 41 + 1, "fetch": 1, "chain": 18, "staged":
 K9_TAP_OPS = TAP_OPS + 10
 # threads of the probes' full-width runs: one per path of a 1024x1024 sweep
 PROBE_THREADS = 1 << 20
+# phases 4b and 4c (each format, with and without the occlusion cache): the
+# cap K2 resumes to and K5 traces to, and the chained samples of K4 (phase
+# 4 holds the classic rows at cap 24 and 3 samples; the twins' Python passes
+# cost ~0.2 s a bounce a format)
+GATE_CAP = 8
+GATE_SAMPLES = 2
+# processes that run phase 6's plain versions at the main path's shapes,
+# all at once: each is a Python loop of small launches (one bounce, one
+# walk step at a time), so one process leaves the card mostly idle
+TWIN_WORKERS = 7
 # K6's calls of one sync sweep replayed in phase 6 (two a bounce: closest,
 # then shadow): bounce 1's closest and shadow walks, the closest walks of
 # bounces 9, 30 and 200
 K6_CALLS = (0, 1, 16, 58, 398)
+# bounces of that sweep whose K6 launches torch.profiler times (the whole
+# sweep, ~500 bounces of host-bound launches, took ~60 s under the profiler)
+K6_PROFILE_BOUNCES = 16
 
 
 # path (n): the host stride in two processes sharing the card
@@ -308,11 +365,27 @@ def fail(msg: str) -> None:
 
 
 _START = time.monotonic()
+# (name, seconds since the start) of each phase begun, for the phase
+# seconds printed before the kernel report
+_PHASES = []
 
 
 def phase(name: str) -> None:
-    """Print the phase's name and the seconds since the script started."""
-    print(f"== {name} (at {time.monotonic() - _START:.1f} s)", flush=True)
+    """Print the phase's name, the seconds since the script started and the
+    seconds the phase before took."""
+    now = time.monotonic() - _START
+    took = f"; the phase before took {now - _PHASES[-1][1]:.1f} s" if _PHASES else ""
+    _PHASES.append((name, now))
+    print(f"== {name} (at {now:.1f} s{took})", flush=True)
+
+
+def phase_seconds() -> None:
+    """Print the seconds of every phase so far, the last one included."""
+    now = time.monotonic() - _START
+    ends = [t for _, t in _PHASES[1:]] + [now]
+    print("phase seconds: " + "; ".join(f"{name.split(':')[0]} {end - t:.1f}"
+                                         for (name, t), end in zip(_PHASES, ends))
+          + f"; total {now:.1f} s", flush=True)
 
 
 def timed(fn, reps: int = 1, warm: bool = True):
@@ -464,6 +537,66 @@ def key_test_state(st, stuck, cap, lo, hi, seed):
     return st
 
 
+CHECKS = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chained,
+          "mk_tiles": agree_tiles}
+
+
+def _twin_init() -> None:
+    """A twin worker's start: its CUDA context, made before any job."""
+    import torch
+
+    torch.zeros(1, device="cuda")
+
+
+def twin_job(label, name, sc, args, kw, got):
+    """In a twin worker: the plain version of the megakernel entry ``name``
+    (``mk_start`` -> ``megakernel_start_plain``, ...) on ``sc`` and ``args``
+    (``kw``: lane_sort and lane_order), timed on the card, held to the
+    kernel's outputs ``got`` with the phase-4 bounds and bit for bit, and
+    with ``lane_order`` its order record checked as check_order does.
+    Returns (the plain version's ms, its max abs error, what it printed,
+    "" or why it failed, the occlusion-cache pretests (tried, verified) it
+    made)."""
+    import contextlib
+    import io
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+
+    buf = io.StringIO()
+    t_p = err = None
+    try:
+        with contextlib.redirect_stdout(buf):
+            mk.reset_pretest_counts()
+            fn = getattr(mk, f"megakernel_{name[3:]}_plain")
+            t_p, want = timed(lambda: fn(sc, *args, **kw), reps=1, warm=False)
+            n = len(got) - 1 if kw.get("lane_order") else len(got)
+            err = CHECKS[name](label, got[:n], want[:n])
+            if not bit_equal(got[:n], want[:n]):
+                fail(f"{label}: the kernel's outputs differ from its plain version's bit for bit")
+            if kw.get("lane_order"):
+                check_order(label, mk, sc, got, want)
+            pre = mk.pretest_counts()
+    except SystemExit:
+        return t_p, err, buf.getvalue(), "failed", (0, 0)
+    return t_p, err, buf.getvalue(), "", pre
+
+
+def run_twins(pool, jobs) -> list:
+    """Every (label, entry, scene, args, kw, the kernel's outputs) of
+    ``jobs`` through ``twin_job`` in the worker processes of ``pool``, all
+    in flight at once; prints what each printed, in order, and fails at the
+    first that failed. Returns [(plain ms, max abs err, pretests)]."""
+    futures = [pool.submit(twin_job, *job) for job in jobs]
+    out = []
+    for job, fut in zip(jobs, futures):
+        t_p, err, text, why, pre = fut.result()
+        print(text, end="", flush=True)
+        if why:
+            fail(f"{job[0]}: its plain version {why}")
+        out.append((t_p, err, pre))
+    return out
+
+
 def record_calls(mk, names, run):
     """Run ``run`` with the megakernel wrappers of the C entries ``names``
     (``mk_start`` -> ``mk.megakernel_start``, ...) recording: returns
@@ -540,13 +673,14 @@ def k11b_same(same, dev, pvi, pvd, n, it) -> None:
                  pvd.slab_plain(sx, srow, it, v))
 
 
-def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
+def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list:
     """Phase 7: the probe kernels (K10a, K10b, K11a, K11b) bit-equal to their
     plain versions at 4096 threads, every mode, and at 1M threads with a
     short trip count (timed beside the plain version), K9 against its plain
     version and K3; then (k) a short run of each probe's main(), whose
-    launches are counted as a path's. Returns the probes' entries of the
-    kernel report."""
+    launches are counted as a path's. ``compiled``: {packed_leaf: the
+    meshbox + spheres compiled so} for K10b's tables. Returns the probes'
+    entries of the kernel report."""
     import numpy as np
     import torch
 
@@ -554,10 +688,16 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
 
     phase("probes: K9/K10/K11 vs plain, then timed")
     t_phase = time.monotonic()
-    ms, cs = pwk.load_scene(SCENE, dev)
+    # K10b's tables: the classic rows (ms, which K10a walks too), their
+    # 16-column copy, and the packed tables of packed_leaf 1, 3, 4, 12
+    # (walk_isolate_packed_kernel)
+    tables, cs = pwk.load_tables(SCENE, dev, pwk.TABLES, compiled=compiled)
+    ms = tables["w32"][0]
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    packed = [t for t in pwk.TABLES if pwk.TABLES[t]]  # slim, pack3, pack4, pack12
     err = dict(walk_ablate=0.0, walk_isolate=0.0, latency_chain=0.0, staged_chase=0.0,
-               reconstruct_old=0.0, alu_issue=0.0, dtype_elementwise=0.0, dtype_slab=0.0)
+               reconstruct_old=0.0, alu_issue=0.0, dtype_elementwise=0.0, dtype_slab=0.0,
+               **{f"walk_isolate_{t}": 0.0 for t in packed})
 
     def same(label, key, got, want):
         got = got if isinstance(got, tuple) else (got,)
@@ -572,14 +712,15 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
         for g in (1, 32):
             same(f"walk_ablate {name} G={g}", "walk_ablate", pab.walk_ablate(ms.rows, o, d, 40, cfg, g),
                  pab.walk_ablate_plain(ms.rows, o, d, 40, cfg, g))
-    tables = {32: ms.rows, 16: pwk.w16_rows(ms.rows).contiguous()}
     for rays in ("camera", "random"):
         o, d = pwk.ray_set(rays, cs, n, dev, frame=64)
-        for name, (w, test) in pwk.VARIANTS.items():
-            for g in (1, 32):
-                same(f"walk_isolate {rays} {name} G={g}", "walk_isolate",
-                     pwk.walk_isolate(ms, tables[w], o, d, test=test, group=g, iters=2),
-                     pwk.walk_isolate_plain(ms, tables[w], o, d, test=test, group=g))
+        for table, (ms_t, rows_t) in tables.items():
+            key = "walk_isolate" if table in ("w32", "w16") else f"walk_isolate_{table}"
+            for test in (True, False):
+                for g in (1, 32):
+                    same(f"walk_isolate {rays} {table} test={test} G={g}", key,
+                         pwk.walk_isolate(ms_t, rows_t, o, d, test=test, group=g, iters=2),
+                         pwk.walk_isolate_plain(ms_t, rows_t, o, d, test=test, group=g))
     it = 50
     x, xv = T(pcl.x_of(n)), T(pcl.x_of(n, scale=0.4))
     ftbl = T(pcl.fetch_table())
@@ -609,9 +750,9 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
              pcl.staged_chase(dtbl, 128, it, "multi", nchains=g, spec=spec),
              pcl.staged_multi_plain(dtbl, 128, it, g, spec))
     print(f"probes at {n} threads: every kernel bit-equal to its plain version (walk_ablate: 11 "
-          "variants x G 1, 32; walk_isolate: w32/w16 x test/notest x G 1, 32 x camera/random "
-          "rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: 7 dma modes, 6 "
-          "multi)", flush=True)
+          "variants x G 1, 32; walk_isolate: w32/w16/slim/pack3/pack4/pack12 x test/notest x G 1, "
+          "32 x camera/random rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: "
+          "7 dma modes, 6 multi)", flush=True)
     k11b_same(same, dev, pvi, pvd, n, it=6)
     print(f"K11b at {n} threads: alu_issue (K 1, 2, 4, 8, 16), dtype_elementwise (f32, bf16, "
           "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; rows 8 and 1024) bit-equal to "
@@ -631,6 +772,15 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
          lambda: pwk.walk_isolate(ms, ms.rows, co, cd),
          lambda: pwk.walk_isolate_plain(ms, ms.rows, co, cd),
          lambda got: (nbytes(ms.rows, ms.consts, co, cd, *got), float(got[1].sum()) * ROW_OPS)),
+    ] + [
+        (f"walk_isolate_{t}", f"{t} ({tuple(tables[t][1].shape)} rows), G=1, 1024x1024 camera rays, "
+         "one walk",
+         lambda t=t: pwk.walk_isolate(tables[t][0], tables[t][1], co, cd),
+         lambda t=t: pwk.walk_isolate_plain(tables[t][0], tables[t][1], co, cd),
+         lambda got, t=t: (nbytes(tables[t][1], tables[t][0].consts, co, cd, *got),
+                           float(got[1].sum()) * ROW_OPS))
+        for t in packed
+    ] + [
         ("latency_chain", "fetch chase, 1M threads, 16 steps",
          lambda: pcl.fetch(ftbl, N, 16, "chase"),
          lambda: pcl.fetch_plain(ftbl, N, 16, "chase"),
@@ -693,7 +843,8 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     def short_mains():
         j = lambda name: ["--json", os.path.join(out_dir, f"probe_{name}.json")]
         pab.main(["0", "1024", "full", "noprefetch", "--rays", "random", "camera"] + j("ablate"))
-        pwk.main(["--variants", "w32", "w32-notest"] + j("walk"))
+        pwk.main(["--variants", "unpacked", "packed", "--rays", "camera"] + j("walk"))
+        pwk.main(["widths", "1024"] + j("widths"))
         pcl.main(["fetch"] + j("fetch"))
         pcl.main(["dma", "--rows", "65536", "262144"] + j("dma"))
         pga.main(j("gather"))
@@ -711,6 +862,8 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
     src = "hijiki_tpu_torch/csrc/"
     replaces = dict(walk_ablate="tools/ablate_walker.py:187", walk_isolate="tools/walk_probe.py:84",
+                    **{f"walk_isolate_{t}": "tools/walk_probe.py:84 (main :246, main_widths :192)"
+                       for t in packed},
                     latency_chain="tools/chain_latency_probe.py:233",
                     staged_chase="tools/chain_latency_probe.py:508",
                     reconstruct_old="tools/ab_reconstruct.py:135",
@@ -718,6 +871,7 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
                     dtype_elementwise="tools/vpu_dtype_probe.py:124",
                     dtype_slab="tools/vpu_dtype_probe.py:91")
     sources = dict(walk_ablate="probe_walk.cu", walk_isolate="probe_walk.cu",
+                   **{f"walk_isolate_{t}": "probe_walk.cu" for t in packed},
                    latency_chain="probe_latency.cu", staged_chase="probe_latency.cu",
                    reconstruct_old="reconstruct_old.cu", alu_issue="probe_alu.cu",
                    dtype_elementwise="probe_alu.cu", dtype_slab="probe_alu.cu")
@@ -781,6 +935,18 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     build.load_library()
+    # phase 6's twin workers, started now so that they reach the card while
+    # phases 3-5 run (idle until phase 6, which shuts them down; on a
+    # failure before that, at exit)
+    import atexit
+    import concurrent.futures
+    import torch.multiprocessing
+
+    twin_pool = concurrent.futures.ProcessPoolExecutor(
+        TWIN_WORKERS, mp_context=torch.multiprocessing.get_context("spawn"), initializer=_twin_init)
+    atexit.register(twin_pool.shutdown, cancel_futures=True)
+    for _ in range(TWIN_WORKERS):
+        twin_pool.submit(os.getpid)
 
     # ---- 3. K3 against its twin ----
     phase("K3 reconstruct vs twin")
@@ -947,16 +1113,22 @@ def main() -> int:
     # with the boxes of JAX's default compile)
     held = {k: ["classic+boxes"] for k in fmt_err}
 
+    # the configurations phase 4c runs the occlusion cache on: {label:
+    # (launch scene, its inputs)}
+    cache_cfgs = {"classic+boxes": (ms_small, (px, py, seeds, pxs, pys, sds))}
+
     def hold_formats(label, ms_f, fpx, fpy, fseeds, fpxs, fpys, fsds):
-        """K1 (cap 5), K2 (resume to 24), K5 (to 24), K4 (3 samples, chain
-        cap 8) against their twins (bit for bit), the sorted K1/K2/K5
-        bit-equal to the unsorted kernels; returns K1's output."""
+        """K1 (cap 5), K2 (resume to GATE_CAP), K5 (to GATE_CAP), K4
+        (GATE_SAMPLES samples, chain cap 8) against their twins (bit for
+        bit), the sorted K1/K2/K5 bit-equal to the unsorted kernels; keeps
+        the configuration for phase 4c and returns K1's output."""
+        fpxs, fpys, fsds = fpxs[:GATE_SAMPLES], fpys[:GATE_SAMPLES], fsds[:GATE_SAMPLES]
         f1 = mk.megakernel_start(ms_f, fpx, fpy, fseeds, 5)
         runs = (("mk_start", agree, f1, mk.megakernel_start_plain(ms_f, fpx, fpy, fseeds, 5)),
-                ("mk_resume", agree, mk.megakernel_resume(ms_f, *f1, 24),
-                 mk.megakernel_resume_plain(ms_f, *f1, 24)),
-                ("mk_tiles", agree_tiles, mk.megakernel_tiles(ms_f, fpx, fpy, fseeds, 24),
-                 mk.megakernel_tiles_plain(ms_f, fpx, fpy, fseeds, 24)),
+                ("mk_resume", agree, mk.megakernel_resume(ms_f, *f1, GATE_CAP),
+                 mk.megakernel_resume_plain(ms_f, *f1, GATE_CAP)),
+                ("mk_tiles", agree_tiles, mk.megakernel_tiles(ms_f, fpx, fpy, fseeds, GATE_CAP),
+                 mk.megakernel_tiles_plain(ms_f, fpx, fpy, fseeds, GATE_CAP)),
                 ("mk_start_chained", agree_chained,
                  mk.megakernel_start_chained(ms_f, fpxs, fpys, fsds, 8),
                  mk.megakernel_start_chained_plain(ms_f, fpxs, fpys, fsds, 8)))
@@ -966,11 +1138,13 @@ def main() -> int:
                 fail(f"{label} {name}: the kernel differs from its twin bit for bit")
             held[name].append(label)
         for fn, args, un in ((mk.megakernel_start, (fpx, fpy, fseeds, 5), f1),
-                             (mk.megakernel_resume, (*f1, 24), runs[1][2]),
-                             (mk.megakernel_tiles, (fpx, fpy, fseeds, 24), runs[2][2])):
+                             (mk.megakernel_resume, (*f1, GATE_CAP), runs[1][2]),
+                             (mk.megakernel_tiles, (fpx, fpy, fseeds, GATE_CAP), runs[2][2])):
             if not bit_equal(fn(ms_f, *args, lane_sort=True), un):
                 fail(f"{label}: the sorted {fn.__name__} differs from the unsorted kernel")
         print(f"{label}: the sorted K1/K2/K5 bit-equal to the unsorted kernels", flush=True)
+        if not ms_f.shadow_tbl:
+            cache_cfgs[label] = (ms_f, (fpx, fpy, fseeds, fpxs, fpys, fsds))
         return f1
 
     F_ = 128
@@ -1001,6 +1175,114 @@ def main() -> int:
           f"{float(k1[0][23].sum()):.0f} with them, {float(t1[0][23].sum()):.0f} with them and the "
           "shadow table; every other channel and the RNG bit-equal")
     hold_formats("noboxes", mk.launch_scene(ms_small, shadow_vis=False), px, py, seeds, pxs, pys, sds)
+
+    # ---- 4c. the shadow-ray occlusion cache and the skip-all probe ----
+    phase("4c: K1/K2/K4/K5 with the occlusion cache vs their cache-on twins and vs the "
+          "cache-off kernels, on classic (boxes on, off), SLIM, PACKED3/4/12; skip-all")
+    rows_ch = mk._STATE_CH.index("rows")
+    keep = [i for i in range(mk.N_STATE) if i != rows_ch]
+    cache_err = {k: 0.0 for k in fmt_err}
+    cache_moved = {}  # config: paths whose K1 rows the cache moved
+
+    def but_rows(name, out):
+        """A launch's outputs without its rows counter (state channel 23;
+        K4: pool channel 23 and flush channel 8); K5 has none."""
+        if name in ("mk_start", "mk_resume"):
+            return [out[0][keep], out[1]]
+        if name == "mk_start_chained":
+            return [out[0][keep], out[1], out[2][[c for c in range(mk.CHAIN_OUT_CH) if c != 8]]]
+        return list(out)
+
+    for label, (ms_off, (fpx, fpy, fseeds, fpxs, fpys, fsds)) in cache_cfgs.items():
+        ms_f = mk.launch_scene(ms_off, ms_off.shadow_vis, shadow_cache=True)
+        off1 = mk.megakernel_start(ms_off, fpx, fpy, fseeds, 5)
+        on1 = mk.megakernel_start(ms_f, fpx, fpy, fseeds, 5)
+        calls = (("mk_start", agree, (fpx, fpy, fseeds, 5), off1, on1),
+                 ("mk_resume", agree, (*on1, GATE_CAP), None, None),
+                 ("mk_tiles", agree_tiles, (fpx, fpy, fseeds, GATE_CAP), None, None),
+                 ("mk_start_chained", agree_chained, (fpxs[:GATE_SAMPLES], fpys[:GATE_SAMPLES],
+                                                      fsds[:GATE_SAMPLES], 8), None, None))
+        outs = {}
+        mk.reset_pretest_counts()
+        for name, check_fn, args, off, on in calls:
+            kern = getattr(mk, f"megakernel_{name[3:]}")
+            plain_fn = getattr(mk, f"megakernel_{name[3:]}_plain")
+            on = kern(ms_f, *args) if on is None else on
+            off = kern(ms_off, *args) if off is None else off
+            want = plain_fn(ms_f, *args)
+            cache_err[name] = max(cache_err[name], check_fn(f"4c {label} {name} cache on", on, want))
+            if not bit_equal(on, want):
+                fail(f"4c {label} {name}: the cache-on kernel differs from its cache-on twin")
+            if not bit_equal(but_rows(name, on), but_rows(name, off)):
+                fail(f"4c {label} {name}: the cache-on kernel differs from the cache-off one "
+                     "beyond the rows counter")
+            outs[name] = on
+            if name in ("mk_start", "mk_resume"):  # paths whose rows the cache moved
+                cache_moved[label] = (cache_moved.get(label, 0)
+                                      + int((on[0][rows_ch] != off[0][rows_ch]).sum()))
+        # predictions the twins (held to the kernels bit for bit, rows
+        # included) tested, and those that verified: answered without a walk
+        tried, verified = mk.pretest_counts()
+        if verified <= 0:
+            fail(f"4c {label}: none of the {tried} predictions tested verified: the cache never "
+                 "answered a shadow ray")
+        for fn, args, name in ((mk.megakernel_start, (fpx, fpy, fseeds, 5), "mk_start"),
+                               (mk.megakernel_resume, (*on1, GATE_CAP), "mk_resume"),
+                               (mk.megakernel_tiles, (fpx, fpy, fseeds, GATE_CAP), "mk_tiles")):
+            got = fn(ms_f, *args, lane_sort=True, lane_order=True)
+            if not bit_equal(got[:2], outs[name]):
+                fail(f"4c {label}: the sorted {name} with the cache differs from the unsorted one")
+            # the cache moves no path's key, so the order record is the
+            # cache-off kernel's (phase 4 held that one to the sorted plain
+            # version on the classic rows, tests/test_torch_cuda.py on each
+            # format)
+            if not torch.equal(got[2], fn(ms_off, *args, lane_sort=True, lane_order=True)[2]):
+                fail(f"4c {label}: the sorted {name}'s order record with the cache differs from "
+                     "the one without")
+        print(f"4c {label}: K1/K2/K4/K5 with the cache bit-equal to their cache-on twins (rows "
+              f"included) and to the cache-off kernels but for rows; the twins tested {tried} "
+              f"predictions, {verified} verified (K1's and K2's rows moved on "
+              f"{cache_moved[label]} of {2 * fpx.numel()} paths; K1 {float(on1[0][rows_ch].sum()):.0f} "
+              f"against {float(off1[0][rows_ch].sum()):.0f}); the sorted K1/K2/K5 with the cache "
+              "bit-equal to the unsorted ones, their order records the cache-off kernels'",
+              flush=True)
+        for name in cache_err:
+            held[name].append(f"{label}+cache")
+    for what, call in (
+            ("shadow_tbl with shadow_cache", lambda: mk.render_tiles(
+                ms_small, px, py, seeds, max_bounces=4, shadow_tbl=True, shadow_cache=True)),
+            ("shadow_skip_all with shadow_cache", lambda: mk.render_waves(
+                ms_small, px, py, seeds, max_bounces=4, shadow_cache=True, shadow_skip_all=True))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"4c {what}: ValueError ({e})")
+        else:
+            fail(f"4c {what} did not raise")
+    # skip-all: render_waves' K1/K2 calls replayed through their twins
+    ms_skip = mk.launch_scene(ms_small, shadow_skip_all=True)
+    skip_calls = record_calls(mk, ("mk_start", "mk_resume"), lambda: mk.render_waves(
+        ms_small, px, py, seeds, max_bounces=24, shadow_skip_all=True))
+    real_any, shadow_nit = mk._trace_any, []
+
+    def counted_any(*a, **kw):
+        hit, nit, row = real_any(*a, **kw)
+        shadow_nit.append(float(nit.max()) if nit.numel() else 0.0)
+        return hit, nit, row
+
+    mk._trace_any = counted_any
+    try:
+        for name, args in skip_calls:
+            got = getattr(mk, f"megakernel_{name[3:]}")(ms_skip, *args)
+            want = getattr(mk, f"megakernel_{name[3:]}_plain")(ms_skip, *args)
+            if not bit_equal(got, want):
+                fail(f"4c skip-all {name}: the kernel differs from its twin")
+    finally:
+        mk._trace_any = real_any
+    if max(shadow_nit) != 0.0:
+        fail("4c skip-all: a shadow walk visited a row")
+    print(f"4c render_waves(shadow_skip_all=True) at {S}x{S}: its {len(skip_calls)} K1/K2 calls "
+          "bit-equal to their twins, every shadow walk 0 rows", flush=True)
 
     # ---- 5. the paths ----
     def drive(label, fn):
@@ -1238,6 +1520,52 @@ def main() -> int:
         fail("(e) the sorted K5 was not launched or differs from render_tiles")
     print(f"(e) sorted render_tiles == render_tiles bit for bit, launches {counts_es}")
 
+    # (q) the occlusion cache on the chained slice's chunk: render_waves_chained
+    # (K4 and K2 with the cache) at (a)'s configuration, one chunk of 8 sweeps,
+    # against the same call without it; render_waves and render_tiles with it
+    # on one sweep of the frame (K1, K2, K5 with the cache)
+    qframes = [frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 40 + s))
+               for s in range(mk.CHAIN_SWEEPS_CUDA)]
+    qpx, qpy, qseeds = (torch.stack([f[i] for f in qframes]) for i in range(3))
+
+    def cached_paths():
+        return (mk.render_waves_chained(ms, qpx, qpy, qseeds, max_bounces=1000, shadow_cache=True),
+                mk.render_waves(ms, tpx, tpy, tseeds, max_bounces=1000, shadow_cache=True),
+                mk.render_tiles(ms, tpx, tpy, tseeds, max_bounces=1000, shadow_cache=True))
+
+    (tq, wq, eq), counts_q = drive("(q) render_waves_chained(shadow_cache=True) 1024x1024, 8 sweeps, "
+                                   "max_bounces 1000, and render_waves, render_tiles with it, one sweep",
+                                   cached_paths)
+    for k in ("mk_start_chained_cache", "mk_resume_cache", "mk_start_cache", "mk_tiles_cache"):
+        if counts_q[k] <= 0:
+            fail(f"(q) the cache-on kernel {k} was not launched")
+    if any(counts_q[k] for k in mk.LAUNCHES if not k.endswith("_cache")):
+        fail(f"(q) a cache-off megakernel was launched: {counts_q}")
+    tq_off = mk.render_waves_chained(ms, qpx, qpy, qseeds, max_bounces=1000)
+    wq_off = mk.render_waves(ms, tpx, tpy, tseeds, max_bounces=1000)
+    for i in (0, 1, 2, 3, 4, 5, 7):  # all but rows (6)
+        if not bit_equal([tq[i]], [tq_off[i]]) or not bit_equal([wq[i]], [wq_off[i]]):
+            fail(f"(q) output {i} with the cache differs from the one without")
+    if not bit_equal(eq, te):
+        fail("(q) render_tiles with the cache differs from (e)")
+    q_rows = (float(tq[6].sum()), float(tq_off[6].sum()))
+    print(f"(q) films, RNG, depth, normals, albedo, segs bit-equal to the calls without the "
+          f"cache; rows {q_rows[0]:.6e} against {q_rows[1]:.6e} ({q_rows[0] / q_rows[1] - 1:+.5%}); "
+          f"launches {counts_q}")
+    q_rays = qpx.numel()
+    warm_q = {"cache on": [], "cache off": []}
+    for _ in range(3):
+        for key, on in (("cache on", True), ("cache off", False)):
+            torch.cuda.synchronize()
+            t_q = time.monotonic()
+            mk.render_waves_chained(ms, qpx, qpy, qseeds, max_bounces=1000, shadow_cache=on)
+            torch.cuda.synchronize()
+            warm_q[key].append(q_rays / (time.monotonic() - t_q) / 1e6)
+    print("(q) warm Mrays/s of the chunk, 3 calls each in turns: " + "; ".join(
+        f"{k} median {float(np.median(v)):.3f} ({', '.join(f'{x:.3f}' for x in v)})"
+        for k, v in warm_q.items()), flush=True)
+    del tq, wq, eq, tq_off, wq_off
+
     sync_cfg = dict(slice_cfg, driver="sync")
     rf = Renderer(cs, RenderConfig(**sync_cfg), device="cuda")
     snap = {}
@@ -1351,6 +1679,29 @@ def main() -> int:
         print(f"(h) {tr} against rows, 64x64 meshbox_small: RNG equal on {eq:.4%} of paths")
         if eq < 0.995:
             fail(f"(h) {tr} disagrees with rows")
+    # the CLI on the card with every walker knob and --profile-dir against
+    # the default command: the same EXR bit for bit, and a trace
+    from hijiki_tpu_torch import cli
+
+    cli_base = [SCENE_SMALL, "--put-cbox-spheres", "--use-bvh", "--driver", "mega", "-w", "64",
+                "-H", "64", "-s", "2", "--max-bounces", "1000"]
+    prof_dir = os.path.join(out_dir, "profile")
+    knobs = ["--mega-packet", "256", "--mega-groups", "4", "--spec-resolve", "1", "--mega-trunk",
+             "4096", "--mega-window", "2", "--profile-dir", prof_dir]
+    for argv in ([*cli_base, "-o", os.path.join(out_dir, "cli_plain.exr")],
+                 [*cli_base, *knobs, "-o", os.path.join(out_dir, "cli_knobs.exr")]):
+        if cli.main(argv) != 0:
+            fail(f"(h) the CLI exited non-zero: {' '.join(argv[1:])}")
+    same_exr = np.array_equal(read_exr(os.path.join(out_dir, "cli_knobs.exr")).view(np.int32),
+                              read_exr(os.path.join(out_dir, "cli_plain.exr")).view(np.int32))
+    trace = os.path.join(prof_dir, "trace.json")
+    if not same_exr or not os.path.getsize(trace):
+        fail("(h) the CLI with the walker knobs wrote another EXR, or --profile-dir no trace")
+    with open(trace) as f:
+        cuda_events = f.read().count('"cat": "kernel"')
+    print(f"(h) CLI at 64x64 on the card: every walker knob set and --profile-dir, the EXR "
+          f"bit-equal to the default command's; {trace} holds {cuda_events} kernel events",
+          flush=True)
 
     _, counts_j = drive("(j) K8 alone: sort_tiles, 1M lanes x 31 channels",
                         lambda: srt.sort_tiles(key8, ch8))
@@ -1358,14 +1709,12 @@ def main() -> int:
         fail("(j) sort_tiles was not launched")
 
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
-    phase("kernels vs twins at the main path's shapes")
+    phase(f"kernels vs twins at the main path's shapes: the calls recorded, their twins in "
+          f"{TWIN_WORKERS} processes at once")
     print(f"device memory: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved by the caching allocator")
     real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
-            "mk_start_chained": mk.megakernel_start_chained}
-    plain = {"mk_start": mk.megakernel_start_plain, "mk_resume": mk.megakernel_resume_plain,
-             "mk_start_chained": mk.megakernel_start_chained_plain}
-    check = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chained}
+            "mk_start_chained": mk.megakernel_start_chained, "mk_tiles": mk.megakernel_tiles}
 
     def work(name, args, got, scene=None):
         """(bytes, f32 operations) of one megakernel call: the table once
@@ -1391,20 +1740,73 @@ def main() -> int:
         tensors = [a for a in args if torch.is_tensor(a)] + list(got)
         return table + nbytes(*tensors), float(rows) * ROW_OPS
 
+    def label_of(tag, name, args):
+        lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
+        return f"{tag} {name} ({lanes} lanes, cap {args[-1]})"
+
+    # the recorded calls: (a)'s chained chunk (8 x 1M slots), the unchained
+    # sweep, (p)'s chunk on its 100,384-triangle PACKED4 table, and (q)'s
+    # chunk and the sweep with the occlusion cache
+    scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
+    frames = [frame_of(sc) for sc in scheds]
+    cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
+    chunk_res = []
+    chunk_calls = record_calls(mk, real, lambda: chunk_res.append(
+        mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000)))
+    upx, upy, useeds, uso = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 1 + mk.CHAIN_SWEEPS_CUDA))
+    sweep_out = []
+    sweep_calls = record_calls(mk, real, lambda: sweep_out.append(
+        mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
+    ms_p = mk.mega_scene(compiled_big["(p) PACKED4"], W, H, dev)
+    p_calls = record_calls(mk, real, lambda: mk.render_waves_chained(
+        ms_p, cpx, cpy, cseeds, max_bounces=1000))
+    ms_q = mk.launch_scene(ms, shadow_cache=True)
+    qc_calls = record_calls(mk, real, lambda: mk.render_waves_chained(
+        ms, qpx, qpy, qseeds, max_bounces=1000, shadow_cache=True))
+    qs_calls = record_calls(mk, real, lambda: mk.render_waves(
+        ms, upx, upy, useeds, max_bounces=1000, shadow_cache=True))
+    k5_args = (upx, upy, useeds, 1000)
+    sorted_kw = dict(lane_sort=True, lane_order=True)
+    # every call through its plain version, on the card in the twin
+    # workers, all in flight at once (the longest first): the kernel's
+    # outputs held to the plain version's with the phase-4 bounds and bit
+    # for bit, rows included; the sorted calls' order records too
+    groups = (("(p) PACKED4 chained chunk:", ms_p, p_calls, {}),
+              ("(q) cache on, chained chunk:", ms_q, qc_calls, {}),
+              ("chained chunk:", ms, chunk_calls, {}),
+              ("K5", ms, [("mk_tiles", k5_args)], {}),
+              ("K5 sorted", ms, [("mk_tiles", k5_args)], sorted_kw),
+              ("(q) cache on, K5", ms_q, [("mk_tiles", k5_args)], {}),
+              ("K7 sorted", ms, sweep_calls, sorted_kw),
+              ("(q) cache on, unchained sweep:", ms_q, qs_calls, {}),
+              ("unchained sweep:", ms, sweep_calls, {}))
+    jobs = [(label_of(tag, name, args), name, sc, args, kw, real[name](sc, *args, **kw))
+            for tag, sc, calls, kw in groups for name, args in calls]
+    t_twins = time.monotonic()
+    twin_out = run_twins(twin_pool, jobs)
+    twin_pool.shutdown()
+    twin_of = {job[0]: res for job, res in zip(jobs, twin_out)}
+    print(f"{len(jobs)} plain versions at the main path's shapes, {TWIN_WORKERS} at a time: "
+          f"{time.monotonic() - t_twins:.1f} s (each one's ms measured with the others sharing "
+          f"the card); summed {sum(r[0] for r in twin_out) / 1e3:.1f} s", flush=True)
+    q_pre = [r[2] for (label, *_), r in zip(jobs, twin_out) if label.startswith("(q)")]
+    q_tried, q_verified = (sum(p[i] for p in q_pre) for i in range(2))
+    print(f"(q) the cache-on plain versions tested {q_tried} predictions at the main path's "
+          f"shapes, {q_verified} verified ({q_verified / max(q_tried, 1):.4%})", flush=True)
+    del jobs
+
     def replay(tag, calls, scene=None):
-        """Each call through the kernel and the twin (on ``scene``, default
-        the slice's); returns per kernel its times, the twin's, its error,
-        its work, and its last call's outputs."""
+        """Each call through the kernel, timed (mean of 3), beside its plain
+        version's time and error from the twin workers; returns per kernel
+        its times, the plain version's, its error, its work, and its last
+        call's outputs."""
         sc = ms if scene is None else scene
         ms_of, plain_of, err_of, work_of, out_of = {}, {}, {}, {}, {}
         for name, args in calls:
+            label = label_of(tag, name, args)
             t_k, got = timed(lambda: real[name](sc, *args), reps=3)
-            t_p, want = timed(lambda: plain[name](sc, *args), reps=1, warm=False)
-            lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
-            label = f"{tag} {name} ({lanes} lanes, cap {args[-1]})"
-            err_of[name] = max(err_of.get(name, 0.0), check[name](label, got, want))
-            if not bit_equal(got, want):
-                fail(f"{label}: the kernel's outputs differ from the twin's bit for bit")
+            t_p, err, _ = twin_of[label]
+            err_of[name] = max(err_of.get(name, 0.0), err)
             ms_of.setdefault(name, []).append(t_k)
             plain_of.setdefault(name, []).append(t_p)
             work_of.setdefault(name, []).append(work(name, args, got, sc))
@@ -1414,12 +1816,6 @@ def main() -> int:
                   flush=True)
         return ms_of, plain_of, err_of, work_of, out_of
 
-    scheds = [ra.scheduler.sweep(slice_cfg["spp"] + 1 + s) for s in range(mk.CHAIN_SWEEPS_CUDA)]
-    frames = [frame_of(sc) for sc in scheds]
-    cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
-    chunk_res = []
-    chunk_calls = record_calls(mk, real, lambda: chunk_res.append(
-        mk.render_waves_chained(ms, cpx, cpy, cseeds, max_bounces=1000)))
     c_ms, c_plain, c_err, c_work, c_out = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
                                torch.zeros((mk.CHAIN_OUT_CH, cpx.numel()), device=dev)), reps=5)
@@ -1445,18 +1841,11 @@ def main() -> int:
           f"{wi['sum_max'] / wi['sum_mean']:.4f} / {wi['max_sum'] / wi['sum_mean']:.4f}")
     del pool, chain_out, c_out
 
-    upx, upy, useeds, uso = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 1 + mk.CHAIN_SWEEPS_CUDA))
-    sweep_out = []
-    sweep_calls = record_calls(mk, real, lambda: sweep_out.append(
-        mk.render_waves(ms, upx, upy, useeds, max_bounces=1000)))
     u_ms, u_plain, u_err, u_work, _ = replay("unchained sweep:", sweep_calls)
 
-    t_k5, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
-    t_k5p, want = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000),
-                        reps=1, warm=False)
-    k5_err = agree_tiles(f"K5 mk_tiles ({upx.numel()} lanes, cap 1000)", got, want)
-    if not bit_equal(got, want):
-        fail("K5 mk_tiles: the kernel's outputs differ from the twin's bit for bit")
+    # K5 over the same frame to cap 1000, against its plain version (above)
+    t_k5, got = timed(lambda: mk.megakernel_tiles(ms, *k5_args), reps=3)
+    t_k5p, k5_err, _ = twin_of[label_of("K5", "mk_tiles", k5_args)]
     # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's
     # rows, its bounce counter (segs) picks the tail floor's 32 longest paths
     k5_state = mk.megakernel_start(ms, upx, upy, useeds, 1000)[0]
@@ -1472,6 +1861,7 @@ def main() -> int:
     del k5_state
 
     # K7: the sweep's K1/K2 calls through the sorted kernels
+    phase("K7 (the sorted K1/K2/K5) and K8 at the main path's shapes")
     k7_ms, k7_unsorted, k7_plain, k7_err = [], [], [], 0.0
 
     def max_diff(got, want) -> float:
@@ -1482,34 +1872,31 @@ def main() -> int:
     for name, args in sweep_calls:
         t_u, want = timed(lambda: real[name](ms, *args), reps=3)
         t_s, got = timed(lambda: real[name](ms, *args, lane_sort=True), reps=3)
-        label = f"K7 sorted {name} ({args[-2].numel()} lanes, cap {args[-1]})"
+        label = label_of("K7 sorted", name, args)
         if not bit_equal(got, want):
             fail(f"{label} differs from the unsorted kernel")
-        t_p, pl_out = timed(lambda: plain[name](ms, *args, lane_sort=True, lane_order=True),
-                            reps=1, warm=False)
-        k7_err = max(k7_err, agree(f"{label} vs its plain version", got, pl_out[:2]))
-        rec = real[name](ms, *args, lane_sort=True, lane_order=True)
+        rec = real[name](ms, *args, **sorted_kw)
         if not bit_equal(rec[:2], got):
             fail(f"{label}: the launch with the order record differs from the one without")
-        check_order(label, mk, ms, rec, pl_out)
+        # against its sorted plain version, order record included (above)
+        t_p, err, _ = twin_of[label]
+        k7_err = max(k7_err, err)
         k7_ms.append(t_s)
         k7_unsorted.append(t_u)
         k7_plain.append(t_p)
         print(f"{label}: {t_s:.3f} ms against {t_u:.3f} ms unsorted (bit-equal), plain {t_p:.3f} ms",
               flush=True)
-    t_k5s, got = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000, lane_sort=True), reps=3)
-    t_k5u, want = timed(lambda: mk.megakernel_tiles(ms, upx, upy, useeds, 1000), reps=3)
+    t_k5s, got = timed(lambda: mk.megakernel_tiles(ms, *k5_args, lane_sort=True), reps=3)
+    t_k5u, want = timed(lambda: mk.megakernel_tiles(ms, *k5_args), reps=3)
     if not bit_equal(got, want):
         fail("K5 sorted differs from K5 on the 1M-path frame")
-    t_k5sp, pl_out = timed(lambda: mk.megakernel_tiles_plain(ms, upx, upy, useeds, 1000, lane_sort=True,
-                                                             lane_order=True), reps=1, warm=False)
-    k5s_err = agree_tiles("K5 sorted vs its plain version (1M paths to 1000)", got, pl_out[:2])
-    rec = mk.megakernel_tiles(ms, upx, upy, useeds, 1000, lane_sort=True, lane_order=True)
+    rec = mk.megakernel_tiles(ms, *k5_args, **sorted_kw)
     if not bit_equal(rec[:2], got):
         fail("K5 sorted: the launch with the order record differs from the one without")
-    check_order("K5 sorted (1M paths to 1000)", mk, ms, rec, pl_out)
+    t_k5sp, k5s_err, _ = twin_of[label_of("K5 sorted", "mk_tiles", k5_args)]
     print(f"K5 sorted ({upx.numel()} paths to 1000): {t_k5s:.3f} ms against {t_k5u:.3f} ms unsorted "
           f"(bit-equal), plain {t_k5sp:.3f} ms")
+    del rec
 
     # K8 at the size of a 1M-path state: the kernel, its plain version, the library call
     t_k8, got = timed(lambda: srt.sort_tiles(key8, ch8), reps=10)
@@ -1526,6 +1913,7 @@ def main() -> int:
           f"{' + '.join(f'{t:.3f}' for t in k7_ms[1:])} ms; unsorted in the same replay: K1 "
           f"{k7_unsorted[0]:.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in k7_unsorted[1:])} ms")
 
+    phase("K3 at the main path's shapes")
     total = sweep_out[0][0].reshape(H, W, 3).contiguous()
     normal = sweep_out[0][1].reshape(H, W, 3).contiguous()
     t_k3s, got = timed(lambda: prc.reconstruct(total, normal, uso, block_size=128), reps=20)
@@ -1586,31 +1974,40 @@ def main() -> int:
           f"{t_k3wp:.3f} ms, bound {bound(*k3w_work)[0]:.4f} ms ({bound(*k3w_work)[1]})")
     del ctot, cnrm, k3_sum, wtot, wnrm, k3w_sum
 
-    # K6: the device time of every call of one 1024x1024 sync sweep, from
-    # torch.profiler (CUDA events around each call would add the host's
-    # launch latency: the loop is host-bound); the first bounce's closest
-    # and shadow walks and bounce 9's closest walk recorded and replayed
-    # through the kernel and the twin
+    # K6: the device time of the calls of one 1024x1024 sync sweep's first
+    # K6_PROFILE_BOUNCES bounces, from torch.profiler (CUDA events around
+    # each call would add the host's launch latency: the loop is
+    # host-bound); the first bounce's closest and shadow walks and the
+    # closest walks of bounces 9, 30 and 200 recorded and replayed through
+    # the kernel and the twin
     from torch.profiler import ProfilerActivity, profile
 
+    phase("K6 at the main path's shapes: a 1024x1024 sync sweep, its first "
+          f"{K6_PROFILE_BOUNCES} bounces under torch.profiler")
     real_traverse = pt.traverse
+    window = 2 * K6_PROFILE_BOUNCES  # two calls a bounce: closest, shadow
     k6_calls, n_calls = [], [0]
-    # the sweep's K6 work, summed on the device (no host read per call):
+    # the window's K6 work, summed on the device (no host read per call):
     # walking rays, rows visited, and on the host lanes and table bytes
     k6_walking = torch.zeros((), dtype=torch.int64, device=dev)
     k6_rows = torch.zeros((), dtype=torch.float64, device=dev)
     k6_lanes, k6_table = [0], [0]
+    prof = profile(activities=[ProfilerActivity.CUDA])
 
     def traverse_recorded(rows, o, d, tmin, tmax, **mode):
         if n_calls[0] in K6_CALLS:
             k6_calls.append((n_calls[0], (rows, o.clone(), d.clone(), tmin.clone(), tmax.clone()),
                              mode))
+        if n_calls[0] == window:
+            torch.cuda.synchronize()
+            prof.stop()
         n_calls[0] += 1
         out = real_traverse(rows, o, d, tmin, tmax, **mode)
-        k6_walking.add_((tmax >= tmin).sum())
-        k6_rows.add_(out[6].sum(dtype=torch.float64))
-        k6_lanes[0] += o.shape[0]
-        k6_table[0] += nbytes(rows)
+        if n_calls[0] <= window:
+            k6_walking.add_((tmax >= tmin).sum())
+            k6_rows.add_(out[6].sum(dtype=torch.float64))
+            k6_lanes[0] += o.shape[0]
+            k6_table[0] += nbytes(rows)
         return out
 
     kpx, kpy, kseeds, _ = frame_of(ra.scheduler.sweep(slice_cfg["spp"] + 21))
@@ -1618,28 +2015,30 @@ def main() -> int:
                                        torch.stack([kpx, kpy], -1), (W, H))
     pt.traverse = traverse_recorded
     try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ksweep = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)),
-                               max_bounces=1000)
-            torch.cuda.synchronize()
+        prof.start()
+        ksweep = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)),
+                           max_bounces=1000)
+        torch.cuda.synchronize()
     finally:
         pt.traverse = real_traverse
+    if n_calls[0] <= window:
+        fail(f"K6: the sync sweep ended within the profiled {K6_PROFILE_BOUNCES} bounces")
     k6_events = [e for e in prof.key_averages() if "traverse_kernel" in e.key]
     k6_sweep_ms = sum(getattr(e, "self_device_time_total", 0) for e in k6_events) / 1e3
     k6_sweep_n = sum(e.count for e in k6_events)
-    # the sweep's summed bound: every call's table, tmin and tmax, the o and
-    # d of its walking rays, six outputs a lane, ROW_OPS a visited row
+    # the window's summed bound: every call's table, tmin and tmax, the o
+    # and d of its walking rays, six outputs a lane, ROW_OPS a visited row
     walking_all, rows_all = int(k6_walking), float(k6_rows)
     sweep_work = (k6_table[0] + 8 * k6_lanes[0] + 24 * walking_all + 24 * k6_lanes[0],
                   rows_all * ROW_OPS)
     k6_sweep_bound = bound(*sweep_work)
-    print(f"K6 in one sync sweep: {n_calls[0]} launches over {ksweep.iterations} bounces, "
-          f"{k6_sweep_ms:.3f} ms of device time in all ({k6_sweep_n} kernels in the profile); "
-          f"{walking_all} of {k6_lanes[0]} lanes walked, {rows_all / 1e6:.3f} M rows visited; summed "
-          f"bound {k6_sweep_bound[0]:.4f} ms ({k6_sweep_bound[1]}), so launches x gap "
-          f"{k6_sweep_ms - k6_sweep_bound[0]:.3f} ms")
-    if k6_sweep_n != n_calls[0] or not k6_sweep_ms > 0:
-        fail("the profiler did not see every K6 launch of the sweep")
+    print(f"K6 in one sync sweep ({n_calls[0]} launches over {ksweep.iterations} bounces), its "
+          f"first {window} launches ({K6_PROFILE_BOUNCES} bounces): {k6_sweep_ms:.3f} ms of device "
+          f"time in all ({k6_sweep_n} kernels in the profile); {walking_all} of {k6_lanes[0]} lanes "
+          f"walked, {rows_all / 1e6:.3f} M rows visited; summed bound {k6_sweep_bound[0]:.4f} ms "
+          f"({k6_sweep_bound[1]}), so launches x gap {k6_sweep_ms - k6_sweep_bound[0]:.3f} ms")
+    if k6_sweep_n != window or not k6_sweep_ms > 0:
+        fail("the profiler did not see every K6 launch of the window")
 
     lanes = start_lanes(ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)))
     isect, occl = make_intersectors(csd, "rows")
@@ -1682,6 +2081,59 @@ def main() -> int:
         b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
         return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    # the occlusion cache and skip-all at the main path's shapes: the chained
+    # chunk's and the unchained sweep's recorded calls through the cache-on
+    # kernels (and the sweep's through skip-all), each beside the cache-off
+    # kernel on the same inputs, timed in turns (off, on, on, off: means of
+    # 3), every output but rows bit-equal; K5 over the frame likewise. Then
+    # (q)'s own cache-on calls, timed beside their plain versions (above)
+    phase("the occlusion cache and skip-all at the main path's shapes")
+    ms_skip = mk.launch_scene(ms, shadow_skip_all=True)
+
+    def in_turns(fn_a, fn_b):
+        """(ms of a, ms of b, a's outputs, b's outputs): a, b, b, a, means"""
+        ta1, out_a = timed(fn_a, reps=3)
+        tb1, out_b = timed(fn_b, reps=3)
+        tb2, _ = timed(fn_b, reps=3, warm=False)
+        ta2, _ = timed(fn_a, reps=3, warm=False)
+        return (ta1 + ta2) / 2, (tb1 + tb2) / 2, out_a, out_b
+
+    def rows_of(name, args, out):
+        return work(name, args, out)[1] / ROW_OPS
+
+    for tag, calls in (("chained chunk:", chunk_calls), ("unchained sweep:", sweep_calls)):
+        for name, args in calls:
+            t_off, t_on, off, on = in_turns(lambda: real[name](ms, *args),
+                                            lambda: real[name](ms_q, *args))
+            label = label_of(tag, name, args)
+            if not bit_equal(but_rows(name, on), but_rows(name, off)):
+                fail(f"{label} with the cache differs from the cache-off kernel beyond rows")
+            w_on = work(name, args, on)
+            line = (f"{label}: cache on {t_on:.3f} ms, off {t_off:.3f} ms ({t_on / t_off - 1:+.2%}); "
+                    f"rows {w_on[1] / ROW_OPS:.6e} against {rows_of(name, args, off):.6e}; bound "
+                    f"{bound(*w_on)[0]:.4f} ms ({bound(*w_on)[1]})")
+            if tag == "unchained sweep:":
+                t_off2, t_sk, _, sk = in_turns(lambda: real[name](ms, *args),
+                                               lambda: real[name](ms_skip, *args))
+                line += (f"; skip-all {t_sk:.3f} ms against {t_off2:.3f} ms, rows "
+                         f"{rows_of(name, args, sk):.6e}: the shadow walk's share "
+                         f"{1 - t_sk / t_off2:.2%} of the time, "
+                         f"{1 - rows_of(name, args, sk) / rows_of(name, args, off):.2%} of the rows")
+            print(line, flush=True)
+    t5_off, t5_on, off5, on5 = in_turns(lambda: mk.megakernel_tiles(ms, *k5_args),
+                                        lambda: mk.megakernel_tiles(ms_q, *k5_args))
+    if not bit_equal(on5, off5):
+        fail("K5 with the cache differs from K5 without it")
+    rows5 = float(mk.megakernel_start(ms_q, upx, upy, useeds, 1000)[0][23].sum())
+    k5c_work = (nbytes(upx, upy, useeds, *on5, ms.rows, ms.consts), rows5 * ROW_OPS)
+    t_k5cp, k5c_err, _ = twin_of[label_of("(q) cache on, K5", "mk_tiles", k5_args)]
+    print(f"K5 over the frame to 1000: cache on {t5_on:.3f} ms, off {t5_off:.3f} ms "
+          f"({t5_on / t5_off - 1:+.2%}), bit-equal; rows {rows5:.6e} against {k5_rows:.6e}; bound "
+          f"{bound(*k5c_work)[0]:.4f} ms; the cache-on plain version {t_k5cp:.3f} ms", flush=True)
+    del off5, on5
+    qc_ms, qc_plain, qc_err, qc_work, _ = replay("(q) cache on, chained chunk:", qc_calls, ms_q)
+    qs_ms, qs_plain, qs_err, qs_work, _ = replay("(q) cache on, unchained sweep:", qs_calls, ms_q)
+
     # the formats at the main path's shapes: meshbox + spheres compiled
     # with each packed_leaf (and classic with the boxes, without them, with
     # the dedicated shadow table); each format's chained chunk (K4 to cap 8
@@ -1690,12 +2142,13 @@ def main() -> int:
     # to 1000, each timed (mean of 3) beside its rows visited and its bound
     # (the classic rows' plain-version times are the calls above)
     phase("K1/K2/K4/K5 per trace-row format at the main path's shapes")
-    fmt_ms, fmt_bound = {}, {}
+    fmt_ms, fmt_bound, fmt_cs = {}, {}, {0: cs}
     for label, pl_, vis, tbl in (("classic+boxes", 0, True, False), ("classic", 0, False, False),
                                  ("shadow_tbl", 0, True, True), ("slim", 1, True, False),
                                  ("packed3", 3, True, False), ("packed4", 4, True, False),
                                  ("packed12", 12, True, False)):
         cs_f = cs if pl_ == 0 else compile_scene(scene, packed_leaf=pl_)
+        fmt_cs[pl_] = cs_f
         ms_f = mk.launch_scene(mk.mega_scene(cs_f, W, H, dev), shadow_vis=vis, shadow_tbl=tbl)
         opts = dict(shadow_vis=vis, shadow_tbl=tbl)
         calls_f = record_calls(mk, real, lambda: mk.render_waves_chained(
@@ -1728,22 +2181,18 @@ def main() -> int:
               flush=True)
         del ms_f, calls_f, got5
 
-    # (p)'s chained chunk at the main path's shapes (8 x 1M slots of the
-    # 100,384-triangle PACKED4 table), as path (p) launches it: every K4
-    # and K2 call recorded and replayed through the kernel and the twin,
-    # bit-equal
-    ms_p = mk.mega_scene(compiled_big["(p) PACKED4"], W, H, dev)
-    p_calls = record_calls(mk, real, lambda: mk.render_waves_chained(
-        ms_p, cpx, cpy, cseeds, max_bounces=1000))
+    # (p)'s chained chunk (the 100,384-triangle PACKED4 table) as path (p)
+    # launches it, 8 x 1M slots: every K4 and K2 call timed beside its plain
+    # version (above)
     _, _, p_err, _, _ = replay("(p) PACKED4 chained chunk:", p_calls, ms_p)
     for name in ("mk_start_chained", "mk_resume"):
         if name not in p_err:
             fail(f"(p) PACKED4 chained chunk: no {name} call recorded")
         fmt_err[name] = max(fmt_err[name], p_err[name])
-        held[name].append("(p) packed4, 100,384 triangles, 8 x 1024x1024")
+        held[name].append("(p) packed4, 100,384 triangles, 8 x 1M slots")
     del ms_p, p_calls
 
-    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd)
+    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, fmt_cs)
 
     def by_format(name):
         """{format: [ms, bound ms]} of a kernel at the main path's shapes"""
@@ -1799,7 +2248,32 @@ def main() -> int:
         dict(name="sort_tiles", route="cuda", source=src + "sort.cu",
              replaces="tests/test_megakernel.py:337", launches=counts_j["sort_tiles"],
              max_abs_err=k8_err, ms=t_k8, plain_ms=t_k8p, **dict(summed([k8_work]), library_ms=t_k8lib)),
-    ] + probe_entries
+    ]
+    # the occlusion cache's instantiations (kCache) of K1, K2, K4, K5:
+    # launches from path (q); ms, plain_ms, the error and the bound from
+    # (q)'s own calls at the main path's shapes (phase 6: K1 the sweep's, K2
+    # the chained chunk's resumes, K4 the chunk's, K5 the frame's), each held
+    # bit for bit to its cache-on plain version there (rows included) and
+    # at the phase-4c gates (the error: the larger); against the cache-off
+    # kernels every output but rows is bit-equal (phases 4c and 6)
+    cache_of = {"mk_start": (qs_ms["mk_start"], qs_plain["mk_start"], qs_err["mk_start"],
+                             qs_work["mk_start"]),
+                "mk_resume": (qc_ms["mk_resume"], qc_plain["mk_resume"],
+                              max(qc_err["mk_resume"], qs_err["mk_resume"]), qc_work["mk_resume"]),
+                "mk_start_chained": (qc_ms["mk_start_chained"], qc_plain["mk_start_chained"],
+                                     qc_err["mk_start_chained"], qc_work["mk_start_chained"]),
+                "mk_tiles": ([t5_on], [t_k5cp], k5c_err, [k5c_work])}
+    for name, line in (("mk_start", 3000), ("mk_resume", 3041), ("mk_start_chained", 3015),
+                       ("mk_tiles", 2778)):
+        t_on, t_plain, err, works = cache_of[name]
+        kernels.append(dict(
+            name=f"{name}+cache", route="cuda", source=src + "megakernel.cu",
+            replaces=f"{mkpy}:{line} (shadow_cache, _anyhit_pretest :1700)",
+            launches=counts_q[f"{name}_cache"], max_abs_err=max(err, cache_err[name]),
+            ms=sum(t_on), plain_ms=sum(t_plain), **summed(works),
+            formats=["classic+boxes+cache, 1024x1024"] + [f"{c}+cache" for c in cache_cfgs]))
+    kernels += probe_entries
+    phase_seconds()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

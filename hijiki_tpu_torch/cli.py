@@ -9,10 +9,12 @@ The port's default driver is ``mega`` (the card's fast path); the JAX
 package's is ``sync``. All three compute the same estimator. ``--devices
 N`` shards each sweep over N devices (``parallel/multichip.py``: row bands
 for the mega driver, blocks otherwise): the first N cards, or N virtual
-devices with ``--device cpu``.
-
-Flags of ``hijiki_tpu.cli`` that are not ported yet are refused with an
-error that says so.
+devices with ``--device cpu``. The TPU walker's knobs (``--mega-packet``,
+``--mega-groups``, ``--spec-resolve``, ``--mega-trunk``,
+``--mega-window``) are accepted (``--sort-lanes`` with a packet other than
+128 raises JAX's ValueError); the per-thread walk has no packet and gives
+the same image whatever their values.
+``--profile-dir`` writes a torch.profiler trace of the render.
 """
 
 from __future__ import annotations
@@ -23,11 +25,6 @@ import os
 import sys
 import time
 
-# hijiki_tpu.cli flags the port does not have yet (any value is refused)
-NOT_PORTED = (
-    "--mega-packet", "--mega-groups", "--spec-resolve",
-    "--mega-trunk", "--mega-window", "--profile-dir",
-)
 # --platform names the device as JAX names its platform
 PLATFORM_DEVICE = {"cpu": "cpu", "gpu": "cuda"}
 
@@ -66,6 +63,24 @@ def build_parser() -> argparse.ArgumentParser:
         "1 = SLIM 16-col rows, 2-3 = 32-col 3-prim rows, 4 = 64-col 4-prim rows, "
         "5+ = 128-col 12-prim rows (scene/compile.py packed_leaf)",
     )
+    p.add_argument("--mega-packet", type=int, default=0,
+                   help="Megakernel packet width (lanes per traversal cursor of the TPU's "
+                   "packet walk); 0 = auto. The per-thread walk has no packet: the same "
+                   "image at any value")
+    p.add_argument("--mega-groups", type=int, default=0,
+                   help="Independent cursor groups per megakernel tile (the TPU's grouped "
+                   "walker); 0 = auto; the same image at any value")
+    p.add_argument("--spec-resolve", type=int, default=0,
+                   help="Pipelined winner-resolve loop (bitwise-equal outputs); 0 = auto, "
+                   "1 = on, -1 = off")
+    p.add_argument("--mega-trunk", type=int, default=0,
+                   help="VMEM trunk cache rows for HBM-streamed trace tables (bitwise-equal "
+                   "outputs; the port streams no table and reads none); 0 = auto, "
+                   "-1 = off, N = first N rows")
+    p.add_argument("--mega-window", type=int, default=0,
+                   help="h-row window DMA for HBM-streamed trace tables (bitwise-equal "
+                   "outputs; the port streams no table and reads none); 0 = auto "
+                   "(off), 1 = off, h > 1 = window height")
     p.add_argument(
         "--mega-shadow",
         type=int,
@@ -101,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write a Chrome-trace timeline of the driver loop (chunk "
                    "dispatches, film sync, overflow retries, checkpoint saves) to "
                    "this path; load in chrome://tracing or ui.perfetto.dev")
+    p.add_argument("--profile-dir", default=None,
+                   help="Write a torch.profiler trace of the render (CPU and, on a card, "
+                   "CUDA activity; a Chrome trace, trace.json) to this directory")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (the CUDA kernels) or cpu (their plain twins)")
     p.add_argument("--platform", default=None, choices=("cpu", "gpu", "tpu"),
@@ -113,12 +131,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def profiled_render(renderer, progress, out_dir: str) -> dict:
+    """``renderer.render`` under torch.profiler (CPU activity, and CUDA
+    activity on a card); the Chrome trace goes to ``out_dir``/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if renderer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        metrics = renderer.render(progress=progress)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"\nProfile: {path}")
+    return metrics
+
+
 def main(argv=None) -> int:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    for a in argv:
-        if a.split("=")[0] in NOT_PORTED:
-            print(f"{a.split('=')[0]}: not ported yet", file=sys.stderr)
-            return 2
     args = build_parser().parse_args(argv)
     if args.fixed_albedo and args.driver == "wavefront":
         print("--fixed-albedo requires the sync or mega driver", file=sys.stderr)
@@ -170,6 +200,11 @@ def main(argv=None) -> int:
         chain_sweeps=args.chain_sweeps,
         live_preview=args.live_preview,
         mega_shadow=args.mega_shadow,
+        mega_packet=args.mega_packet,
+        mega_groups=args.mega_groups,
+        spec_resolve=args.spec_resolve,
+        mega_trunk=args.mega_trunk,
+        mega_window=args.mega_window,
     )
     cls, kwargs = Renderer, {}
     if args.devices > 1:
@@ -208,7 +243,10 @@ def main(argv=None) -> int:
     # resumable checkpoint
     interrupted = False
     try:
-        metrics = renderer.render(progress=progress)
+        if args.profile_dir:
+            metrics = profiled_render(renderer, progress, args.profile_dir)
+        else:
+            metrics = renderer.render(progress=progress)
     except KeyboardInterrupt:
         interrupted = True
         metrics = renderer.metrics or dict(

@@ -58,6 +58,30 @@
 // shadow-visibility boxes are read at run time (nbox of them, 0 when the
 // launch reads none): a lane whose NEE origin lies in a box skips its
 // shadow walk. None of these changes an output but the rows counter.
+//
+// The shadow-ray occlusion cache (JAX's shadow_cache: _anyhit_pretest and
+// the srow carry of _bounce_loop; arXiv 1910.01304's ray-path prediction),
+// a third template flag kCache of every kernel (FMT_KERNEL: the launch's
+// cache word picks the instantiation; the cache-off code is the one the
+// kernels had). A path carries a predicted occluder row (-1: none), in a
+// register and, where the bounce stashes, in the stash or the sorted
+// exchange column, never in the 29-word state: it starts at -1 with every
+// path (a camera start, a respawned slot, a resumed path) and moves with
+// its path through the lane sort. Before a shadow walk that NEE gates in and
+// no box skips, the prediction's row is tested with the walk's own accept
+// (prim_test / packed_test with best_t = tmax, strict t < tmax); a hit
+// answers the any-hit query and the walk is skipped, else the walk runs as
+// without the cache. After the bounce a gated path predicts the row that
+// answered (the verified row, or the row where the walk accepted) and -1
+// where an analytic prim, a box or nothing answered; an ungated bounce keeps
+// its prediction. The occluded flag is the cache-off one, so every output
+// but `rows` (which counts the tested row) is the cache-off kernel's, bit for
+// bit. Unlike JAX, an analytic occluder is found first and no prediction is
+// tested then, and a lane's prediction never outlives its path.
+//
+// The skip-all probe (JAX's render_waves(shadow_skip_all=True), a run-time
+// scene word): every gated lane takes visibility 1 and walks nothing, a
+// biased image that prices any shadow-walk shortcut at its upper bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -220,12 +244,39 @@ __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
   }
 }
 
+// the occlusion cache's pretest: whether row `pred` of the main table
+// occludes [tmin, tmax), by the walk's own accept (a packed row: any of its
+// prims, the tournament's min t being below tmax)
+template <int kFmt>
+__device__ __forceinline__ bool row_occludes(const Scene& S, int pred, float ox,
+                                             float oy, float oz, float dx, float dy,
+                                             float dz, float tmin, float tmax) {
+  constexpr int kW = kFmt == 0 ? kRowW : packed_width<kFmt>();
+  const float* r = S.rows + static_cast<size_t>(pred) * kW;
+  const float4 c0 = row4(r, 0), c1 = row4(r, 4), c2 = row4(r, 8);
+  float pt, pu, pv;
+  if constexpr (kFmt == 0) {
+    return prim_test(S, r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, tmax, pt, pu, pv) &&
+           pt < tmax;
+  } else {
+    float slot;
+    return packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
+                             slot) &&
+           pt < tmax;
+  }
+}
+
 // any hit in [tmin, tmax): returns whether occluded, adds rows visited.
 // kSh: walk the dedicated PACKED3 shadow table (one table, no payload)
-// instead of the main one
-template <int kFmt = 0, bool kSh = false>
+// instead of the main one. kCache: first test the predicted row `pred`
+// (-1: none; counted as a row visited) and report in `orow` the row that
+// answered: the verified one, or where the walk accepted (-1: an analytic
+// prim, or no occluder)
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx,
-                          float dy, float dz, float tmin, float tmax, float& nit) {
+                          float dy, float dz, float tmin, float tmax, float& nit,
+                          int pred = -1, int* orow = nullptr) {
+  static_assert(!(kSh && kCache), "the cache predicts rows of the main table");
   bool hit = false;
   for (int k = 0; k < S.na && !hit; ++k) {
     const float* a = S.consts + S.ana_off + k * kAnaStride;
@@ -234,7 +285,15 @@ __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx
           pt < tmax;
   }
   float bt = 0.0f, bu = 0.0f, bv = 0.0f;
-  int wrow = 0;
+  int wrow = -1;
+  float pre = 0.0f;
+  if constexpr (kCache) {
+    if (!hit && pred >= 0 && pred < S.total_rows) {
+      pre = 1.0f;
+      hit = row_occludes<kFmt>(S, pred, ox, oy, oz, dx, dy, dz, tmin, tmax);
+      if (hit) wrow = pred;
+    }
+  }
   if constexpr (kSh) {
     nit = walk_packed<3>(S.shadow_rows, 0, S.shadow_n, ox, oy, oz, dx, dy, dz, tmin,
                          tmax, true, hit, bt, bu, bv, wrow);
@@ -244,6 +303,10 @@ __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx
     const int base = octant_base(S, dx, dy, dz);
     nit = walk_packed<kFmt>(S.rows, base, base + S.tbl_rows, ox, oy, oz, dx, dy, dz,
                             tmin, tmax, true, hit, bt, bu, bv, wrow);
+  }
+  if constexpr (kCache) {
+    nit = pre + nit;
+    *orow = wrow;
   }
   return hit;
 }
@@ -294,6 +357,9 @@ __device__ void camera_init(const Scene& S, float px, float py, uint32_t seed,
 // in registers. Pure data movement: the outputs are unchanged bit for bit.
 constexpr int kStashPath = kNState + 1;     // the path's words: state, RNG
 constexpr int kStashWords = kStashPath + 8;  // and the shading values
+// the occlusion cache's prediction (kCache), past the sorted kernels' path
+// id (kPidWord below)
+constexpr int kPredWord = kStashWords + 1;
 #define SHADE_STASH(X)                                                         \
   X(0, uvx) X(1, uvy) X(2, tag) X(3, midx) X(4, cosw) X(5, impr) X(6, impg)    \
   X(7, impb)
@@ -320,14 +386,22 @@ __device__ __forceinline__ void get_path(Path& p, const volatile float* my) {
 // it) only where NEE gates it in; elsewhere its tmax is -1, so it hits
 // nothing and visits no row, and skipping it changes no output (K5).
 // kFmt, kSh: the trace-row format and the dedicated shadow table
-// (trace_closest, trace_any).
+// (trace_closest, trace_any). kCache: the occlusion cache, `pred` the
+// path's prediction (stashed around the closest walk).
 template <bool kStash = false, int kStride = kThreads, bool kGate = false,
-          int kFmt = 0, bool kSh = false>
-__device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
+          int kFmt = 0, bool kSh = false, bool kCache = false>
+__device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr,
+                       int* pred = nullptr) {
   Hit h;
-  if constexpr (kStash) put_path<kStride>(p, my);
+  if constexpr (kStash) {
+    put_path<kStride>(p, my);
+    if constexpr (kCache) my[kPredWord * kStride] = __int_as_float(*pred);
+  }
   trace_closest<kFmt>(S, p, h);
-  if constexpr (kStash) get_path<kStride>(p, my);
+  if constexpr (kStash) {
+    get_path<kStride>(p, my);
+    if constexpr (kCache) *pred = __float_as_int(my[kPredWord * kStride]);
+  }
   if (!h.found) {
     p.alive = 0.0f;
     p.bounce = p.bounce + 1.0f;
@@ -481,8 +555,8 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   // the shadow-visibility boxes (_bounce_loop, pallas_megakernel.py:
   // 2360-2378): a lane whose NEE origin lies in a box proven unoccluded
   // (closed f32 compares) skips its walk, visible; nbox is 0 when the
-  // launch reads no box
-  bool walk_gate = gate;
+  // launch reads no box. skip_all (:2380-2385): every lane skips it
+  bool walk_gate = gate && !S.skip_all;
   for (int k = 0; k < S.nbox && walk_gate; ++k) {
     const float* b = S.consts + S.box_off + 6 * k;
     if (hx >= b[0] && hx <= b[3] && hy >= b[1] && hy <= b[4] && hz >= b[2] &&
@@ -491,6 +565,7 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
   }
   float nit_s = 0.0f;
   bool occluded = false;
+  int orow = -1;  // the row that answered the shadow query (kCache)
   if (!kGate || walk_gate) {
     if constexpr (kStash) {
       put_path<kStride>(p, my);
@@ -499,8 +574,12 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
       SHADE_STASH(PUT_LOCAL)
 #undef PUT_LOCAL
     }
-    occluded = trace_any<kFmt, kSh>(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps,
-                                    walk_gate ? sdist - kEps : -1.0f, nit_s);
+    const float tmax = walk_gate ? sdist - kEps : -1.0f;
+    if constexpr (kCache)
+      occluded = trace_any<kFmt, kSh, true>(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps, tmax,
+                                            nit_s, walk_gate ? *pred : -1, &orow);
+    else
+      occluded = trace_any<kFmt, kSh>(S, hx, hy, hz, sdx, sdy, sdz, kTwoEps, tmax, nit_s);
     if constexpr (kStash) {
       get_path<kStride>(p, my);
       volatile float* x = my + kStashPath * kStride;
@@ -508,6 +587,9 @@ __device__ void bounce(const Scene& S, Path& p, volatile float* my = nullptr) {
       SHADE_STASH(GET_LOCAL)
 #undef GET_LOCAL
     }
+  }
+  if constexpr (kCache) {
+    if (gate) *pred = orow;
   }
 
   // eval BSDF for NEE (material.glsl:18-30)
@@ -650,9 +732,13 @@ __device__ __forceinline__ bool going(const Path& p, float cap) {
 }
 
 // a whole path to `cap` (K2)
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __device__ void bounce_loop(const Scene& S, Path& p, float cap) {
-  while (going(p, cap)) bounce<false, kThreads, false, kFmt, kSh>(S, p);
+  int pred = -1;  // kCache: the path's prediction
+  while (going(p, cap)) {
+    if constexpr (kCache) bounce<false, kThreads, false, kFmt, kSh, true>(S, p, nullptr, &pred);
+    else bounce<false, kThreads, false, kFmt, kSh>(S, p);
+  }
 }
 
 __device__ __forceinline__ void read_state(const float* st, const uint32_t* rng,
@@ -735,12 +821,14 @@ static_assert(kSortTile >= 64,
               "the sort's shared stages publish the exchange's writes");
 // a column's word that holds the id of its path, past the stash's words
 constexpr int kPidWord = kStashWords;
+static_assert(kPredWord == kPidWord + 1, "the prediction's word follows the id's");
 
+template <bool kCache = false>
 struct SortShared {
   hijiki_sort::PackedScratch<kSortTile> sort;
   // a thread's column: its bounce's stash, then the path between the
-  // passes' sorts; and the path's id
-  float path[kPidWord + 1][kSortTile];
+  // passes' sorts; the path's id; with the cache, its prediction
+  float path[kPidWord + 1 + (kCache ? 1 : 0)][kSortTile];
 };
 
 // clip(int32(x), 0, 3) as XLA computes it (saturating, NaN -> 0), clamped
@@ -763,23 +851,29 @@ __device__ __forceinline__ int lane_key(const Scene& S, const Path& p) {
 // The block's paths in the sorted lockstep: thread `lane` holds path `lane`
 // of the tile, i = blockIdx.x * kSortTile + lane of n, before and after;
 // `order` (nullable): the record of the last sort, at order[i] and
-// order[n + i].
-template <int kFmt = 0, bool kSh = false>
+// order[n + i]. kCache: the path's prediction moves with it (kPredWord).
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
                                    int* order) {
   extern __shared__ __align__(16) unsigned char smem[];
-  SortShared& sh = *reinterpret_cast<SortShared*>(smem);
+  SortShared<kCache>& sh = *reinterpret_cast<SortShared<kCache>*>(smem);
   const int lane = threadIdx.x;
   volatile float* my = &sh.path[0][lane];
   int pid = lane;
+  int pred = -1;  // kCache: the path's prediction
   while (__syncthreads_or(going(p, cap))) {
     my[kPidWord * kSortTile] = __int_as_float(pid);  // held here across the bounce
-    if (going(p, cap)) bounce<true, kSortTile, false, kFmt, kSh>(S, p, my);
+    if (going(p, cap)) {
+      if constexpr (kCache) bounce<true, kSortTile, false, kFmt, kSh, true>(S, p, my, &pred);
+      else bounce<true, kSortTile, false, kFmt, kSh>(S, p, my);
+    }
     int key = lane_key(S, p);
     put_path<kSortTile>(p, my);
+    if constexpr (kCache) my[kPredWord * kSortTile] = __int_as_float(pred);
     const int src = hijiki_sort::block_sort_packed<kSortTile, kDeadKey>(key, lane, sh.sort);
     get_path<kSortTile>(p, my + (src - lane));
     pid = __float_as_int(my[kPidWord * kSortTile + (src - lane)]);
+    if constexpr (kCache) pred = __float_as_int(my[kPredWord * kSortTile + (src - lane)]);
   }
   const int i = blockIdx.x * kSortTile + lane;
   if (order != nullptr && i < n) {
@@ -794,7 +888,7 @@ __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
 }
 
 // K2, the resume launch: one path a thread
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kThreads)
     mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
                      float cap, float* st_out, uint32_t* rng_out) {
@@ -802,13 +896,13 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= n) return;
   Path p{};
   read_state(st_in, rng_in, i, n, p);
-  bounce_loop<kFmt, kSh>(S, p, cap);
+  bounce_loop<kFmt, kSh, kCache>(S, p, cap);
   write_state(p, st_out, rng_out, i, n);
 }
 
 // The sorted K1 and K2 (mk_start_sorted, mk_resume_sorted): a block's
 // threads past the last path carry a dead path to the end.
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_start_sorted_kernel(Scene S, const float* px, const float* py,
                            const uint32_t* seeds, int n, float cap, float* st_out,
@@ -816,11 +910,11 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_resume_sorted_kernel(Scene S, const float* st_in, const uint32_t* rng_in,
                             int n, float cap, float* st_out, uint32_t* rng_out,
@@ -828,7 +922,7 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) read_state(st_in, rng_in, i, n, p);
-  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);
   if (i < n) write_state(p, st_out, rng_out, i, n);
 }
 
@@ -959,7 +1053,8 @@ struct TileFinish {
   }
 };
 
-template <bool kGate = false, int kFmt = 0, bool kSh = false, typename Finish>
+template <bool kGate = false, int kFmt = 0, bool kSh = false, bool kCache = false,
+          typename Finish>
 __device__ __forceinline__ void persistent_paths(const Scene& S, const float* pxs,
                                                  const float* pys,
                                                  const uint32_t* seeds, int n,
@@ -968,9 +1063,10 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
   const int sn = nsamp * n;
   const unsigned lane = threadIdx.x % 32u;
   const unsigned below = (1u << lane) - 1u;  // the lanes ranked before this one
-  __shared__ float stash[kStashWords * kThreads];
+  __shared__ float stash[(kCache ? kPredWord + 1 : kStashWords) * kThreads];
   volatile float* my = stash + threadIdx.x;
   Path p{};
+  int pred = -1;       // kCache: the prediction of the path held
   int slot = -1;       // the slot whose path this thread holds; -1: none
   bool spent = false;  // the counter is past the last slot (warp-uniform)
   for (;;) {
@@ -985,11 +1081,15 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
       if (slot < 0 && mine < sn) {
         slot = mine;
         chain_start(S, pxs, pys, seeds, n, slot, p);
+        if constexpr (kCache) pred = -1;
       }
     }
     if (__ballot_sync(kFull, slot >= 0) == 0u) return;
     if (slot >= 0) {
-      if (going(p, cap)) bounce<true, kThreads, kGate, kFmt, kSh>(S, p, my);
+      if (going(p, cap)) {
+        if constexpr (kCache) bounce<true, kThreads, kGate, kFmt, kSh, true>(S, p, my, &pred);
+        else bounce<true, kThreads, kGate, kFmt, kSh>(S, p, my);
+      }
       if (!going(p, cap)) {
         finish(p, slot);
         slot = -1;
@@ -998,22 +1098,22 @@ __device__ __forceinline__ void persistent_paths(const Scene& S, const float* px
   }
 }
 
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_start_chained_kernel(Scene S, const float* pxs, const float* pys,
                             const uint32_t* seeds, int n, int nsamp, float cap,
                             float* pool, uint32_t* pool_rng, float* chain_out,
                             int* next) {
-  persistent_paths<false, kFmt, kSh>(S, pxs, pys, seeds, n, nsamp, cap, next,
+  persistent_paths<false, kFmt, kSh, kCache>(S, pxs, pys, seeds, n, nsamp, cap, next,
                                      ChainFinish{nsamp * n, pool, pool_rng, chain_out});
 }
 
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_start_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* st_out,
                     uint32_t* rng_out, int* next) {
-  persistent_paths<false, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,
+  persistent_paths<false, kFmt, kSh, kCache>(S, px, py, seeds, n, 1, cap, next,
                                      StateFinish{n, st_out, rng_out});
 }
 
@@ -1032,16 +1132,16 @@ __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
 // bounces; so K5 traces a shadow ray, and stashes around it, only where NEE
 // needs one (kGate: a path in the mirror sphere needs none). Leaving the
 // warp's votes once the counter is spent read no faster (PERF.md).
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kThreads, kPersistMinBlocks)
     mk_tiles_kernel(Scene S, const float* px, const float* py,
                     const uint32_t* seeds, int n, float cap, float* out,
                     uint32_t* rng_out, int* next) {
-  persistent_paths<true, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,
+  persistent_paths<true, kFmt, kSh, kCache>(S, px, py, seeds, n, 1, cap, next,
                                     TileFinish{n, out, rng_out});
 }
 
-template <int kFmt = 0, bool kSh = false>
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
     mk_tiles_sorted_kernel(Scene S, const float* px, const float* py,
                            const uint32_t* seeds, int n, float cap, float* out,
@@ -1049,7 +1149,7 @@ __global__ void __launch_bounds__(kSortTile, kSortMinBlocks)
   const int i = blockIdx.x * kSortTile + threadIdx.x;
   Path p{};
   if (i < n) camera_init(S, px[i], py[i], seeds[i], p);
-  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);
+  bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);
   if (i < n) write_tile(p, out, rng_out, i, n);
 }
 
@@ -1058,38 +1158,51 @@ __host__ __forceinline__ bool known_format(const Scene& S) {
   const bool fmt = S.packed == 0 || S.packed == 1 || S.packed == 3 ||
                    S.packed == 4 || S.packed == 12;
   // the dedicated shadow table goes with classic rows only (compile_scene)
-  return fmt && (S.shadow_rows == nullptr || S.packed == 0);
+  // and without the cache (which predicts rows of the main table)
+  return fmt && (S.shadow_rows == nullptr || (S.packed == 0 && !S.cache));
 }
-// a format's index among each kernel's instantiations: 0 the classic rows,
-// 1-4 the packed tables of 1, 3, 4 and 12 prims a row, 5 the classic rows
-// with the dedicated shadow table
-constexpr int kFormats = 6;
+// an instantiation's index among each kernel's: 0 the classic rows, 1-4 the
+// packed tables of 1, 3, 4 and 12 prims a row, 5 the classic rows with the
+// dedicated shadow table, 6-10 those of 0-4 with the occlusion cache
+constexpr int kFormats = 11;
+constexpr int kCacheBase = 6;
 __host__ __forceinline__ int fmt_index(const Scene& S) {
-  return S.packed == 1    ? 1
-         : S.packed == 3  ? 2
-         : S.packed == 4  ? 3
-         : S.packed == 12 ? 4
-         : S.shadow_rows  ? 5
-                          : 0;
+  const int f = S.packed == 1    ? 1
+                : S.packed == 3  ? 2
+                : S.packed == 4  ? 3
+                : S.packed == 12 ? 4
+                : S.shadow_rows  ? 5
+                                 : 0;
+  return S.cache ? kCacheBase + f : f;
 }
-// the instantiation of the kernel template `k` for the format of index f
+// the instantiation of the kernel template `k` of index f
 #define FMT_KERNEL_AT(f, k)                                                    \
-  ((f) == 1   ? &k<1, false>                                                   \
-   : (f) == 2 ? &k<3, false>                                                   \
-   : (f) == 3 ? &k<4, false>                                                   \
-   : (f) == 4 ? &k<12, false>                                                  \
-   : (f) == 5 ? &k<0, true>                                                    \
-              : &k<0, false>)
+  ((f) == 1    ? &k<1, false, false>                                           \
+   : (f) == 2  ? &k<3, false, false>                                           \
+   : (f) == 3  ? &k<4, false, false>                                           \
+   : (f) == 4  ? &k<12, false, false>                                          \
+   : (f) == 5  ? &k<0, true, false>                                            \
+   : (f) == 6  ? &k<0, false, true>                                            \
+   : (f) == 7  ? &k<1, false, true>                                            \
+   : (f) == 8  ? &k<3, false, true>                                            \
+   : (f) == 9  ? &k<4, false, true>                                            \
+   : (f) == 10 ? &k<12, false, true>                                           \
+               : &k<0, false, false>)
 #define FMT_KERNEL(S, k) FMT_KERNEL_AT(fmt_index(S), k)
+// the sorted kernels' dynamic shared memory: the exchange buffer of the
+// instantiation of index f
+__host__ __forceinline__ size_t sorted_smem(int f) {
+  return f >= kCacheBase ? sizeof(SortShared<true>) : sizeof(SortShared<false>);
+}
 
 // the launch of K2: blocks of kThreads paths, or of kSortTile with the
-// exchange buffer in dynamic shared memory for the sorted kernels (opting
-// in past 48 KB, which only tiles of 512 lanes and more need)
+// exchange buffer in `smem` bytes of dynamic shared memory for the sorted
+// kernels (opting in past 48 KB, which only tiles of 512 lanes and more need)
 template <bool kSort, typename... Params, typename... Args>
-int launch_paths(void (*kernel)(Params...), int n, void* stream, Args... args) {
+int launch_paths(void (*kernel)(Params...), int n, size_t smem, void* stream,
+                 Args... args) {
   constexpr int block = kSort ? kSortTile : kThreads;
-  constexpr size_t smem = kSort ? sizeof(SortShared) : 0;
-  if constexpr (smem > 48 * 1024) {
+  if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -1139,24 +1252,26 @@ extern "C" int mk_start_sorted(START_ARGS, float* st_out, uint32_t* rng_out,
                                int* order, void* stream) {
   const Scene S = SCENE_CALL;
   if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_paths<true>(FMT_KERNEL(S, mk_start_sorted_kernel), n, stream, S, px, py,
-                            seeds, n, static_cast<float>(cap), st_out, rng_out, order);
+  return launch_paths<true>(FMT_KERNEL(S, mk_start_sorted_kernel), n,
+                            sorted_smem(fmt_index(S)), stream, S, px, py, seeds, n,
+                            static_cast<float>(cap), st_out, rng_out, order);
 }
 
 extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                          void* stream) {
   const Scene S = SCENE_CALL;
   if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_paths<false>(FMT_KERNEL(S, mk_resume_kernel), n, stream, S, st_in, rng_in,
-                             n, static_cast<float>(cap), st_out, rng_out);
+  return launch_paths<false>(FMT_KERNEL(S, mk_resume_kernel), n, 0, stream, S, st_in,
+                             rng_in, n, static_cast<float>(cap), st_out, rng_out);
 }
 
 extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
                                 int* order, void* stream) {
   const Scene S = SCENE_CALL;
   if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_paths<true>(FMT_KERNEL(S, mk_resume_sorted_kernel), n, stream, S, st_in,
-                            rng_in, n, static_cast<float>(cap), st_out, rng_out, order);
+  return launch_paths<true>(FMT_KERNEL(S, mk_resume_sorted_kernel), n,
+                            sorted_smem(fmt_index(S)), stream, S, st_in, rng_in, n,
+                            static_cast<float>(cap), st_out, rng_out, order);
 }
 
 // K5; `next`: the work counter, zeroed on the stream
@@ -1172,8 +1287,9 @@ extern "C" int mk_tiles_sorted(START_ARGS, float* out, uint32_t* rng_out,
                                int* order, void* stream) {
   const Scene S = SCENE_CALL;
   if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_paths<true>(FMT_KERNEL(S, mk_tiles_sorted_kernel), n, stream, S, px, py,
-                            seeds, n, static_cast<float>(cap), out, rng_out, order);
+  return launch_paths<true>(FMT_KERNEL(S, mk_tiles_sorted_kernel), n,
+                            sorted_smem(fmt_index(S)), stream, S, px, py, seeds, n,
+                            static_cast<float>(cap), out, rng_out, order);
 }
 
 // K4; `next`: the work counter, zeroed on the stream
@@ -1211,20 +1327,21 @@ int occupancy(void (*kernel)(Params...), int threads, int smem, int* out) {
 // local (spill) bytes a thread. which % 8: 0 K1 mk_start, 1 K2 mk_resume,
 // 2 K4 mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
 // kSortTile threads with launch_paths' dynamic shared memory); which / 8:
-// the instantiation's format (fmt_index). K4, K1 and K5, persistent,
-// launch out[1] * out[3] blocks (fewer where their slots fill fewer).
+// the instantiation (fmt_index: the format, the cache). K4, K1 and K5,
+// persistent, launch out[1] * out[3] blocks (fewer where their slots fill
+// fewer).
 extern "C" int mk_occupancy(int which, int* out) {
-  constexpr int sorted_smem = static_cast<int>(sizeof(SortShared));
   const int f = which / 8;
   if (which < 0 || f >= kFormats) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(sorted_smem(f));
   switch (which % 8) {
     case 0: return occupancy(FMT_KERNEL_AT(f, mk_start_kernel), kThreads, 0, out);
     case 1: return occupancy(FMT_KERNEL_AT(f, mk_resume_kernel), kThreads, 0, out);
     case 2: return occupancy(FMT_KERNEL_AT(f, mk_start_chained_kernel), kThreads, 0, out);
     case 3: return occupancy(FMT_KERNEL_AT(f, mk_tiles_kernel), kThreads, 0, out);
-    case 4: return occupancy(FMT_KERNEL_AT(f, mk_start_sorted_kernel), kSortTile, sorted_smem, out);
-    case 5: return occupancy(FMT_KERNEL_AT(f, mk_resume_sorted_kernel), kSortTile, sorted_smem, out);
-    case 6: return occupancy(FMT_KERNEL_AT(f, mk_tiles_sorted_kernel), kSortTile, sorted_smem, out);
+    case 4: return occupancy(FMT_KERNEL_AT(f, mk_start_sorted_kernel), kSortTile, smem, out);
+    case 5: return occupancy(FMT_KERNEL_AT(f, mk_resume_sorted_kernel), kSortTile, smem, out);
+    case 6: return occupancy(FMT_KERNEL_AT(f, mk_tiles_sorted_kernel), kSortTile, smem, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

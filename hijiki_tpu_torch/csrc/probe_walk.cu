@@ -40,8 +40,12 @@
 // ray at kG = 1 and kG = 32 show what a shared cursor costs in visits. Each
 // of the `iters` trips walks other rays (ray i + trip * kRayStride, mod n;
 // the last trip walks ray i), so no trip finds its rows in L1 because the
-// trip before walked the same ray. The packed formats are not ported, so
-// neither are the tool's packed/pack3/pack4/slim variants.
+// trip before walked the same ray. walk_isolate_packed_kernel is the same
+// probe on the packed tables (the tool's packed/slim/pack3/pack4 variants: a
+// scene compiled with packed_leaf 1, 3, 4, or 12, which the port also has):
+// walk_packed<kFmt> of walk.cuh, the render kernels' packed walk, from the
+// ray's octant table, stopped before the payload resolve, with its prims
+// untested (kTest = false) and as a 32-ray warp packet (kG = 32) as above.
 //
 // What bounds them: a chain of dependent row loads (the row's exit pointer
 // is the next address) whose latency one thread cannot hide; the table
@@ -186,6 +190,33 @@ __global__ void walk_isolate_kernel(Scene S, const float* __restrict__ o,
   nit_out[i] = nit;
 }
 
+template <int kFmt, bool kTest, int kG>
+__global__ void walk_isolate_packed_kernel(Scene S, const float* __restrict__ o,
+                                           const float* __restrict__ d, int n, int iters,
+                                           float* __restrict__ t_out,
+                                           float* __restrict__ nit_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;  // n % kG == 0, as walk_isolate_kernel
+  float bt, bu, bv, nit, tmin = kEps;
+  int wrow;
+  for (int it = iters - 1; it >= 0; --it) {
+    const int j = static_cast<int>((i + static_cast<long long>(it) * kRayStride) % n);
+    const float ox = o[j], oy = o[n + j], oz = o[2 * n + j];
+    const float dx = d[j], dy = d[n + j], dz = d[2 * n + j];
+    bt = kBig;
+    bu = bv = 0.0f;
+    wrow = S.n_pay + S.na;  // winners encode from the payload rows
+    analytic_pretest(S, S.n_pay, ox, oy, oz, dx, dy, dz, tmin, bt, bu, bv, wrow);
+    bool unused = false;
+    const int base = octant_base<kG>(S, dx, dy, dz);
+    nit = walk_packed<kFmt, kTest, kG>(S.rows, base, base + S.tbl_rows, ox, oy, oz, dx, dy,
+                                       dz, tmin, kBig, false, unused, bt, bu, bv, wrow);
+    tmin = kEps + bt * 0.0f;
+  }
+  t_out[i] = bt;
+  nit_out[i] = nit;
+}
+
 template <int kFlags>
 int ablate_group(int group, const float* rows, int num_rows, const float* o,
                  const float* d, int n, int iters, int block, float* out, int* occ,
@@ -209,6 +240,19 @@ int isolate_group(int group, Scene S, const float* o, const float* d, int n,
   if (group == 32)
     return launch(walk_isolate_kernel<kW, kTest, 32>, n, block, 0, occ, stream, S, o,
                   d, n, iters, t_out, nit_out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int kFmt, bool kTest>
+int isolate_packed_group(int group, Scene S, const float* o, const float* d, int n,
+                         int iters, int block, float* t_out, float* nit_out, int* occ,
+                         void* stream) {
+  if (group == 1)
+    return launch(walk_isolate_packed_kernel<kFmt, kTest, 1>, n, block, 0, occ, stream, S,
+                  o, d, n, iters, t_out, nit_out);
+  if (group == 32)
+    return launch(walk_isolate_packed_kernel<kFmt, kTest, 32>, n, block, 0, occ, stream, S,
+                  o, d, n, iters, t_out, nit_out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -241,13 +285,30 @@ extern "C" int walk_ablate(const float* rows, int num_rows, const float* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K10b. row_w 32 or 16 (rows then holds make_w16_scene's table); test 0
-// makes every prim row miss; group 1 or 32; iters >= 1 trips, each over
-// other rays, the last over ray i. t_out, nit_out: (n,) f32.
+// K10b. The scene's format: packed 0, the classic rows, row_w 32 or 16
+// (rows then holds make_w16_scene's table); packed 1, 3, 4 or 12, a packed
+// table of row_w = its width (16, 32, 64, 128). test 0 makes every prim row
+// miss; group 1 or 32; iters >= 1 trips, each over other rays, the last
+// over ray i. t_out, nit_out: (n,) f32.
 extern "C" int walk_isolate(SCENE_ARGS, int row_w, int test, int group, int iters,
                             const float* o, const float* d, int n, int block,
                             float* t_out, float* nit_out, int* occ, void* stream) {
   const Scene S = SCENE_CALL;
+#define ISOLATE_PACKED(f)                                                       \
+  if (S.packed == f) {                                                          \
+    if (row_w != packed_width<f>()) return static_cast<int>(cudaErrorInvalidValue); \
+    if (test)                                                                   \
+      return isolate_packed_group<f, true>(group, S, o, d, n, iters, block, t_out, \
+                                           nit_out, occ, stream);               \
+    return isolate_packed_group<f, false>(group, S, o, d, n, iters, block, t_out, \
+                                          nit_out, occ, stream);                \
+  }
+  ISOLATE_PACKED(1)
+  ISOLATE_PACKED(3)
+  ISOLATE_PACKED(4)
+  ISOLATE_PACKED(12)
+#undef ISOLATE_PACKED
+  if (S.packed != 0) return static_cast<int>(cudaErrorInvalidValue);
 #define ISOLATE(w, t)                                                           \
   return isolate_group<w, t>(group, S, o, d, n, iters, block, t_out, nit_out, occ, \
                              stream)

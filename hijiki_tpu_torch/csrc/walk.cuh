@@ -26,6 +26,11 @@
 // without its prim test (every prim row misses, as patch_no_test does) and
 // the warp walking as one 32-ray packet.
 //
+// The any-hit walks also report the row where they accepted (in wrow), which
+// the megakernel's shadow-ray occlusion cache predicts from (megakernel.cu
+// trace_any<.., kCache>); a caller that ignores it compiles to the walk it
+// had.
+//
 // walk_packed<kFmt> is the walk over the packed trace-row formats of
 // scene/compile.py::build_packed_trace_rows (_prim_test with packed = 1, 3,
 // 4, 12): a prim row holds 1, 3, 4 or 12 triangles in a 16-, 32-, 64- or
@@ -64,6 +69,9 @@ struct Scene {
   int packed, n_pay, nbox;
   const float* shadow_rows;
   int shadow_n;
+  // the launch's shadow-ray occlusion cache (the C entry picks the kCache
+  // instantiation from it) and the skip-all probe switch (read at run time)
+  int cache, skip_all;
   int ana_off, em_off, d_off, cb_off, dl_off, emi_off, sort_off, box_off;
 };
 
@@ -207,7 +215,8 @@ __device__ __forceinline__ int octant_base(const Scene& S, float dx, float dy,
 }
 
 // The stackless walk. Closest hit (any_hit false) updates t/u/v/wrow;
-// any-hit sets `hit` and stops at the first accept. Returns rows visited.
+// any-hit sets `hit`, and `wrow` to the accepting row, and stops at the first
+// accept. Returns rows visited.
 // kW: floats per row; kNrm: the normal's column; kTest = false makes every
 // prim row miss (the walk without its prim test). kG = 32: the warp walks
 // as one 32-ray packet (the TPU's packet walk at 32 lanes): one cursor and
@@ -246,6 +255,7 @@ __device__ float walk(const Scene& S, float ox, float oy, float oz, float dx,
         pt < best_t) {
       if (any_hit) {
         hit = true;
+        wrow = cur;
         break;
       }
       bt = pt;
@@ -354,8 +364,10 @@ __device__ __forceinline__ bool packed_test(const float* r, const float4& c0,
 
 // The stackless walk over rows [cur, end) of a packed table `rows` (the
 // main table's octant table, or the dedicated shadow table); as walk(),
-// with wrow the winner's payload slot. Returns rows visited.
-template <int kFmt>
+// with wrow the closest hit's payload slot (any hit: the accepting row).
+// kTest = false makes every prim row miss, kG = 32 walks the warp as one
+// packet (walk_isolate, as walk()). Returns rows visited.
+template <int kFmt, bool kTest = true, int kG = 1>
 __device__ float walk_packed(const float* rows, int cur, int end, float ox, float oy,
                              float oz, float dx, float dy, float dz, float tmin,
                              float tmax, bool any_hit, bool& hit, float& bt,
@@ -377,15 +389,17 @@ __device__ float walk_packed(const float* rows, int cur, int end, float ox, floa
       float t0 = nan_max(nan_max(nan_min(ax, bx), nan_min(ay, by)), nan_min(az, bz));
       float t1 = nan_min(nan_min(nan_max(ax, bx), nan_max(ay, by)), nan_max(az, bz));
       bool slab = (t0 < t1 + kEps) && (t0 < best_t) && (t1 > tmin);
-      cur = slab ? cur + 1 : nexit;
+      cur = group_any<kG>(slab) ? cur + 1 : nexit;
       continue;
     }
     float pt, pu, pv, slot;
-    if (packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
+    if (kTest &&
+        packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
                           slot) &&
         pt < best_t) {
       if (any_hit) {
         hit = true;
+        wrow = cur;
         break;
       }
       bt = pt;
@@ -402,7 +416,7 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
                         int tbl_rows, int ntab, int analytic_mode, int na,
                         int ne, int nd, int ncb, int ndl, int nem, int packed,
                         int n_pay, int nbox, const float* shadow_rows,
-                        int shadow_n) {
+                        int shadow_n, int cache, int skip_all) {
   Scene S;
   S.rows = rows;
   S.consts = consts;
@@ -421,6 +435,8 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
   S.nbox = nbox;
   S.shadow_rows = shadow_rows;
   S.shadow_n = shadow_n;
+  S.cache = cache;
+  S.skip_all = skip_all;
   // constants buffer: camera (15), analytic, emitters, diffuse, checkerboard,
   // dielectric, emissive, lane-sort key, boxes
   // (hijiki_tpu_torch/ops/megakernel.py::mega_scene)
@@ -443,7 +459,8 @@ inline Scene make_scene(const float* rows, const float* consts, int total_rows,
   const float *rows, const float *consts, int total_rows, int tbl_rows,        \
       int ntab, int analytic_mode, int na, int ne, int nd, int ncb, int ndl,   \
       int nem, int packed, int n_pay, int nbox, const float *shadow_rows,      \
-      int shadow_n
+      int shadow_n, int cache, int skip_all
 #define SCENE_CALL                                                             \
   make_scene(rows, consts, total_rows, tbl_rows, ntab, analytic_mode, na, ne,  \
-             nd, ncb, ndl, nem, packed, n_pay, nbox, shadow_rows, shadow_n)
+             nd, ncb, ndl, nem, packed, n_pay, nbox, shadow_rows, shadow_n,    \
+             cache, skip_all)

@@ -20,6 +20,19 @@ of a lane inside a shadow-visibility box and, when asked, walks shadow rays
 over the dedicated PACKED3 table (``launch_scene``: JAX's ``shadow_vis`` and
 ``shadow_tbl``).
 
+With ``shadow_cache=True`` (JAX's option of that name: ``_anyhit_pretest``
+and the ``srow`` carry of ``_bounce_loop``) each path carries the row that
+occluded its last shadow ray, and the next shadow ray tests that row with
+the walk's own accept before it walks: a verified hit answers the any-hit
+query, a wrong prediction walks as before. Exact: every output but the
+``rows`` counter (which counts the tested row) is the cache-off launch's,
+bit for bit. The prediction lives with its path (``srow`` in the twin's
+state dict, a register or stash word in the kernels), never in the packed
+state: it starts at -1 with every camera start, respawn and resume and
+moves with its path through the lane sort (``launch_scene``).
+``render_waves(shadow_skip_all=True)`` is JAX's performance probe: every
+shadow walk is skipped with visibility 1 (a biased image).
+
 With ``lane_sort=True`` (the mega driver's ``--sort-lanes``; JAX's
 ``_lane_sort`` with ``pallas_sort.py::sort_tile_by_key``, K7) the camera
 and resume launches of ``render_waves`` and the single launch of
@@ -133,12 +146,12 @@ _TILE_CH = tuple(_STATE_CH.index(ch) for ch in ("Lr", "Lg", "Lb", "n1", "n2", "n
 CHAIN_SWEEPS_CUDA = 8
 
 # launches of each hand-written kernel (CUDA tensors only; the CPU twin is
-# not counted). Read and reset by chip_smoke.py to prove the main path ran
-# through the kernels.
-LAUNCHES = {
-    "mk_start": 0, "mk_resume": 0, "mk_start_chained": 0, "mk_tiles": 0,
-    "mk_start_sorted": 0, "mk_resume_sorted": 0, "mk_tiles_sorted": 0,
-}
+# not counted), by C entry; a launch with the occlusion cache counts under
+# its entry's name + "_cache" (its kCache instantiation). Read and reset by
+# chip_smoke.py to prove the main path ran through the kernels.
+_ENTRIES = ("mk_start", "mk_resume", "mk_start_chained", "mk_tiles",
+            "mk_start_sorted", "mk_resume_sorted", "mk_tiles_sorted")
+LAUNCHES = {name + tag: 0 for tag in ("", "_cache") for name in _ENTRIES}
 
 _f32 = np.float32
 # layout of one baked analytic prim / emitter in the constants buffer
@@ -198,9 +211,12 @@ class MegaScene:
     shadow_rows: torch.Tensor = None
     shadow_n: int = 0
     # what a launch reads (render_*'s shadow_vis and shadow_tbl, as JAX's):
-    # the boxes, the dedicated shadow table
+    # the boxes, the dedicated shadow table; the shadow-ray occlusion cache
+    # and the skip-all probe (shadow_cache, shadow_skip_all)
     shadow_vis: bool = True
     shadow_tbl: bool = False
+    shadow_cache: bool = False
+    shadow_skip_all: bool = False
 
     @property
     def n_analytic(self) -> int:
@@ -361,19 +377,32 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
     )
 
 
-def launch_scene(ms: MegaScene, shadow_vis: bool = True, shadow_tbl: bool = False) -> MegaScene:
-    """``ms`` as a launch of ``render_*(shadow_vis=, shadow_tbl=)`` reads it
-    (JAX's options of the same names): ``shadow_vis`` lets NEE skip the
-    shadow walk of a lane whose origin lies in a proven box, ``shadow_tbl``
-    sends the shadow walks to the dedicated table (``_check_shadow_tbl``:
-    the scene must have one). Neither changes the film, RNG or hit records;
-    the ``rows`` counter falls."""
+def launch_scene(ms: MegaScene, shadow_vis: bool = True, shadow_tbl: bool = False,
+                 shadow_cache: bool = False, shadow_skip_all: bool = False) -> MegaScene:
+    """``ms`` as a launch of ``render_*(shadow_vis=, shadow_tbl=,
+    shadow_cache=, shadow_skip_all=)`` reads it (JAX's options of the same
+    names): ``shadow_vis`` lets NEE skip the shadow walk of a lane whose
+    origin lies in a proven box, ``shadow_tbl`` sends the shadow walks to
+    the dedicated table (``_check_shadow_tbl``: the scene must have one),
+    ``shadow_cache`` tests each path's predicted occluder row first. None of
+    them changes the film, RNG or hit records; the ``rows`` counter moves.
+    ``shadow_skip_all`` (``render_waves`` only, as JAX's): a performance
+    probe only, biased image: every shadow walk is skipped, visible."""
     if shadow_tbl and ms.shadow_rows is None:
         raise ValueError(
             "shadow_tbl requires a scene compiled with a dedicated shadow table "
             "(compile_scene builds it for classic analytic-mode tables)"
         )
-    return dataclasses.replace(ms, shadow_vis=bool(shadow_vis), shadow_tbl=bool(shadow_tbl))
+    if shadow_tbl and shadow_cache:
+        raise ValueError(
+            "shadow_cache predicts MAIN-table rows; it cannot be combined with the "
+            "dedicated shadow table"
+        )
+    if shadow_cache and shadow_skip_all:
+        raise ValueError("shadow_skip_all cannot be combined with shadow_cache")
+    return dataclasses.replace(ms, shadow_vis=bool(shadow_vis), shadow_tbl=bool(shadow_tbl),
+                               shadow_cache=bool(shadow_cache),
+                               shadow_skip_all=bool(shadow_skip_all))
 
 
 def _cpu(a):
@@ -548,44 +577,48 @@ def _packed_test(fmt, r, o, d, tmin):
     earliest prim wins a tie (what the sequential walk over the same leaf
     accepts). Normals recomputed for formats 1, 3 and 12, baked for 4. A pad
     (a duplicate in format 4, a zero triangle in 3 and 12) never wins.
-    Returns (hit, t, u, v, payload slot as f32; garbage where no hit)."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    col = lambda j: r[:, j]
-    bhit = bt = bu = bv = bsl = None
-    for k, B in enumerate(_PACKED_BASES[fmt]):
-        v0x, v0y, v0z = col(B), col(B + 1), col(B + 2)
-        v1x, v1y, v1z = col(B + 3), col(B + 4), col(B + 5)
-        v2x, v2y, v2z = col(B + 6), col(B + 7), col(B + 8)
-        if fmt == 4:
-            nx, ny, nz = col(B + 9), col(B + 10), col(B + 11)
-        else:
-            nx = v1y * v2z - v1z * v2y
-            ny = v1z * v2x - v1x * v2z
-            nz = v1x * v2y - v1y * v2x
-        rx, ry, rz = ox - v0x, oy - v0y, oz - v0z
-        qx = ry * dz - rz * dy
-        qy = rz * dx - rx * dz
-        qz = rx * dy - ry * dx
-        dd = 1.0 / (dx * nx + dy * ny + dz * nz)
-        u = -dd * (qx * v2x + qy * v2y + qz * v2z)
-        v = dd * (qx * v1x + qy * v1y + qz * v1z)
-        t = -dd * (nx * rx + ny * ry + nz * rz)
-        phit = (u >= 0) & (v >= 0) & (u + v <= 1.0) & (tmin <= t)
-        sl = col(B + 12) if fmt == 4 else torch.full_like(t, float(k))
-        if bhit is None:
-            bhit, bt, bu, bv, bsl = phit, t, u, v, sl
-        else:
-            better = phit & (~bhit | (t < bt))
-            bt = torch.where(better, t, bt)
-            bu = torch.where(better, u, bu)
-            bv = torch.where(better, v, bv)
-            bsl = torch.where(better, sl, bsl)
-            bhit = bhit | phit
+    Returns (hit, t, u, v, payload slot as f32; garbage where no hit).
+
+    The row's prims are tested at once, as a (n, prims) axis (``r`` may
+    carry trailing dimensions that broadcast against ``o``, ``d``): the same
+    f32 operations per prim as one at a time, a few launches a row step."""
+    ox, oy, oz = (x.unsqueeze(1) for x in o)
+    dx, dy, dz = (x.unsqueeze(1) for x in d)
+    tmin = tmin.unsqueeze(1) if torch.is_tensor(tmin) else tmin
+    ncol = 13 if fmt == 4 else 9  # v0, edge1, edge2 (and a baked normal, the slot)
+    g = r[:, [[B + j for j in range(ncol)] for B in _PACKED_BASES[fmt]]]
+    col = lambda j: g[:, :, j]  # (n, prims, ...)
+    v0x, v0y, v0z = col(0), col(1), col(2)
+    v1x, v1y, v1z = col(3), col(4), col(5)
+    v2x, v2y, v2z = col(6), col(7), col(8)
+    if fmt == 4:
+        nx, ny, nz = col(9), col(10), col(11)
+    else:
+        nx = v1y * v2z - v1z * v2y
+        ny = v1z * v2x - v1x * v2z
+        nz = v1x * v2y - v1y * v2x
+    rx, ry, rz = ox - v0x, oy - v0y, oz - v0z
+    qx = ry * dz - rz * dy
+    qy = rz * dx - rx * dz
+    qz = rx * dy - ry * dx
+    dd = 1.0 / (dx * nx + dy * ny + dz * nz)
+    u = -dd * (qx * v2x + qy * v2y + qz * v2z)
+    v = dd * (qx * v1x + qy * v1y + qz * v1z)
+    t = -dd * (nx * rx + ny * ry + nz * rz)
+    phit = (u >= 0) & (v >= 0) & (u + v <= 1.0) & (tmin <= t)
+    bhit, bt, bu, bv = phit[:, 0], t[:, 0], u[:, 0], v[:, 0]
+    bsl = col(12)[:, 0] if fmt == 4 else torch.zeros_like(bt)
+    for k in range(1, t.shape[1]):
+        better = phit[:, k] & (~bhit | (t[:, k] < bt))
+        bt = torch.where(better, t[:, k], bt)
+        bu = torch.where(better, u[:, k], bu)
+        bv = torch.where(better, v[:, k], bv)
+        bsl = torch.where(better, col(12)[:, k] if fmt == 4 else float(k), bsl)
+        bhit = bhit | phit[:, k]
     if fmt == 1:
-        bsl = col(_SLOT_COL[1])
+        bsl = r[:, _SLOT_COL[1]]
     elif fmt != 4:  # consecutive slots from prim 0's
-        bsl = col(_SLOT_COL[fmt]) + bsl
+        bsl = r[:, _SLOT_COL[fmt]] + bsl
     return bhit, bt, bu, bv, bsl
 
 
@@ -594,12 +627,19 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best, shadow=False):
     table: row ``cur``, then ``cur + 1`` (interior row whose box the ray
     enters) or the exit pointer in column 10. ``best`` holds the analytic
     pretest's result and is updated in place; a packed table's winner is
-    its payload slot. ``shadow``: walk the dedicated shadow table (one
-    PACKED3 table, any hit) instead. Returns the rows visited."""
-    ox, oy, oz = o
+    its payload slot; an any-hit walk sets ``best["row"]``, where present,
+    to the accepting row. ``shadow``: walk the dedicated shadow table (one
+    PACKED3 table, any hit) instead. Returns the rows visited.
+
+    Whenever the lanes that finished are half or more of those the walk
+    carries, their results go back to the full-size outputs and the walk
+    goes on with the others: each lane's steps are its own, so the results
+    are the same bit for bit, at fewer lanes a step."""
     dx, dy, dz = d
-    inv_x, inv_y, inv_z = 1.0 / dx, 1.0 / dy, 1.0 / dz
-    tox, toy, toz = -ox * inv_x, -oy * inv_y, -oz * inv_z
+    # the slab test's per-axis terms as (n, 3): inv = 1 / d, to = -o * inv
+    # (x, y, z in columns, the same f32 operations as axis by axis)
+    inv = 1.0 / torch.stack(d, 1)
+    to = -torch.stack(o, 1) * inv
     if shadow:
         rows, fmt, n_rows = ms.shadow_rows, 3, ms.shadow_n
         base = torch.zeros(dx.shape, dtype=torch.int64, device=dx.device)
@@ -612,30 +652,42 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best, shadow=False):
     done = ~(tmax >= 0.0)
     if any_hit:
         done = done | best["hit"]
-    cur = torch.where(done, end, base)
-    nit = torch.zeros(dx.shape, dtype=torch.float32, device=dx.device)
+    # the lanes the walk carries, and their state ("b" + a key of best)
+    w = dict(ox=o[0], oy=o[1], oz=o[2], dx=dx, dy=dy, dz=dz, inv=inv, to=to, tmin=tmin,
+             tmax=tmax, end=end, cur=torch.where(done, end, base),
+             nit=torch.zeros(dx.shape, dtype=torch.float32, device=dx.device),
+             **{"b" + k: v for k, v in best.items()})
+    outs = ["nit"] + ["b" + k for k in best]
+    res, idx = {}, None  # the full-size results; w's lanes among them (None: all)
+
+    def put_back():
+        for k in outs:
+            res[k] = w[k] if idx is None else res[k].index_put((idx,), w[k])
+
     while True:
-        act = cur < end
-        if not bool(act.any()):
+        act = w["cur"] < w["end"]
+        n_act = int(act.sum())
+        if n_act == 0:
             break
+        if 2 * n_act <= act.numel():
+            put_back()
+            keep = torch.nonzero(act).flatten()
+            idx = keep if idx is None else idx[keep]
+            w = {k: v[keep] for k, v in w.items()}
+            act = act[keep]
+        o, d = (w["ox"], w["oy"], w["oz"]), (w["dx"], w["dy"], w["dz"])
+        cur, end, tmin, tmax = w["cur"], w["end"], w["tmin"], w["tmax"]
         r = rows[torch.clamp_max(cur, n_rows - 1)]
         is_prim = r[:, 9] >= 0.0
         nexit = r[:, 10].long()
-        best_t = tmax if any_hit else best["t"]
-        ax = r[:, 0] * inv_x + tox
-        bx = r[:, 3] * inv_x + tox
-        ay = r[:, 1] * inv_y + toy
-        by = r[:, 4] * inv_y + toy
-        az = r[:, 2] * inv_z + toz
-        bz = r[:, 5] * inv_z + toz
-        t0 = torch.maximum(
-            torch.maximum(torch.minimum(ax, bx), torch.minimum(ay, by)),
-            torch.minimum(az, bz),
-        )
-        t1 = torch.minimum(
-            torch.minimum(torch.maximum(ax, bx), torch.maximum(ay, by)),
-            torch.maximum(az, bz),
-        )
+        best_t = tmax if any_hit else w["bt"]
+        # the box's near (columns 0-2) and far (3-5) planes along the ray;
+        # t0, t1: max of the per-axis minima, min of the maxima (exact, NaN
+        # propagating, in any order)
+        lo = r[:, 0:3] * w["inv"] + w["to"]
+        hi = r[:, 3:6] * w["inv"] + w["to"]
+        t0 = torch.amax(torch.minimum(lo, hi), 1)
+        t1 = torch.amin(torch.maximum(lo, hi), 1)
         slab = (t0 < t1 + _f(M_EPS)) & (t0 < best_t) & (t1 > tmin)
         if fmt:
             phit, pt, pu, pv, slot = _packed_test(fmt, r, o, d, tmin)
@@ -644,16 +696,21 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best, shadow=False):
         accept = act & is_prim & phit & (pt < best_t)
         nxt = torch.where(~is_prim & slab, cur + 1, nexit)
         if any_hit:
-            best["hit"] = best["hit"] | accept
+            w["bhit"] = w["bhit"] | accept
+            if "brow" in w:
+                w["brow"] = torch.where(accept, cur, w["brow"])
             nxt = torch.where(accept, end, nxt)
         else:
-            best["t"] = torch.where(accept, pt, best["t"])
-            best["u"] = torch.where(accept, pu, best["u"])
-            best["v"] = torch.where(accept, pv, best["v"])
-            best["wrow"] = torch.where(accept, slot.long() if fmt else cur, best["wrow"])
-        cur = torch.where(act, nxt, cur)
-        nit = nit + act.to(torch.float32)
-    return nit
+            w["bt"] = torch.where(accept, pt, w["bt"])
+            w["bu"] = torch.where(accept, pu, w["bu"])
+            w["bv"] = torch.where(accept, pv, w["bv"])
+            w["bwrow"] = torch.where(accept, slot.long() if fmt else cur, w["bwrow"])
+        w["cur"] = torch.where(act, nxt, cur)
+        w["nit"] = w["nit"] + act.to(torch.float32)
+    put_back()
+    for k in best:
+        best[k] = res["b" + k]
+    return res["nit"]
 
 
 def _trace_closest(ms, o, d, tmin, tmax):
@@ -717,16 +774,61 @@ def _trace_closest(ms, o, d, tmin, tmax):
     return out
 
 
-def _trace_any(ms, o, d, tmin, tmax):
+def _row_occludes(ms, pred, o, d, tmin, tmax):
+    """The occlusion cache's pretest (``_anyhit_pretest``): whether row
+    ``pred`` of the main table occludes (tmin, tmax), by the walk's own
+    accept (``_prim_test`` with best_t = tmax, or any prim of a packed row:
+    the tournament's min t below tmax)."""
+    r = ms.rows[torch.clamp(pred, 0, ms.total_rows - 1)]
+    if ms.packed:
+        phit, pt, _, _, _ = _packed_test(ms.packed, r, o, d, tmin)
+    else:
+        phit, pt, _, _ = _prim_test(ms, r, o, d, tmin, tmax)
+    return phit & (pt < tmax)
+
+
+# the twin's occlusion-cache pretests since reset_pretest_counts(), summed
+# on the lanes' device: lanes that tested a predicted row ("tried") and
+# lanes whose row verified, answered without a walk ("verified")
+_PRETESTS = {}
+
+
+def reset_pretest_counts() -> None:
+    _PRETESTS.clear()
+
+
+def pretest_counts() -> tuple:
+    """(tried, verified): the twin's occlusion-cache pretests since
+    ``reset_pretest_counts`` (the kernels, bit-equal to the twin on every
+    path's rows, count none)."""
+    return tuple(int(_PRETESTS[k]) if k in _PRETESTS else 0 for k in ("tried", "verified"))
+
+
+def _trace_any(ms, o, d, tmin, tmax, pred=None):
     """Any hit in (tmin, tmax), over the dedicated shadow table when the
-    launch reads it: returns (hit bool, rows visited)."""
+    launch reads it: returns (hit bool, rows visited, the row that answered).
+    ``pred`` (the occlusion cache): each lane's predicted row (-1: none),
+    tested after the analytic prims and before the walk (a row visited);
+    the row that answered is the verified one or where the walk accepted,
+    -1 where an analytic prim or nothing occluded (None without ``pred``)."""
     best = dict(hit=torch.zeros(tmax.shape, dtype=torch.bool, device=tmax.device))
     for k in range(ms.n_analytic):
         bt = torch.where(best["hit"], tmin, tmax)
         phit, pt, _, _ = _analytic_test(ms.analytic[k], o, d, tmin, bt)
         best["hit"] = best["hit"] | (phit & (pt < bt))
+    pre = None
+    if pred is not None:
+        tried = ~best["hit"] & (pred >= 0) & (pred < ms.total_rows)
+        verified = tried & _row_occludes(ms, pred, o, d, tmin, tmax)
+        best["hit"] = best["hit"] | verified
+        best["row"] = torch.where(verified, pred, -1)
+        pre = tried.to(torch.float32)
+        for k, m in (("tried", tried), ("verified", verified)):
+            _PRETESTS[k] = m.sum() + _PRETESTS.get(k, 0)
     nit = _walk(ms, o, d, tmin, tmax, True, best, shadow=ms.shadow_tbl)
-    return best["hit"], nit
+    if pre is not None:
+        nit = pre + nit
+    return best["hit"], nit, best.get("row")
 
 
 def _proven(ms, hx, hy, hz):
@@ -775,6 +877,15 @@ def _camera_init(ms, px, py, seeds):
         tr=one, tg=one, tb=one, wd=one,
     )
     s["state"] = wang_hash(seeds)
+    return _with_pred(ms, s)
+
+
+def _with_pred(ms, s):
+    """``s`` with each path's occlusion-cache prediction at -1 (``srow``,
+    int64), when the launch runs the cache."""
+    if ms.shadow_cache:
+        s["srow"] = torch.full(s["alive"].shape, -1, dtype=torch.int64,
+                               device=s["alive"].device)
     return s
 
 
@@ -924,14 +1035,19 @@ def _bounce(ms, s):
     impr, impg, impb = epwr * inv_pdf, epwg * inv_pdf, epwb * inv_pdf
     imp_len = torch.sqrt(_dot(impr, impg, impb, impr, impg, impb))
     gate = dif & (imp_len > _f(M_EPS)) & (_dot(sdx, sdy, sdz, nx, ny, nz) > 0)
-    # a lane in a proven box skips its walk: visible (_bounce_loop :2360-2378)
+    # a lane in a proven box skips its walk: visible (_bounce_loop
+    # :2360-2378); skip-all skips every walk (:2380-2385)
     proven = _proven(ms, hx, hy, hz)
-    walk_gate = gate if proven is None else gate & ~proven
-    occluded, nit_s = _trace_any(
+    walk_gate = torch.zeros_like(gate) if ms.shadow_skip_all else gate
+    walk_gate = walk_gate if proven is None else walk_gate & ~proven
+    occluded, nit_s, orow = _trace_any(
         ms, (hx, hy, hz), (sdx, sdy, sdz),
         torch.full_like(sdist, _f(2.0 * M_EPS)),
         W(walk_gate, sdist - _f(M_EPS), -1.0),
+        W(walk_gate, s["srow"], -1) if ms.shadow_cache else None,
     )
+    if ms.shadow_cache:  # a gated path predicts the row that answered it
+        out["srow"] = W(gate, orow, s["srow"])
 
     # eval BSDF for NEE (material.glsl:18-30)
     dcol = _select_row(midx, ms.diffuse, 3)
@@ -1059,14 +1175,17 @@ def _lane_sort(ms, s, tiles):
     by ``lane_sort_key`` (``sort_tiles_plain`` on every state channel, the
     RNG and the path id); the other tiles stay as they are."""
     key = lane_sort_key(ms, s).view(-1, SORT_TILE)[tiles]
+    pred = [s["srow"].to(torch.int32)] if "srow" in s else []
     chans = torch.stack([s[ch].view(torch.int32) for ch in _STATE_CH]
-                        + [to_bits(s["state"]), s["pid"]])
+                        + [to_bits(s["state"]), s["pid"]] + pred)
     chans = chans.view(len(chans), -1, SORT_TILE)
     chans[:, tiles] = sort_tiles_plain(key, chans[:, tiles])[1]
     out = chans.view(len(chans), -1)
     new = {ch: out[i].view(torch.float32) for i, ch in enumerate(_STATE_CH)}
-    new["state"] = from_bits(out[-2])
-    new["pid"] = out[-1]
+    new["state"] = from_bits(out[N_STATE])
+    new["pid"] = out[N_STATE + 1]
+    if pred:  # the prediction moves with its path
+        new["srow"] = out[N_STATE + 2].long()
     return new
 
 
@@ -1085,6 +1204,8 @@ def _bounce_loop(ms, s, cap, lane_sort=False):
     if lane_sort:
         pad = (-n) % SORT_TILE
         s = {k: torch.cat([v, v.new_zeros(pad)]) for k, v in s.items()}  # alive 0
+        if "srow" in s:
+            s["srow"][n:] = -1
         s["pid"] = torch.arange(n + pad, dtype=torch.int32, device=s["alive"].device)
     while True:
         go = (s["alive"] > 0) & (s["bounce"] < cap)
@@ -1164,7 +1285,8 @@ def _scene_args(ms):
     pointers (csrc/walk.cuh SCENE_ARGS): the table's sizes and the bakes'
     counts (the first 10, which is all a build before the packed formats
     takes), the packed format, the payload rows, the boxes a launch tests,
-    and the dedicated shadow table (a null pointer when not read)."""
+    the dedicated shadow table (a null pointer when not read; the 15 a
+    build before the cache takes), the occlusion cache and skip-all."""
     shadow = ms.shadow_rows if ms.shadow_tbl else None
     return (
         ms.total_rows, ms.tbl_rows, ms.ntab, int(ms.analytic_mode),
@@ -1172,6 +1294,7 @@ def _scene_args(ms):
         ms.cboard.shape[0], ms.diel.shape[0], ms.emissive.shape[0],
         ms.packed, ms.n_pay, ms.nbox,
         None if shadow is None else shadow.data_ptr(), 0 if shadow is None else ms.shadow_n,
+        int(ms.shadow_cache), int(ms.shadow_skip_all),
     )
 
 
@@ -1210,7 +1333,7 @@ def _launch(fn_name, ms, ins, ints, outs, persistent=False):
             *[None if t is None else t.data_ptr() for t in outs],
             *[t.data_ptr() for t in counter], stream,
         )
-        LAUNCHES[fn_name] += 1
+        LAUNCHES[fn_name + ("_cache" if ms.shadow_cache else "")] += 1
         if rc != 0:
             raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
     return tuple(t for t in outs if t is not None)
@@ -1255,7 +1378,8 @@ def megakernel_start(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
     ``lane_order`` (with ``lane_sort``) appends the permutation of each
     tile's last sort, before lane order is restored: (2, N) int32, the path
     id at each lane and its ``lane_sort_key``. The outputs do not show the
-    sort, this does."""
+    sort, this does. The occlusion cache and skip-all run where ``ms`` has
+    them on (``launch_scene``)."""
     n = px.shape[0]
     if px.device.type == "cuda":
         _check_camera_inputs(ms, px, py, seeds, (n,))
@@ -1280,7 +1404,8 @@ def megakernel_resume(ms: MegaScene, st, rng, cap: int, lane_sort: bool = False,
                       lane_order: bool = False):
     """Resume launch (K2, replaces ``_megakernel_resume``): continue the
     paths of a packed state up to ``cap`` bounces (``lane_sort``,
-    ``lane_order``: as for ``megakernel_start``, ``mk_resume_sorted``)."""
+    ``lane_order``, ``ms``'s cache: as for ``megakernel_start``,
+    ``mk_resume_sorted``; a resumed path's prediction starts at -1)."""
     n = st.shape[1]
     if st.device.type == "cuda":
         dev = ms.rows.device
@@ -1297,7 +1422,7 @@ def megakernel_resume_plain(ms: MegaScene, st, rng, cap: int, lane_sort: bool = 
                             lane_order: bool = False):
     """The plain twin of K2 (any device)."""
     _check_lane_order(lane_sort, lane_order)
-    s = _bounce_loop(ms, _unpack(st, rng), cap, lane_sort)
+    s = _bounce_loop(ms, _with_pred(ms, _unpack(st, rng)), cap, lane_sort)
     return _with_order(_pack(s), s, lane_order)
 
 
@@ -1312,7 +1437,8 @@ def megakernel_start_chained(ms: MegaScene, pxs, pys, seeds, cap: int):
     unless it finished.
 
     The kernel is persistent: its threads take slots from a work counter in
-    slot order and bounce them one bounce at a time."""
+    slot order and bounce them one bounce at a time. ``ms``'s cache: as for
+    ``megakernel_start`` (a respawned slot's prediction starts at -1)."""
     S, n = pxs.shape
     if pxs.device.type == "cuda":
         _check_camera_inputs(ms, pxs, pys, seeds, (S, n))
@@ -1357,9 +1483,14 @@ def warp_iterations(segs, warp: int = 32) -> dict:
 _OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3,
                  "mk_start_sorted": 4, "mk_resume_sorted": 5, "mk_tiles_sorted": 6}
 # each kernel's instantiations, in mk_occupancy's (fmt_index's) order: the
-# trace-row format and whether shadow rays walk the dedicated shadow table
-KERNEL_FORMATS = {"classic": (0, False), "slim": (1, False), "packed3": (3, False),
-                  "packed4": (4, False), "packed12": (12, False), "shadow_tbl": (0, True)}
+# trace-row format, whether shadow rays walk the dedicated shadow table, and
+# whether the occlusion cache runs (kFmt, kSh, kCache)
+KERNEL_FORMATS = {"classic": (0, False, False), "slim": (1, False, False),
+                  "packed3": (3, False, False), "packed4": (4, False, False),
+                  "packed12": (12, False, False), "shadow_tbl": (0, True, False),
+                  "classic_cache": (0, False, True), "slim_cache": (1, False, True),
+                  "packed3_cache": (3, False, True), "packed4_cache": (4, False, True),
+                  "packed12_cache": (12, False, True)}
 
 
 def occupancy(name: str, lib=None, fmt: str = "classic") -> dict:
@@ -1377,11 +1508,12 @@ def occupancy(name: str, lib=None, fmt: str = "classic") -> dict:
 
     from hijiki_tpu_torch.utils.build import build, load_library, spill_stores
 
-    packed, sh = KERNEL_FORMATS[fmt]
+    packed, sh, cache = KERNEL_FORMATS[fmt]
     spill = None
     if lib is None:
         report = build()[2]
-        spill = (spill_stores(report, f"{name}_kernel", f"ILi{packed}ELb{int(sh)}E")
+        spill = (spill_stores(report, f"{name}_kernel",
+                              f"ILi{packed}ELb{int(sh)}ELb{int(cache)}E")
                  if report else None)
     out = (ctypes.c_int * 5)()
     lib = lib if lib is not None else load_library()
@@ -1398,11 +1530,11 @@ def megakernel_tiles(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bool = F
                      lane_order: bool = False):
     """Single-launch render (K5, replaces ``_megakernel``/
     ``_megakernel_body``): raygen and bounces up to ``cap``, keeping only
-    the result (``lane_sort``, ``lane_order``: as for ``megakernel_start``,
-    ``mk_tiles_sorted``). Returns (out (7, N) f32: Lr,Lg,Lb, n1,n2,n3,
-    depth; rng (N,) int32 bits). The kernel is persistent, as K1 is: its
-    threads take paths from a work counter and bounce them one bounce at a
-    time."""
+    the result (``lane_sort``, ``lane_order``, ``ms``'s cache: as for
+    ``megakernel_start``, ``mk_tiles_sorted``). Returns (out (7, N) f32:
+    Lr,Lg,Lb, n1,n2,n3, depth; rng (N,) int32 bits). The kernel is
+    persistent, as K1 is: its threads take paths from a work counter and
+    bounce them one bounce at a time."""
     n = px.shape[0]
     if px.device.type == "cuda":
         _check_camera_inputs(ms, px, py, seeds, (n,))
@@ -1428,13 +1560,15 @@ def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bo
 
 
 def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000,
-                 lane_sort: bool = False, shadow_vis: bool = True, shadow_tbl: bool = False):
+                 lane_sort: bool = False, shadow_vis: bool = True, shadow_tbl: bool = False,
+                 shadow_cache: bool = False):
     """Whole paths in one launch to ``max_bounces`` (``render_tiles``).
     ``lane_sort``: sort each tile's paths between bounces (any N: the
     kernel and the plain version pad the last tile with dead paths).
-    ``shadow_vis``, ``shadow_tbl``: as JAX's (``launch_scene``).
-    Returns (total (N,3), normal (N,3), depth (N,), state (N,))."""
-    ms = launch_scene(ms, shadow_vis, shadow_tbl)
+    ``shadow_vis``, ``shadow_tbl``, ``shadow_cache``: as JAX's
+    (``launch_scene``). Returns (total (N,3), normal (N,3), depth (N,),
+    state (N,))."""
+    ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache)
     out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces, lane_sort)
     return out[0:3].T, out[3:6].T, out[6], rng
 
@@ -1537,6 +1671,8 @@ def render_waves(
     lane_sort: bool = False,
     shadow_vis: bool = True,
     shadow_tbl: bool = False,
+    shadow_cache: bool = False,
+    shadow_skip_all: bool = False,
 ):
     """Phased wavefront render (``render_waves``): a camera launch to
     ``phase_bounces[0]``, then compaction phases that resume the survivors
@@ -1545,12 +1681,14 @@ def render_waves(
     counted in ``overflow`` (the renderer re-renders such sweeps).
     ``lane_sort``: every launch sorts its tiles' paths between bounces
     (K7); the outputs are the same bit for bit. ``shadow_vis``,
-    ``shadow_tbl``: as JAX's (``launch_scene``).
+    ``shadow_tbl``, ``shadow_cache``: as JAX's (``launch_scene``).
+    ``shadow_skip_all``: JAX's performance probe only, biased image: every
+    shadow walk is skipped with visibility 1 (not with ``shadow_cache``).
 
     Returns (total (N,3), normal (N,3), depth (N,), state (N,), overflow (),
     segs (N,), rows (N,), albedo (N,3)).
     """
-    ms = launch_scene(ms, shadow_vis, shadow_tbl)
+    ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache, shadow_skip_all)
     n_req = px.shape[0]
     pad = (-n_req) % TILE
     if pad:
@@ -1586,6 +1724,7 @@ def render_waves_chained(
     phase_shrink: tuple = (4,),
     shadow_vis: bool = True,
     shadow_tbl: bool = False,
+    shadow_cache: bool = False,
 ):
     """Chained phased render (``render_waves_chained``): S sweep samples per
     pixel in ONE chained camera launch (K4) that respawns a dead path's lane
@@ -1597,13 +1736,13 @@ def render_waves_chained(
 
     Per sample exactly what S separate ``render_waves`` sweeps compute (each
     thread walks alone), as long as nothing overflows. ``shadow_vis``,
-    ``shadow_tbl``: as JAX's (``launch_scene``).
+    ``shadow_tbl``, ``shadow_cache``: as JAX's (``launch_scene``).
 
     Returns per-sweep images: total (S,N,3), normal (S,N,3), depth (S,N),
     state (S,N) (the sample's final RNG), overflow (), segs (S,N), rows (N,)
     (summed over the S samples), albedo (S,N,3).
     """
-    ms = launch_scene(ms, shadow_vis, shadow_tbl)
+    ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache)
     S, n_req = pxs.shape
     if S < 2:
         raise ValueError("render_waves_chained needs >= 2 sweeps; use render_waves")

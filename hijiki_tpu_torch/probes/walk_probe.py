@@ -2,10 +2,11 @@
 
 Counterpart of tools/walk_probe.py (``walk_kernel``/``make_runner``,
 pallas_call at :84; ``patch_no_test`` :178; ``make_w16_scene`` and
-``patch_normals_at_11`` :133-175). The render kernels' own closest-hit walk
-(csrc/walk.cuh: the analytic pretest, then the walk from the octant table of
-the ray's direction, stopped before the winner resolve) on camera or random
-rays, outside the bounce loop; out: t and the rows visited per ray.
+``patch_normals_at_11`` :133-175; ``main`` :246 and ``main_widths`` :192).
+The render kernels' own closest-hit walk (csrc/walk.cuh: the analytic
+pretest, then the walk from the octant table of the ray's direction, stopped
+before the winner resolve; ``walk_packed`` on a packed table) on camera or
+random rays, outside the bounce loop; out: t and the rows visited per ray.
 
 * ``walk_isolate_plain``: the plain version (any device): a lockstep walk of
   groups of ``group`` rays; ``group = 1`` is the render kernels' per-ray
@@ -17,22 +18,30 @@ rays, outside the bounce loop; out: t and the rows visited per ray.
   i + 2144 k (mod n) in thread i, so no trip finds the rows of the trip
   before in L1, and the last walks ray i (the result is the same).
 
-Variants: ``test``/``notest`` (every prim row misses, the tool's
-patch_no_test) x ``w32``/``w16`` (``w16_rows``: columns 0-10 and the plane
-normal in 11-13). t equals the JAX tool's up to the FMA/t-tie class; the
-JAX walk counts packet unions, so its rows visited are not compared. The
-tool's packed/pack3/pack4/slim tables are not ported yet (ROADMAP, Queue 2).
+Variants: a table (``TABLES``: ``w32`` the classic rows, ``w16``
+``w16_rows``' columns 0-10 and the plane normal in 11-13, ``slim``,
+``pack3``, ``pack4`` and ``pack12`` the scene compiled with packed_leaf 1,
+3, 4 and 12; the tool's ``unpacked`` and ``packed`` are ``w32`` and
+``pack4``), each also as ``-notest`` (every prim row misses, the tool's
+patch_no_test). t equals the JAX tool's up to the FMA/t-tie class; the
+JAX walk counts packet unions, so its rows visited are not compared.
 
-Usage (the tool's image size; on the card G = 1 and 32 take the place of
-its groups):
+Modes, as the tool's: the default (``main``: the slope timings of the
+variants, by default the tool's unpacked and packed with and without the
+prim test, at one warp per SM and at 1M threads, G = 1 and 32, then the
+prim test's share of a row step), and ``widths`` (``main_widths``: one walk
+of a W x W camera frame over each table, G = 1, timed in turns, the best of
+7: ms, rows per ray, the t sum and the speed against ``w32``). Both run on
+the meshbox + spheres (the tool's cbox is absent).
 
-    python -m hijiki_tpu_torch.probes.walk_probe [W] [--variants w32 ...]
+    python -m hijiki_tpu_torch.probes.walk_probe [widths] [W] [--variants ...]
         [--rays camera random] [--device cuda|cpu] [--json out.json]
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -42,23 +51,55 @@ from hijiki_tpu_torch.probes import (GROUPS, SCENE, call, card, check, device_of
                                      occupancies, parser)
 
 M_EPS = 1e-4
-VARIANTS = {"w32": (32, True), "w32-notest": (32, False), "w16": (16, True),
-            "w16-notest": (16, False)}
+# the tables a variant walks: compile_scene's packed_leaf (w16: the classic
+# rows narrowed by w16_rows)
+TABLES = {"w32": 0, "w16": 0, "slim": 1, "pack3": 3, "pack4": 4, "pack12": 12}
+# the tool's main() names for two of them
+ALIASES = {"unpacked": "w32", "packed": "pack4"}
+# variant -> (table, prim test on)
+VARIANTS = {name + tag: (ALIASES.get(name, name), not tag)
+            for name in (*TABLES, *ALIASES) for tag in ("", "-notest")}
+MAIN_VARIANTS = ("unpacked", "packed", "unpacked-notest", "packed-notest")
+WIDTHS = ("w32", "w16", "slim", "pack3", "pack4", "pack12")
+# a packed format's row width in floats (csrc/walk.cuh packed_width)
+PACKED_WIDTH = {1: 16, 3: 32, 4: 64, 12: 128}
 
-# launches of the CUDA kernel (CPU calls of the plain version are not counted)
-LAUNCHES = {"walk_isolate": 0}
+# launches of the CUDA kernel (CPU calls of the plain version are not counted):
+# on the classic rows (and their 16-column copy), and on each packed table
+_LAUNCH_KEY = {0: "walk_isolate", 1: "walk_isolate_slim", 3: "walk_isolate_pack3",
+               4: "walk_isolate_pack4", 12: "walk_isolate_pack12"}
+LAUNCHES = {k: 0 for k in _LAUNCH_KEY.values()}
 
 
-def load_scene(path: str, device, width: int = 1024, height: int = 1024):
+def load_scene(path: str, device, width: int = 1024, height: int = 1024, packed_leaf=0):
     """The port's scene (OBJ with the cbox spheres, as chip_smoke.py uses
-    it) baked for the walk: (MegaScene, CompiledScene)."""
+    it) baked for the walk with ``packed_leaf``'s table (the closest-hit
+    walk reads no shadow-visibility box, so none is proven): (MegaScene,
+    CompiledScene)."""
     from hijiki_tpu_torch.scene.compile import compile_scene
     from hijiki_tpu_torch.scene.obj import load_obj_scene
 
     scene = load_obj_scene(path)
     scene.put_cbox_spheres()
-    cs = compile_scene(scene)
+    cs = compile_scene(scene, packed_leaf=packed_leaf, shadow_vis_boxes=False)
     return mk.mega_scene(cs, width, height, device), cs
+
+
+def load_tables(path: str, device, names, width: int = 1024, compiled=None):
+    """{table name: (MegaScene, its rows)} of the ``names`` of ``TABLES``
+    (each packed_leaf compiled once, or taken from ``compiled``:
+    {packed_leaf: CompiledScene of ``path``}), and the classic scene's
+    CompiledScene (the camera and the random rays' box)."""
+    compiled = compiled or {}
+    scenes = {}
+    for leaf in sorted({TABLES[t] for t in names} | {0}):
+        scenes[leaf] = ((mk.mega_scene(compiled[leaf], width, width, device), compiled[leaf])
+                        if leaf in compiled else load_scene(path, device, width, width, leaf))
+    out = {}
+    for t in names:
+        ms = scenes[TABLES[t]][0]
+        out[t] = (ms, w16_rows(ms.rows).contiguous() if t == "w16" else ms.rows)
+    return out, scenes[0][1]
 
 
 def w16_rows(rows):
@@ -135,13 +176,22 @@ def _tri_test(r, o, d, tmin, nrm):
     return (u >= 0) & (v >= 0) & (u + v <= 1.0) & (tmin <= t), t, u, v
 
 
+def _check_table(ms, W):
+    if ms.packed and W != PACKED_WIDTH[ms.packed]:
+        raise ValueError(f"a format-{ms.packed} table has {PACKED_WIDTH[ms.packed]} columns, not {W}")
+    if not ms.packed and W not in (16, 32):
+        raise ValueError(f"the classic rows have 32 columns, or 16 (w16_rows), not {W}")
+    if not ms.packed and W == 16 and not ms.analytic_mode:
+        raise ValueError("the 16-column table holds triangle rows only (analytic mode)")
+
+
 def walk_isolate_plain(ms, rows, o, d, *, test: bool = True, group: int = 1):
     """The closest-hit walk of rays o, d (3, N) f32 over ``rows`` (ms.rows,
-    or ``w16_rows`` of it), ``group`` rays walking as one packet. Returns
-    (t, rows visited), each (N,) f32."""
+    or ``w16_rows`` of classic rows), ``group`` rays walking as one packet;
+    a packed table's prims by ``_packed_test``'s tournament. Returns (t,
+    rows visited), each (N,) f32."""
     n, W = o.shape[1], rows.shape[1]
-    if W == 16 and not ms.analytic_mode:
-        raise ValueError("the 16-column table holds triangle rows only (analytic mode)")
+    _check_table(ms, W)
     ng = n // group
     tmin = f32(M_EPS)
     ox, oy, oz = (o[k].reshape(ng, group) for k in range(3))
@@ -179,7 +229,9 @@ def walk_isolate_plain(ms, rows, o, d, *, test: bool = True, group: int = 1):
         slab = ((t0 < t1 + f32(M_EPS)) & (t0 < bt) & (t1 > tmin)).any(1)
         if test:
             r3 = r[:, :, None]  # r3[:, j]: column j as (groups, 1)
-            if W == 16 or ms.analytic_mode:
+            if ms.packed:
+                phit, pt, _, _, _ = mk._packed_test(ms.packed, r3, (ox, oy, oz), (dx, dy, dz), tmin)
+            elif W == 16 or ms.analytic_mode:
                 phit, pt, _, _ = _tri_test(r3, (ox, oy, oz), (dx, dy, dz), tmin, 11 if W == 16 else 29)
             else:
                 phit, pt, _, _ = mk._prim_test(ms, r3, (ox, oy, oz), (dx, dy, dz), tmin, bt)
@@ -202,11 +254,9 @@ def walk_isolate(ms, rows, o, d, *, test: bool = True, group: int = 1, iters: in
     if o.device.type != "cuda":
         return walk_isolate_plain(ms, rows, o, d, test=test, group=group)
     dev = o.device
-    if group not in (1, 32) or (group == 32 and block % 32) or W not in (16, 32):
-        raise ValueError(f"the kernel takes group 1 or 32 and 16 or 32 columns "
-                         f"(got {group}, block {block}, {W})")
-    if W == 16 and not ms.analytic_mode:
-        raise ValueError("the 16-column table holds triangle rows only (analytic mode)")
+    if group not in (1, 32) or (group == 32 and block % 32):
+        raise ValueError(f"the kernel takes group 1 or 32 (got {group}, block {block})")
+    _check_table(ms, W)
     check("rows", rows, torch.float32, (ms.total_rows, W), dev)
     mk.check_rows_aligned(rows)
     check("o", o, torch.float32, (3, n), dev)
@@ -218,7 +268,7 @@ def walk_isolate(ms, rows, o, d, *, test: bool = True, group: int = 1, iters: in
     if occupancy:
         return call("walk_isolate", *args, occupancy=True)
     call("walk_isolate", *args)
-    LAUNCHES["walk_isolate"] += 1
+    LAUNCHES[_LAUNCH_KEY[ms.packed]] += 1
     return t, nit
 
 
@@ -233,38 +283,45 @@ def warp_rows(nit) -> tuple[float, float]:
 def main(argv=None) -> int:
     from hijiki_tpu_torch.probes import timing
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    widths = bool(argv) and argv[0] == "widths"
     ap = parser(__doc__)
     ap.add_argument("W", nargs="?", type=int, default=1024,
                     help="camera frame W x W (the tool's image size)")
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS), choices=list(VARIANTS))
+    ap.add_argument("--variants", nargs="+", choices=list(VARIANTS),
+                    default=list(WIDTHS if widths else MAIN_VARIANTS))
     ap.add_argument("--rays", nargs="+", default=["camera", "random"], choices=("camera", "random"))
-    args = ap.parse_args(argv)
+    args = ap.parse_args(argv[1:] if widths else argv)
     dev = device_of(args)
-    ms, cs = load_scene(SCENE, dev, args.W, args.W)
-    tables = {32: ms.rows, 16: w16_rows(ms.rows).contiguous()}
+    tables, cs = load_tables(SCENE, dev, {VARIANTS[v][0] for v in args.variants}, args.W)
+    if widths:
+        return main_widths(args, dev, tables, cs)
     results = []
     if dev.type != "cuda":
         for rays in args.rays:
             o, d = ray_set(rays, cs, args.W * args.W, dev, frame=args.W)
             for name in args.variants:
                 for g in GROUPS:
-                    W, test = VARIANTS[name]
-                    t, nit = walk_isolate(ms, tables[W], o, d, test=test, group=g)
-                    print(f"{rays:6s} {name:10s} G={g:2d}: plain version on the CPU (not timed), "
+                    table, test = VARIANTS[name]
+                    ms, rows = tables[table]
+                    t, nit = walk_isolate(ms, rows, o, d, test=test, group=g)
+                    print(f"{rays:6s} {name:15s} G={g:2d}: plain version on the CPU (not timed), "
                           f"{float((t < 1e30).float().mean()):.4f} hit, "
                           f"{float(nit.mean()):.2f} rows visited per ray")
         return 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    print(f"# {card()}; {ms.total_rows} table rows; {sms} SMs", flush=True)
+    print(f"# {card()}; {', '.join(f'{k} {v[1].shape[0]} x {v[1].shape[1]}' for k, v in tables.items())} "
+          f"table rows; {sms} SMs", flush=True)
     step_ns = {}  # one warp per SM: ns a warp-step, the exposed latency
     for rays in args.rays:
         for occ, threads, block in occupancies(dev):
             o, d = ray_set(rays, cs, threads, dev, frame=args.W)
             for name in args.variants:
-                W, test = VARIANTS[name]
+                table, test = VARIANTS[name]
+                ms, rows = tables[table]
                 for g in GROUPS:
-                    t, nit = walk_isolate(ms, tables[W], o, d, test=test, group=g, block=block)
-                    res = timing.slope(lambda it: walk_isolate(ms, tables[W], o, d, test=test, group=g,
+                    t, nit = walk_isolate(ms, rows, o, d, test=test, group=g, block=block)
+                    res = timing.slope(lambda it: walk_isolate(ms, rows, o, d, test=test, group=g,
                                                                iters=it, block=block))
                     steps, longest = warp_rows(nit)
                     rows_total = float(nit.sum())
@@ -272,7 +329,7 @@ def main(argv=None) -> int:
                                threads=threads, block=block, rows_per_ray=rows_total / threads,
                                warp_steps_per_ray=steps / threads, longest_warp_rows=longest,
                                hit_share=float((t < 1e30).float().mean()),
-                               blocks_per_sm=walk_isolate(ms, tables[W], o, d, test=test, group=g,
+                               blocks_per_sm=walk_isolate(ms, rows, o, d, test=test, group=g,
                                                           block=block, occupancy=True))
                     # one warp per SM: each trip an SM's warp walks another
                     # warp's rays, so over the trips it runs for the mean of the
@@ -280,7 +337,7 @@ def main(argv=None) -> int:
                     # time per row visited
                     res["ns_per_row_step"] = (res["ns_per_iter"] * threads / steps if occ == "warp"
                                               else res["ns_per_iter"] / rows_total)
-                    line = (f"{rays:6s} {occ:4s} {name:10s} G={g:2d}: {res['ns_per_iter'] / 1e3:9.3f} "
+                    line = (f"{rays:6s} {occ:4s} {name:15s} G={g:2d}: {res['ns_per_iter'] / 1e3:9.3f} "
                             f"us/walk (lo {res['t_lo_ms']:.3f} ms x{res['lo']}, hi {res['t_hi_ms']:.3f} "
                             f"ms), {res['rows_per_ray']:7.2f} rows/ray, warp steps/ray "
                             f"{res['warp_steps_per_ray']:7.2f}, longest warp {longest:.0f}, "
@@ -301,6 +358,60 @@ def main(argv=None) -> int:
                                  f"{resident} warps/SM resident, Little's-law share {res['little']:.3f}")
                     print(line, flush=True)
                     results.append(res)
+    # the tool's summary: the prim test's share of a row step (1M threads, G = 1)
+    full = {(r["rays"], r["variant"]): r["ns_per_row_step"] for r in results
+            if r["occupancy"] == "full" and r["group"] == 1}
+    for (rays, name), ns in full.items():
+        if name.endswith("-notest") or (rays, name + "-notest") not in full:
+            continue
+        bare = full[(rays, name + "-notest")]
+        print(f"{rays:6s} per row step: {name} {ns:.4f} ns, no-test {bare:.4f} ns -> "
+              f"test share {(ns - bare) / ns * 100:.0f}%")
+    dump(args, results)
+    return 0
+
+
+def main_widths(args, dev, tables, cs) -> int:
+    """The tool's main_widths: one closest-hit walk of the W x W camera frame
+    over each table (G = 1), on the card timed in turns (the best of 7 CUDA
+    event times), with rows per ray and the t sum of the hits."""
+    o, d = ray_set("camera", cs, args.W * args.W, dev, frame=args.W)
+    runs, stats = {}, {}
+    for name in args.variants:
+        table, test = VARIANTS[name]
+        ms, rows = tables[table]
+        runs[name] = lambda ms=ms, rows=rows, test=test: walk_isolate(ms, rows, o, d, test=test)
+        t, nit = runs[name]()
+        stats[name] = (float(nit.mean()), float(torch.where(t < 1e30, t, 0.0).double().sum()))
+    if dev.type != "cuda":
+        for name, (rows_ray, tsum) in stats.items():
+            print(f"{name:12s}: plain version on the CPU (not timed), {rows_ray:7.2f} rows/ray, "
+                  f"t-sum {tsum:.1f}")
+        return 0
+    print(f"# {card()}; widths: {args.W}x{args.W} camera rays, G = 1", flush=True)
+    times = {name: [] for name in runs}
+    for _ in range(7):
+        for name, run in runs.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            times[name].append(a.elapsed_time(b))
+    base = min(times[args.variants[0]])
+    results = []
+    for name in runs:
+        best = min(times[name])
+        rows_ray, tsum = stats[name]
+        ms, rows = tables[VARIANTS[name][0]]
+        print(f"{name:12s}: {best:8.4f} ms  {rows.shape[0]:6d} x {rows.shape[1]:3d} rows  "
+              f"rows/ray {rows_ray:7.2f}  t-sum {tsum:14.1f}  vs {args.variants[0]}: "
+              f"{base / best:.3f}x", flush=True)
+        results.append(dict(probe="walk_isolate", mode="widths", variant=name, ms=best,
+                            ms_all=times[name], rows_per_ray=rows_ray, t_sum=tsum,
+                            table_rows=rows.shape[0], row_floats=rows.shape[1],
+                            speed_vs_first=base / best))
     dump(args, results)
     return 0
 

@@ -88,6 +88,11 @@ class RenderConfig:
     fixed_albedo: bool = False
     # live terminal preview every N sweeps; 0 = off
     live_preview: int = 0
+    # the TPU walker's schedule knobs (packet width, cursor groups, the
+    # pipelined winner resolve, the HBM walk's trunk cache and row window):
+    # accepted (check_config: resolve_mega_packet's one check); the
+    # per-thread walk has no packet, so any value gives the same film bit
+    # for bit
     mega_packet: int = 0
     mega_groups: int = 0
     # sweeps per chained launch: 1 = off, 0 = auto (CHAIN_SWEEPS_CUDA on a
@@ -109,10 +114,6 @@ class RenderConfig:
 
 
 DRIVERS = ("sync", "wavefront", "mega")
-# fields whose non-default values select code that is not ported yet
-_NOT_PORTED = (
-    "mega_packet", "mega_groups", "spec_resolve", "mega_trunk", "mega_window",
-)
 
 # fields that change an accumulated film: a resumed render must match them
 _CHECKPOINT_FIXED = (
@@ -126,10 +127,30 @@ def check_config(c: RenderConfig) -> None:
         raise ValueError(f"unknown driver {c.driver!r} (one of {', '.join(DRIVERS)})")
     if c.traversal and c.traversal not in TRAVERSALS:
         raise ValueError(f"unknown traversal {c.traversal!r} (one of {', '.join(TRAVERSALS)})")
-    defaults = RenderConfig()
-    for f in _NOT_PORTED:
-        if getattr(c, f) != getattr(defaults, f):
-            raise NotImplementedError(f"RenderConfig.{f}={getattr(c, f)!r} is not ported yet")
+    resolve_mega_packet(c.mega_packet, c.sort_lanes)
+
+
+# The TPU walker's knobs schedule the TPU's packet walk; the port's
+# per-thread walk has no packet, so it accepts them and reads none. The one
+# check they carry off the TPU is JAX's resolve_mega_packet's
+# (hijiki_tpu/render/renderer.py:534): the lane sort pins 128-lane packets.
+# JAX's HIJIKI_* environment overrides select TPU walker experiments the
+# per-thread walk has no counterpart of, so they are not read.
+
+
+def resolve_mega_packet(requested: int, sort_lanes: bool = False) -> int:
+    """Lanes a traversal cursor as JAX resolves them off the TPU: 0 = auto,
+    128. The lane sort pins 128 and refuses another explicit width, with
+    JAX's message."""
+    if sort_lanes:
+        if requested and requested != 128:
+            raise ValueError(
+                f"sort_lanes requires 128-lane packets, got mega_packet={requested} "
+                "(the in-kernel bitonic lane sort only supports one-VREG packets); "
+                "drop --mega-packet or set it to 128"
+            )
+        return 128
+    return requested or 128
 
 
 def chain_chunk_size(remaining: int, chain: int) -> int:

@@ -26,9 +26,13 @@ CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build" / "kernels"
 LIB_NAME = "libhijiki_kernels.so"
 REPORT_NAME = "ptxas.txt"
+# --split-compile=0: the compiler's optimization passes on all cores (a
+# source's kernels split into parts); megakernel.cu's 77 instantiations
+# built in 31.0 s with it and 77.6 s without, every kernel at the same
+# registers and spills (on an NVIDIA H100 80GB HBM3; PERF.md §6)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
+    "-std=c++17", "-O3", "--fmad=false", "--split-compile=0",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
@@ -38,8 +42,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # csrc/walk.cuh SCENE_ARGS: rows, consts, the table's sizes and the bakes'
-# counts (10), the packed format, payload rows, boxes, the shadow table
-_SCENE = [_P, _P] + [_I] * 13 + [_P, _I]
+# counts (10), the packed format, payload rows, boxes, the shadow table,
+# the occlusion cache and skip-all
+_SCENE = [_P, _P] + [_I] * 13 + [_P, _I] + [_I, _I]
 # argtypes of every C entry point: each pointer and the stream as c_void_p
 SIGNATURES = {
     # K1, K4 and K5 are persistent: the pointer before the stream is the work counter

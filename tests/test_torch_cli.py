@@ -36,9 +36,19 @@ def test_cli_builtin_scene(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--mega-packet=1024"], ["--profile-dir", "p"], ["--mega-groups", "2"],
                                    ["--spec-resolve", "1", "--driver", "mega"]])
-def test_cli_refuses_unported_flags(flags, capsys):
-    assert cli.main(["builtin:cornell", *flags]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+def test_cli_refuses_unported_flags(flags, tmp_path, monkeypatch):
+    """The flags the port once refused are ported: each renders the image
+    the command without it writes, bit for bit (the walker knobs schedule
+    the TPU's packet walk; --profile-dir writes a trace beside it)."""
+    monkeypatch.chdir(tmp_path)
+    base = ["builtin:cornell", "-w", "16", "-H", "16", "-s", "1", "--max-bounces", "6",
+            "--device", "cpu"]
+    assert cli.main([*base, "-o", "plain.exr"]) == 0
+    assert cli.main([*base, *flags, "-o", "knob.exr"]) == 0
+    np.testing.assert_array_equal(read_exr("knob.exr").view(np.int32),
+                                  read_exr("plain.exr").view(np.int32))
+    if "--profile-dir" in flags:
+        assert (tmp_path / "p" / "trace.json").stat().st_size > 0
 
 
 @pytest.mark.parametrize("flags", [

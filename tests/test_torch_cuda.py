@@ -440,16 +440,22 @@ def test_walk_ablate_kernel_matches_plain(variant, group):
 
 
 @pytest.mark.parametrize("group", [1, 32])
-@pytest.mark.parametrize("variant", ["w32", "w32-notest", "w16", "w16-notest"])
+@pytest.mark.parametrize("variant", ["w32", "w32-notest", "w16", "w16-notest", "slim",
+                                     "slim-notest", "pack3", "pack3-notest", "pack4",
+                                     "pack4-notest", "pack12", "pack12-notest"])
 @pytest.mark.parametrize("rays", ["camera", "random"])
 def test_walk_isolate_kernel_matches_plain(rays, variant, group):
+    """K10b on the classic rows, their 16-column copy and each packed
+    table (walk_isolate_packed_kernel), with and without the prim test, a
+    thread or a warp a cursor: t and rows visited bit-equal to the plain
+    version."""
     from hijiki_tpu_torch.probes import walk_probe as W
 
     dev = cuda_device()
-    ms, cs = _probe_scene(dev)
+    table, test = W.VARIANTS[variant]
+    ms, cs = W.load_scene(MESHBOX, dev, 64, 64, W.TABLES[table])
     o, d = W.ray_set(rays, cs, 64 * 64, dev, frame=64)
-    width, test = W.VARIANTS[variant]
-    rows = ms.rows if width == 32 else W.w16_rows(ms.rows).contiguous()
+    rows = W.w16_rows(ms.rows).contiguous() if table == "w16" else ms.rows
     got = W.walk_isolate(ms, rows, o, d, test=test, group=group, iters=3)
     want = W.walk_isolate_plain(ms, rows, o, d, test=test, group=group)
     for g, w in zip(got, want):
@@ -761,6 +767,12 @@ FORMAT_OCCUPANCY = {
     "packed4": ((80, 16, 24), (113, 0, 16), (80, 12, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24)),
     "packed12": ((80, 12, 24), (96, 4, 20), (80, 8, 24), (80, 8, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
     "shadow_tbl": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    # the occlusion cache's instantiations (kCache)
+    "classic_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "slim_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "packed3_cache": ((80, 16, 24), (114, 0, 16), (80, 8, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24)),
+    "packed4_cache": ((80, 48, 24), (117, 0, 16), (80, 20, 24), (80, 12, 24), (80, 8, 24), (80, 8, 24), (80, 8, 24)),
+    "packed12_cache": ((80, 0, 24), (117, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
 }
 
 
@@ -1152,3 +1164,80 @@ def test_wrapper_rejects_unaligned_shadow_table():
     px, py, seeds = _frame(32, dev)
     with pytest.raises(ValueError, match="16-byte"):
         mk.megakernel_start(bad, px, py, seeds, 5)
+
+
+CACHE_FORMATS = ("boxes", "noboxes", "slim", "packed3", "packed4", "packed12")
+
+
+@pytest.mark.parametrize("config", CACHE_FORMATS)
+def test_cache_kernels_match_twin(config):
+    """The occlusion cache's instantiations (kCache) of K1 (cap 5), K2
+    (resume to 24), K5 (to 24) and K4 (3 samples, chain cap 8) on each
+    format: every output, rows included, bit-equal to the cache-on twin;
+    every output but rows bit-equal to the cache-off kernels, some path's
+    rows lower; the sorted K1/K2/K5 with the cache bit-equal to the unsorted
+    ones, their order records to the plain versions'."""
+    dev = cuda_device()
+    S = 64
+    off_ms = _format_scene(config, S, dev)
+    ms = mk.launch_scene(off_ms, shadow_cache=True)
+    px, py, seeds = _frame(S, dev)
+    pxs = torch.stack([px, px + 0.25, px - 0.25])
+    pys = torch.stack([py, py - 0.125, py + 0.125])
+    sds = torch.stack([seeds, seeds + 1, seeds + 977])
+    bits = lambda ts: [t.view(torch.int32) for t in ts]
+    rows = mk._STATE_CH.index("rows")
+    keep = [i for i in range(mk.N_STATE) if i != rows]
+    before = dict(mk.LAUNCHES)
+    k1 = mk.megakernel_start(ms, px, py, seeds, 5)
+    k2 = mk.megakernel_resume(ms, *k1, 24)
+    k5 = mk.megakernel_tiles(ms, px, py, seeds, 24)
+    k4 = mk.megakernel_start_chained(ms, pxs, pys, sds, 8)
+    for name in ("mk_start", "mk_resume", "mk_tiles", "mk_start_chained"):
+        assert mk.LAUNCHES[name + "_cache"] == before[name + "_cache"] + 1
+        assert mk.LAUNCHES[name] == before[name]
+    for got, want in ((k1, mk.megakernel_start_plain(ms, px, py, seeds, 5)),
+                      (k2, mk.megakernel_resume_plain(ms, *k1, 24)),
+                      (k5, mk.megakernel_tiles_plain(ms, px, py, seeds, 24)),
+                      (k4, mk.megakernel_start_chained_plain(ms, pxs, pys, sds, 8))):
+        assert all(torch.equal(a, b) for a, b in zip(bits(got), bits(want)))
+    off1 = mk.megakernel_start(off_ms, px, py, seeds, 5)
+    assert torch.equal(k1[0][keep].view(torch.int32), off1[0][keep].view(torch.int32))
+    assert torch.equal(k1[1], off1[1]) and float(k1[0][rows].sum()) < float(off1[0][rows].sum())
+    off5 = mk.megakernel_tiles(off_ms, px, py, seeds, 24)
+    assert all(torch.equal(a, b) for a, b in zip(bits(k5), bits(off5)))
+    for fn, args, un in ((mk.megakernel_start, (px, py, seeds, 5), k1),
+                         (mk.megakernel_resume, (*k1, 24), k2),
+                         (mk.megakernel_tiles, (px, py, seeds, 24), k5)):
+        got = fn(ms, *args, lane_sort=True, lane_order=True)
+        plain = {mk.megakernel_start: mk.megakernel_start_plain,
+                 mk.megakernel_resume: mk.megakernel_resume_plain,
+                 mk.megakernel_tiles: mk.megakernel_tiles_plain}[fn]
+        want = plain(ms, *args, lane_sort=True, lane_order=True)
+        assert all(torch.equal(a, b) for a, b in zip(bits(got[:2]), bits(un)))
+        assert torch.equal(got[2], want[2])
+
+
+def test_skip_all_kernels_match_twin():
+    """The skip-all probe (a run-time scene word: no instantiation of its
+    own) in K1 (cap 5) and K2 (resume to 24) against their twins, every
+    output bit for bit; the paths walk no shadow row (fewer rows), and the
+    film and RNG of render_waves(shadow_skip_all=True) are its twin's."""
+    dev = cuda_device()
+    S = 64
+    ms = _format_scene("boxes", S, dev)
+    sk = mk.launch_scene(ms, shadow_skip_all=True)
+    px, py, seeds = _frame(S, dev)
+    bits = lambda ts: [t.view(torch.int32) for t in ts]
+    before = dict(mk.LAUNCHES)
+    k1 = mk.megakernel_start(sk, px, py, seeds, 5)
+    k2 = mk.megakernel_resume(sk, *k1, 24)
+    assert mk.LAUNCHES["mk_start"] == before["mk_start"] + 1
+    assert mk.LAUNCHES["mk_start_cache"] == before["mk_start_cache"]
+    assert all(torch.equal(a, b) for a, b in
+               zip(bits(k1), bits(mk.megakernel_start_plain(sk, px, py, seeds, 5))))
+    assert all(torch.equal(a, b) for a, b in
+               zip(bits(k2), bits(mk.megakernel_resume_plain(sk, *k1, 24))))
+    rows = mk._STATE_CH.index("rows")
+    fair = mk.megakernel_start(ms, px, py, seeds, 5)
+    assert torch.equal(k1[1], fair[1]) and float(k1[0][rows].sum()) < float(fair[0][rows].sum())

@@ -97,8 +97,8 @@ def test_occupancy_names_match_the_kernel_source():
         assert f"case {which}: return occupancy(FMT_KERNEL_AT(f, {name}_kernel), {threads}," in src, name
     assert len(mk._OCCUPANCY_OF) == 7
     assert f"constexpr int kFormats = {len(mk.KERNEL_FORMATS)};" in src
-    for f, (packed, sh) in enumerate(mk.KERNEL_FORMATS.values()):
-        inst = f"&k<{packed}, {'true' if sh else 'false'}>"
+    for f, (packed, sh, cache) in enumerate(mk.KERNEL_FORMATS.values()):
+        inst = f"&k<{packed}, {'true' if sh else 'false'}, {'true' if cache else 'false'}>"
         pat = rf"\(f\) == {f}\s+\? {re.escape(inst)}" if f else rf":\s+{re.escape(inst)}\)"
         assert re.search(pat, src), (f, inst)
 

@@ -118,7 +118,7 @@ def _walk_any(ms, o, d, tmax):
     to = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
     o, d = to(o), to(d)
     tmin = torch.full((o.shape[0],), mk._f(2.0 * mk.M_EPS))
-    hit, _ = mk._trace_any(ms, tuple(o.T), tuple(d.T), tmin, to(tmax))
+    hit = mk._trace_any(ms, tuple(o.T), tuple(d.T), tmin, to(tmax))[0]
     return hit.numpy()
 
 

@@ -199,8 +199,14 @@ def test_checkpoint_resume_bit_equal(driver, tmp_path):
     ("mega_window", 2), ("mega_packet", 1024), ("spec_resolve", 1),
 ])
 def test_unported_config_refused(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Renderer(_port_scene(), RenderConfig(width=64, height=64, **{field: value}), device="cpu")
+    """The walker knobs the port once refused are accepted and leave the
+    film as it is bit for bit."""
+    cfg = dict(width=64, height=64, spp=1, block_size=64, max_bounces=6)
+    plain = Renderer(_port_scene(), RenderConfig(**cfg), device="cpu")
+    knob = Renderer(_port_scene(), RenderConfig(**cfg, **{field: value}), device="cpu")
+    knob.render()
+    plain.render()
+    assert torch.equal(knob.film.view(torch.int32), plain.film.view(torch.int32))
 
 
 def test_unknown_driver_or_traversal_refused():

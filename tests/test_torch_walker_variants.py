@@ -3,8 +3,9 @@ the CPU runs) against each walker variant of the TPU megakernel.
 
 ``hijiki_tpu``'s ``render_tiles`` walks the trace rows with one of several
 walkers, chosen by its knobs: the VMEM walk (the default), the HBM walk
-(``table_in_hbm``), the HBM window walk (``hbm_window=2``), the grouped HBM
-walk (``groups=2, packet=256``) and the software-pipelined walk with its
+(``table_in_hbm``), the HBM window walk (``hbm_window=2``), the HBM walk
+with its VMEM trunk cache (``trunk_rows=64``), the grouped HBM walk
+(``groups=2, packet=256``) and the software-pipelined walk with its
 pipelined winner resolve (``spec_resolve``). Each computes the same closest
 and any hit. Here the port's ``render_tiles`` (the twin, on the CPU) is held
 against each, run in interpret mode, on the random scenes of
@@ -37,6 +38,10 @@ BOUNCES = 8
 VARIANTS = [
     ("hbm", dict(table_in_hbm=True), True),
     ("hbm_window2", dict(table_in_hbm=True, hbm_window=2), True),
+    # the trunk cache (the table's first 64 rows served from VMEM): a fetch
+    # source, so the port's walk is its check; mega_trunk resolves to 0 in
+    # the port, which streams no table
+    ("hbm_trunk", dict(table_in_hbm=True, trunk_rows=64), True),
     ("spec_resolve", dict(spec=True, spec_resolve=True), True),
     ("hbm_grouped", dict(table_in_hbm=True, groups=2, packet=256), False),
 ]

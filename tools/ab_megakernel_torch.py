@@ -98,10 +98,12 @@ from chip_smoke import bit_equal, record_calls  # noqa: E402
 
 def mangled(kernel: str, *older: str) -> tuple:
     """Parts of a megakernel's mangled name: the classic instantiation
-    <0, false> of this tree's template on the trace-row format, the plain
-    function of a tree from before it, and ``older`` forms."""
+    without the occlusion cache, <0, false, false>, of this tree's template
+    on the trace-row format (<0, false> in a tree from before the cache),
+    the plain function of a tree from before the formats, and ``older``
+    forms."""
     n = f"{len(kernel)}{kernel}"
-    return (f"{n}ILi0ELb0EE", f"{n}E") + older
+    return (f"{n}ILi0ELb0ELb0EE", f"{n}ILi0ELb0EE", f"{n}E") + older
 
 
 # the kernels reported, by a part of their mangled names
@@ -161,30 +163,35 @@ def warps_from_registers(regs: int, threads: int = 128) -> int:
     return blocks * threads // 32
 
 
-def old_scene(tree: Path) -> bool:
-    """Whether ``tree``'s C entries take the scene block of the builds
-    before the packed formats: the rows, the constants and 10 ints (no
-    packed format, payload rows, boxes or shadow table)."""
-    return "shadow_rows" not in (tree / "walk.cuh").read_text()
+def old_scene(tree: Path) -> int | None:
+    """How much of mk._scene_args the C entries of ``tree`` take after the
+    rows and the constants: its first 10 in the builds before the packed
+    formats (no packed format, payload rows, boxes or shadow table), its
+    first 15 in those before the occlusion cache (no cache or skip-all
+    word); None: all of it."""
+    text = (tree / "walk.cuh").read_text()
+    if "shadow_rows" not in text:
+        return 10
+    return 15 if "skip_all" not in text else None
 
 
-def entry_argtypes(fn: str, old: bool) -> list:
-    """build.SIGNATURES[fn], with an old scene block where ``old``."""
+def entry_argtypes(fn: str, old: int | None) -> list:
+    """build.SIGNATURES[fn], with the scene block of an ``old_scene``."""
     from hijiki_tpu_torch.utils import build
 
     argtypes = list(build.SIGNATURES[fn])
     if old and argtypes[:len(build._SCENE)] == build._SCENE:
-        del argtypes[12:len(build._SCENE)]
+        del argtypes[2 + old:len(build._SCENE)]
     return argtypes
 
 
-def scene_args(ms, old: bool) -> tuple:
+def scene_args(ms, old: int | None) -> tuple:
     """The scene block of a call: rows, constants, mk._scene_args (its first
-    10 for an old library)."""
+    ``old`` for an old library)."""
     from hijiki_tpu_torch.ops import megakernel as mk
 
     ints = mk._scene_args(ms)
-    return (ms.rows.data_ptr(), ms.consts.data_ptr(), *(ints[:10] if old else ints))
+    return (ms.rows.data_ptr(), ms.consts.data_ptr(), *(ints[:old] if old else ints))
 
 
 class Lib:
@@ -832,7 +839,7 @@ PATH_KERNELS = {"K1": (mangled("mk_start_kernel", "mk_start_kernelILb0E"), "mk_s
 # from the parent's: "order", the sorted launches' order record; "K8", K8's
 # outputs)}. The parent's k8_copy splits its K8: the sort replaced by the
 # identity permutation, so what is left is the copy.
-_K5 = ("  persistent_paths<true, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,\n"
+_K5 = ("  persistent_paths<true, kFmt, kSh, kCache>(S, px, py, seeds, n, 1, cap, next,\n"
        "                                    TileFinish{n, out, rng_out});\n")
 _K8_ISSUE = "  for (int b = 0; b < kRing; ++b) issue(sh, payload, T, C, tile, b);  // in flight during the sort\n"
 PATH_VARIANTS = {
@@ -849,7 +856,7 @@ PATH_VARIANTS = {
     # identity (the copy alone), its copies issued after the sort, one
     # channel a batch and one batch in flight, its network not unrolled
     "k1_onepath": ("new", {"megakernel.cu": [
-        ("  persistent_paths<false, kFmt, kSh>(S, px, py, seeds, n, 1, cap, next,\n"
+        ("  persistent_paths<false, kFmt, kSh, kCache>(S, px, py, seeds, n, 1, cap, next,\n"
          "                                     StateFinish{n, st_out, rng_out});\n",
          "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
          "  __shared__ float stash[kStashWords * kThreads];\n"
@@ -859,7 +866,7 @@ PATH_VARIANTS = {
          "  while (going(p, cap)) bounce<true, kThreads, false, kFmt, kSh>(S, p, stash + threadIdx.x);\n"
          "  write_state(p, st_out, rng_out, i, n);\n", 1),
         ("  return launch_persistent(FMT_KERNEL(S, mk_start_kernel), n, stream,",
-         "  return launch_paths<false>(FMT_KERNEL(S, mk_start_kernel), n, stream,", 1)]}, ()),
+         "  return launch_paths<false>(FMT_KERNEL(S, mk_start_kernel), n, 0, stream,", 1)]}, ()),
     "k5_onepath": ("new", {"megakernel.cu": [
         (_K5, "  const int i = blockIdx.x * blockDim.x + threadIdx.x;\n"
               "  __shared__ float stash[kStashWords * kThreads];\n"
@@ -869,7 +876,7 @@ PATH_VARIANTS = {
               "  while (going(p, cap)) bounce<true, kThreads, true, kFmt, kSh>(S, p, stash + threadIdx.x);\n"
               "  write_tile(p, out, rng_out, i, n);\n", 1),
         ("  return launch_persistent(FMT_KERNEL(S, mk_tiles_kernel), n, stream,",
-         "  return launch_paths<false>(FMT_KERNEL(S, mk_tiles_kernel), n, stream,", 1)]}, ()),
+         "  return launch_paths<false>(FMT_KERNEL(S, mk_tiles_kernel), n, 0, stream,", 1)]}, ()),
     "k5_nogate": ("new", {"megakernel.cu": [(_K5, _K5.replace("<true,", "<false,"), 1)]}, ()),
     "k5_nobounds": ("new", {"megakernel.cu": [
         ("__global__ void __launch_bounds__(kThreads, kPersistMinBlocks)\n    mk_tiles_kernel(",
@@ -905,13 +912,13 @@ PATH_VARIANTS = {
          "  put_path<kSortTile>(p, my + (pid - lane));\n"
          "  __syncthreads();\n"
          "  get_path<kSortTile>(p, my);\n}\n", "  return pid;\n}\n", 1),
-        ("  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+        ("  bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);\n"
          "  if (i < n) write_state(p, st_out, rng_out, i, n);\n",
-         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);\n"
          "  if (g < n) write_state(p, st_out, rng_out, g, n);\n", 2),
-        ("  bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+        ("  bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);\n"
          "  if (i < n) write_tile(p, out, rng_out, i, n);\n",
-         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh>(S, p, cap, n, order);\n"
+         "  const int g = blockIdx.x * kSortTile + bounce_loop_sorted<kFmt, kSh, kCache>(S, p, cap, n, order);\n"
          "  if (g < n) write_tile(p, out, rng_out, g, n);\n", 1)]}, ()),
 }
 

@@ -47,9 +47,11 @@ TILE_LINE = "constexpr int kSortTile = 256;"
 KEY_LINE = "  if (!(p.alive > 0.0f)) return kDeadKey;"
 SORT_LINES = ("    int key = lane_key(S, p);\n"
               "    put_path<kSortTile>(p, my);\n"
+              "    if constexpr (kCache) my[kPredWord * kSortTile] = __int_as_float(pred);\n"
               "    const int src = hijiki_sort::block_sort_packed<kSortTile, kDeadKey>(key, lane, sh.sort);\n"
               "    get_path<kSortTile>(p, my + (src - lane));\n"
-              "    pid = __float_as_int(my[kPidWord * kSortTile + (src - lane)]);\n")
+              "    pid = __float_as_int(my[kPidWord * kSortTile + (src - lane)]);\n"
+              "    if constexpr (kCache) pred = __float_as_int(my[kPredWord * kSortTile + (src - lane)]);\n")
 KEYS = {"full": {}, "dead": {KEY_LINE: "  return p.alive > 0.0f ? 0 : kDeadKey;"},
         "identity": {KEY_LINE: "  return threadIdx.x;"}, "lockstep": {SORT_LINES: ""}}
 
