@@ -12,6 +12,12 @@ of them once more before the kernel report); any failure exits non-zero:
 3. K3, the reconstruction kernel, against its plain twin on the card at
    1024x1024 and at 1024 x 1000 (a width that is no multiple of the block),
    numpy-seeded inputs with NaN pixels: rtol 1e-5, atol 1e-6 (expf ULPs);
+3b. the native loaders: meshbox.obj and meshbox_small.obj through the
+   native OBJ parser (backend="native": a failed g++ build fails the run)
+   held array for array to the Python parser, and meshbox + spheres
+   compiled with the native BVH builder held to the numpy builder's
+   compile, every array equal (so again for (p)'s 100,384-triangle
+   compile); the seconds of each load, compile and its BVH builds;
 4. quick gates on the full meshbox + spheres at 64x64, max_bounces 24,
    each kernel against its twin on the card with the final RNG state
    bit-equal on >= 99.5% of paths and radiance within rtol/atol 2e-3 on
@@ -73,7 +79,8 @@ of them once more before the kernel report); any failure exits non-zero:
        film bit-equal to (a)'s;
    (p) the 2-level 4-to-1 split of meshbox + spheres (100,384 triangles,
        scene/bigscene.py), compiled by auto (PACKED4) and as classic rows
-       at leaf 4 (the same tree), compile seconds and table bytes printed:
+       at leaf 4 (the same tree), compile seconds and table bytes printed,
+       and compiled by auto with the numpy BVH builder: every array equal;
        the two films bit-equal; then 3 fresh renders each of (a), (a0),
        (o) and the two (p) in turns: warm Mrays/s, medians, rows visited;
    (c) the overflow retry at 256x256, 8 spp, chain cap 2, phase_shrink
@@ -124,6 +131,22 @@ of them once more before the kernel report); any failure exits non-zero:
        stride of the sweeps on one band; both ranks' merged films bit-equal
        and held to the single 256x256 film at rtol 1e-4 / atol 1e-5; the
        launches are the two processes' own, reported by them;
+   (r) the oracle gate at equal seeds: meshbox + spheres (JAX's default
+       compile), 64x64, the 64 sweeps of BlockScheduler(64, 64, 64, seed
+       0) as tools/oracle_mse.py draws them, max_bounces 1000, through the
+       native scalar oracle (ops/oracle_native.py: every primitive by brute
+       force, one sweep a job in the twin workers, the films summed in
+       sweep order) and on the card through render_waves_chained (K4 +
+       K2, 8 sweeps a call), render_waves (K1 + K2, every sweep's paths in
+       one call) and the sync integrator with the rows traversal (K6; and
+       once more from the megakernel's camera, the oracle's, in place of
+       camera_rays'), each driver's per-lane radiance before any
+       reconstruction: for the pairs oracle-chained, oracle-unchained,
+       oracle-sync, chained-sync and oracle-sync_mega_camera the
+       raw MSE, the divergent pixels (per-pixel MSE > 1e-6) and the trimmed
+       MSE without them (tools/oracle_mse.py's readings); oracle-chained or
+       oracle-sync at raw MSE >= 1e-4 (BASELINE.json), more than 1% of the
+       pixels divergent or a trimmed MSE > 1e-8 fails the run;
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
@@ -170,7 +193,9 @@ of them once more before the kernel report); any failure exits non-zero:
    trace-row format (classic with and without the boxes and with the
    shadow table, 1, 3, 4, 12) on the meshbox: its chained chunk and
    unchained sweep recorded and replayed through K4, K1 and K2, and K5
-   over the frame, timed with rows visited and bound; (p)'s chained chunk
+   over the frame, timed with rows visited and bound, each call's rows
+   split by kind by its plain version on the host on every 251st lane (in
+   the twin workers); (p)'s chained chunk
    (8 x 1M slots) timed; the chained chunk's and the unchained sweep's
    recorded calls, and K5 over the frame, through the cache-on kernels
    beside the cache-off ones (in turns), every output but rows bit-equal,
@@ -205,8 +230,11 @@ and K5 also name the formats they were held on (``formats``) and their
 time and bound per format (``ms_by_format``); each entry
 has its bound (bound_ms: the
 larger of the bytes this run's data needs at 3.35 TB/s and its f32
-operations at 67 TFLOP/s, counted from this run's row-visit counters at
-ROW_OPS per row; a K2 resume counts every lane's alive flag and the state
+operations at 67 TFLOP/s, counted from this run's row-visit counters, each
+row at its kind's operations as the call's plain version splits its rows
+(ROW_OPS an interior row, PRIM_ROW_OPS a prim row of its format, none the
+winner's row read to shade; the split from the full-size plain versions
+of phase 6, and per format from every 251st lane); a K2 resume counts every lane's alive flag and the state
 of its live lanes only, a K6 walk the o and d of the rays that walk and
 the six outputs of the TPU kernel's contract; a sorted kernel the work of
 its unsorted twin, the sort touching no device memory; K8 its key and
@@ -241,9 +269,17 @@ WAVEFRONT_SWEEPS = 2
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # f32 operations counted per trace row a walk visits: the interior row's
-# slab test (12 mul/add, 10 min/max, 1 add, 3 compares), the cheapest row;
-# prim rows and shading are not counted, so the bound is a lower one
+# slab test (12 mul/add, 10 min/max, 1 add, 3 compares), the cheapest row
 ROW_OPS = 26
+# a prim row's f32 operations by its table's format (0 classic, 1 SLIM, 3
+# PACKED3, 4 PACKED4, 12 PACKED12): 41 a triangle test (3 sub, 9 for the
+# cross product, 6 for the denominator and its reciprocal, 6 each for u, v
+# and t, 7 compares and u + v), 9 more where the row recomputes the plane
+# normal (SLIM, PACKED3, PACKED12), times the prims a row. The megakernels'
+# bounds charge a visited row at its kind's ops, split as their plain
+# versions' walks split (mk.row_kinds); a winner's row read to shade it
+# ("resolve") and shading are not counted, so the bound stays a lower one
+PRIM_ROW_OPS = {0: 41, 1: 50, 3: 150, 4: 164, 12: 600}
 # f32 operations per pixel and tap of the R = 2 reconstruction (feature
 # distance, weight, NaN test, 4 accumulations)
 TAP_OPS = 25
@@ -273,6 +309,11 @@ GATE_SAMPLES = 2
 # all at once: each is a Python loop of small launches (one bounce, one
 # walk step at a time), so one process leaves the card mostly idle
 TWIN_WORKERS = 7
+# the per-format bound's split of rows by kind: each format's calls through
+# their plain versions on the host, on every SPLIT_STRIDE-th lane (4,178 of
+# a 1M sweep; a prime, so the lanes of a row-major frame spread over its
+# columns)
+SPLIT_STRIDE = 251
 # K6's calls of one sync sweep replayed in phase 6 (two a bounce: closest,
 # then shadow): bounce 1's closest and shadow walks, the closest walks of
 # bounces 9, 30 and 200
@@ -280,6 +321,19 @@ K6_CALLS = (0, 1, 16, 58, 398)
 # bounces of that sweep whose K6 launches torch.profiler times (the whole
 # sweep, ~500 bounces of host-bound launches, took ~60 s under the profiler)
 K6_PROFILE_BOUNCES = 16
+# phase (r), the oracle gate: meshbox + spheres at ORACLE_SIDE², ORACLE_SPP
+# sweeps of BlockScheduler(ORACLE_SIDE, ORACLE_SIDE, ORACLE_BLOCK, seed 0).
+# The bar: raw MSE below BASELINE.json's gate, at most BAR_DIVERGENT of the
+# pixels divergent (per-pixel MSE > DIVERGENT_PX), the rest within
+# BAR_TRIMMED (docs/PARITY.md:130-134 read 2.165e-07 raw and 17 of 4096
+# divergent for the JAX mega driver at 64² x 4096 spp; both scale ~1/spp)
+ORACLE_SIDE = 64
+ORACLE_SPP = 64
+ORACLE_BLOCK = 64
+BAR_MSE = 1e-4
+BAR_DIVERGENT = 0.01
+BAR_TRIMMED = 1e-8
+DIVERGENT_PX = 1e-6
 
 
 # path (n): the host stride in two processes sharing the card
@@ -362,6 +416,126 @@ def two_process_render(out_dir: str):
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def equal_seed_inputs(side: int, spp: int, seed: int):
+    """(per-pixel seeds (spp, side²) u32, sweep offsets (spp, 2) f32): the
+    sweeps of ``BlockScheduler(side, side, 64, seed)``, drawn sweep by sweep
+    as tools/oracle_mse.py draws them for its oracle and its drivers."""
+    import numpy as np
+
+    from hijiki_tpu_torch.render.blocks import BlockScheduler, per_pixel_seeds
+
+    sched = BlockScheduler(side, side, ORACLE_BLOCK, seed)
+    seeds, offsets = [], []
+    for si in range(spp):
+        s = sched.sweep(si)
+        seeds.append(np.asarray(per_pixel_seeds(side, side, ORACLE_BLOCK, s.block_seeds)).reshape(-1))
+        offsets.append(np.asarray(s.sample_offset, np.float32))
+    return np.stack(seeds).astype(np.uint32), np.stack(offsets)
+
+
+def oracle_sweep(cs, seeds, offset, side: int):
+    """One sweep of the native scalar oracle: ((side, side, 3) f64 radiance,
+    its seconds). Numpy and the host library only, so a worker that holds a
+    CUDA context never touches the card here."""
+    from hijiki_tpu_torch.ops.oracle_native import render_oracle_native
+
+    t0 = time.monotonic()
+    film = render_oracle_native(cs, seeds[None], offset[None], side, side)
+    return film, time.monotonic() - t0
+
+
+def in_sweep_order(films):
+    """The mean of per-sweep films, summed in sweep order (the same film
+    whatever process rendered which sweep, and when)."""
+    acc = films[0].copy()
+    for f in films[1:]:
+        acc += f
+    return acc / len(films)
+
+
+def oracle_film(cs, seeds, offsets, side: int):
+    """The oracle's mean film (side, side, 3) f64 over the sweeps of
+    ``seeds``/``offsets``, each sweep alone, in this process."""
+    from hijiki_tpu_torch.ops.oracle import host_scene
+
+    cs = host_scene(cs)
+    return in_sweep_order([oracle_sweep(cs, sd, of, side)[0] for sd, of in zip(seeds, offsets)])
+
+
+def driver_films(cs, seeds, offsets, side: int, device, chain: int = 8):
+    """Mean radiance films (side, side, 3) f64, before any reconstruction,
+    of three drivers on ``device`` with the oracle's seeds and sweep
+    offsets: "chained" (render_waves_chained, ``chain`` sweeps a call: K4
+    and K2 on a card), "unchained" (render_waves over every sweep's paths
+    in one call: K1 and K2), "sync" (the sync integrator with the ``rows``
+    traversal over the same paths: K6) and "sync_mega_camera" (the same
+    from the megakernel's camera, the baked matrix that the oracle's
+    camera shares, in place of camera_rays' quaternion rotation: what the
+    sync driver's own camera adds). Fails on overflow."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+    from hijiki_tpu_torch.ops.camera import camera_rays
+    from hijiki_tpu_torch.ops.integrate import integrate
+    from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
+    from hijiki_tpu_torch.scene.compile import to_device
+
+    spp, n = seeds.shape
+    y, x = np.mgrid[0:side, 0:side].astype(np.float32)
+    px = torch.from_numpy(np.stack([x.reshape(-1) + o[0] for o in offsets])).to(device)
+    py = torch.from_numpy(np.stack([y.reshape(-1) + o[1] for o in offsets])).to(device)
+    sd = torch.from_numpy(seeds.view(np.int32)).to(device)  # the u32 bits
+    ms = mk.mega_scene(cs, side, side, device)
+    totals = {"chained": []}
+    for s0 in range(0, spp, chain):
+        out = mk.render_waves_chained(ms, px[s0:s0 + chain].contiguous(),
+                                      py[s0:s0 + chain].contiguous(),
+                                      sd[s0:s0 + chain].contiguous(), max_bounces=1000)
+        if int(out[4]) != 0:
+            fail(f"(r) render_waves_chained overflowed ({int(out[4])} paths)")
+        totals["chained"].append(out[0])
+    totals["chained"] = torch.cat(totals["chained"])
+    out = mk.render_waves(ms, px.reshape(-1), py.reshape(-1), sd.reshape(-1), max_bounces=1000)
+    if int(out[4]) != 0:
+        fail(f"(r) render_waves overflowed ({int(out[4])} paths)")
+    totals["unchained"] = out[0]
+    csd = to_device(cs, device)
+    o, d, tmin, tmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
+                                   torch.stack([px.reshape(-1), py.reshape(-1)], -1), (side, side))
+    totals["sync"] = integrate(csd, o, d, tmin, tmax, seed_rng(from_bits(sd.reshape(-1))),
+                               max_bounces=1000, traversal="rows").total
+    d_mega = torch.stack(mk._camera_ray(ms, px.reshape(-1), py.reshape(-1)), -1)
+    totals["sync_mega_camera"] = integrate(csd, o, d_mega, tmin, tmax,
+                                           seed_rng(from_bits(sd.reshape(-1))),
+                                           max_bounces=1000, traversal="rows").total
+    return {k: v.reshape(spp, side, side, 3).cpu().numpy().astype(np.float64).sum(0) / spp
+            for k, v in totals.items()}
+
+
+def readings(a, b) -> tuple:
+    """(raw MSE, divergent pixels, trimmed MSE) of two mean films, as
+    tools/oracle_mse.py reports them: a pixel is divergent where its MSE
+    over the channels passes DIVERGENT_PX (a sampling decision taken
+    otherwise, far above f32 noise); the trimmed MSE leaves those out."""
+    err = ((a - b) ** 2).mean(axis=-1)
+    tie = err > DIVERGENT_PX
+    return float(err.mean()), int(tie.sum()), float(err[~tie].mean()) if (~tie).any() else 0.0
+
+
+def breaks_bar(r, n_px: int) -> str:
+    """"" where the readings ``r`` meet the equal-seed bar, else why not."""
+    mse, n_div, trimmed = r
+    why = []
+    if not mse < BAR_MSE:
+        why.append(f"raw MSE {mse:.3e} >= {BAR_MSE:g}")
+    if n_div > BAR_DIVERGENT * n_px:
+        why.append(f"{n_div} divergent pixels > {BAR_DIVERGENT:.0%} of {n_px}")
+    if trimmed > BAR_TRIMMED:
+        why.append(f"trimmed MSE {trimmed:.3e} > {BAR_TRIMMED:g}")
+    return "; ".join(why)
 
 
 _START = time.monotonic()
@@ -541,6 +715,61 @@ CHECKS = {"mk_start": agree, "mk_resume": agree, "mk_start_chained": agree_chain
           "mk_tiles": agree_tiles}
 
 
+def same_scene(a, b) -> str:
+    """"" where two loads of one OBJ (``a`` the Python parser's Triangle
+    objects, ``b`` the native parser's bulk triangles) hold the same arrays
+    and materials, else the first that differs."""
+    import numpy as np
+
+    for name in ("positions", "normals", "uvs"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            return name
+    tris, mats = a.triangles()
+    if not (np.array_equal(tris, b.bulk_tris) and np.array_equal(mats, b.bulk_tri_mats)):
+        return "triangles"
+    return "" if [repr(m) for m in a.materials] == [repr(m) for m in b.materials] else "materials"
+
+
+def same_compiled(a, b) -> str:
+    """"" where two compiled scenes hold equal fields (arrays bit for bit,
+    statics by value), else the first that differs."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if x is None or y is None or x.dtype != y.dtype or not np.array_equal(x, y):
+                return f.name
+        elif x != y:
+            return f.name
+    return ""
+
+
+def compile_with(scene, backend: str, **kw):
+    """(compile_scene(scene, **kw) with build_bvh(backend=``backend``) for
+    every tree, its seconds, the seconds of its BVH builds)"""
+    from hijiki_tpu_torch.accel.bvh import build_bvh
+    from hijiki_tpu_torch.scene import compile as sc
+
+    spent = [0.0]
+
+    def timed_build(mn, mx, leaf_size=1):
+        t0 = time.monotonic()
+        out = build_bvh(mn, mx, leaf_size, backend=backend)
+        spent[0] += time.monotonic() - t0
+        return out
+
+    sc.build_bvh = timed_build
+    t0 = time.monotonic()
+    try:
+        cs = sc.compile_scene(scene, **kw)
+    finally:
+        sc.build_bvh = build_bvh
+    return cs, time.monotonic() - t0, spent[0]
+
+
 def _twin_init() -> None:
     """A twin worker's start: its CUDA context, made before any job."""
     import torch
@@ -556,7 +785,7 @@ def twin_job(label, name, sc, args, kw, got):
     with ``lane_order`` its order record checked as check_order does.
     Returns (the plain version's ms, its max abs error, what it printed,
     "" or why it failed, the occlusion-cache pretests (tried, verified) it
-    made)."""
+    made, its rows visited by kind: mk.row_kinds)."""
     import contextlib
     import io
 
@@ -567,6 +796,7 @@ def twin_job(label, name, sc, args, kw, got):
     try:
         with contextlib.redirect_stdout(buf):
             mk.reset_pretest_counts()
+            mk.reset_row_kinds()
             fn = getattr(mk, f"megakernel_{name[3:]}_plain")
             t_p, want = timed(lambda: fn(sc, *args, **kw), reps=1, warm=False)
             n = len(got) - 1 if kw.get("lane_order") else len(got)
@@ -575,26 +805,61 @@ def twin_job(label, name, sc, args, kw, got):
                 fail(f"{label}: the kernel's outputs differ from its plain version's bit for bit")
             if kw.get("lane_order"):
                 check_order(label, mk, sc, got, want)
-            pre = mk.pretest_counts()
+            pre, kinds = mk.pretest_counts(), mk.row_kinds()
     except SystemExit:
-        return t_p, err, buf.getvalue(), "failed", (0, 0)
-    return t_p, err, buf.getvalue(), "", pre
+        return t_p, err, buf.getvalue(), "failed", (0, 0), {}
+    return t_p, err, buf.getvalue(), "", pre, kinds
 
 
 def run_twins(pool, jobs) -> list:
     """Every (label, entry, scene, args, kw, the kernel's outputs) of
     ``jobs`` through ``twin_job`` in the worker processes of ``pool``, all
     in flight at once; prints what each printed, in order, and fails at the
-    first that failed. Returns [(plain ms, max abs err, pretests)]."""
+    first that failed. Returns [(plain ms, max abs err, pretests, rows by
+    kind)]."""
     futures = [pool.submit(twin_job, *job) for job in jobs]
     out = []
     for job, fut in zip(jobs, futures):
-        t_p, err, text, why, pre = fut.result()
+        t_p, err, text, why, pre, kinds = fut.result()
         print(text, end="", flush=True)
         if why:
             fail(f"{job[0]}: its plain version {why}")
-        out.append((t_p, err, pre))
+        out.append((t_p, err, pre, kinds))
     return out
+
+
+def row_ops(kinds: dict) -> float:
+    """f32 operations a visited row, averaged over a plain version's rows by
+    kind (``mk.row_kinds``): ROW_OPS an interior row, PRIM_ROW_OPS a prim
+    row of its format, none a winner's row read to shade."""
+    rows = sum(kinds.values())
+    ops = sum(n * (ROW_OPS if k == "interior" else 0 if k == "resolve" else PRIM_ROW_OPS[k])
+              for k, n in kinds.items())
+    return ops / rows if rows else ROW_OPS
+
+
+def row_split(name, sc, args) -> dict:
+    """In a twin worker, on the host: the plain version of the megakernel
+    entry ``name`` on ``sc`` and ``args`` (a CPU scene and CPU tensors);
+    returns its rows visited by kind (mk.row_kinds)."""
+    import torch
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+
+    torch.set_num_threads(1)
+    mk.reset_row_kinds()
+    getattr(mk, f"megakernel_{name[3:]}_plain")(sc, *args)
+    return mk.row_kinds()
+
+
+def lanes_of(name, args, stride: int):
+    """A megakernel call's positional arguments on every ``stride``-th lane
+    (a path's lane is a column of K2's state and of K4's (S, N) inputs)."""
+    if name == "mk_resume":
+        st, rng, cap = args
+        return st[:, ::stride].contiguous(), rng[::stride].contiguous(), cap
+    *lanes, cap = args
+    return (*(a[..., ::stride].contiguous() for a in lanes), cap)
 
 
 def record_calls(mk, names, run):
@@ -964,11 +1229,34 @@ def main() -> int:
         want = reconstruct_sweep(c, n, torch.zeros_like(c), so, block_size=128)
         k3_err = max(k3_err, check_k3(f"K3 {H}x{W}", got, want))
 
+    # ---- 3b. the native loaders: the OBJ parser and the BVH builder ----
+    phase("loaders: the native OBJ parser and BVH builder against python and numpy")
+    for path in (SCENE, SCENE_SMALL):
+        t0 = time.monotonic()
+        nat = load_obj_scene(path, backend="native")  # no fallback: a failed g++ fails here
+        t_nat = time.monotonic() - t0
+        t0 = time.monotonic()
+        why = same_scene(load_obj_scene(path, backend="python"), nat)
+        t_py = time.monotonic() - t0
+        if why:
+            fail(f"{os.path.basename(path)}: the native parser's {why} differ from the Python parser's")
+        print(f"{os.path.basename(path)}: {nat.bulk_tris.shape[0]} triangles, native parser "
+              f"{t_nat:.4f} s (its g++ build included on the first), Python parser {t_py:.4f} s; "
+              f"equal arrays and materials", flush=True)
+    scene = load_obj_scene(SCENE, backend="native")
+    scene.put_cbox_spheres()
+    cs, t_cn, t_bn = compile_with(scene, "native")
+    cs_np, t_cp, t_bp = compile_with(scene, "numpy")
+    why = same_compiled(cs, cs_np)
+    if why:
+        fail(f"meshbox + spheres: the native builder's compiled {why} differs from the numpy builder's")
+    print(f"meshbox + spheres compiled with the native BVH builder in {t_cn:.3f} s (builds "
+          f"{t_bn:.4f} s), with the numpy builder in {t_cp:.3f} s (builds {t_bp:.4f} s): every "
+          f"array equal", flush=True)
+    del cs_np
+
     # ---- 4. quick gates: every megakernel launch against the twin ----
     phase("K1/K2/K4/K5 megakernel vs twin, 64x64")
-    scene = load_obj_scene(SCENE)
-    scene.put_cbox_spheres()
-    cs = compile_scene(scene)
     print(f"scene: {cs.num_triangles} triangles, {cs.num_spheres} spheres, "
           f"{cs.trace_rows_mega.shape[0]} trace rows, {cs.mega_num_tables_static} table(s)")
     S = 64
@@ -1379,9 +1667,8 @@ def main() -> int:
     big = split_scene(scene, 2)
     compiled_big = {}
     for key, kw in (("(p) PACKED4", {}), ("(p) classic leaf 4", dict(packed_leaf=0, leaf_size=4))):
-        t_c = time.monotonic()
-        cb = compile_scene(big, **kw)
-        secs_c = time.monotonic() - t_c
+        cb, secs_c, secs_b = compile_with(big, "native", **kw)
+        print(f"{key}: the native BVH builder's builds {secs_b:.3f} s of the compile", flush=True)
         tb_bytes = cb.trace_rows_mega.nbytes + (cb.shadow_rows_mega.nbytes
                                                 if cb.shadow_rows_mega is not None else 0)
         print(f"{key}: {cb.num_triangles} triangles compiled in {secs_c:.1f} s; format "
@@ -1393,6 +1680,14 @@ def main() -> int:
         compiled_big[key] = cb
     if compiled_big["(p) PACKED4"].mega_packed_static != 4 or big.bulk_tris.shape[0] != 100384:
         fail("(p): the split scene is not 100,384 triangles compiled PACKED4 by auto")
+    # the smoke's largest compile through the numpy builder: the same arrays
+    cb_np, secs_c, secs_b = compile_with(big, "numpy")
+    why = same_compiled(compiled_big["(p) PACKED4"], cb_np)
+    if why:
+        fail(f"(p): the native builder's compiled {why} differs from the numpy builder's")
+    print(f"(p) PACKED4 compiled with the numpy BVH builder in {secs_c:.1f} s (builds "
+          f"{secs_b:.3f} s): every array equal to the native builder's compile", flush=True)
+    del cb_np
     renders_p = {}
     for key, cb in compiled_big.items():
         rp_ = Renderer(cb, RenderConfig(**slice_cfg), device="cuda")
@@ -1708,6 +2003,49 @@ def main() -> int:
     if counts_j["sort_tiles"] <= 0:
         fail("(j) sort_tiles was not launched")
 
+    # ---- (r) the oracle gate at equal seeds ----
+    # the native scalar oracle (every primitive by brute force: no trace
+    # row, box or cache of the kernels') on the twin workers' CPUs, one
+    # sweep a job, while the card renders the same seeds and jitter through
+    # the chained (K4 + K2), unchained (K1 + K2) and sync (K6) drivers
+    from hijiki_tpu_torch.ops.oracle import host_scene
+    from hijiki_tpu_torch.ops.oracle_native import load_library as oracle_library
+
+    if oracle_library() is None:
+        fail("(r) the native oracle did not build (g++)")
+    r_seeds, r_offs = equal_seed_inputs(ORACLE_SIDE, ORACLE_SPP, 0)
+    t_r = time.monotonic()
+    cs_host = host_scene(cs)
+    r_jobs = [twin_pool.submit(oracle_sweep, cs_host, sd, of, ORACLE_SIDE)
+              for sd, of in zip(r_seeds, r_offs)]
+    r_films, counts_r = drive(
+        f"(r) the oracle gate: {ORACLE_SIDE}x{ORACLE_SIDE}, {ORACLE_SPP} sweeps of seed 0, "
+        "max_bounces 1000: the chained, unchained and sync drivers against the native oracle",
+        lambda: driver_films(cs, r_seeds, r_offs, ORACLE_SIDE, dev))
+    t_drivers = time.monotonic() - t_r
+    r_out = [j.result() for j in r_jobs]
+    r_films["oracle"] = in_sweep_order([f for f, _ in r_out])
+    print(f"(r) drivers {t_drivers:.1f} s on the card; the oracle's {ORACLE_SPP} sweeps "
+          f"{sum(t for _, t in r_out):.1f} s of CPU in {TWIN_WORKERS} processes, "
+          f"{time.monotonic() - t_r:.1f} s of wall in all; launches {counts_r}", flush=True)
+    for k in ("mk_start_chained", "mk_resume", "mk_start", "traverse"):
+        if counts_r[k] <= 0:
+            fail(f"(r): kernel {k} was not launched")
+    for name, film in r_films.items():
+        if not (np.isfinite(film).all() and film.mean() > 0):
+            fail(f"(r) the {name} film is not finite with a mean > 0")
+    n_px = ORACLE_SIDE * ORACLE_SIDE
+    for a, b in (("oracle", "chained"), ("oracle", "unchained"), ("oracle", "sync"),
+                 ("chained", "sync"), ("oracle", "sync_mega_camera")):
+        r = readings(r_films[a], r_films[b])
+        why = breaks_bar(r, n_px)
+        print(f"(r) {a}-{b}: raw MSE {r[0]:.6e}, divergent pixels {r[1]}/{n_px} (per-pixel "
+              f"MSE > {DIVERGENT_PX:g}), trimmed MSE {r[2]:.6e}: "
+              f"{'meets the bar' if not why else 'breaks the bar: ' + why}", flush=True)
+        if why and (a, b) in (("oracle", "chained"), ("oracle", "sync")):
+            fail(f"(r) {a}-{b} breaks the equal-seed bar: {why}")
+    del r_films, r_out, cs_host
+
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
     phase(f"kernels vs twins at the main path's shapes: the calls recorded, their twins in "
           f"{TWIN_WORKERS} processes at once")
@@ -1716,11 +2054,13 @@ def main() -> int:
     real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
             "mk_start_chained": mk.megakernel_start_chained, "mk_tiles": mk.megakernel_tiles}
 
-    def work(name, args, got, scene=None):
+    def work(name, args, got, scene=None, per_row=ROW_OPS):
         """(bytes, f32 operations) of one megakernel call: the table once
         (the dedicated shadow table too where the launch reads it),
-        ROW_OPS per trace row the call's paths visited (state channel 23 /
-        flush channel 8 count them), and its inputs and outputs once. K2
+        ``per_row`` operations per trace row the call's paths visited
+        (state channel 23 / flush channel 8 count them; row_ops of the
+        plain version's split, ROW_OPS without one), and its inputs and
+        outputs once. K2
         passes a lane that is not alive through unchanged, so a resume
         counts every lane's alive flag and the state and RNG of the live
         lanes, read and written. ``scene``: the launch's MegaScene (default
@@ -1734,11 +2074,11 @@ def main() -> int:
             live = int((st[0] > 0).sum())
             lane_bytes = st.shape[0] * st.element_size() + rng_in.element_size()
             return (table + st.shape[1] * st.element_size() + 2 * live * lane_bytes,
-                    float(rows) * ROW_OPS)
+                    float(rows) * per_row)
         if name == "mk_start_chained":
             rows = rows + got[2][8].sum()
         tensors = [a for a in args if torch.is_tensor(a)] + list(got)
-        return table + nbytes(*tensors), float(rows) * ROW_OPS
+        return table + nbytes(*tensors), float(rows) * per_row
 
     def label_of(tag, name, args):
         lanes = "x".join(str(d) for d in args[-2].shape)  # the seeds or the RNG
@@ -1784,7 +2124,6 @@ def main() -> int:
             for tag, sc, calls, kw in groups for name, args in calls]
     t_twins = time.monotonic()
     twin_out = run_twins(twin_pool, jobs)
-    twin_pool.shutdown()
     twin_of = {job[0]: res for job, res in zip(jobs, twin_out)}
     print(f"{len(jobs)} plain versions at the main path's shapes, {TWIN_WORKERS} at a time: "
           f"{time.monotonic() - t_twins:.1f} s (each one's ms measured with the others sharing "
@@ -1805,11 +2144,11 @@ def main() -> int:
         for name, args in calls:
             label = label_of(tag, name, args)
             t_k, got = timed(lambda: real[name](sc, *args), reps=3)
-            t_p, err, _ = twin_of[label]
+            t_p, err, _, kinds = twin_of[label]
             err_of[name] = max(err_of.get(name, 0.0), err)
             ms_of.setdefault(name, []).append(t_k)
             plain_of.setdefault(name, []).append(t_p)
-            work_of.setdefault(name, []).append(work(name, args, got, sc))
+            work_of.setdefault(name, []).append(work(name, args, got, sc, row_ops(kinds)))
             out_of[name] = got
             b_ms, b_by = bound(*work_of[name][-1])
             print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
@@ -1845,12 +2184,12 @@ def main() -> int:
 
     # K5 over the same frame to cap 1000, against its plain version (above)
     t_k5, got = timed(lambda: mk.megakernel_tiles(ms, *k5_args), reps=3)
-    t_k5p, k5_err, _ = twin_of[label_of("K5", "mk_tiles", k5_args)]
+    t_k5p, k5_err, _, k5_kinds = twin_of[label_of("K5", "mk_tiles", k5_args)]
     # K5 traces K1's paths at cap max_bounces: K1's row counter counts K5's
     # rows, its bounce counter (segs) picks the tail floor's 32 longest paths
     k5_state = mk.megakernel_start(ms, upx, upy, useeds, 1000)[0]
     k5_rows = float(k5_state[23].sum())
-    k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * ROW_OPS)
+    k5_work = (nbytes(upx, upy, useeds, *got, ms.rows, ms.consts), k5_rows * row_ops(k5_kinds))
     top = torch.argsort(k5_state[27], descending=True)[:32]
     tail = [a[top].contiguous() for a in (upx, upy, useeds)]
     t_floor, _ = timed(lambda: mk.megakernel_tiles(ms, *tail, 1000), reps=3)
@@ -1879,7 +2218,7 @@ def main() -> int:
         if not bit_equal(rec[:2], got):
             fail(f"{label}: the launch with the order record differs from the one without")
         # against its sorted plain version, order record included (above)
-        t_p, err, _ = twin_of[label]
+        t_p, err = twin_of[label][:2]
         k7_err = max(k7_err, err)
         k7_ms.append(t_s)
         k7_unsorted.append(t_u)
@@ -1893,7 +2232,7 @@ def main() -> int:
     rec = mk.megakernel_tiles(ms, *k5_args, **sorted_kw)
     if not bit_equal(rec[:2], got):
         fail("K5 sorted: the launch with the order record differs from the one without")
-    t_k5sp, k5s_err, _ = twin_of[label_of("K5 sorted", "mk_tiles", k5_args)]
+    t_k5sp, k5s_err = twin_of[label_of("K5 sorted", "mk_tiles", k5_args)][:2]
     print(f"K5 sorted ({upx.numel()} paths to 1000): {t_k5s:.3f} ms against {t_k5u:.3f} ms unsorted "
           f"(bit-equal), plain {t_k5sp:.3f} ms")
     del rec
@@ -2108,9 +2447,9 @@ def main() -> int:
             label = label_of(tag, name, args)
             if not bit_equal(but_rows(name, on), but_rows(name, off)):
                 fail(f"{label} with the cache differs from the cache-off kernel beyond rows")
-            w_on = work(name, args, on)
+            w_on = work(name, args, on, per_row=row_ops(twin_of[label][3]))
             line = (f"{label}: cache on {t_on:.3f} ms, off {t_off:.3f} ms ({t_on / t_off - 1:+.2%}); "
-                    f"rows {w_on[1] / ROW_OPS:.6e} against {rows_of(name, args, off):.6e}; bound "
+                    f"rows {rows_of(name, args, on):.6e} against {rows_of(name, args, off):.6e}; bound "
                     f"{bound(*w_on)[0]:.4f} ms ({bound(*w_on)[1]})")
             if tag == "unchained sweep:":
                 t_off2, t_sk, _, sk = in_turns(lambda: real[name](ms, *args),
@@ -2125,8 +2464,8 @@ def main() -> int:
     if not bit_equal(on5, off5):
         fail("K5 with the cache differs from K5 without it")
     rows5 = float(mk.megakernel_start(ms_q, upx, upy, useeds, 1000)[0][23].sum())
-    k5c_work = (nbytes(upx, upy, useeds, *on5, ms.rows, ms.consts), rows5 * ROW_OPS)
-    t_k5cp, k5c_err, _ = twin_of[label_of("(q) cache on, K5", "mk_tiles", k5_args)]
+    t_k5cp, k5c_err, _, k5c_kinds = twin_of[label_of("(q) cache on, K5", "mk_tiles", k5_args)]
+    k5c_work = (nbytes(upx, upy, useeds, *on5, ms.rows, ms.consts), rows5 * row_ops(k5c_kinds))
     print(f"K5 over the frame to 1000: cache on {t5_on:.3f} ms, off {t5_off:.3f} ms "
           f"({t5_on / t5_off - 1:+.2%}), bit-equal; rows {rows5:.6e} against {k5_rows:.6e}; bound "
           f"{bound(*k5c_work)[0]:.4f} ms; the cache-on plain version {t_k5cp:.3f} ms", flush=True)
@@ -2140,9 +2479,13 @@ def main() -> int:
     # and its K2 resumes) and unchained sweep (K1 to cap 5, K2 to 12, 48,
     # 1000) recorded and replayed through the kernels, and K5 over the frame
     # to 1000, each timed (mean of 3) beside its rows visited and its bound
-    # (the classic rows' plain-version times are the calls above)
+    # (the classic rows' plain-version times are the calls above). First
+    # every format's calls are recorded and each call's plain version runs
+    # on the host in the twin workers, on every SPLIT_STRIDE-th lane of its
+    # inputs: its rows by kind give the call's operations a row (row_ops);
+    # then, the workers done, the timing
     phase("K1/K2/K4/K5 per trace-row format at the main path's shapes")
-    fmt_ms, fmt_bound, fmt_cs = {}, {}, {0: cs}
+    fmt_ms, fmt_bound, fmt_cs, fmt_calls, split_jobs = {}, {}, {0: cs}, {}, []
     for label, pl_, vis, tbl in (("classic+boxes", 0, True, False), ("classic", 0, False, False),
                                  ("shadow_tbl", 0, True, True), ("slim", 1, True, False),
                                  ("packed3", 3, True, False), ("packed4", 4, True, False),
@@ -2155,31 +2498,48 @@ def main() -> int:
             ms_f, cpx, cpy, cseeds, max_bounces=1000, **opts))
         calls_f += record_calls(mk, real, lambda: mk.render_waves(
             ms_f, upx, upy, useeds, max_bounces=1000, **opts))
-        times, works = {}, {}
+        calls_f.append(("mk_tiles", k5_args))
+        fmt_calls[label] = (cs_f, ms_f, tbl, calls_f)
+        ms_host = mk.launch_scene(mk.mega_scene(cs_f, W, H, "cpu"), shadow_vis=vis, shadow_tbl=tbl)
         for name, args in calls_f:
+            sub = [a.cpu() if torch.is_tensor(a) else a for a in lanes_of(name, args, SPLIT_STRIDE)]
+            split_jobs.append(twin_pool.submit(row_split, name, ms_host, sub))
+    t_split = time.monotonic()
+    split_ops = [row_ops(f.result()) for f in split_jobs]
+    twin_pool.shutdown()
+    print(f"{len(split_jobs)} plain versions on the host on every {SPLIT_STRIDE}th lane of each "
+          f"format's calls, for their rows by kind: {time.monotonic() - t_split:.1f} s after the "
+          f"last was recorded", flush=True)
+    for label, (cs_f, ms_f, tbl, calls_f) in fmt_calls.items():
+        times, works = {}, {}
+        per_row = [split_ops.pop(0) for _ in calls_f]
+        for (name, args), ops in zip(calls_f[:-1], per_row):
             t_k, got = timed(lambda: real[name](ms_f, *args), reps=3)
             times.setdefault(name, []).append(t_k)
-            works.setdefault(name, []).append(work(name, args, got, ms_f))
+            works.setdefault(name, []).append(work(name, args, got, ms_f, ops))
         t5, got5 = timed(lambda: mk.megakernel_tiles(ms_f, upx, upy, useeds, 1000), reps=3)
         rows5 = float(mk.megakernel_start(ms_f, upx, upy, useeds, 1000)[0][23].sum())
         table = nbytes(ms_f.rows, ms_f.consts) + (nbytes(ms_f.shadow_rows) if tbl else 0)
-        works["mk_tiles"] = [(table + nbytes(upx, upy, useeds, *got5), rows5 * ROW_OPS)]
+        works["mk_tiles"] = [(table + nbytes(upx, upy, useeds, *got5), rows5 * per_row[-1])]
         times["mk_tiles"] = [t5]
         sweep_k2 = " + ".join(f"{t:.3f}" for t in times["mk_resume"][-3:])
         # K2 as the report counts it: the chunk's resumes (the sweep's 3 follow)
         times["mk_resume"], works["mk_resume"] = times["mk_resume"][:-3], works["mk_resume"][:-3]
         fmt_ms[label] = {k: sum(v) for k, v in times.items()}
         fmt_bound[label] = {k: summed(v)["bound_ms"] for k, v in works.items()}
-        k4_rows = sum(w[1] for w in works["mk_start_chained"]) / ROW_OPS
+        k4_rows = works["mk_start_chained"][0][1] / per_row[0]
+        k1_ops = per_row[[n for n, _ in calls_f].index("mk_start")]
         print(f"{label} ({tuple(cs_f.trace_rows_mega.shape)} rows, {ms_f.ntab} table(s), "
               f"{ms_f.nbox} boxes{', shadow table' if tbl else ''}): chunk K4 "
               f"{times['mk_start_chained'][0]:.3f} ms + K2 "
               f"{' + '.join(f'{t:.3f}' for t in times['mk_resume'])} ms "
-              f"(K4 rows {k4_rows:.6e}, bound {fmt_bound[label]['mk_start_chained']:.4f} ms); sweep "
-              f"K1 {times['mk_start'][0]:.3f} ms + K2 {sweep_k2} ms; K5 to 1000 "
-              f"{t5:.3f} ms (rows {rows5:.6e}, bound {fmt_bound[label]['mk_tiles']:.4f} ms)",
-              flush=True)
-        del ms_f, calls_f, got5
+              f"(K4 rows {k4_rows:.6e} at {per_row[0]:.3f} ops a row, bound "
+              f"{fmt_bound[label]['mk_start_chained']:.4f} ms); sweep "
+              f"K1 {times['mk_start'][0]:.3f} ms ({k1_ops:.3f} ops a row) + K2 {sweep_k2} ms; "
+              f"K5 to 1000 {t5:.3f} ms (rows {rows5:.6e} at {per_row[-1]:.3f} ops a row, bound "
+              f"{fmt_bound[label]['mk_tiles']:.4f} ms)", flush=True)
+        del got5
+    del fmt_calls, split_jobs
 
     # (p)'s chained chunk (the 100,384-triangle PACKED4 table) as path (p)
     # launches it, 8 x 1M slots: every K4 and K2 call timed beside its plain

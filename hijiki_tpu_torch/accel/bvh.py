@@ -47,20 +47,25 @@ def build_bvh(
     aabb_min: np.ndarray,
     aabb_max: np.ndarray,
     leaf_size: int = 1,
-    backend: str = "numpy",
+    backend: str = "auto",
 ) -> FlatBVH:
     """Build a threaded BVH over primitives given per-primitive AABBs.
 
     Binned SAH (16 bins) on centroids with median-split fallback; iterative
     (explicit stack) so huge scenes don't hit Python recursion limits.
 
-    Only the numpy builder is ported (it is ``hijiki_tpu``'s
-    ``backend="numpy"``); the native C++ builder is still to port.
+    backend: "auto" (native C++ builder when compilable, else numpy),
+    "native", or "numpy". Both builders implement the same split rule; trees
+    may differ in float-tie details but satisfy identical invariants.
     """
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"BVH backend {backend!r} is not ported yet; use 'numpy'"
-        )
+    if backend in ("auto", "native"):
+        from hijiki_tpu_torch.accel.native import build_bvh_native
+
+        bvh = build_bvh_native(aabb_min, aabb_max, leaf_size)
+        if bvh is not None:
+            return bvh
+        if backend == "native":
+            raise RuntimeError("native BVH builder unavailable (no g++?)")
     aabb_min = np.asarray(aabb_min, dtype=np.float32).reshape(-1, 3)
     aabb_max = np.asarray(aabb_max, dtype=np.float32).reshape(-1, 3)
     n = aabb_min.shape[0]

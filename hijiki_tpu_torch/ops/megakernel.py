@@ -707,6 +707,8 @@ def _walk(ms, o, d, tmin, tmax, any_hit, best, shadow=False):
             w["bwrow"] = torch.where(accept, slot.long() if fmt else cur, w["bwrow"])
         w["cur"] = torch.where(act, nxt, cur)
         w["nit"] = w["nit"] + act.to(torch.float32)
+        _count_rows("interior", act & ~is_prim)
+        _count_rows(fmt, act & is_prim)
     put_back()
     for k in best:
         best[k] = res["b" + k]
@@ -736,6 +738,7 @@ def _trace_closest(ms, o, d, tmin, tmax):
     nit = _walk(ms, o, d, tmin, tmax, False, best)
     wrow = best["wrow"]
     tab = wrow < enc
+    _count_rows("resolve", tab)
     zero = torch.zeros_like(tmax)
     if ms.packed:
         stride = SLIM_PAY_STRIDE if ms.packed == 1 else 1
@@ -787,6 +790,30 @@ def _row_occludes(ms, pred, o, d, tmin, tmax):
     return phit & (pt < tmax)
 
 
+# the rows the twin visited since reset_row_kinds(), summed on the lanes'
+# device: "interior" rows, per walked table format (0 classic, 1 SLIM, 3
+# PACKED3: the shadow table's too, 4 PACKED4, 12 PACKED12) its prim rows,
+# the occlusion cache's tested rows included, and "resolve": the closest
+# hit's winner row read to shade it (no test). They sum to the ``rows``
+# counter, so a kernel's rows split as its plain version's do
+_ROW_KINDS = {}
+
+
+def reset_row_kinds() -> None:
+    _ROW_KINDS.clear()
+
+
+def row_kinds() -> dict:
+    """{"interior": rows, format: prim rows, ...} the twin visited since
+    ``reset_row_kinds`` (the kernels, bit-equal to the twin on every path's
+    rows, split none)."""
+    return {k: int(v) for k, v in _ROW_KINDS.items()}
+
+
+def _count_rows(kind, mask) -> None:
+    _ROW_KINDS[kind] = mask.sum() + _ROW_KINDS.get(kind, 0)
+
+
 # the twin's occlusion-cache pretests since reset_pretest_counts(), summed
 # on the lanes' device: lanes that tested a predicted row ("tried") and
 # lanes whose row verified, answered without a walk ("verified")
@@ -825,6 +852,7 @@ def _trace_any(ms, o, d, tmin, tmax, pred=None):
         pre = tried.to(torch.float32)
         for k, m in (("tried", tried), ("verified", verified)):
             _PRETESTS[k] = m.sum() + _PRETESTS.get(k, 0)
+        _count_rows(ms.packed, tried)
     nit = _walk(ms, o, d, tmin, tmax, True, best, shadow=ms.shadow_tbl)
     if pre is not None:
         nit = pre + nit

@@ -576,7 +576,8 @@ def compile_scene(
     """Compile a Scene to numpy arrays + baked statics.
 
     The same compiler as ``hijiki_tpu.scene.compile.compile_scene``, with
-    its defaults, and the numpy BVH builder.
+    its defaults (the BVH builder's too: native where g++ builds it, else
+    numpy).
 
     ``shadow_vis_boxes``: run the shadow-visibility proof sweep
     (``scene/lightvis.py``; only the megakernel's NEE walk reads the boxes).

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``hijiki_tpu_torch/csrc``).
+"""Build and load the hand-written CUDA kernels (``hijiki_tpu_torch/csrc``)
+and the host libraries (``build_host``: one ``.cpp`` with g++).
 
 nvcc compiles every ``csrc/*.cu`` for ``sm_90a`` (one nvcc per source, all
 started together) and links the objects into one shared library with a
@@ -24,6 +25,9 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG.parent / "build" / "kernels"
+# the g++-built host libraries (build_host): the OBJ parser, the BVH
+# builder and the scalar oracle
+NATIVE_ROOT = PKG.parent / "build" / "native"
 LIB_NAME = "libhijiki_kernels.so"
 REPORT_NAME = "ptxas.txt"
 # --split-compile=0: the compiler's optimization passes on all cores (a
@@ -143,6 +147,40 @@ def build(csrc: Path = CSRC) -> tuple[Path, float, str]:
     os.replace(out_dir / f"{REPORT_NAME}.{pid}", out_dir / REPORT_NAME)
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib, secs, report
+
+
+def build_host(src: Path, flags: tuple) -> Path:
+    """Compile the host library ``src`` (one ``.cpp`` with a plain C
+    interface) with g++ and ``flags`` unless it is cached: returns
+    ``build/native/<sha256 of the source and flags>/lib<stem>.so`` (with
+    ``-march=native``, the host's target macros join the key). As in
+    ``build``, the compiler writes a file of its own process and
+    ``os.replace`` publishes it, so concurrent first uses never share a
+    temporary file. Raises RuntimeError when g++ is missing or fails."""
+    src = Path(src)
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host libraries build only with a C++ compiler")
+    h = hashlib.sha256(src.read_bytes())
+    h.update(b"\0" + " ".join(flags).encode())
+    if "-march=native" in flags:
+        # the host's instruction set: a checkout copied to another machine
+        # must not load a library built for this one
+        h.update(subprocess.run([gxx, "-march=native", "-dM", "-E", "-x", "c++", os.devnull],
+                                capture_output=True).stdout)
+    out_dir = NATIVE_ROOT / h.hexdigest()[:16]
+    lib = out_dir / f"lib{src.stem}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"lib{src.stem}.so.{os.getpid()}.tmp"
+    proc = subprocess.run([gxx, *flags, "-shared", "-fPIC", "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
+    return lib
 
 
 def spill_stores(report: str, kernel: str, targs: str = "") -> int:

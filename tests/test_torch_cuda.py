@@ -1241,3 +1241,31 @@ def test_skip_all_kernels_match_twin():
     rows = mk._STATE_CH.index("rows")
     fair = mk.megakernel_start(ms, px, py, seeds, 5)
     assert torch.equal(k1[1], fair[1]) and float(k1[0][rows].sum()) < float(fair[0][rows].sum())
+
+
+def test_drivers_meet_oracle_bar_on_card():
+    """Phase (r) of chip_smoke.py at 32x32 x 8 spp: the chained (K4 + K2),
+    unchained (K1 + K2) and sync (K6) drivers on the card against the
+    native scalar oracle at equal seeds, each to the bar (raw MSE < 1e-4,
+    at most 1% of the pixels divergent, trimmed MSE <= 1e-8), as is the
+    chained film against the sync film."""
+    import chip_smoke
+
+    dev = cuda_device()
+    s = load_obj_scene(MESHBOX, backend="native")
+    s.put_cbox_spheres()
+    cs = compile_scene(s)
+    side, spp = 32, 8
+    seeds, offsets = chip_smoke.equal_seed_inputs(side, spp, 0)
+    before = {**mk.LAUNCHES, **pt.LAUNCHES}
+    films = chip_smoke.driver_films(cs, seeds, offsets, side, dev, chain=spp)
+    for k in ("mk_start_chained", "mk_resume", "mk_start"):
+        assert mk.LAUNCHES[k] > before[k], k
+    assert pt.LAUNCHES["traverse"] > before["traverse"]
+    oracle = chip_smoke.oracle_film(cs, seeds, offsets, side)
+    for a, b in (("oracle", "chained"), ("oracle", "unchained"), ("oracle", "sync"),
+                 ("chained", "sync"), ("oracle", "sync_mega_camera")):
+        x, y = (oracle if a == "oracle" else films[a]), films[b]
+        r = chip_smoke.readings(x, y)
+        print(f"{a}-{b}: raw MSE {r[0]:.3e}, divergent {r[1]}/{side * side}, trimmed {r[2]:.3e}")
+        assert chip_smoke.breaks_bar(r, side * side) == "", (a, b, r)

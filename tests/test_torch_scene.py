@@ -76,7 +76,7 @@ def test_meshbox_full_compiles_identically():
 
 
 def test_meshbox_loads_in_both_packages():
-    a, b = j_load(MESHBOX_SMALL, backend="python"), load_obj_scene(MESHBOX_SMALL)
+    a, b = j_load(MESHBOX_SMALL, backend="python"), load_obj_scene(MESHBOX_SMALL, backend="python")
     np.testing.assert_array_equal(a.positions, b.positions)
     np.testing.assert_array_equal(a.normals, b.normals)
     assert [type(m).__name__ for m in a.materials] == [type(m).__name__ for m in b.materials]
@@ -132,6 +132,8 @@ def test_port_never_imports_jax():
         "import hijiki_tpu_torch.utils.build, hijiki_tpu_torch.scene.compile\n"
         "import hijiki_tpu_torch.probes.walk_probe, hijiki_tpu_torch.scene.obj\n"
         "import hijiki_tpu_torch.scene.lightvis, hijiki_tpu_torch.scene.bigscene\n"
+        "import hijiki_tpu_torch.accel.native, hijiki_tpu_torch.scene.obj_native\n"
+        "import hijiki_tpu_torch.ops.oracle, hijiki_tpu_torch.ops.oracle_native\n"
         "sys.path.insert(0, 'tools')\n"
         "import chip_smoke, ab_megakernel_torch\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'hijiki_tpu.'))]\n"

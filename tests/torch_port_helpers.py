@@ -17,6 +17,33 @@ import torch
 # with several test workers they oversubscribe the cores
 torch.set_num_threads(1)
 
+def _build_jax_bvh_library():
+    """Build hijiki_tpu's native BVH library once per machine, before any
+    test asks for it: its loader compiles through one shared ``<so>.tmp``,
+    and a test worker that loses that race to another skips every native
+    case of tests/test_native_bvh.py. Every worker imports this module when
+    it collects the port's tests, before any test runs: the first takes the
+    lock and builds, the others wait and find the library there. Where the
+    JAX package is absent (the card's machine) there is nothing to build."""
+    import fcntl
+    import tempfile
+
+    try:
+        from hijiki_tpu.accel import native
+    except ImportError:
+        return
+    cache = os.path.join(tempfile.gettempdir(), "hijiki_tpu_native")
+    os.makedirs(cache, exist_ok=True)
+    with open(os.path.join(cache, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            native.load_library()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+_build_jax_bvh_library()
+
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 MESHBOX = os.path.join(REPO, "scenes", "meshbox", "meshbox.obj")
 MESHBOX_SMALL = os.path.join(REPO, "scenes", "meshbox", "meshbox_small.obj")
