@@ -1004,8 +1004,8 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list
                 lambda m=m: pga.gather_plain(gtbl, gidx, it, m)) for m in pga.MODES]
     for label, kern, plain in chains:
         same(f"latency_chain {label}", "latency_chain", kern(), plain())
-    for mode, h in (("indep", 1), ("indep", 2), ("indep", 4), ("chase", 1), ("sharedsem", 1),
-                    ("sharedsem+noclamp", 1), ("dedup", 1)):
+    dma_cases = [(m, h) for m in ("indep", "chase", "sharedsem") for h in (1, 2, 4)]
+    for mode, h in dma_cases + [("sharedsem+noclamp", 1), ("dedup", 1)]:
         dtbl = T(pcl.dma_table(65536, height=h))
         same(f"staged_chase {mode} h={h}", "staged_chase", pcl.staged_chase(dtbl, 128, it, mode, h),
              pcl.staged_plain(dtbl, 128, it, mode, h))
@@ -1017,7 +1017,8 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list
     print(f"probes at {n} threads: every kernel bit-equal to its plain version (walk_ablate: 11 "
           "variants x G 1, 32; walk_isolate: w32/w16/slim/pack3/pack4/pack12 x test/notest x G 1, "
           "32 x camera/random rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: "
-          "7 dma modes, 6 multi)", flush=True)
+          "indep, chase, sharedsem at heights 1, 2, 4, sharedsem+noclamp, dedup, 6 multi)",
+          flush=True)
     k11b_same(same, dev, pvi, pvd, n, it=6)
     print(f"K11b at {n} threads: alu_issue (K 1, 2, 4, 8, 16), dtype_elementwise (f32, bf16, "
           "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; rows 8 and 1024) bit-equal to "
@@ -1078,6 +1079,31 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list
         full[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
         print(f"{key} ({label}): bit-equal to its plain version; {t_k:.3f} ms, plain {t_p:.3f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    # the redesigned probes (K10a on the render walk's row step, staged_chase
+    # with float4 stores): ptxas' registers and spill stores of the timed
+    # instantiation, the warps an SM holds at the timed launch's block; and
+    # every K10a instantiation's SASS loads rows with 128-bit loads only
+    from hijiki_tpu_torch.utils import build
+
+    report = build.build()[2]
+    for key, kernel, targs, blocks, block in (
+            ("walk_ablate", "walk_ablate_kernel", "ILi63ELi1E",
+             pab.walk_ablate(ms.rows, ro, rd, 1, {}, 1, occupancy=True), pab.FULL_BLOCK),
+            ("staged_chase", "staged_chase_kernel", "ILi1E",
+             pcl.staged_chase(dtbl, N // 32, 1, "chase", occupancy=True), 32)):
+        regs, spill = build.ptxas_of(report, kernel, targs)
+        print(f"{key} ({kernel}<{targs}>): {regs} registers, {spill} bytes spilled, "
+              f"{blocks * block // 32} warps an SM in blocks of {block}; {full[key]['ms']:.4f} ms, "
+              f"bound {full[key]['bound_ms']:.4f} ms ({full[key]['bound_by']})", flush=True)
+        if spill:
+            fail(f"{key}: {spill} bytes spilled")
+    try:
+        loads = pab.check_row_loads()
+    except RuntimeError as e:
+        fail(str(e))
+    print(f"walk_ablate: all {len(loads)} instantiations load rows with 128-bit loads only "
+          "(SASS: no fewer LDG.E.128 than the source's float4 loads, no narrower LDG in a loop)",
+          flush=True)
 
     # K9 against its plain version (K3's bound) and against K3, then timed
     for H, W in ((1024, 1024), (1000, 1024)):

@@ -48,6 +48,11 @@
 //                        fly (cp.async.wait_group nchains - 1); `spec`
 //                        starts both candidates (the row's column 10 and
 //                        that + 1) and selects by the row's parity.
+// The output is written a float4 a lane (a row a warp store). Hopper's
+// bulk copy (cp.async.bulk, the TMA unit, issued by one lane and completing
+// on mbarriers: the literal counterpart of make_async_copy and its
+// semaphores) read 2.5x slower on the chase of 32,768 warps, a 512-byte row
+// a copy (PERF.md section 6), so the per-lane copy stays.
 // Its values are the fetch chain's arithmetic; the memory path changes the
 // time, not the values. The table is the tool's (65536, 128) f32 (32 MB:
 // resident in the 50 MB L2) or any `rows` (a larger one measures HBM).
@@ -193,6 +198,12 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* tbl, int src,
                tbl + static_cast<size_t>(src + q) * kRowF + 4 * lane);
 }
 
+// the row's 128 floats written as one float4 a lane (a row a warp store)
+__device__ __forceinline__ void store_row(float* out, int b, int k, int lane, float val) {
+  reinterpret_cast<float4*>(out + (static_cast<size_t>(b) * kSub + k) * kRowF)[lane] =
+      make_float4(val, val, val, val);
+}
+
 // per-cursor waits: wait_group 7, 6, ..., 0 after 8 committed groups
 template <int N>
 __device__ __forceinline__ void wait_each() {
@@ -258,8 +269,7 @@ __global__ void staged_chase_kernel(const float* __restrict__ tbl, int rows,
 #pragma unroll
   for (int k = 0; k < kSub; ++k) {
     const float val = acc[k] + static_cast<float>(cur[k]);
-    float* o = out + (static_cast<size_t>(b) * kSub + k) * kRowF;
-    for (int c = lane; c < kRowF; c += 32) o[c] = val;
+    store_row(out, b, k, lane, val);
   }
 }
 
@@ -323,8 +333,7 @@ __global__ void staged_multi_kernel(const float* __restrict__ tbl, int rows,
 #pragma unroll
     for (int g = 1; g < kG; ++g) tot = tot + acc[g][k];
     const float val = tot + static_cast<float>(cur[0][k]);
-    float* o = out + (static_cast<size_t>(b) * kSub + k) * kRowF;
-    for (int c = lane; c < kRowF; c += 32) o[c] = val;
+    store_row(out, b, k, lane, val);
   }
 }
 

@@ -8,11 +8,15 @@
 // the walker body whose cursor follows the real table's exit pointers
 // (wrapped at the end, so every variant makes the same number of steps and
 // the addresses stay data-dependent), with six parts switched by kFlags:
-//   fetch     load the cursor's row (else row 0 stays in registers);
-//   prefetch  load both candidate successors (cur + 1 and the exit pointer in
-//             column 10) as soon as the row is known, and select one after
-//             the vote (ablate_walker.py:92-94,157-159): the GPU way to take
-//             the load off the cursor chain, priced by this probe;
+//   fetch     load the cursor's row (else row 0 stays in registers) by the
+//             render walk's row step (walk.cuh, row.cuh::row4): columns
+//             0-11 as three 128-bit loads, the normal's float4 (columns
+//             29-31) only on a prim row in the prim part;
+//   prefetch  load both candidate successors' columns 0-11 (cur + 1 and the
+//             exit pointer in column 10) as soon as the row is known, and
+//             select one after the vote (ablate_walker.py:92-94,157-159):
+//             the GPU way to take the load off the cursor chain, priced by
+//             this probe;
 //   slab      the interior row's slab test (else: never descend);
 //   reduce    descend when any thread of the cursor group passes the slab
 //             test (else the group's first thread decides, __shfl_sync);
@@ -70,37 +74,44 @@ constexpr float kCap = 1000000.0f;  // f32(1e6)
 // every warp's rays before one repeats)
 constexpr int kRayStride = 67 * 32;
 
-// the columns of a 32-column row the walker body reads: 0-10, 29-31
-struct Row {
-  float c[11];
-  float n[3];
+// A row of the table the walker body reads (clamped to the last row), as
+// the render walk reads it (walk.cuh): columns 0-11 (box, triangle, kind,
+// exit) as three float4s on every step, the normal (columns 29-31, in the
+// float4 at 28) only on a prim row, in the prim part
+__device__ __forceinline__ const float* row_at(const float* rows, int num_rows, int cur) {
+  return rows + static_cast<size_t>(min(cur, num_rows - 1)) * kRowW;
+}
+
+struct Head {  // columns 0-11
+  float4 a, b, c;
 };
 
-__device__ __forceinline__ Row load_row(const float* rows, int num_rows, int cur) {
-  const float* r = rows + static_cast<size_t>(min(cur, num_rows - 1)) * kRowW;
-  Row w;
-#pragma unroll
-  for (int j = 0; j < 11; ++j) w.c[j] = r[j];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) w.n[j] = r[29 + j];
-  return w;
+__device__ __forceinline__ Head fetch_head(const float* r) {
+  return {row4(r, 0), row4(r, 4), row4(r, 8)};
 }
 
-__device__ __forceinline__ Row select_row(bool a, const Row& x, const Row& y) {
-  Row w;
-#pragma unroll
-  for (int j = 0; j < 11; ++j) w.c[j] = a ? x.c[j] : y.c[j];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) w.n[j] = a ? x.n[j] : y.n[j];
-  return w;
+__device__ __forceinline__ unsigned bits(float x) { return __float_as_uint(x); }
+
+__device__ __forceinline__ Head select_head(bool p, const Head& x, const Head& y) {
+  return {p ? x.a : y.a, p ? x.b : y.b, p ? x.c : y.c};
 }
+
+// Threads a block: the probes' full-occupancy launch (probes.FULL_BLOCK)
+// and its one-warp-per-SM launch (32). kAblateMinBlocks blocks an SM caps a
+// thread at 65536 / (kAblateMinBlocks * kAblateBlock) registers (72 at 7):
+// at 8 (64 registers) ptxas (-Xptxas -v) spilled 12-20 bytes in the
+// variants that prefetch (full, nocount, noreduce), which hold two
+// candidate rows' 24 columns beside the row's 12.
+constexpr int kAblateBlock = 128;
+constexpr int kAblateMinBlocks = 7;
 
 template <int kFlags, int kG>
-__global__ void walk_ablate_kernel(const float* __restrict__ rows, int num_rows,
-                                   const float* __restrict__ o,
-                                   const float* __restrict__ d, int n, int iters,
-                                   float* __restrict__ out) {
+__global__ void __launch_bounds__(kAblateBlock, kAblateMinBlocks)
+walk_ablate_kernel(const float* __restrict__ rows, int num_rows,
+                   const float* __restrict__ o, const float* __restrict__ d, int n,
+                   int iters, float* __restrict__ out) {
   constexpr bool fetch = kFlags & kFetch, prefetch = kFlags & kPrefetch;
+  constexpr bool prim = (kFlags & kPrim) != 0;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;  // n % kG == 0: a group is all in or all out
   const float ox = o[i], oy = o[n + i], oz = o[2 * n + i];
@@ -109,58 +120,93 @@ __global__ void walk_ablate_kernel(const float* __restrict__ rows, int num_rows,
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   const float tox = -ox * ix, toy = -oy * iy, toz = -oz * iz;
   int cur = 0;
-  Row rw = load_row(rows, num_rows, cur);
+  const float* r = row_at(rows, num_rows, cur);
+  Head h{};  // fetch without prefetch loads the row at the top of each step
+  if constexpr (!fetch || prefetch) h = fetch_head(r);
+  // without fetch, row 0 stays in registers, its normal too
+  float4 n0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (!fetch && prim) {
+    if (h.c.y >= 0.0f) n0 = row4(r, 28);
+  }
   float t = kBig + ox * 0.0f, u = ox * 0.0f, v = ox * 0.0f, nit = ox * 0.0f;
   int wrow = num_rows;
+  // A part left out must not take the row step's loads with it: ptxas
+  // narrows a float4 load whose columns go unread (even a volatile PTX
+  // ld.global.nc.v4) and drops a successor's loads that a constant vote
+  // never selects. So a variant without the prim test folds the columns
+  // only that test (and the slab test) reads into `keep`, and one without
+  // the slab test votes on an opaque false: both are 0 on every launch
+  // (`zero` is blockIdx.z of a one-dimensional grid), which the compiler
+  // cannot know, so every variant loads what `full` loads and the outputs
+  // are unchanged.
+  const unsigned zero = blockIdx.z;
+  unsigned keep = 0;
   for (int it = 0; it < iters; ++it) {
-    if constexpr (fetch && !prefetch) rw = load_row(rows, num_rows, cur);
-    const float kind = rw.c[9];
-    const int nexit = static_cast<int>(rw.c[10]);
-    Row fa, fb;
-    if constexpr (fetch && prefetch) {
-      fa = load_row(rows, num_rows, cur + 1);
-      fb = load_row(rows, num_rows, nexit);
+    if constexpr (fetch && !prefetch) {
+      r = row_at(rows, num_rows, cur);
+      h = fetch_head(r);
+    }
+    const float kind = h.c.y;
+    const int nexit = static_cast<int>(h.c.z);
+    const float *ra = r, *rb = r;
+    Head fa, fb;
+    if constexpr (fetch && prefetch) {  // both successors, before the vote
+      ra = row_at(rows, num_rows, cur + 1);
+      rb = row_at(rows, num_rows, nexit);
+      fa = fetch_head(ra);
+      fb = fetch_head(rb);
     }
     const bool is_prim = kind >= 0.0f;
     const float best_t = t;
-    bool slab = false;
+    bool slab = zero != 0u;
     if constexpr ((kFlags & kSlab) != 0) {
-      float ax = rw.c[0] * ix + tox, bx = rw.c[3] * ix + tox;
-      float ay = rw.c[1] * iy + toy, by = rw.c[4] * iy + toy;
-      float az = rw.c[2] * iz + toz, bz = rw.c[5] * iz + toz;
+      float ax = h.a.x * ix + tox, bx = h.a.w * ix + tox;
+      float ay = h.a.y * iy + toy, by = h.b.x * iy + toy;
+      float az = h.a.z * iz + toz, bz = h.b.y * iz + toz;
       float t0 = jmax(jmax(jmin(ax, bx), jmin(ay, by)), jmin(az, bz));
       float t1 = jmin(jmin(jmax(ax, bx), jmax(ay, by)), jmax(az, bz));
       slab = (t0 < t1 + kEps) && (t0 < best_t) && (t1 > tmin);
     }
     const bool descend = (kFlags & kReduce) ? group_any<kG>(slab && !is_prim)
                                             : group_first<kG>(slab) && !is_prim;
-    if constexpr ((kFlags & kPrim) != 0) {
-      const float *c = rw.c, *nr = rw.n;
-      float rx = ox - c[0], ry = oy - c[1], rz = oz - c[2];
-      float qx = ry * dz - rz * dy;
-      float qy = rz * dx - rx * dz;
-      float qz = rx * dy - ry * dx;
-      float dd = 1.0f / (dx * nr[0] + dy * nr[1] + dz * nr[2]);
-      float pu = -dd * (qx * c[6] + qy * c[7] + qz * c[8]);
-      float pv = dd * (qx * c[3] + qy * c[4] + qz * c[5]);
-      float t_pq = -dd * (nr[0] * rx + nr[1] * ry + nr[2] * rz);
-      bool in_tri = (pu >= 0.0f) && (pv >= 0.0f) && (pu + pv <= 1.0f);
-      bool ok_pq = in_tri && (tmin <= t_pq) && (t_pq <= best_t);
-      if (is_prim && ok_pq && t_pq < best_t) {
-        t = t_pq;
-        u = pu;
-        v = pv;
-        wrow = cur;
+    if constexpr (!prim) {
+      keep ^= bits(h.b.z) ^ bits(h.b.w) ^ bits(h.c.x);
+      if constexpr ((kFlags & kSlab) == 0)
+        keep ^= bits(h.a.x) ^ bits(h.a.y) ^ bits(h.a.z) ^ bits(h.a.w) ^ bits(h.b.x) ^ bits(h.b.y);
+    }
+    if constexpr (prim) {
+      if (is_prim) {
+        const float4 nr = fetch ? row4(r, 28) : n0;  // columns 29-31: .y .z .w
+        float rx = ox - h.a.x, ry = oy - h.a.y, rz = oz - h.a.z;
+        float qx = ry * dz - rz * dy;
+        float qy = rz * dx - rx * dz;
+        float qz = rx * dy - ry * dx;
+        float dd = 1.0f / (dx * nr.y + dy * nr.z + dz * nr.w);
+        float pu = -dd * (qx * h.b.z + qy * h.b.w + qz * h.c.x);
+        float pv = dd * (qx * h.a.w + qy * h.b.x + qz * h.b.y);
+        float t_pq = -dd * (nr.y * rx + nr.z * ry + nr.w * rz);
+        bool in_tri = (pu >= 0.0f) && (pv >= 0.0f) && (pu + pv <= 1.0f);
+        bool ok_pq = in_tri && (tmin <= t_pq) && (t_pq <= best_t);
+        if (ok_pq && t_pq < best_t) {
+          t = t_pq;
+          u = pu;
+          v = pv;
+          wrow = cur;
+        }
       }
     }
     const bool take_exit = is_prim || !descend;
     int nxt = take_exit ? nexit : cur + 1;
     cur = nxt >= num_rows ? nxt - num_rows : nxt;
-    if constexpr (fetch && prefetch) rw = select_row(take_exit, fb, fa);
+    if constexpr (fetch && prefetch) {
+      h = select_head(take_exit, fb, fa);
+      r = take_exit ? rb : ra;
+    }
     if constexpr ((kFlags & kCount) != 0) nit = nit + 1.0f;
   }
   out[i] = jmin(t, kCap) + nit + u;
-  out[n + i] = jmin(static_cast<float>(wrow), kCap) + static_cast<float>(cur);
+  const int cur_kept = cur ^ static_cast<int>(keep & zero);  // cur
+  out[n + i] = jmin(static_cast<float>(wrow), kCap) + static_cast<float>(cur_kept);
 }
 
 template <int kW, bool kTest, int kG>

@@ -11,7 +11,9 @@ variant's time prices one part of a walk step (see csrc/probe_walk.cu).
   the TPU's (n_tiles, 3, 8, P) blocks flattened by ``lanes_of`` and
   ``group = P``, it computes what the JAX kernel computes.
 * ``walk_ablate``: the CUDA kernel on a CUDA tensor (``group`` 1 or 32),
-  the plain version on a CPU tensor.
+  the plain version on a CPU tensor. The kernel reads a row as the render
+  walk does, four columns a 128-bit load, so the table must start on a
+  16-byte boundary.
 
 At ``group = 1`` the ``noreduce`` variant is the same program as ``full``
 (one ray votes alone).
@@ -30,8 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hijiki_tpu_torch.probes import (GROUPS, SCENE, call, card, check, device_of, dump, f32,
-                                     occupancies, parser)
+from hijiki_tpu_torch.ops import megakernel as mk
+from hijiki_tpu_torch.probes import (FULL_BLOCK, GROUPS, SCENE, call, card, check, device_of,
+                                     dump, f32, occupancies, parser)
 
 M_EPS = 1e-4
 BIG = 3.0e38
@@ -59,6 +62,44 @@ LAUNCHES = {"walk_ablate": 0}
 def variant_flags(cfg: dict) -> int:
     """The kernel's flag bits of a VARIANTS entry (every part on by default)."""
     return sum(1 << k for k, p in enumerate(PARTS) if cfg.get(p, True))
+
+
+def row_loads(flags: int) -> int:
+    """The 128-bit row loads in the source of walk_ablate_kernel<flags, G>:
+    row 0's three float4s (unless each step loads its row), a step's three,
+    or with prefetch both successors' six, and the normal's one."""
+    fetch, prefetch, prim = flags & 1, flags & 2, flags & 16
+    return (0 if fetch and not prefetch else 3) + (6 if prefetch else 3) * bool(fetch) + bool(prim)
+
+
+def check_row_loads(lib=None) -> dict:
+    """Hold every walk_ablate_kernel instantiation's SASS (``cuobjdump`` of
+    the kernel library ``lib``, the package's build by default) to the
+    render walk's row step: it holds at least ``row_loads(flags)``
+    LDG.E.128 (none dropped; the compiler may copy a loop's loads, as it
+    does onlyfetch's), and its narrower LDGs, at most the six of o and d,
+    lie outside every loop. Returns {mangled name: (128-bit, narrower
+    LDGs)}; raises RuntimeError where an instantiation does not hold or is
+    missing."""
+    import re
+
+    from hijiki_tpu_torch.probes import sass_functions
+
+    out, bad = {}, []
+    for name, (code, loops, _) in sass_functions("walk_ablate_kernel", lib).items():
+        flags = int(re.search(r"walk_ablate_kernelILi(\d+)ELi\d+EE", name).group(1))
+        wide = [j for j, (op, _) in enumerate(code) if op.startswith("LDG.") and ".128" in op]
+        narrow = [j for j, (op, _) in enumerate(code) if op.startswith("LDG.") and ".128" not in op]
+        out[name] = (len(wide), len(narrow))
+        in_loop = [j for j in narrow if any(a <= j <= b for a, b in loops)]
+        if len(wide) < row_loads(flags) or len(narrow) > 6 or in_loop:
+            bad.append(f"{name}: {len(wide)} LDG.E.128 (the source has {row_loads(flags)}), "
+                       f"{len(narrow)} narrower, {len(in_loop)} of them in a loop")
+    if len(out) != len(VARIANTS) * len(GROUPS):
+        bad.append(f"{len(out)} instantiations in the SASS, not {len(VARIANTS) * len(GROUPS)}")
+    if bad:
+        raise RuntimeError("K10a's row loads: " + "; ".join(bad))
+    return out
 
 
 def lanes_of(a: np.ndarray) -> np.ndarray:
@@ -153,7 +194,10 @@ def walk_ablate(rows, o, d, iters: int, cfg: dict, group: int = 1, *, block: int
     dev = o.device
     if group not in (1, 32) or (group == 32 and block % 32):
         raise ValueError(f"the kernel takes group 1 or 32 (got {group}, block {block})")
+    if block > FULL_BLOCK:  # the kernel's __launch_bounds__ (probe_walk.cu kAblateBlock)
+        raise ValueError(f"the kernel takes blocks of at most {FULL_BLOCK} threads (got {block})")
     check("rows", rows, torch.float32, (rows.shape[0], 32), dev)
+    mk.check_rows_aligned(rows)
     check("o", o, torch.float32, (3, n), dev)
     check("d", d, torch.float32, (3, n), dev)
     out = torch.empty((2, n), dtype=torch.float32, device=dev)

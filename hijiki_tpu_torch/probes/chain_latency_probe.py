@@ -10,7 +10,8 @@ test -> vote) with the slope harness (probes/timing.py), at one warp per SM
   (make_chain, :260) and gather_probe.py's gather modes;
 * ``staged_chase`` runs ``dma`` (make_dma, :430) and ``dmag``
   (make_dma_multi, :330): rows copied from global into shared memory with
-  cp.async, the GPU's counterpart of the TPU's HBM -> VMEM DMA.
+  cp.async, the GPU's counterpart of the TPU's HBM -> VMEM DMA (Hopper's
+  bulk copy on mbarriers read 2.5x slower on the chase: PERF.md).
 
 Each ``*_plain`` function is the plain version of one mode (any device)
 and computes what the JAX tool's kernel computes, element for element,
@@ -40,6 +41,9 @@ MODES = {"alu": 0, "vote": 1, "fetch_indep": 2, "fetch_chase": 3, "chain": 4,
 STAGE_MODES = {"indep": 0, "chase": 1, "sharedsem": 2, "sharedsem+noclamp": 3,
                "dedup": 4, "multi": 5}
 ROW_F = 128  # floats a staged row
+# staged_chase's modes that read a cursor's rows unclamped: a cursor kept in
+# [0, rows) reads past the table at a height above 1
+UNCLAMPED = ("sharedsem+noclamp", "dedup")
 
 # launches of the CUDA kernels (CPU calls of the plain versions are not counted)
 LAUNCHES = {"latency_chain": 0, "staged_chase": 0}
@@ -294,10 +298,13 @@ def chain(tbl, x, iters, group, **kw):
 
 def staged_chase(tbl, nblk: int, iters: int, mode: str, height: int = 1, nchains: int = 1,
                  spec: bool = False, *, block: int = 32, occupancy: bool = False):
-    """Launch ``staged_chase`` (a warp per block of 8 cursors) on a CUDA
-    table (rows, 128) f32: ``mode`` a STAGE_MODES key (``multi``:
-    ``nchains`` chains, ``spec``). Out (nblk, 8, 128) f32. On a CPU table
-    it runs the plain version."""
+    """Launch ``staged_chase`` (a warp per block of 8 cursors, ``block``
+    threads a block) on a CUDA table (rows, 128) f32 that starts on a
+    16-byte boundary (cp.async's): ``mode`` a STAGE_MODES key (``multi``:
+    ``nchains`` chains, ``spec``). Out (nblk, 8, 128) f32. On a CPU table it
+    runs the plain version."""
+    if mode in UNCLAMPED and height != 1:
+        raise ValueError(f"staged_chase {mode} reads its cursors unclamped: height 1 only")
     if tbl.device.type != "cuda":
         if mode == "multi":
             return staged_multi_plain(tbl, nblk, iters, nchains, spec)
@@ -305,6 +312,9 @@ def staged_chase(tbl, nblk: int, iters: int, mode: str, height: int = 1, nchains
     dev = tbl.device
     rows = tbl.shape[0]
     check("tbl", tbl, torch.float32, (rows, ROW_F), dev)
+    if tbl.data_ptr() % 16:
+        raise ValueError("staged_chase: the table must start on a 16-byte boundary (it is "
+                         "copied 16 bytes a lane; a fresh tensor does)")
     if block % 32 or height not in (1, 2, 4) or nchains not in (1, 2, 4):
         raise ValueError(f"staged_chase: block a multiple of 32, height and nchains in "
                          f"(1, 2, 4) (got {block}, {height}, {nchains})")

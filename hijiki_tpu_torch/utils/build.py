@@ -183,24 +183,32 @@ def build_host(src: Path, flags: tuple) -> Path:
     return lib
 
 
-def spill_stores(report: str, kernel: str, targs: str = "") -> int:
-    """The spill-store bytes ptxas reports, in ``report``, for the kernel
-    function named ``kernel`` in any namespace, or for its instantiation
-    whose mangled template arguments are ``targs`` (``ILi0ELb0E`` for
-    <0, false>): its mangled name holds <length><kernel><targs>E. Raises if
-    the report has none."""
+def ptxas_of(report: str, kernel: str, targs: str = "") -> tuple[int, int]:
+    """(registers, spill-store bytes) that ptxas reports, in ``report``, for
+    the kernel function named ``kernel`` in any namespace, or for its
+    instantiation whose mangled template arguments are ``targs``
+    (``ILi0ELb0E`` for <0, false>): its mangled name holds
+    <length><kernel><targs>E. Raises KeyError if the report has none."""
     import re
 
     frag = f"{len(kernel)}{kernel}{targs}E"
-    name = None
+    name, spill = None, 0
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
             name = m.group(1)
         m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
         if m and name and frag in name:
-            return int(m.group(1))
-    raise KeyError(f"ptxas reported no kernel {kernel}")
+            return int(m.group(1)), spill
+    raise KeyError(f"ptxas reported no kernel {kernel}{targs}")
+
+
+def spill_stores(report: str, kernel: str, targs: str = "") -> int:
+    """The spill-store bytes of ``ptxas_of``."""
+    return ptxas_of(report, kernel, targs)[1]
 
 
 def load_library(path: Path | None = None) -> ctypes.CDLL:

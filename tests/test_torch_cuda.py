@@ -439,6 +439,17 @@ def test_walk_ablate_kernel_matches_plain(variant, group):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def test_walk_ablate_loads_rows_128_bits_wide():
+    """Every K10a instantiation's SASS (cuobjdump of the built library)
+    loads the table's rows as the render walk does, 128 bits a load, with
+    no fewer LDG.E.128 than its source's float4 loads and no narrower LDG
+    in a loop, whatever columns the variant reads."""
+    from hijiki_tpu_torch.probes import ablate_walker as A
+
+    cuda_device()
+    assert len(A.check_row_loads()) == len(A.VARIANTS) * 2
+
+
 @pytest.mark.parametrize("group", [1, 32])
 @pytest.mark.parametrize("variant", ["w32", "w32-notest", "w16", "w16-notest", "slim",
                                      "slim-notest", "pack3", "pack3-notest", "pack4",
@@ -497,25 +508,68 @@ def test_latency_chain_kernel_matches_plain(case):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
-@pytest.mark.parametrize("case", ["indep1", "indep2", "indep4", "chase1", "sharedsem1",
-                                  "sharedsem+noclamp1", "dedup1", "multi1", "multi2", "multi4",
-                                  "multi1spec", "multi2spec", "multi4spec"])
-def test_staged_chase_kernel_matches_plain(case):
+@pytest.mark.parametrize("case", ["indep1", "indep2", "indep4", "chase1", "chase2", "chase4",
+                                  "sharedsem1", "sharedsem2", "sharedsem4", "sharedsem+noclamp1",
+                                  "dedup1", "multi1", "multi2", "multi4", "multi1spec",
+                                  "multi2spec", "multi4spec"])
+def test_staged_chase_kernel_matches_plain(case, nblk=128, block=None):
+    """K11a staged_chase (cp.async copies, float4 stores) bit-equal to its plain
+    version in every mode at every height it takes (the unclamped modes
+    at height 1) and every multi case."""
     from hijiki_tpu_torch.probes import chain_latency_probe as C
 
     dev = cuda_device()
-    nblk, it = 128, 50
+    it = 50
     spec = case.endswith("spec")
     case = case[:-4] if spec else case
     mode, k = case[:-1], int(case[-1])
     tbl = torch.from_numpy(C.dma_table(65536, height=2 if mode == "multi" else k)).to(dev)
+    kw = {} if block is None else dict(block=block)
+    before = C.LAUNCHES["staged_chase"]
     if mode == "multi":
-        got = C.staged_chase(tbl, nblk, it, "multi", nchains=k, spec=spec)
+        got = C.staged_chase(tbl, nblk, it, "multi", nchains=k, spec=spec, **kw)
         want = C.staged_multi_plain(tbl, nblk, it, k, spec)
     else:
-        got = C.staged_chase(tbl, nblk, it, mode, k)
+        got = C.staged_chase(tbl, nblk, it, mode, k, **kw)
         want = C.staged_plain(tbl, nblk, it, mode, k)
+    assert C.LAUNCHES["staged_chase"] == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("block", [32, 64, 256])
+@pytest.mark.parametrize("case", ["chase1", "indep4", "dedup1", "multi2spec"])
+def test_staged_chase_blocks_of_any_warps(case, block):
+    """The same at 32, 64 and 256 threads a block (each warp its own
+    rows) and 127 warps, so the last block holds warps past
+    nblk that return at once."""
+    test_staged_chase_kernel_matches_plain(case, nblk=127, block=block)
+
+
+def test_probe_wrappers_refuse_unaligned_tables():
+    """K10a reads a row's columns 16 bytes at a time and staged_chase copies
+    rows 16 bytes a lane: a table one float into its storage (not
+    on a 16-byte boundary) is refused, not read misaligned."""
+    from hijiki_tpu_torch.probes import ablate_walker as A
+    from hijiki_tpu_torch.probes import chain_latency_probe as C
+    from hijiki_tpu_torch.probes.walk_probe import ray_set
+
+    dev = cuda_device()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16
+        return out
+
+    ms, cs = _probe_scene(dev)
+    o, d = ray_set("random", cs, 256, dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        A.walk_ablate(shifted(ms.rows), o, d, 4, {}, 1)
+    tbl = torch.from_numpy(C.dma_table(4096)).to(dev)
+    for mode in ("chase", "multi"):
+        with pytest.raises(ValueError, match="16-byte"):
+            C.staged_chase(shifted(tbl), 4, 2, mode)
 
 
 @pytest.mark.parametrize("path", [MESHBOX, "builtin:cornell-glass"])

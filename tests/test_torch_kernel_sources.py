@@ -16,6 +16,7 @@ from pathlib import Path
 import pytest
 
 from hijiki_tpu_torch.ops import megakernel as mk
+from hijiki_tpu_torch.probes import ablate_walker as pab
 from hijiki_tpu_torch.utils import build
 
 TOOLS = Path(__file__).resolve().parents[1] / "tools"
@@ -86,6 +87,23 @@ def test_spill_stores_reads_the_report(kernel, targs, spill):
         build.spill_stores(REPORT, "mk_tiles_kernel", "ILi4ELb0E")
 
 
+@pytest.mark.parametrize("kernel,targs,want", [("mk_start_sorted_kernel", "", (80, 0)),
+                                               ("mk_start_kernel", "", (80, 4)),
+                                               ("mk_tiles_kernel", "ILi12ELb0E", (80, 16))])
+def test_ptxas_of_reads_registers_and_spills(kernel, targs, want):
+    """``build.ptxas_of`` gives the registers of the same function whose
+    spill stores it gives, and raises where the report lacks it."""
+    assert build.ptxas_of(REPORT, kernel, targs) == want
+    report = REPORT.replace("Used 80 registers, used 0 barriers, 40 bytes cumulative stack size\n"
+                            "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_tiles",
+                            "Used 72 registers, used 0 barriers, 40 bytes cumulative stack size\n"
+                            "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115mk_tiles")
+    assert build.ptxas_of(report, "mk_start_kernel") == (72, 4)
+    assert build.ptxas_of(report, "mk_start_sorted_kernel") == (80, 0)
+    with pytest.raises(KeyError):
+        build.ptxas_of(REPORT, "mk_tiles_kernel", "ILi4ELb0E")
+
+
 def test_occupancy_names_match_the_kernel_source():
     """mk.occupancy's names are mk_occupancy's cases, each kernel of the
     name queried with its block (SORT_TILE threads for the sorted ones) at
@@ -136,3 +154,107 @@ def test_entry_arity_matches_its_signature(name):
     ctypes (a work counter added to an entry, such as K5's, or dropped,
     shows here)."""
     assert ENTRIES.get(name) == len(build.SIGNATURES[name]), name
+
+
+def _body(src: str, signature: str) -> str:
+    """The text between the braces of the function whose declaration
+    contains ``signature``."""
+    start = src.index("{", src.index(signature))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start + 1:i]
+    raise ValueError(f"unbalanced braces after {signature}")
+
+
+def test_walk_ablate_reads_rows_as_the_render_walk():
+    """K10a's body loads a row as the render walk does (row.cuh::row4):
+    columns 0-11 in three 128-bit loads, the normal's float4 only in the
+    prim part on a prim row (or, without fetch, once for row 0 when it is
+    one); no row is read as 14 scalars any more. A variant without the prim
+    test folds the columns only the prim and slab tests read into `keep`,
+    and one without the slab test votes on an opaque false, both zero on a
+    one-dimensional grid (blockIdx.z), so the compiler narrows or drops
+    none of those loads."""
+    src = (build.CSRC / "probe_walk.cu").read_text()
+    assert "load_row" not in src and "struct Row " not in src and "select_row" not in src
+    assert "return {row4(r, 0), row4(r, 4), row4(r, 8)};" in _body(src, "Head fetch_head(")
+    body = _body(src, "walk_ablate_kernel(")
+    assert re.search(r"\b(rows|r|ra|rb)\[", body) is None  # no scalar load of a row
+    assert body.count("fetch_head(") == 4  # row 0, the cursor's row, both successors
+    assert body.count("row4(") == 2
+    assert "if constexpr (!fetch || prefetch) h = fetch_head(r);" in body
+    prim = _body(body, "if constexpr (prim)")
+    assert "const float4 nr = fetch ? row4(r, 28) : n0;" in _body(prim, "if (is_prim)")
+    assert "n0 = row4(r, 28);" in _body(body, "if constexpr (!fetch && prim)")
+    assert "const unsigned zero = blockIdx.z;" in body and "bool slab = zero != 0u;" in body
+    noprim = _body(body, "if constexpr (!prim)")
+    assert "keep ^= bits(h.b.z) ^ bits(h.b.w) ^ bits(h.c.x);" in noprim
+    assert all(f"bits(h.{c})" in noprim for c in ("a.x", "a.y", "a.z", "a.w", "b.x", "b.y"))
+    assert "cur ^ static_cast<int>(keep & zero)" in body
+    launch = (build.CSRC / "probe.cuh").read_text()
+    assert "kernel<<<(threads + block - 1) / block, block, smem," in launch  # a 1-D grid
+
+
+@pytest.mark.parametrize("variant", sorted(pab.VARIANTS))
+def test_walk_ablate_row_loads_count_the_source(variant):
+    """``pab.row_loads``, the 128-bit loads the card's SASS must hold, is
+    the source's count: row 0's three float4s unless each step loads its
+    row, three a step or six with prefetch, one for the normal."""
+    cfg = {p: pab.VARIANTS[variant].get(p, True) for p in pab.PARTS}
+    want = 3 * (not cfg["fetch"] or cfg["prefetch"]) + cfg["fetch"] * (6 if cfg["prefetch"] else 3)
+    assert pab.row_loads(pab.variant_flags(pab.VARIANTS[variant])) == want + cfg["prim"]
+
+
+def _sass(loads, loop=(0, 0)):
+    """A fake sass_functions entry: (opcode, rest) pairs and one loop."""
+    return ([(op, " R0, desc[UR4][R2.64] ") for op in loads], [loop], "")
+
+
+def test_check_row_loads_flags_a_narrowed_row(monkeypatch):
+    """check_row_loads passes SASS that loads rows 128 bits wide with the
+    rays' scalar loads outside the loop, also where the compiler copied a
+    loop's loads, and names an instantiation whose loop loads narrower
+    (ptxas' narrowed float4) or that holds fewer 128-bit loads than its
+    source (a dropped one), and a missing instantiation."""
+    from hijiki_tpu_torch import probes
+    from hijiki_tpu_torch.probes import GROUPS
+
+    def fake(narrowed=None, short=None, missing=None, copied=None):
+        out = {}
+        for v, cfg in pab.VARIANTS.items():
+            flags = pab.variant_flags(cfg)
+            for g in GROUPS:
+                name = f"_ZN12_GLOBAL__N_118walk_ablate_kernelILi{flags}ELi{g}EEEvPKfiS2_S2_iiPf"
+                wide = ["LDG.E.128.CONSTANT"] * (pab.row_loads(flags) * (1 + (v == copied))
+                                                 - (v == short))
+                ops = ["LDG.E.CONSTANT"] * 6 + wide + ["BRA"]
+                if v == narrowed:
+                    ops = ops[:6] + ["LDG.E.64.CONSTANT"] + ops[7:]
+                if v != missing:
+                    out[name] = _sass(ops, (6, len(ops) - 1))
+        return lambda kernel, lib=None: out
+
+    for kw in ({}, dict(copied="onlyfetch")):
+        monkeypatch.setattr(probes, "sass_functions", fake(**kw))
+        loads = pab.check_row_loads()
+        assert len(loads) == len(pab.VARIANTS) * len(GROUPS)
+    for kw, what in ((dict(narrowed="noprim"), "1 of them in a loop"),
+                     (dict(short="full"), "9 LDG.E.128 (the source has 10)"),
+                     (dict(missing="nocount"), "20 instantiations")):
+        monkeypatch.setattr(probes, "sass_functions", fake(**kw))
+        with pytest.raises(RuntimeError, match=re.escape(what)):
+            pab.check_row_loads()
+
+
+def test_staged_chase_copy_paths():
+    """K11a's staged_chase and staged_multi keep the per-lane cp.async copy
+    (the bulk copy read slower on the card) and store a row a float4 a
+    lane."""
+    src = (build.CSRC / "probe_latency.cu").read_text()
+    for kernel in ("staged_chase_kernel(", "staged_multi_kernel("):
+        body = _body(src, kernel)
+        assert "copy_rows(" in body and "store_row(" in body, kernel
+        assert "o[c] = val" not in body
+    assert "cp.async.cg.shared.global" in src and "cp.async.bulk.shared" not in src

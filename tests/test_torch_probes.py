@@ -225,6 +225,16 @@ def test_dma_matches_jax(monkeypatch, mode, height):
     assert np.array_equal(C.dma_table(4096, height=height), np.asarray(tbl))
 
 
+@pytest.mark.parametrize("mode", ["sharedsem+noclamp", "dedup"])
+def test_staged_chase_refuses_unclamped_heights(mode):
+    """An unclamped cursor reads past the table's end above height 1 (the
+    tool keeps it in bounds only at height 1): the wrapper refuses it on
+    any device, before the kernel or the plain version runs."""
+    tbl = T(C.dma_table(4096, height=2))
+    with pytest.raises(ValueError, match="height 1"):
+        C.staged_chase(tbl, 4, 2, mode, 2)
+
+
 @pytest.mark.parametrize("nchains,spec", [(1, False), (2, False), (4, False), (1, True), (2, True)])
 def test_dma_multi_matches_jax(monkeypatch, nchains, spec):
     clp = _interpret(monkeypatch, "chain_latency_probe")

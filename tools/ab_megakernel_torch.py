@@ -2,9 +2,11 @@
 on one CUDA card: the megakernel's chained camera launch (K4) and resume
 launch (K2) and the walk they share, and (``--kernels``) the reconstruction
 stencil (K3), the trace-row walk (K6), the camera launch (K1), the
-single-launch render (K5), the lane-sorted K1/K2/K5 and the tile sort (K8).
+single-launch render (K5), the lane-sorted K1/K2/K5 and the tile sort (K8),
+the walker-body ablation (K10a) and the staged chase (K11a), and every
+kernel's SASS against the parent's.
 
-    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted]
+    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass]
                                         [--variants walk,loop,NAME=DIR]
                                         [--reps 10] [--json PATH] [--sass DIR]
 
@@ -74,6 +76,22 @@ Both print each kernel's registers, spill stores, local bytes and
 resident warps an SM, and each kernel's SASS instruction count and
 whether its code is the parent's. ``PATH_VARIANTS`` rewrite a staged copy
 of a tree to take one part back.
+
+The probes group builds ``probe_walk.cu`` and ``probe_latency.cu`` of each
+tree and runs K10a (every variant of ``ablate_walker.VARIANTS``, G = 1 and
+32, 1M random rays over the meshbox + spheres rows, 16 steps, 128 threads a
+block) and staged_chase (``PROBE_STAGED``: chase, indep, multi G = 4 with
+spec; 32,768 warps, 8 steps, on chip_smoke's (k) table, one warp a block);
+it prints each timed kernel's registers, spill stores and warps an SM, the
+times, and the SASS memory instructions (``sass_counts``: LDG.E.128 against
+narrower LDGs, LDGSTS against the bulk copy UBLKCP, STG.E.128 against
+narrower stores), and requires every K10a instantiation of the package's
+tree to load its rows with 128-bit loads only
+(``ablate_walker.check_row_loads``). The sass group builds every
+``csrc/*.cu`` of both trees and compares each kernel function of the
+parent with the package's of the same mangled name (registers, spill
+stores, SASS code with its labels unnumbered), by family: K1-K8, K9, K10a,
+K10b, K11a, K11b.
 """
 
 from __future__ import annotations
@@ -297,7 +315,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
     ap.add_argument("--kernels", default="megakernel",
-                    help="comma-separated groups: megakernel, reconstruct, traverse, start, sorted")
+                    help="comma-separated groups: megakernel, reconstruct, traverse, start, "
+                         "sorted, probes, sass")
     ap.add_argument("--variants", default="",
                     help="comma-separated: walk, loop (megakernel group), the names of "
                          "PATH_VARIANTS (start and sorted groups), NAME=DIR")
@@ -307,7 +326,8 @@ def main(argv=None) -> int:
                     help="write the kernels' SASS here")
     args = ap.parse_args(argv)
     groups = set(filter(None, args.kernels.split(",")))
-    if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted"}:
+    if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted", "probes",
+                               "sass"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
     import torch
@@ -321,7 +341,8 @@ def main(argv=None) -> int:
     parent = args.parent.resolve()
     need = (MEGA_FILES if "megakernel" in groups else ()) + (
         K36_FILES if groups & {"reconstruct", "traverse"} else ()) + (
-        PATH_FILES if groups & {"start", "sorted"} else ())
+        PATH_FILES if groups & {"start", "sorted"} else ()) + (
+        PROBE_FILES if "probes" in groups else ())
     missing = [f for f in need if not (parent / f).exists()]
     if missing:
         print(f"error: {parent} holds no {', '.join(missing)}", file=sys.stderr)
@@ -339,10 +360,17 @@ def main(argv=None) -> int:
         part, good = paths_ab(args, parent, groups)
         result["paths"] = part
         ok &= good
+    if "probes" in groups:
+        part, good = probes_ab(args, parent)
+        result["probes"] = part
+        ok &= good
+    if "sass" in groups:
+        result["sass"], _ = sass_ab(args, parent)
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1, default=str))
     if not ok:
-        print("FAIL: a library's outputs differ from the parent's", flush=True)
+        print("FAIL: a library's outputs differ from the parent's, or K10a's row loads are "
+              "narrowed (above)", flush=True)
         return 1
     return 0
 
@@ -1228,6 +1256,259 @@ def paths_ab(args, parent: Path, groups) -> tuple:
             print(f"split of {k}, {lib.name} (min ms): " + ", ".join(f"{p} {v:.4f}" for p, v in parts.items()),
                   flush=True)
     return result, ok
+
+
+# ---- the probes group: K10a (walk_ablate) and K11a staged_chase ----
+
+PROBE_FILES = ("probe_walk.cu", "probe_latency.cu")
+# staged_chase's cases timed (K10a's: every variant of
+# probes/ablate_walker.py, each at G = 1 and 32): {label: (mode, height,
+# nchains, spec)}
+PROBE_STAGED = {"staged chase": ("chase", 1, 1, False), "staged indep": ("indep", 1, 1, False),
+                "staged multi G=4 spec": ("multi", 1, 4, True)}
+PROBE_ITERS = {"walk_ablate": 16, "staged_chase": 8}  # chip_smoke's (k) shapes
+# the kernels reported: a part of the mangled name of each timed case's
+# instantiation (walk_ablate_kernel<flags, G>, staged_*_kernel<mode>)
+PROBE_KERNELS = {"K10a full G=1": "walk_ablate_kernelILi63ELi1EE",
+                 "K10a full G=32": "walk_ablate_kernelILi63ELi32EE",
+                 "K10a noprefetch G=1": "walk_ablate_kernelILi61ELi1EE",
+                 "K10a noprefetch G=32": "walk_ablate_kernelILi61ELi32EE",
+                 "K10a noprim G=1": "walk_ablate_kernelILi47ELi1EE",
+                 "K10a noprim G=32": "walk_ablate_kernelILi47ELi32EE",
+                 "staged chase": "staged_chase_kernelILi1EE",
+                 "staged indep": "staged_chase_kernelILi0EE",
+                 "staged multi G=4 spec": "staged_multi_kernelILi4ELb1EE"}
+
+
+class ProbeLib:
+    """One built probe_walk.cu + probe_latency.cu library: K10a and K11a
+    staged_chase at their C entries (build.SIGNATURES)."""
+
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
+        from hijiki_tpu_torch.utils import build
+
+        self.name, self.path, self.report = name, path, report
+        self.cdll = ctypes.CDLL(str(path))
+        for fn in ("walk_ablate", "staged_chase"):
+            getattr(self.cdll, fn).argtypes = build.SIGNATURES[fn]
+            getattr(self.cdll, fn).restype = ctypes.c_int
+
+    def call(self, fn: str, *args, occupancy: bool = False) -> int:
+        """Launch ``fn`` with ``args`` (tensors as their pointers), or with
+        ``occupancy`` return the blocks of the call's shape an SM holds."""
+        import torch
+
+        occ = ctypes.c_int(0)
+        rc = getattr(self.cdll, fn)(*(a.data_ptr() if torch.is_tensor(a) else a for a in args),
+                                    ctypes.byref(occ) if occupancy else None,
+                                    torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
+        return occ.value
+
+
+def sass_counts(ops) -> dict:
+    """A probe kernel's memory instructions by kind: loads as 128-bit LDGs
+    and as narrower ones, cp.async's LDGSTS against the bulk copy (UBLKCP),
+    128-bit and narrower stores."""
+    count = lambda test: sum(1 for op, _ in ops if test(op))
+    return {"LDG.128": count(lambda op: op.startswith("LDG.") and ".128" in op),
+            "LDG narrower": count(lambda op: op.startswith("LDG.") and ".128" not in op),
+            "LDGSTS": count(lambda op: op.startswith("LDGSTS")),
+            "UBLKCP": count(lambda op: "BLKCP" in op),
+            "STG.128": count(lambda op: op.startswith("STG") and ".128" in op),
+            "STG narrower": count(lambda op: op.startswith("STG") and ".128" not in op),
+            "instructions": len(ops)}
+
+
+def probes_ab(args, parent: Path) -> tuple:
+    """The probes group: K10a (every variant at G = 1 and 32 on 1M random
+    rays over the meshbox + spheres rows, 16 steps) and K11a staged_chase
+    (``PROBE_STAGED`` at 32,768 warps, 8 steps, on the height-2 (65536,
+    128) table of chip_smoke's (k) call, 32 threads a block), the libraries
+    in turn; outputs equal the parent's bit for bit, and the package's K10a
+    loads rows with 128-bit loads only (every instantiation). Returns (its
+    results, whether both hold)."""
+    import torch
+
+    from hijiki_tpu_torch.probes import ablate_walker as pab
+    from hijiki_tpu_torch.probes import chain_latency_probe as pcl
+    from hijiki_tpu_torch.probes import sass_functions
+    from hijiki_tpu_torch.probes import walk_probe as pwk
+
+    pairs = build_libraries(parent, args.variants, PROBE_FILES, ProbeLib)
+    libs = [lib for lib, _ in pairs]
+    dev = torch.device("cuda")
+    ms, cs = pwk.load_scene(pwk.SCENE, dev)
+    n = 1 << 20
+    o, d = pwk.ray_set("random", cs, n, dev)
+    tbl = torch.from_numpy(pcl.dma_table(65536, height=2)).to(dev)
+    nblk = n // 32
+    result = {"libraries": {}, "times": {}, "outputs_equal": {}}
+
+    cases = {}  # label -> (entry, args before the output, output shape, threads a block)
+    for name in pab.VARIANTS:
+        for g in (1, 32):
+            cases[f"K10a {name} G={g}"] = (
+                "walk_ablate", (ms.rows, ms.rows.shape[0], o, d, n, PROBE_ITERS["walk_ablate"],
+                                pab.variant_flags(pab.VARIANTS[name]), g), (2, n), pab.FULL_BLOCK)
+    for k, (mode, h, g, spec) in PROBE_STAGED.items():
+        cases[k] = ("staged_chase", (pcl.STAGE_MODES[mode], tbl, tbl.shape[0], nblk,
+                                     PROBE_ITERS["staged_chase"], h, g, int(spec)),
+                    (nblk, pcl.SUBLANES, pcl.ROW_F), 32)
+
+    print("library: registers / spill stores / warps an SM of each timed kernel (ptxas; the "
+          "occupancy query at its block)")
+    for lib, secs in pairs:
+        table = ptxas_table(lib.report)
+        ks = {}
+        for k, frag in PROBE_KERNELS.items():
+            hit = next((v for nm, v in table.items() if frag in nm), None)
+            if hit is None:
+                raise RuntimeError(f"{lib.name}: ptxas reported no {k} kernel ({frag})")
+            fn, a, _, block = cases[k]
+            ks[k] = {"registers": hit[0], "spill_bytes": hit[1],
+                     "warps_per_sm": lib.call(fn, *a, block, None, occupancy=True) * block // 32}
+        result["libraries"][lib.name] = {"build_s": secs, "kernels": ks}
+        print(f"  {lib.name:14s} built in {secs:.1f} s; " + "; ".join(
+            f"{k} {v['registers']}/{v['spill_bytes']}/{v['warps_per_sm']}" for k, v in ks.items()),
+            flush=True)
+
+    # first launches: every library's outputs against the parent's
+    outs = {}
+    for lib in libs:
+        for label, (fn, a, shape, block) in cases.items():
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+            lib.call(fn, *a, block, out)
+            outs[(lib.name, label)] = out
+    torch.cuda.synchronize()
+    ok = True
+    for lib in libs[1:]:
+        for label in cases:
+            same = bit_equal((outs[(lib.name, label)],), (outs[("parent", label)],))
+            ok &= same
+            result["outputs_equal"][f"{lib.name} {label}"] = same
+            if not same:
+                print(f"{lib.name} {label}: DIFFERS from the parent's outputs", flush=True)
+    print(f"outputs: {'every library bit-equal to the parent on every case' if ok else 'DIFFER'}",
+          flush=True)
+
+    # timing: each case, the libraries in turn (the order reversed every
+    # other round), each launch between two events
+    times = {label: {lib.name: [] for lib in libs} for label in cases}
+    for rep in range(args.reps + 1):  # round 0 warms up
+        order = libs if rep % 2 else libs[::-1]
+        for label, (fn, a, _, block) in cases.items():
+            for lib in order:
+                out = outs[(lib.name, label)]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                torch.cuda.synchronize()
+                ev[0].record()
+                lib.call(fn, *a, block, out)
+                ev[1].record()
+                ev[1].synchronize()
+                if rep:
+                    times[label][lib.name].append(ev[0].elapsed_time(ev[1]))
+    for label, by_lib in times.items():
+        base = summary(by_lib["parent"])
+        result["times"][label] = {}
+        for name, ts in by_lib.items():
+            sm = summary(ts)
+            sm["ratio_median"] = sm["median_ms"] / base["median_ms"]
+            result["times"][label][name] = sm
+            print(f"{label:34s} {name:14s} min {sm['min_ms']:9.4f} ms, median {sm['median_ms']:9.4f} ms "
+                  f"(x{sm['ratio_median']:.4f} the parent's median)", flush=True)
+
+    # SASS: the timed kernels' memory instructions
+    args.sass.mkdir(parents=True, exist_ok=True)
+    result["sass"] = {}
+    for lib in libs:
+        every = sass_functions("", lib.path)
+        for k, frag in PROBE_KERNELS.items():
+            found = [(f, v) for f, v in every.items() if frag in f]
+            if not found:
+                continue
+            fname, (code, loops, text) = found[0]
+            (args.sass / f"{lib.name}_{frag}.sass").write_text(text)
+            start, end = max(loops, key=lambda lp: lp[1] - lp[0], default=(0, -1))
+            counts = {"function": sass_counts(code), "longest loop": sass_counts(code[start:end + 1])}
+            result["sass"][f"{lib.name} {k}"] = counts
+            print(f"SASS {lib.name} {k}: " + "; ".join(
+                f"{part} " + ", ".join(f"{c} {v}" for c, v in cnt.items() if v)
+                for part, cnt in counts.items()), flush=True)
+    # K10a's row loads in every instantiation: 128-bit only in the package's
+    try:
+        loads = pab.check_row_loads(next(lib.path for lib in libs if lib.name == "new"))
+        print(f"SASS new K10a: all {len(loads)} instantiations load rows with 128-bit loads only "
+              "(<flags, G>: LDG.E.128/narrower): " + ", ".join(
+                  "<{}, {}>: {}/{}".format(*re.search(r"ILi(\d+)ELi(\d+)E", f).groups(), a, b)
+                  for f, (a, b) in loads.items()),
+              flush=True)
+    except RuntimeError as e:
+        loads, ok = str(e), False
+        print(f"SASS new K10a: {e}", flush=True)
+    result["sass"]["new K10a row loads"] = loads
+    return result, ok
+
+
+def unhashed(text: str) -> str:
+    """``text`` with each anonymous namespace's mangled name made the same
+    in every build: nvcc names it after the source's path and a hash
+    (``_ZN46_GLOBAL__N__2f66ee29_13_probe_walk_cu_0ec4f68a...``), which
+    differ between two staged trees of the same source."""
+    out, pos = [], 0
+    for m in re.finditer(r"(\d+)(_GLOBAL__N_)", text):
+        if m.start() < pos:
+            continue
+        out.append(text[pos:m.start()] + "12_GLOBAL__N_1")
+        pos = m.start(2) + int(m.group(1))
+    return "".join(out) + text[pos:]
+
+
+def sass_ab(args, parent: Path) -> tuple:
+    """The sass group: every csrc/*.cu of the parent and of the package
+    built (all at once), and each kernel function of the parent compared
+    with the package's of the same mangled name: registers and spill
+    stores (ptxas), SASS instruction count and code (labels unnumbered).
+    Prints the functions that differ and, by family (K1-K8, K9, K10a, K10b,
+    K11a, K11b), how many are the parent's. Returns (its results, True)."""
+    from hijiki_tpu_torch.probes import sass_functions
+
+    files = tuple(sorted(p.name for p in parent.glob("*.cu")))
+    pairs = build_libraries(parent, "", files, lambda name, path, report, tree: (name, path, report))
+    libs = {name: (path, {unhashed(f): v for f, v in ptxas_table(report).items()})
+            for (name, path, report), _ in pairs}
+    code = {}
+    for name, (path, _) in libs.items():
+        code[name] = {unhashed(f): [(op, unhashed(re.sub(r"\.L_x_\d+", ".L", rest))) for op, rest in c]
+                      for f, (c, _, _) in sass_functions("", path).items()}
+    families = {"K1-K5, K7 (megakernel.cu)": ("mk_",), "K3": ("reconstruct_kernel",),
+                "K6": ("traverse_kernel",), "K8": ("sort_tiles_kernel",),
+                "K9": ("reconstruct_old_kernel",), "K10a": ("walk_ablate_kernel",),
+                "K10b": ("walk_isolate",), "K11a latency_chain": ("latency_chain_kernel",),
+                "K11a staged_chase": ("staged_chase_kernel", "staged_multi_kernel"),
+                "K11b": ("alu_issue_kernel", "ew_", "dtype_slab_kernel")}
+    result = {}
+    for fam, parts in families.items():
+        names = sorted(f for f in set(code["parent"]) | set(code["new"]) if any(p in f for p in parts))
+        same, differ = [], []
+        for f in names:
+            a, b = code["parent"].get(f), code["new"].get(f)
+            ra, rb = libs["parent"][1].get(f), libs["new"][1].get(f)
+            (same if a is not None and a == b and ra == rb else differ).append(f)
+        sizes = [(len(code["parent"].get(f) or []), len(code["new"].get(f) or [])) for f in names]
+        result[fam] = {"functions": len(names), "parent_code": len(same), "differ": differ,
+                       "sass_sizes": dict(zip(names, sizes)),
+                       "registers_spills": {f: (libs["parent"][1].get(f), libs["new"][1].get(f))
+                                            for f in names}}
+        print(f"SASS {fam}: {len(same)} of {len(names)} functions the parent's code, registers "
+              f"and spills", flush=True)
+        for f in differ:
+            print(f"    differs: {f}: registers/spills {libs['parent'][1].get(f)} -> "
+                  f"{libs['new'][1].get(f)}, SASS {len(code['parent'].get(f) or [])} -> "
+                  f"{len(code['new'].get(f) or [])} instructions", flush=True)
+    return result, True
+
 
 if __name__ == "__main__":
     raise SystemExit(main())
