@@ -61,10 +61,16 @@ of them once more before the kernel report); any failure exits non-zero:
    kernels' (the cache moves no key); shadow_tbl and shadow_skip_all each
    with shadow_cache raise;
    render_waves(shadow_skip_all=True)'s K1/K2 calls bit-equal to their
-   twins, whose shadow walks visit no row;
+   twins, whose shadow walks visit no row; phases 4-4c launch the kernels
+   here and hand every plain version to the twin workers (gate_twin, held
+   as phase 6 holds its calls: the bounds above and bit for bit, order
+   records included), collected once paths (n) and (r), which are not
+   timed, have run beside them, before the first timed path;
 5. the paths, each driven with the launch counts set to 0 just before and
    read just after, each with a finite film, mean > 0, overflow 0 and
-   every kernel of the path launched:
+   every kernel of the path launched, in the order (n), (r), then (a) to
+   (f), (g), (j), (s), and the sorted (g), (m) and (h) while phase 6's
+   twins run:
    (a) the chained slice: Renderer(device="cuda") at 1024x1024, 8 spp,
        max_bounces 1000, chaining on auto (8 sweeps per launch: K4, K2,
        and one K3 launch a chunk), EXR written and read back, peak device
@@ -147,6 +153,17 @@ of them once more before the kernel report); any failure exits non-zero:
        MSE without them (tools/oracle_mse.py's readings); oracle-chained or
        oracle-sync at raw MSE >= 1e-4 (BASELINE.json), more than 1% of the
        pixels divergent or a trimmed MSE > 1e-8 fails the run;
+   (s) the JAX package's call forms at 64x64: render_waves_chained and
+       render_waves (3 sweeps, three times in turns) on a scene_to_device
+       scene with non-default walker kwargs (packet 1024, groups 4,
+       table_in_hbm, hbm_window 4, trunk_rows 64, spec_resolve, no
+       prefetch) bit-equal to the MegaScene form, one bake over all the
+       calls (mk.BAKES), the JAX form's host milliseconds beside the
+       MegaScene form's; reconstruct_pallas bit-equal to reconstruct (K3);
+       sort_tile_by_key (K8 on one (8,128) tile, an int32 and an f32
+       channel) bit-equal to the plain network; make_sharded_mega_sweep
+       over [cuda:0, cuda:0] (64x128, 2 chained sweeps) bit-equal to the
+       two-band renderer's chunk;
 6. the kernels at the main path's shapes: one chained chunk (8 x 1M slots)
    and one unchained sweep again, recording the inputs of every K4, K1 and
    K2 call (K4 to cap 8; its parked paths resumed at capacity 2M to cap 48,
@@ -159,7 +176,8 @@ of them once more before the kernel report); any failure exits non-zero:
    bit-equal on every output (rows included; the order records bit-equal
    to the sorted plain versions'): the plain versions run in TWIN_WORKERS
    processes at once, each a Python loop of small launches that leaves
-   the card mostly idle alone; then each call timed through the kernel;
+   the card mostly idle alone (while this process runs the sorted (g),
+   (m) and (h)); then each call timed through the kernel;
    the registers, local
    (spill) bytes, resident warps an SM and launch blocks of K4, K1 and K5
    (persistent), K2 and the sorted K1/K2/K5 (mk_occupancy),
@@ -811,13 +829,12 @@ def twin_job(label, name, sc, args, kw, got):
     return t_p, err, buf.getvalue(), "", pre, kinds
 
 
-def run_twins(pool, jobs) -> list:
-    """Every (label, entry, scene, args, kw, the kernel's outputs) of
-    ``jobs`` through ``twin_job`` in the worker processes of ``pool``, all
-    in flight at once; prints what each printed, in order, and fails at the
-    first that failed. Returns [(plain ms, max abs err, pretests, rows by
-    kind)]."""
-    futures = [pool.submit(twin_job, *job) for job in jobs]
+def collect_twins(jobs, futures) -> list:
+    """The results of ``jobs`` (label, entry, scene, args, kw, the kernel's
+    outputs), submitted to the twin workers as ``futures`` (``twin_job``),
+    in order: prints what each printed and fails at the first that failed.
+    The caller keeps ``jobs`` (the tensors the workers read) until then.
+    Returns [(plain ms, max abs err, pretests, rows by kind)]."""
     out = []
     for job, fut in zip(jobs, futures):
         t_p, err, text, why, pre, kinds = fut.result()
@@ -938,21 +955,15 @@ def k11b_same(same, dev, pvi, pvd, n, it) -> None:
                  pvd.slab_plain(sx, srow, it, v))
 
 
-def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list:
-    """Phase 7: the probe kernels (K10a, K10b, K11a, K11b) bit-equal to their
-    plain versions at 4096 threads, every mode, and at 1M threads with a
-    short trip count (timed beside the plain version), K9 against its plain
-    version and K3; then (k) a short run of each probe's main(), whose
-    launches are counted as a path's. ``compiled``: {packed_leaf: the
-    meshbox + spheres compiled so} for K10b's tables. Returns the probes'
-    entries of the kernel report."""
+def probe_checks(dev, pab, pwk, pcl, pga, pvi, pvd, compiled) -> dict:
+    """Phase 7's untimed half: the probe kernels (K10a, K10b, K11a, K11b)
+    bit-equal to their plain versions at 4096 threads, every mode.
+    ``compiled``: {packed_leaf: the meshbox + spheres compiled so} for
+    K10b's tables. Returns what the timed half (probe_phase) reads."""
     import numpy as np
     import torch
 
-    from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct as k3_reconstruct
-
-    phase("probes: K9/K10/K11 vs plain, then timed")
-    t_phase = time.monotonic()
+    phase("probes: K10/K11 at 4096 threads vs plain (untimed, beside phase 6's twins)")
     # K10b's tables: the classic rows (ms, which K10a walks too), their
     # 16-column copy, and the packed tables of packed_leaf 1, 3, 4, 12
     # (walk_isolate_packed_kernel)
@@ -1023,6 +1034,23 @@ def probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, compiled) -> list
     print(f"K11b at {n} threads: alu_issue (K 1, 2, 4, 8, 16), dtype_elementwise (f32, bf16, "
           "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; rows 8 and 1024) bit-equal to "
           "their plain versions", flush=True)
+    return dict(T=T, cs=cs, dtbl=dtbl, err=err, ftbl=ftbl, ms=ms, packed=packed, same=same,
+                tables=tables)
+
+
+def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
+    """Phase 7's timed half, on a quiet card: the probe kernels at 1M
+    threads with a short trip count (timed beside the plain version), K9
+    against its plain version and K3; then (k) a short run of each probe's
+    main(), whose launches are counted as a path's. ``checked``: what
+    probe_checks returned. Returns the probes' entries of the kernel
+    report."""
+    from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct as k3_reconstruct
+
+    phase("probes: K9/K10/K11 at 1M threads vs plain, timed")
+    t_phase = time.monotonic()
+    T, cs, dtbl, err, ftbl, ms, packed, same, tables = (
+        checked[k] for k in ("T", "cs", "dtbl", "err", "ftbl", "ms", "packed", "same", "tables"))
 
     # 1M threads, a short trip count: agreement, times and bounds
     N = PROBE_THREADS
@@ -1179,6 +1207,8 @@ def main() -> int:
         import torch.nn.functional as F
 
         from hijiki_tpu_torch.ops import megakernel as mk
+        from hijiki_tpu_torch.ops import pallas_megakernel as pmk
+        from hijiki_tpu_torch.ops import pallas_sort as psort
         from hijiki_tpu_torch.ops import pallas_traverse as pt
         from hijiki_tpu_torch.ops import sort as srt
         from hijiki_tpu_torch.ops.camera import camera_rays
@@ -1186,7 +1216,9 @@ def main() -> int:
             bounce_step, integrate, make_intersectors, start_lanes,
         )
         from hijiki_tpu_torch.ops.rng import from_bits, seed_rng
-        from hijiki_tpu_torch.parallel.multichip import MegaMultiChipRenderer, MultiChipRenderer
+        from hijiki_tpu_torch.parallel.multichip import (
+            MegaMultiChipRenderer, MultiChipRenderer, make_sharded_mega_sweep,
+        )
         from hijiki_tpu_torch.probes import ablate_walker as pab
         from hijiki_tpu_torch.probes import chain_latency_probe as pcl
         from hijiki_tpu_torch.probes import gather_probe as pga
@@ -1197,7 +1229,7 @@ def main() -> int:
         from hijiki_tpu_torch.render import pallas_reconstruct as prc
         from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
         from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
-        from hijiki_tpu_torch.scene.compile import compile_scene, to_device
+        from hijiki_tpu_torch.scene.compile import compile_scene, scene_to_device, to_device
         from hijiki_tpu_torch.scene.obj import load_obj_scene
         from hijiki_tpu_torch.utils import build
         from hijiki_tpu_torch.utils.exr import read_exr
@@ -1238,6 +1270,29 @@ def main() -> int:
     atexit.register(twin_pool.shutdown, cancel_futures=True)
     for _ in range(TWIN_WORKERS):
         twin_pool.submit(os.getpid)
+    # the plain versions of phases 4-4c run in the twin workers while this
+    # process launches the kernels and checks them against each other;
+    # collect_gates waits for them all at the end of phase 4c, before any
+    # path is timed
+    gate_jobs = []
+
+    def gate_twin(label, name, sc, args, got, kw=None, group=None):
+        """Hold ``got``, the outputs of the megakernel entry ``name`` on
+        ``sc`` and ``args``, to its plain version in a twin worker
+        (twin_job: the phase-4 bounds and bit for bit, with lane_order the
+        order record as check_order holds it); the tensors stay referenced
+        here until collect_gates has the result. ``group``: what the
+        result counts towards (a 4b format, a 4c configuration)."""
+        job = (label, name, sc, args, kw or {}, got)
+        gate_jobs.append((job, group, twin_pool.submit(twin_job, *job)))
+
+    def collect_gates() -> list:
+        """Every gate twin's result, in submission order (collect_twins);
+        returns [(entry, group, max abs err, (pretests tried, verified))]."""
+        res = collect_twins([j for j, _, _ in gate_jobs], [f for _, _, f in gate_jobs])
+        out = [(j[1], group, err, pre) for (j, group, _), (_, err, pre, _) in zip(gate_jobs, res)]
+        gate_jobs.clear()
+        return out
 
     # ---- 3. K3 against its twin ----
     phase("K3 reconstruct vs twin")
@@ -1297,18 +1352,18 @@ def main() -> int:
     px, py, seeds = pxs[0].contiguous(), pys[0].contiguous(), sds[0].contiguous()
 
     k1 = mk.megakernel_start(ms_small, px, py, seeds, 5)
-    agree("K1 (cap 5)", k1, mk.megakernel_start_plain(ms_small, px, py, seeds, 5))
+    gate_twin("K1 (cap 5)", "mk_start", ms_small, (px, py, seeds, 5), k1)
     st0, rng0 = k1
-    agree("K2 (resume to 24)", mk.megakernel_resume(ms_small, st0, rng0, 24),
-          mk.megakernel_resume_plain(ms_small, st0, rng0, 24))
+    gate_twin("K2 (resume to 24)", "mk_resume", ms_small, (st0, rng0, 24),
+              mk.megakernel_resume(ms_small, st0, rng0, 24))
     k5 = mk.megakernel_tiles(ms_small, px, py, seeds, 24)
-    agree_tiles("K5 (single launch to 24)", k5, mk.megakernel_tiles_plain(ms_small, px, py, seeds, 24))
+    gate_twin("K5 (single launch to 24)", "mk_tiles", ms_small, (px, py, seeds, 24), k5)
     k1_full = mk.megakernel_start(ms_small, px, py, seeds, 24)
     if not (torch.equal(k5[0], k1_full[0][list(mk._TILE_CH)]) and torch.equal(k5[1], k1_full[1])):
         fail("K5 and K1 at cap max_bounces disagree")
     print("K5 == K1 at cap max_bounces on every channel and RNG state")
-    agree_chained("K4 (3 samples, cap 8)", mk.megakernel_start_chained(ms_small, pxs, pys, sds, 8),
-                  mk.megakernel_start_chained_plain(ms_small, pxs, pys, sds, 8))
+    gate_twin("K4 (3 samples, cap 8)", "mk_start_chained", ms_small, (pxs, pys, sds, 8),
+              mk.megakernel_start_chained(ms_small, pxs, pys, sds, 8))
     full = mk.render_tiles(ms_small, px, py, seeds, max_bounces=24)
     waves = mk.render_waves(ms_small, px, py, seeds, max_bounces=24, phase_bounces=(5, 12))
     if not torch.equal(full[3], waves[3]):
@@ -1392,17 +1447,13 @@ def main() -> int:
         fail("K8 sort_tiles differs from its plain version")
     print(f"K8 sort_tiles: {T8} tiles x {n8} lanes x {C8} channels bit-equal to the plain version "
           "(random, ties with dead keys, all equal, sorted, reversed)")
-    for name, args, un in (("K1", (px, py, seeds, 5), k1), ("K2", (st0, rng0, 24), None),
-                           ("K5", (px, py, seeds, 24), k5)):
-        real_fn, plain_fn, check_fn = {
-            "K1": (mk.megakernel_start, mk.megakernel_start_plain, agree),
-            "K2": (mk.megakernel_resume, mk.megakernel_resume_plain, agree),
-            "K5": (mk.megakernel_tiles, mk.megakernel_tiles_plain, agree_tiles)}[name]
-        label = f"{name} sorted (cap {args[-1]})"
+    for name, entry, args, un in (("K1", "mk_start", (px, py, seeds, 5), k1),
+                                  ("K2", "mk_resume", (st0, rng0, 24), None),
+                                  ("K5", "mk_tiles", (px, py, seeds, 24), k5)):
+        real_fn = getattr(mk, f"megakernel_{entry[3:]}")
         got = real_fn(ms_small, *args, lane_sort=True, lane_order=True)
-        want = plain_fn(ms_small, *args, lane_sort=True, lane_order=True)
-        check_fn(label, got[:2], want[:2])
-        check_order(label, mk, ms_small, got, want)
+        gate_twin(f"{name} sorted (cap {args[-1]})", entry, ms_small, args, got,
+                  dict(lane_sort=True, lane_order=True))
         if not bit_equal(got[:2], real_fn(ms_small, *args) if un is None else un):
             fail(f"the sorted {name} differs from the unsorted kernel")
     print("sorted K1/K2/K5 == the unsorted kernels bit for bit on every channel (segs, rows "
@@ -1438,22 +1489,19 @@ def main() -> int:
         the configuration for phase 4c and returns K1's output."""
         fpxs, fpys, fsds = fpxs[:GATE_SAMPLES], fpys[:GATE_SAMPLES], fsds[:GATE_SAMPLES]
         f1 = mk.megakernel_start(ms_f, fpx, fpy, fseeds, 5)
-        runs = (("mk_start", agree, f1, mk.megakernel_start_plain(ms_f, fpx, fpy, fseeds, 5)),
-                ("mk_resume", agree, mk.megakernel_resume(ms_f, *f1, GATE_CAP),
-                 mk.megakernel_resume_plain(ms_f, *f1, GATE_CAP)),
-                ("mk_tiles", agree_tiles, mk.megakernel_tiles(ms_f, fpx, fpy, fseeds, GATE_CAP),
-                 mk.megakernel_tiles_plain(ms_f, fpx, fpy, fseeds, GATE_CAP)),
-                ("mk_start_chained", agree_chained,
-                 mk.megakernel_start_chained(ms_f, fpxs, fpys, fsds, 8),
-                 mk.megakernel_start_chained_plain(ms_f, fpxs, fpys, fsds, 8)))
-        for name, check_fn, got, want in runs:
-            fmt_err[name] = max(fmt_err[name], check_fn(f"{label} {name}", got, want))
-            if not bit_equal(got, want):
-                fail(f"{label} {name}: the kernel differs from its twin bit for bit")
+        runs = (("mk_start", (fpx, fpy, fseeds, 5), f1),
+                ("mk_resume", (*f1, GATE_CAP), None),
+                ("mk_tiles", (fpx, fpy, fseeds, GATE_CAP), None),
+                ("mk_start_chained", (fpxs, fpys, fsds, 8), None))
+        outs = []
+        for name, args, got in runs:
+            got = getattr(mk, f"megakernel_{name[3:]}")(ms_f, *args) if got is None else got
+            gate_twin(f"{label} {name}", name, ms_f, args, got, group=("4b", label))
+            outs.append(got)
             held[name].append(label)
         for fn, args, un in ((mk.megakernel_start, (fpx, fpy, fseeds, 5), f1),
-                             (mk.megakernel_resume, (*f1, GATE_CAP), runs[1][2]),
-                             (mk.megakernel_tiles, (fpx, fpy, fseeds, GATE_CAP), runs[2][2])):
+                             (mk.megakernel_resume, (*f1, GATE_CAP), outs[1]),
+                             (mk.megakernel_tiles, (fpx, fpy, fseeds, GATE_CAP), outs[2])):
             if not bit_equal(fn(ms_f, *args, lane_sort=True), un):
                 fail(f"{label}: the sorted {fn.__name__} differs from the unsorted kernel")
         print(f"{label}: the sorted K1/K2/K5 bit-equal to the unsorted kernels", flush=True)
@@ -1511,22 +1559,17 @@ def main() -> int:
         ms_f = mk.launch_scene(ms_off, ms_off.shadow_vis, shadow_cache=True)
         off1 = mk.megakernel_start(ms_off, fpx, fpy, fseeds, 5)
         on1 = mk.megakernel_start(ms_f, fpx, fpy, fseeds, 5)
-        calls = (("mk_start", agree, (fpx, fpy, fseeds, 5), off1, on1),
-                 ("mk_resume", agree, (*on1, GATE_CAP), None, None),
-                 ("mk_tiles", agree_tiles, (fpx, fpy, fseeds, GATE_CAP), None, None),
-                 ("mk_start_chained", agree_chained, (fpxs[:GATE_SAMPLES], fpys[:GATE_SAMPLES],
-                                                      fsds[:GATE_SAMPLES], 8), None, None))
+        calls = (("mk_start", (fpx, fpy, fseeds, 5), off1, on1),
+                 ("mk_resume", (*on1, GATE_CAP), None, None),
+                 ("mk_tiles", (fpx, fpy, fseeds, GATE_CAP), None, None),
+                 ("mk_start_chained", (fpxs[:GATE_SAMPLES], fpys[:GATE_SAMPLES],
+                                       fsds[:GATE_SAMPLES], 8), None, None))
         outs = {}
-        mk.reset_pretest_counts()
-        for name, check_fn, args, off, on in calls:
+        for name, args, off, on in calls:
             kern = getattr(mk, f"megakernel_{name[3:]}")
-            plain_fn = getattr(mk, f"megakernel_{name[3:]}_plain")
             on = kern(ms_f, *args) if on is None else on
             off = kern(ms_off, *args) if off is None else off
-            want = plain_fn(ms_f, *args)
-            cache_err[name] = max(cache_err[name], check_fn(f"4c {label} {name} cache on", on, want))
-            if not bit_equal(on, want):
-                fail(f"4c {label} {name}: the cache-on kernel differs from its cache-on twin")
+            gate_twin(f"4c {label} {name} cache on", name, ms_f, args, on, group=("4c", label))
             if not bit_equal(but_rows(name, on), but_rows(name, off)):
                 fail(f"4c {label} {name}: the cache-on kernel differs from the cache-off one "
                      "beyond the rows counter")
@@ -1534,12 +1577,6 @@ def main() -> int:
             if name in ("mk_start", "mk_resume"):  # paths whose rows the cache moved
                 cache_moved[label] = (cache_moved.get(label, 0)
                                       + int((on[0][rows_ch] != off[0][rows_ch]).sum()))
-        # predictions the twins (held to the kernels bit for bit, rows
-        # included) tested, and those that verified: answered without a walk
-        tried, verified = mk.pretest_counts()
-        if verified <= 0:
-            fail(f"4c {label}: none of the {tried} predictions tested verified: the cache never "
-                 "answered a shadow ray")
         for fn, args, name in ((mk.megakernel_start, (fpx, fpy, fseeds, 5), "mk_start"),
                                (mk.megakernel_resume, (*on1, GATE_CAP), "mk_resume"),
                                (mk.megakernel_tiles, (fpx, fpy, fseeds, GATE_CAP), "mk_tiles")):
@@ -1553,13 +1590,11 @@ def main() -> int:
             if not torch.equal(got[2], fn(ms_off, *args, lane_sort=True, lane_order=True)[2]):
                 fail(f"4c {label}: the sorted {name}'s order record with the cache differs from "
                      "the one without")
-        print(f"4c {label}: K1/K2/K4/K5 with the cache bit-equal to their cache-on twins (rows "
-              f"included) and to the cache-off kernels but for rows; the twins tested {tried} "
-              f"predictions, {verified} verified (K1's and K2's rows moved on "
-              f"{cache_moved[label]} of {2 * fpx.numel()} paths; K1 {float(on1[0][rows_ch].sum()):.0f} "
-              f"against {float(off1[0][rows_ch].sum()):.0f}); the sorted K1/K2/K5 with the cache "
-              "bit-equal to the unsorted ones, their order records the cache-off kernels'",
-              flush=True)
+        print(f"4c {label}: K1/K2/K4/K5 with the cache bit-equal to the cache-off kernels but "
+              f"for rows (K1's and K2's rows moved on {cache_moved[label]} of {2 * fpx.numel()} "
+              f"paths; K1 {float(on1[0][rows_ch].sum()):.0f} against "
+              f"{float(off1[0][rows_ch].sum()):.0f}); the sorted K1/K2/K5 with the cache bit-equal "
+              "to the unsorted ones, their order records the cache-off kernels'", flush=True)
         for name in cache_err:
             held[name].append(f"{label}+cache")
     for what, call in (
@@ -1628,6 +1663,89 @@ def main() -> int:
             if counts[k] <= 0:
                 fail(f"{name}: kernel {k} was not launched by this path")
 
+    # (n) and (r) run while the twin workers finish the gates of phases
+    # 4-4c (neither is timed; (r) queues its oracle sweeps behind them);
+    # the gates are collected before the first timed path
+    out_dir = os.path.join(HERE, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    phase("(n) two processes on cuda:0 over gloo: MultiHostMegaRenderer 256x256, 4 spp")
+    merged, counts_n = two_process_render(out_dir)
+    rn = Renderer(cs, RenderConfig(**HOSTS_CFG), device="cuda")
+    rn.render()
+    fn = rn.film.cpu().numpy()
+    print(f"(n) merged film against the single 256x256 film: max abs err "
+          f"{np.abs(merged - fn).max():.3e}; launches in the two processes {counts_n}")
+    if not np.isfinite(merged).all() or not np.allclose(merged, fn, rtol=1e-4, atol=1e-5):
+        fail("(n) the merged film differs from the single one beyond rtol 1e-4 / atol 1e-5")
+    for k in ("mk_start", "mk_resume", "reconstruct_weighted"):
+        if counts_n[k] <= 0:
+            fail(f"(n) the two processes did not launch {k}")
+
+    # ---- (r) the oracle gate at equal seeds ----
+    # the native scalar oracle (every primitive by brute force: no trace
+    # row, box or cache of the kernels') on the twin workers' CPUs, one
+    # sweep a job, while the card renders the same seeds and jitter through
+    # the chained (K4 + K2), unchained (K1 + K2) and sync (K6) drivers
+    from hijiki_tpu_torch.ops.oracle import host_scene
+    from hijiki_tpu_torch.ops.oracle_native import load_library as oracle_library
+
+    if oracle_library() is None:
+        fail("(r) the native oracle did not build (g++)")
+    r_seeds, r_offs = equal_seed_inputs(ORACLE_SIDE, ORACLE_SPP, 0)
+    t_r = time.monotonic()
+    cs_host = host_scene(cs)
+    r_jobs = [twin_pool.submit(oracle_sweep, cs_host, sd, of, ORACLE_SIDE)
+              for sd, of in zip(r_seeds, r_offs)]
+    r_films, counts_r = drive(
+        f"(r) the oracle gate: {ORACLE_SIDE}x{ORACLE_SIDE}, {ORACLE_SPP} sweeps of seed 0, "
+        "max_bounces 1000: the chained, unchained and sync drivers against the native oracle",
+        lambda: driver_films(cs, r_seeds, r_offs, ORACLE_SIDE, dev))
+    t_drivers = time.monotonic() - t_r
+    r_out = [j.result() for j in r_jobs]
+    r_films["oracle"] = in_sweep_order([f for f, _ in r_out])
+    print(f"(r) drivers {t_drivers:.1f} s on the card; the oracle's {ORACLE_SPP} sweeps "
+          f"{sum(t for _, t in r_out):.1f} s of CPU in {TWIN_WORKERS} processes, "
+          f"{time.monotonic() - t_r:.1f} s of wall in all; launches {counts_r}", flush=True)
+    for k in ("mk_start_chained", "mk_resume", "mk_start", "traverse"):
+        if counts_r[k] <= 0:
+            fail(f"(r): kernel {k} was not launched")
+    for name, film in r_films.items():
+        if not (np.isfinite(film).all() and film.mean() > 0):
+            fail(f"(r) the {name} film is not finite with a mean > 0")
+    n_px = ORACLE_SIDE * ORACLE_SIDE
+    for a, b in (("oracle", "chained"), ("oracle", "unchained"), ("oracle", "sync"),
+                 ("chained", "sync"), ("oracle", "sync_mega_camera")):
+        r = readings(r_films[a], r_films[b])
+        why = breaks_bar(r, n_px)
+        print(f"(r) {a}-{b}: raw MSE {r[0]:.6e}, divergent pixels {r[1]}/{n_px} (per-pixel "
+              f"MSE > {DIVERGENT_PX:g}), trimmed MSE {r[2]:.6e}: "
+              f"{'meets the bar' if not why else 'breaks the bar: ' + why}", flush=True)
+        if why and (a, b) in (("oracle", "chained"), ("oracle", "sync")):
+            fail(f"(r) {a}-{b} breaks the equal-seed bar: {why}")
+    del r_films, r_out, cs_host
+
+    # the plain versions of phases 4-4c, run meanwhile in the twin workers
+    phase("the gates of phases 4-4c: their plain versions collected from the twin workers")
+    t_gates = time.monotonic()
+    gates = collect_gates()
+    pre_of = {}
+    for name, group, err, pre in gates:
+        if group and group[0] == "4b":
+            fmt_err[name] = max(fmt_err[name], err)
+        elif group:
+            cache_err[name] = max(cache_err[name], err)
+            pre_of[group[1]] = tuple(a + b for a, b in zip(pre_of.get(group[1], (0, 0)), pre))
+    # predictions the cache-on twins (held to the kernels bit for bit, rows
+    # included) tested, and those that verified: answered without a walk
+    for cfg in cache_cfgs:
+        tried, verified = pre_of.get(cfg, (0, 0))
+        if verified <= 0:
+            fail(f"4c {cfg}: none of the {tried} predictions tested verified: the cache never "
+                 "answered a shadow ray")
+        print(f"4c {cfg}: the cache-on twins tested {tried} predictions, {verified} verified")
+    print(f"phases 4-4c: {len(gates)} plain versions in {TWIN_WORKERS} twin workers, "
+          f"{time.monotonic() - t_gates:.1f} s waited for after (n) and (r)", flush=True)
+
     slice_cfg = dict(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
                      use_bvh=True, driver="mega")
     ra = Renderer(cs, RenderConfig(**slice_cfg), device="cuda")
@@ -1641,8 +1759,6 @@ def main() -> int:
     if counts_a["reconstruct"] != -(-slice_cfg["spp"] // mk.CHAIN_SWEEPS_CUDA):
         fail(f"(a) launched K3 {counts_a['reconstruct']} times, not once a chained chunk")
     print(f"(a) peak device memory {peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
-    out_dir = os.path.join(HERE, "build", "smoke")
-    os.makedirs(out_dir, exist_ok=True)
     exr = os.path.join(out_dir, "slice.exr")
     ra.save_exr(exr)
     img = ra.image()
@@ -1943,134 +2059,106 @@ def main() -> int:
     if not np.allclose(fg, fs, rtol=1e-4, atol=2e-4):
         fail("(g) the wavefront film differs from the sync film beyond rtol 1e-4 / atol 2e-4")
 
-    small_sync = dict(width=256, height=256, spp=1, max_bounces=1000, block_size=128)
-    rs = Renderer(cs, RenderConfig(**small_sync, driver="sync"), device="cuda")
-    rs.render()
-    rw = Renderer(cs, RenderConfig(**small_sync, driver="wavefront", wavefront_lanes=1 << 14,
-                                   sort_lanes=True), device="cuda")
-    _, counts_gs = drive("(g) sorted wavefront, 256x256, 16384 lanes", rw.render)
-    if not np.allclose(rw.film.cpu().numpy(), rs.film.cpu().numpy(), rtol=1e-4, atol=2e-4):
-        fail("(g) the sorted wavefront film differs from the sync film")
-    print(f"(g) sorted wavefront == sync at 256x256 (bit-equal {torch.equal(rw.film, rs.film)}), "
-          f"launches {counts_gs}")
-
-    rm = MultiChipRenderer(cs, RenderConfig(**dict(sync_cfg, spp=1)), devices=bands)
-    mm, counts_m = drive("(m) the sync driver's blocks over two entries of cuda:0: "
-                         "MultiChipRenderer 1024x1024, 1 spp", rm.render)
-    check_render("(m) sync blocks", rm, mm, counts_m, ("traverse", "reconstruct_weighted"))
-    if any(counts_m[k] for k in mk.LAUNCHES) or counts_m["reconstruct"]:
-        fail(f"(m) the sharded sync sweep launched a megakernel or the unweighted K3: {counts_m}")
-    fm, f1 = rm.film.cpu().numpy(), snap["first"].cpu().numpy()
-    print(f"(m) against (f)'s film after its first sweep: max abs err {np.abs(fm - f1).max():.3e}, "
-          f"{int((fm != f1).any(-1).sum())} pixels differ; {mm['render_seconds']:.3f} s against "
-          f"(f)'s {mf['render_seconds'] / 8:.3f} s a sweep")
-    if not np.allclose(fm, f1, rtol=5e-4, atol=5e-5):
-        fail("(m) the sharded sync film differs from the single one beyond rtol 5e-4 / atol 5e-5")
-
-    phase("(n) two processes on cuda:0 over gloo: MultiHostMegaRenderer 256x256, 4 spp")
-    merged, counts_n = two_process_render(out_dir)
-    rn = Renderer(cs, RenderConfig(**HOSTS_CFG), device="cuda")
-    rn.render()
-    fn = rn.film.cpu().numpy()
-    print(f"(n) merged film against the single 256x256 film: max abs err "
-          f"{np.abs(merged - fn).max():.3e}; launches in the two processes {counts_n}")
-    if not np.isfinite(merged).all() or not np.allclose(merged, fn, rtol=1e-4, atol=1e-5):
-        fail("(n) the merged film differs from the single one beyond rtol 1e-4 / atol 1e-5")
-    for k in ("mk_start", "mk_resume", "reconstruct_weighted"):
-        if counts_n[k] <= 0:
-            fail(f"(n) the two processes did not launch {k}")
-
-    rh = Renderer(cs, RenderConfig(**small_sync, driver="sync", fixed_albedo=True), device="cuda")
-    _, counts_h = drive("(h) fixed albedo (sync, 256x256), packet traversal, bvh and brute",
-                        rh.render)
-    if not np.isfinite(rh.image()).all() or torch.equal(rh.film, rs.film):
-        fail("(h) fixed albedo: a non-finite film, or no albedo term")
-    rp = Renderer(cs, RenderConfig(**small_sync, driver="sync", traversal="packet"), device="cuda")
-    rp.render()
-    if not torch.equal(rp.film, rs.film):
-        fail("(h) the packet traversal's film differs from rows'")
-    print(f"(h) fixed albedo film finite (launches {counts_h}); packet film == rows film, bit for bit")
-    css = to_device(compile_scene(small_scene), dev)
-    so_ = camera_rays(css.cam_position, css.cam_rotation, css.cam_fov,
-                      torch.stack([px, py], -1), (S, S))
-    by_trav = {tr: integrate(css, *so_, seed_rng(from_bits(seeds)), max_bounces=1000, traversal=tr)
-               for tr in ("rows", "bvh", "brute")}
-    for tr in ("bvh", "brute"):
-        eq = (by_trav[tr].state == by_trav["rows"].state).float().mean().item()
-        print(f"(h) {tr} against rows, 64x64 meshbox_small: RNG equal on {eq:.4%} of paths")
-        if eq < 0.995:
-            fail(f"(h) {tr} disagrees with rows")
-    # the CLI on the card with every walker knob and --profile-dir against
-    # the default command: the same EXR bit for bit, and a trace
-    from hijiki_tpu_torch import cli
-
-    cli_base = [SCENE_SMALL, "--put-cbox-spheres", "--use-bvh", "--driver", "mega", "-w", "64",
-                "-H", "64", "-s", "2", "--max-bounces", "1000"]
-    prof_dir = os.path.join(out_dir, "profile")
-    knobs = ["--mega-packet", "256", "--mega-groups", "4", "--spec-resolve", "1", "--mega-trunk",
-             "4096", "--mega-window", "2", "--profile-dir", prof_dir]
-    for argv in ([*cli_base, "-o", os.path.join(out_dir, "cli_plain.exr")],
-                 [*cli_base, *knobs, "-o", os.path.join(out_dir, "cli_knobs.exr")]):
-        if cli.main(argv) != 0:
-            fail(f"(h) the CLI exited non-zero: {' '.join(argv[1:])}")
-    same_exr = np.array_equal(read_exr(os.path.join(out_dir, "cli_knobs.exr")).view(np.int32),
-                              read_exr(os.path.join(out_dir, "cli_plain.exr")).view(np.int32))
-    trace = os.path.join(prof_dir, "trace.json")
-    if not same_exr or not os.path.getsize(trace):
-        fail("(h) the CLI with the walker knobs wrote another EXR, or --profile-dir no trace")
-    with open(trace) as f:
-        cuda_events = f.read().count('"cat": "kernel"')
-    print(f"(h) CLI at 64x64 on the card: every walker knob set and --profile-dir, the EXR "
-          f"bit-equal to the default command's; {trace} holds {cuda_events} kernel events",
-          flush=True)
-
     _, counts_j = drive("(j) K8 alone: sort_tiles, 1M lanes x 31 channels",
                         lambda: srt.sort_tiles(key8, ch8))
     if counts_j["sort_tiles"] <= 0:
         fail("(j) sort_tiles was not launched")
 
-    # ---- (r) the oracle gate at equal seeds ----
-    # the native scalar oracle (every primitive by brute force: no trace
-    # row, box or cache of the kernels') on the twin workers' CPUs, one
-    # sweep a job, while the card renders the same seeds and jitter through
-    # the chained (K4 + K2), unchained (K1 + K2) and sync (K6) drivers
-    from hijiki_tpu_torch.ops.oracle import host_scene
-    from hijiki_tpu_torch.ops.oracle_native import load_library as oracle_library
+    # (s) the JAX package's call forms at small shapes: each bit-equal to
+    # the port's own form on the same inputs
+    def jax_forms():
+        cs_s = scene_to_device(cs, dev)
+        walker = dict(packet=1024, groups=4, table_in_hbm=True, hbm_window=4, trunk_rows=64,
+                      spec_resolve=True, prefetch=False)
+        mk.BAKES["mega_scene"] = 0
+        t0 = time.monotonic()
+        jc = pmk.render_waves_chained(cs_s, pxs, pys, sds, width=S, height=S, max_bounces=1000,
+                                      **walker)
+        t_bake = time.monotonic() - t0
+        if not bit_equal(jc, mk.render_waves_chained(ms_small, pxs, pys, sds, max_bounces=1000)):
+            fail("(s) render_waves_chained's JAX form differs from the MegaScene form")
+        def wall_ms(fn):
+            """(host milliseconds of ``fn`` to its last kernel's end, its result)"""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0), out
 
-    if oracle_library() is None:
-        fail("(r) the native oracle did not build (g++)")
-    r_seeds, r_offs = equal_seed_inputs(ORACLE_SIDE, ORACLE_SPP, 0)
-    t_r = time.monotonic()
-    cs_host = host_scene(cs)
-    r_jobs = [twin_pool.submit(oracle_sweep, cs_host, sd, of, ORACLE_SIDE)
-              for sd, of in zip(r_seeds, r_offs)]
-    r_films, counts_r = drive(
-        f"(r) the oracle gate: {ORACLE_SIDE}x{ORACLE_SIDE}, {ORACLE_SPP} sweeps of seed 0, "
-        "max_bounces 1000: the chained, unchained and sync drivers against the native oracle",
-        lambda: driver_films(cs, r_seeds, r_offs, ORACLE_SIDE, dev))
-    t_drivers = time.monotonic() - t_r
-    r_out = [j.result() for j in r_jobs]
-    r_films["oracle"] = in_sweep_order([f for f, _ in r_out])
-    print(f"(r) drivers {t_drivers:.1f} s on the card; the oracle's {ORACLE_SPP} sweeps "
-          f"{sum(t for _, t in r_out):.1f} s of CPU in {TWIN_WORKERS} processes, "
-          f"{time.monotonic() - t_r:.1f} s of wall in all; launches {counts_r}", flush=True)
-    for k in ("mk_start_chained", "mk_resume", "mk_start", "traverse"):
-        if counts_r[k] <= 0:
-            fail(f"(r): kernel {k} was not launched")
-    for name, film in r_films.items():
-        if not (np.isfinite(film).all() and film.mean() > 0):
-            fail(f"(r) the {name} film is not finite with a mean > 0")
-    n_px = ORACLE_SIDE * ORACLE_SIDE
-    for a, b in (("oracle", "chained"), ("oracle", "unchained"), ("oracle", "sync"),
-                 ("chained", "sync"), ("oracle", "sync_mega_camera")):
-        r = readings(r_films[a], r_films[b])
-        why = breaks_bar(r, n_px)
-        print(f"(r) {a}-{b}: raw MSE {r[0]:.6e}, divergent pixels {r[1]}/{n_px} (per-pixel "
-              f"MSE > {DIVERGENT_PX:g}), trimmed MSE {r[2]:.6e}: "
-              f"{'meets the bar' if not why else 'breaks the bar: ' + why}", flush=True)
-        if why and (a, b) in (("oracle", "chained"), ("oracle", "sync")):
-            fail(f"(r) {a}-{b} breaks the equal-seed bar: {why}")
-    del r_films, r_out, cs_host
+        t_jax, t_ms = [], []
+        for rep in range(3):
+            for s_ in range(pxs.shape[0]):
+                args = (pxs[s_].contiguous(), pys[s_].contiguous(), sds[s_].contiguous())
+                t_j, jw = wall_ms(lambda: pmk.render_waves(cs_s, *args, width=S, height=S,
+                                                           max_bounces=1000, **walker))
+                t_m, mw = wall_ms(lambda: mk.render_waves(ms_small, *args, max_bounces=1000))
+                if not bit_equal(jw, mw):
+                    fail(f"(s) render_waves' JAX form differs from the MegaScene form "
+                         f"(sweep {s_})")
+                t_jax.append(t_j)
+                t_ms.append(t_m)
+        if mk.BAKES["mega_scene"] != 1:
+            fail(f"(s) the JAX form baked {mk.BAKES['mega_scene']} times over its calls, not once")
+        # what the JAX form adds to a call on the host: the cached bake's
+        # lookup and the walker check
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            ms_s = mk.scene_of(cs_s, S, S, dev)
+            mk._check_walker(False, 1024, False, ms_s, True, False)
+        t_lookup = 1e3 * (time.perf_counter() - t0)
+        print(f"(s) render_waves_chained and 9 x render_waves on a scene_to_device scene with "
+              f"{walker}: bit-equal to the MegaScene form; 1 bake (the first call "
+              f"{1e3 * t_bake:.3f} ms, bake included); render_waves to its last kernel's end, "
+              f"host clock, median of 9 in turns: JAX form {float(np.median(t_jax)):.3f} ms, "
+              f"MegaScene form {float(np.median(t_ms)):.3f} ms; the bake's lookup and the "
+              f"walker check {t_lookup:.2f} us a call (mean of 1000)", flush=True)
+        so = torch.tensor([0.25, 0.75])
+        t_, n_ = jc[0][0].reshape(S, S, 3).contiguous(), jc[1][0].reshape(S, S, 3).contiguous()
+        if not torch.equal(prc.reconstruct_pallas(t_, n_, so, block_size=64, interpret=True),
+                           prc.reconstruct(t_, n_, so, block_size=64)):
+            fail("(s) reconstruct_pallas differs from reconstruct")
+        gen = np.random.default_rng(16)
+        key = torch.from_numpy(gen.integers(0, 64, (8, 128)).astype(np.int32)).to(dev)
+        chans = [torch.from_numpy(gen.integers(-2**31, 2**31 - 1, (8, 128)).astype(np.int32)).to(dev),
+                 torch.from_numpy(gen.standard_normal((8, 128)).astype(np.float32)).to(dev)]
+        skey, sch = psort.sort_tile_by_key(key, chans)
+        wkey, wch = srt.sort_tiles_plain(key.reshape(1, -1),
+                                         torch.stack([c.view(torch.int32) for c in chans])
+                                         .reshape(2, 1, -1))
+        if not (torch.equal(skey.reshape(1, -1), wkey)
+                and bit_equal([c.reshape(1, -1) for c in sch], list(wch))
+                and sch[1].dtype == torch.float32):
+            fail("(s) sort_tile_by_key (K8) differs from its plain version")
+        print("(s) reconstruct_pallas == reconstruct (K3); sort_tile_by_key (K8) on an (8,128) "
+              "tile with an int32 and an f32 channel bit-equal to the plain network", flush=True)
+        band_cfg = RenderConfig(width=S, height=2 * S, block_size=64, max_bounces=1000,
+                                driver="mega", mega_chain_cap=8)
+        fn = make_sharded_mega_sweep([dev, dev], cs_s, width=S, height=2 * S, block_size=64,
+                                     max_bounces=1000, stddev=0.5, n_sweeps=2,
+                                     seeds_from_blocks=True, packet=1024, groups=4,
+                                     table_in_hbm=True, trunk_rows=64)
+        rr = MegaMultiChipRenderer(cs_s, band_cfg, devices=[dev, dev])
+        scheds = [rr.scheduler.sweep(k) for k in range(2)]
+        bs = np.stack([k.block_seeds for k in scheds])
+        offs = np.stack([k.sample_offset for k in scheds])
+        delta, ovf = fn(cs_s, bs, offs)
+        bands, st = rr._run_chunk("chained", bs, offs, ())
+        if not (torch.equal(delta, torch.cat(bands)) and int(ovf) == int(st["wave_overflow"])):
+            fail("(s) make_sharded_mega_sweep([cuda:0, cuda:0]) differs from the two-band "
+                 "renderer's chunk")
+        print(f"(s) make_sharded_mega_sweep([cuda:0, cuda:0]) ({S}x{2 * S}, 2 chained sweeps): "
+              f"its assembled delta == the two-band renderer's chunk bit for bit, overflow "
+              f"{int(ovf)}", flush=True)
+
+    _, counts_s = drive("(s) JAX call forms: render_waves_chained/render_waves on a "
+                        "scene_to_device scene with non-default walker kwargs, "
+                        "reconstruct_pallas, sort_tile_by_key, make_sharded_mega_sweep",
+                        jax_forms)
+    print(f"(s) launches {counts_s}", flush=True)
+    for k in ("mk_start_chained", "mk_resume", "mk_start", "reconstruct", "reconstruct_weighted",
+              "sort_tiles"):
+        if counts_s[k] <= 0:
+            fail(f"(s): kernel {k} was not launched")
 
     # ---- 6. each kernel at the main path's shapes: agreement and time ----
     phase(f"kernels vs twins at the main path's shapes: the calls recorded, their twins in "
@@ -2148,8 +2236,87 @@ def main() -> int:
               ("unchained sweep:", ms, sweep_calls, {}))
     jobs = [(label_of(tag, name, args), name, sc, args, kw, real[name](sc, *args, **kw))
             for tag, sc, calls, kw in groups for name, args in calls]
+    # the twins run while this process traces the small untimed paths
+    # (the sorted wavefront, (m), (h)); only then is any kernel timed
     t_twins = time.monotonic()
-    twin_out = run_twins(twin_pool, jobs)
+    twin_futures = [twin_pool.submit(twin_job, *job) for job in jobs]
+    small_sync = dict(width=256, height=256, spp=1, max_bounces=1000, block_size=128)
+    rs = Renderer(cs, RenderConfig(**small_sync, driver="sync"), device="cuda")
+    rs.render()
+    rw = Renderer(cs, RenderConfig(**small_sync, driver="wavefront", wavefront_lanes=1 << 14,
+                                   sort_lanes=True), device="cuda")
+    _, counts_gs = drive("(g) sorted wavefront, 256x256, 16384 lanes", rw.render)
+    if not np.allclose(rw.film.cpu().numpy(), rs.film.cpu().numpy(), rtol=1e-4, atol=2e-4):
+        fail("(g) the sorted wavefront film differs from the sync film")
+    print(f"(g) sorted wavefront == sync at 256x256 (bit-equal {torch.equal(rw.film, rs.film)}), "
+          f"launches {counts_gs}")
+
+    rm = MultiChipRenderer(cs, RenderConfig(**dict(sync_cfg, spp=1)), devices=bands)
+    mm, counts_m = drive("(m) the sync driver's blocks over two entries of cuda:0: "
+                         "MultiChipRenderer 1024x1024, 1 spp", rm.render)
+    check_render("(m) sync blocks", rm, mm, counts_m, ("traverse", "reconstruct_weighted"))
+    if any(counts_m[k] for k in mk.LAUNCHES) or counts_m["reconstruct"]:
+        fail(f"(m) the sharded sync sweep launched a megakernel or the unweighted K3: {counts_m}")
+    fm, f1 = rm.film.cpu().numpy(), snap["first"].cpu().numpy()
+    print(f"(m) against (f)'s film after its first sweep: max abs err {np.abs(fm - f1).max():.3e}, "
+          f"{int((fm != f1).any(-1).sum())} pixels differ; {mm['render_seconds']:.3f} s against "
+          f"(f)'s {mf['render_seconds'] / 8:.3f} s a sweep")
+    if not np.allclose(fm, f1, rtol=5e-4, atol=5e-5):
+        fail("(m) the sharded sync film differs from the single one beyond rtol 5e-4 / atol 5e-5")
+
+    rh = Renderer(cs, RenderConfig(**small_sync, driver="sync", fixed_albedo=True), device="cuda")
+    _, counts_h = drive("(h) fixed albedo (sync, 256x256), packet traversal, bvh and brute",
+                        rh.render)
+    if not np.isfinite(rh.image()).all() or torch.equal(rh.film, rs.film):
+        fail("(h) fixed albedo: a non-finite film, or no albedo term")
+    rp = Renderer(cs, RenderConfig(**small_sync, driver="sync", traversal="packet"), device="cuda")
+    rp.render()
+    if not torch.equal(rp.film, rs.film):
+        fail("(h) the packet traversal's film differs from rows'")
+    print(f"(h) fixed albedo film finite (launches {counts_h}); packet film == rows film, bit for bit")
+    css = to_device(compile_scene(small_scene), dev)
+    so_ = camera_rays(css.cam_position, css.cam_rotation, css.cam_fov,
+                      torch.stack([px, py], -1), (S, S))
+    by_trav = {tr: integrate(css, *so_, seed_rng(from_bits(seeds)), max_bounces=1000, traversal=tr)
+               for tr in ("rows", "bvh", "brute")}
+    for tr in ("bvh", "brute"):
+        eq = (by_trav[tr].state == by_trav["rows"].state).float().mean().item()
+        print(f"(h) {tr} against rows, 64x64 meshbox_small: RNG equal on {eq:.4%} of paths")
+        if eq < 0.995:
+            fail(f"(h) {tr} disagrees with rows")
+    # the CLI on the card with every walker knob and --profile-dir against
+    # the default command: the same EXR bit for bit, and a trace
+    from hijiki_tpu_torch import cli
+
+    cli_base = [SCENE_SMALL, "--put-cbox-spheres", "--use-bvh", "--driver", "mega", "-w", "64",
+                "-H", "64", "-s", "2", "--max-bounces", "1000"]
+    prof_dir = os.path.join(out_dir, "profile")
+    knobs = ["--mega-packet", "256", "--mega-groups", "4", "--spec-resolve", "1", "--mega-trunk",
+             "4096", "--mega-window", "2", "--profile-dir", prof_dir]
+    for argv in ([*cli_base, "-o", os.path.join(out_dir, "cli_plain.exr")],
+                 [*cli_base, *knobs, "-o", os.path.join(out_dir, "cli_knobs.exr")]):
+        if cli.main(argv) != 0:
+            fail(f"(h) the CLI exited non-zero: {' '.join(argv[1:])}")
+    same_exr = np.array_equal(read_exr(os.path.join(out_dir, "cli_knobs.exr")).view(np.int32),
+                              read_exr(os.path.join(out_dir, "cli_plain.exr")).view(np.int32))
+    trace = os.path.join(prof_dir, "trace.json")
+    if not same_exr or not os.path.getsize(trace):
+        fail("(h) the CLI with the walker knobs wrote another EXR, or --profile-dir no trace")
+    with open(trace) as f:
+        cuda_events = f.read().count('"cat": "kernel"')
+    print(f"(h) CLI at 64x64 on the card: every walker knob set and --profile-dir, the EXR "
+          f"bit-equal to the default command's; {trace} holds {cuda_events} kernel events",
+          flush=True)
+
+    # the trace-row formats compiled (the per-format timings and K10b's
+    # tables read them) and the probes' untimed checks, while the twins run
+    fmt_cs = {0: cs}
+    for pl_ in (1, 3, 4, 12):
+        fmt_cs[pl_] = compile_scene(scene, packed_leaf=pl_)
+    probes_checked = probe_checks(dev, pab, pwk, pcl, pga, pvi, pvd, fmt_cs)
+
+    phase("kernels vs twins at the main path's shapes: the twins collected")
+    twin_out = collect_twins(jobs, twin_futures)
     twin_of = {job[0]: res for job, res in zip(jobs, twin_out)}
     print(f"{len(jobs)} plain versions at the main path's shapes, {TWIN_WORKERS} at a time: "
           f"{time.monotonic() - t_twins:.1f} s (each one's ms measured with the others sharing "
@@ -2511,13 +2678,12 @@ def main() -> int:
     # inputs: its rows by kind give the call's operations a row (row_ops);
     # then, the workers done, the timing
     phase("K1/K2/K4/K5 per trace-row format at the main path's shapes")
-    fmt_ms, fmt_bound, fmt_cs, fmt_calls, split_jobs = {}, {}, {0: cs}, {}, []
+    fmt_ms, fmt_bound, fmt_calls, split_jobs = {}, {}, {}, []
     for label, pl_, vis, tbl in (("classic+boxes", 0, True, False), ("classic", 0, False, False),
                                  ("shadow_tbl", 0, True, True), ("slim", 1, True, False),
                                  ("packed3", 3, True, False), ("packed4", 4, True, False),
                                  ("packed12", 12, True, False)):
-        cs_f = cs if pl_ == 0 else compile_scene(scene, packed_leaf=pl_)
-        fmt_cs[pl_] = cs_f
+        cs_f = fmt_cs[pl_]
         ms_f = mk.launch_scene(mk.mega_scene(cs_f, W, H, dev), shadow_vis=vis, shadow_tbl=tbl)
         opts = dict(shadow_vis=vis, shadow_tbl=tbl)
         calls_f = record_calls(mk, real, lambda: mk.render_waves_chained(
@@ -2578,7 +2744,7 @@ def main() -> int:
         held[name].append("(p) packed4, 100,384 triangles, 8 x 1M slots")
     del ms_p, p_calls
 
-    probe_entries = probe_phase(dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd, fmt_cs)
+    probe_entries = probe_phase(probes_checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd)
 
     def by_format(name):
         """{format: [ms, bound ms]} of a kernel at the main path's shapes"""

@@ -14,6 +14,16 @@ Port of ``hijiki_tpu/ops/pallas_megakernel.py``:
 * ``render_tiles`` traces whole paths in one launch (K5 ``mk_tiles``,
   ``_megakernel``/``_megakernel_body``).
 
+Each entry takes the port's baked ``MegaScene`` (``mega_scene``) or JAX's
+call form: a ``CompiledScene`` (numpy or tensor fields) with ``width`` and
+``height`` and the TPU walker's kwargs (``interpret``, ``packet``,
+``prefetch``, ``spec``, ``spec_resolve``, ``table_in_hbm``, ``groups``,
+``group_octant``, ``trunk_rows``, ``hbm_window``), which schedule the
+TPU's packet walk and leave every output here as the default call's
+(``_check_walker``). The scene is baked once per (scene object, size,
+device) and the bake cached (``scene_of``, counted in ``BAKES``). A call
+runs on its inputs' device; a scene on another device raises.
+
 Every launch walks any trace-row format of ``scene/compile.py`` (the
 classic rows, SLIM, PACKED3/4/12: ``_packed_test``), skips the shadow walk
 of a lane inside a shadow-visibility box and, when asked, walks shadow rays
@@ -76,6 +86,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -100,8 +111,13 @@ M_EPS = 1e-4
 M_PI = 3.1415926535897932384626433832795
 BIG = 3.0e38  # f32-finite stand-in for the reference's 1e100 -> inf tmax
 # capacity granule of the compaction phases: the TPU kernel's tile of
-# 8 x 128 lanes, kept so phase capacities and overflow counts match it
-TILE = 1024
+# SUBLANES x PACKET lanes, kept so phase capacities and overflow counts
+# match it
+SUBLANES = 8
+# the TPU's packet (lanes sharing one traversal cursor): the default of the
+# render entries' ``packet`` kwarg, which the per-thread walk does not read
+PACKET = 128
+TILE = SUBLANES * PACKET
 
 KIND_SPHERE = 0.0
 KIND_QUAD = 1.0
@@ -217,6 +233,9 @@ class MegaScene:
     shadow_tbl: bool = False
     shadow_cache: bool = False
     shadow_skip_all: bool = False
+    # the image size the camera constants were baked for
+    width: int = 0
+    height: int = 0
 
     @property
     def n_analytic(self) -> int:
@@ -373,6 +392,8 @@ def mega_scene(cs: CompiledScene, width: int, height: int, device) -> MegaScene:
         boxes=boxes,
         shadow_rows=shadow,
         shadow_n=int(cs.shadow_tbl_rows_static) if shadow is not None else 0,
+        width=int(width),
+        height=int(height),
         **tabs,
     )
 
@@ -407,6 +428,90 @@ def launch_scene(ms: MegaScene, shadow_vis: bool = True, shadow_tbl: bool = Fals
 
 def _cpu(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+
+# bakes of the JAX call form (a CompiledScene passed to a render entry),
+# one a (scene object, width, height, device): id(scene) -> (a weak
+# reference to the scene, {(width, height, device): MegaScene}). A
+# CompiledScene is a frozen dataclass with array fields, so it cannot be
+# hashed; the weak reference, checked with ``is``, keeps a recycled id from
+# returning another scene's bake, and its callback drops the entry.
+_BAKED: dict = {}
+# bakes made (the MegaScene form bakes nothing); read and reset by
+# chip_smoke.py and the tests to show that a repeated call bakes nothing
+BAKES = {"mega_scene": 0}
+
+
+def _forget(key):
+    def drop(ref):
+        if _BAKED.get(key, (None,))[0] is ref:
+            del _BAKED[key]
+    return drop
+
+
+def _check_scene_device(cs, device) -> None:
+    """A scene whose tables live on another device than the inputs raises:
+    nothing moves quietly (numpy tables are uploaded by the bake)."""
+    for name in ("trace_rows_mega", "shadow_rows_mega", "bvh_aabb_min", "bvh_aabb_max"):
+        t = getattr(cs, name, None)
+        if isinstance(t, torch.Tensor) and t.device != device:
+            raise ValueError(f"the scene's {name} lies on {t.device}, the inputs on {device}")
+
+
+def scene_of(scene, width=None, height=None, device=None) -> MegaScene:
+    """The ``MegaScene`` a render entry reads. A ``MegaScene`` is taken as
+    it is: ``width``/``height``, if given, must be its bake's, and its
+    tables must lie on ``device``. A ``CompiledScene`` (numpy or tensor
+    fields; ``width`` and ``height`` required) is baked with ``mega_scene``
+    once per (scene object, width, height, device) and the bake cached, so
+    a caller of the JAX form that renders sweep after sweep bakes once."""
+    device = None if device is None else torch.device(device)
+    if isinstance(scene, MegaScene):
+        for name, want, have in (("width", width, scene.width), ("height", height, scene.height)):
+            if want is not None and int(want) != have:
+                raise ValueError(f"{name}={want}: the MegaScene was baked for {name} {have}")
+        if device is not None and scene.rows.device != device:
+            raise ValueError(f"the MegaScene lies on {scene.rows.device}, the inputs on {device}")
+        return scene
+    if width is None or height is None:
+        raise TypeError("a CompiledScene needs width= and height= (the camera's bake)")
+    device = device or torch.device("cuda")
+    _check_scene_device(scene, device)
+    entry = _BAKED.get(id(scene))
+    if entry is None or entry[0]() is not scene:
+        entry = _BAKED[id(scene)] = (weakref.ref(scene, _forget(id(scene))), {})
+    key = (int(width), int(height), device)
+    ms = entry[1].get(key)
+    if ms is None:
+        ms = entry[1][key] = mega_scene(scene, width, height, device)
+        BAKES["mega_scene"] += 1
+    return ms
+
+
+def _seed_bits(seeds):
+    """Per-path seeds as the kernels read them: int32 tensors of the u32
+    bits (JAX's uint32 seeds are viewed so)."""
+    return seeds.view(torch.int32) if seeds.dtype == torch.uint32 else seeds
+
+
+def _check_walker(lane_sort, packet, shadow_tbl, ms, table_in_hbm, shadow_cache) -> None:
+    """The raises of JAX's walker kwargs that concern the request itself:
+    the lane sort's one-VREG packet and ``_check_shadow_tbl``. The TPU's
+    layout rules (``_check_groups``, ``_clamp_trunk``, a ray count a
+    multiple of 8 * packet) do not carry over: each thread walks alone, so
+    ``packet``, ``prefetch``, ``spec``, ``spec_resolve``, ``table_in_hbm``,
+    ``groups``, ``group_octant``, ``trunk_rows`` and ``hbm_window`` leave
+    every output as the default call's, bit for bit, and ``interpret``
+    never routes a call (the inputs' device does)."""
+    if lane_sort and packet != PACKET:
+        raise ValueError(
+            f"lane_sort requires 128-lane packets, got packet={packet} (the in-kernel "
+            "bitonic lane sort only supports one-VREG packets)"
+        )
+    if shadow_tbl and ms.shadow_rows is not None and table_in_hbm:
+        raise ValueError(
+            "shadow_tbl is VMEM-only (HBM-streamed scenes keep the shared-table shadow walk)"
+        )
 
 
 # ----------------------------------------------------------------------------
@@ -1587,17 +1692,25 @@ def megakernel_tiles_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bo
 # ----------------------------------------------------------------------------
 
 
-def render_tiles(ms: MegaScene, px, py, seeds, *, max_bounces: int = 1000,
-                 lane_sort: bool = False, shadow_vis: bool = True, shadow_tbl: bool = False,
-                 shadow_cache: bool = False):
+def render_tiles(scene, px, py, seeds, *, width: int = None, height: int = None,
+                 max_bounces: int = 1000, lane_sort: bool = False, interpret: bool = False,
+                 packet: int = PACKET, prefetch: bool = True, spec: bool = True,
+                 spec_resolve: bool = False, shadow_cache: bool = False,
+                 shadow_vis: bool = True, table_in_hbm: bool = False, groups: int = 1,
+                 group_octant: bool = True, trunk_rows: int = 0, hbm_window: int = 1,
+                 shadow_tbl: bool = False):
     """Whole paths in one launch to ``max_bounces`` (``render_tiles``).
-    ``lane_sort``: sort each tile's paths between bounces (any N: the
-    kernel and the plain version pad the last tile with dead paths).
-    ``shadow_vis``, ``shadow_tbl``, ``shadow_cache``: as JAX's
-    (``launch_scene``). Returns (total (N,3), normal (N,3), depth (N,),
-    state (N,))."""
+    ``scene``: a ``MegaScene``, or a ``CompiledScene`` with ``width`` and
+    ``height`` (JAX's form; ``scene_of`` bakes it once). The inputs' device
+    decides where it runs. ``lane_sort``: sort each tile's paths between
+    bounces (any N: the kernel and the plain version pad the last tile with
+    dead paths). ``shadow_vis``, ``shadow_tbl``, ``shadow_cache``: as JAX's
+    (``launch_scene``); the TPU walker's kwargs as ``_check_walker`` says.
+    Returns (total (N,3), normal (N,3), depth (N,), state (N,))."""
+    ms = scene_of(scene, width, height, px.device)
+    _check_walker(lane_sort, packet, shadow_tbl, ms, table_in_hbm, shadow_cache)
     ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache)
-    out, rng = megakernel_tiles(ms, px, py, seeds, max_bounces, lane_sort)
+    out, rng = megakernel_tiles(ms, px, py, _seed_bits(seeds), max_bounces, lane_sort)
     return out[0:3].T, out[3:6].T, out[6], rng
 
 
@@ -1688,21 +1801,36 @@ def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state,
 
 
 def render_waves(
-    ms: MegaScene,
+    scene,
     px,
     py,
     seeds,
     *,
+    width: int = None,
+    height: int = None,
     max_bounces: int = 1000,
     phase_bounces: tuple = (5, 12, 48),
     phase_shrink: tuple = (2, 4, 4),
     lane_sort: bool = False,
-    shadow_vis: bool = True,
-    shadow_tbl: bool = False,
+    interpret: bool = False,
+    packet: int = PACKET,
+    prefetch: bool = True,
+    spec: bool = True,
+    spec_resolve: bool = False,
     shadow_cache: bool = False,
+    shadow_vis: bool = True,
     shadow_skip_all: bool = False,
+    table_in_hbm: bool = False,
+    groups: int = 1,
+    group_octant: bool = True,
+    trunk_rows: int = 0,
+    hbm_window: int = 1,
+    shadow_tbl: bool = False,
 ):
-    """Phased wavefront render (``render_waves``): a camera launch to
+    """Phased wavefront render (``render_waves``) of a ``MegaScene``, or of
+    a ``CompiledScene`` with ``width`` and ``height`` (JAX's form, baked
+    once by ``scene_of``; the TPU walker's kwargs as ``_check_walker``
+    says), on the inputs' device: a camera launch to
     ``phase_bounces[0]``, then compaction phases that resume the survivors
     at the later caps, the last one to ``max_bounces``. Survivor capacity
     after phase k is N / phase_shrink[k]; paths beyond it are dropped and
@@ -1716,7 +1844,10 @@ def render_waves(
     Returns (total (N,3), normal (N,3), depth (N,), state (N,), overflow (),
     segs (N,), rows (N,), albedo (N,3)).
     """
+    ms = scene_of(scene, width, height, px.device)
+    _check_walker(lane_sort, packet, shadow_tbl, ms, table_in_hbm, shadow_cache)
     ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache, shadow_skip_all)
+    seeds = _seed_bits(seeds)
     n_req = px.shape[0]
     pad = (-n_req) % TILE
     if pad:
@@ -1741,20 +1872,34 @@ def render_waves(
 
 
 def render_waves_chained(
-    ms: MegaScene,
+    scene,
     pxs,
     pys,
     seeds,
     *,
+    width: int = None,
+    height: int = None,
     max_bounces: int = 1000,
     chain_cap: int = 8,
     phase_bounces: tuple = (48,),
     phase_shrink: tuple = (4,),
-    shadow_vis: bool = True,
-    shadow_tbl: bool = False,
+    interpret: bool = False,
+    packet: int = PACKET,
+    prefetch: bool = True,
+    spec: bool = True,
+    spec_resolve: bool = False,
     shadow_cache: bool = False,
+    shadow_vis: bool = True,
+    table_in_hbm: bool = False,
+    groups: int = 1,
+    group_octant: bool = True,
+    trunk_rows: int = 0,
+    hbm_window: int = 1,
+    shadow_tbl: bool = False,
 ):
-    """Chained phased render (``render_waves_chained``): S sweep samples per
+    """Chained phased render (``render_waves_chained``) of a ``MegaScene``,
+    or of a ``CompiledScene`` with ``width`` and ``height`` (JAX's form, as
+    ``render_waves``), on the inputs' device: S sweep samples per
     pixel in ONE chained camera launch (K4) that respawns a dead path's lane
     on the pixel's next sample and parks paths still alive at
     ``min(chain_cap, max_bounces)`` bounces in an (N_STATE, S*N) pool; the
@@ -1770,7 +1915,10 @@ def render_waves_chained(
     state (S,N) (the sample's final RNG), overflow (), segs (S,N), rows (N,)
     (summed over the S samples), albedo (S,N,3).
     """
+    ms = scene_of(scene, width, height, pxs.device)
+    _check_walker(False, packet, shadow_tbl, ms, table_in_hbm, shadow_cache)
     ms = launch_scene(ms, shadow_vis, shadow_tbl, shadow_cache)
+    seeds = _seed_bits(seeds)
     S, n_req = pxs.shape
     if S < 2:
         raise ValueError("render_waves_chained needs >= 2 sweeps; use render_waves")

@@ -39,6 +39,12 @@ from hijiki_tpu_torch.ops.megakernel import _check, check_rows_aligned
 
 # output channels of the walk, (OUT_CH, N) f32
 OUT_CH = 7  # best_t, slot+1 (0 = miss), u, v, tag, midx, rows visited
+# the TPU kernel's rays a packet (one cursor); the CUDA walk has none, and
+# the TPU's tile of SUBLANES packets (its SUBLANES and TILE) is not carried
+PACKET = 128
+# the row kinds the walk's prim test tells apart (scene.compile)
+KIND_SPHERE = 0
+KIND_TRIANGLE = 2
 
 # launches of the CUDA kernel (CPU twin calls are not counted)
 LAUNCHES = {"traverse": 0}
@@ -175,10 +181,25 @@ def traverse(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool =
     return out
 
 
-def traverse_packets(rows, o, d, tmin, tmax, *, any_hit: bool = False, inclusive: bool = False):
+def pad_rows_table(rows):
+    """JAX's ``pad_rows_table``: the trace rows as f32, zero-padded to a
+    multiple of 8 rows (the TPU's VMEM tiling; the walk reads any count)."""
+    rows = torch.as_tensor(rows)
+    R, W = rows.shape
+    R_pad = -(-R // 8) * 8
+    if R_pad == R:
+        return rows.to(torch.float32)
+    out = rows.new_zeros((R_pad, W), dtype=torch.float32)
+    out[:R] = rows
+    return out
+
+
+def traverse_packets(rows, o, d, tmin, tmax, *, any_hit: bool = False, interpret: bool = False,
+                     inclusive: bool = False):
     """``traverse_packets`` of the JAX package: rays o, d (N, 3), tmin, tmax
     (N,) against the trace rows. Returns (best_t, slot, u, v, tag, midx),
-    slot = -1 where missed (any N)."""
+    slot = -1 where missed (any N). ``interpret`` (the TPU's interpreter)
+    routes nothing: the inputs' device does."""
     out = traverse(rows.contiguous(), o.contiguous(), d.contiguous(), tmin.contiguous(),
                    tmax.contiguous(), any_hit=any_hit, inclusive=inclusive)
     i32 = torch.int32

@@ -69,22 +69,33 @@ def rand_uint(state: torch.Tensor):
     return state, state
 
 
-def uint_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+def uint_to_unit_float(bits, xp=None):
     """``randUniformFloat``: float(u32) * 2^-32, rounded to nearest f32 like
-    GLSL's float(uint) (so 0xFFFFFFFF yields exactly 1.0)."""
+    GLSL's float(uint) (so 0xFFFFFFFF yields exactly 1.0). ``xp``: JAX's
+    array module argument; ``numpy`` computes in numpy on numpy uint32
+    arrays (JAX's host oracle form), anything else in torch."""
+    if xp is np:
+        return bits.astype(np.float32) * np.float32(1.0 / 4294967296.0)
     return bits.to(torch.float32) * (1.0 / 4294967296.0)
 
 
-def rand_uniform_float(state: torch.Tensor):
+def rand_uniform_float(state, xp=None):
+    """One xorshift draw mapped to [0, 1] f32 (1.0 inclusive); ``xp`` as
+    ``uint_to_unit_float``."""
     state, bits = rand_uint(state)
-    return state, uint_to_unit_float(bits)
+    return state, uint_to_unit_float(bits, xp)
 
 
-def rand_cos_hemisphere(state: torch.Tensor):
+def rand_cos_hemisphere(state, xp=None):
     """Cosine-weighted hemisphere sample around +z (``shader/rand.glsl:22-30``),
-    two draws (u then v)."""
-    state, u = rand_uniform_float(state)
-    state, v = rand_uniform_float(state)
+    two draws (u then v); ``xp`` as ``uint_to_unit_float``."""
+    state, u = rand_uniform_float(state, xp)
+    state, v = rand_uniform_float(state, xp)
+    if xp is np:
+        r = np.sqrt(u)
+        theta = np.float32(_TWO_PI) * v
+        z = np.sqrt(np.maximum(np.float32(0.0), np.float32(1.0) - u))
+        return state, (r * np.cos(theta), r * np.sin(theta), z)
     r = torch.sqrt(u)
     theta = _TWO_PI * v
     x = r * torch.cos(theta)
@@ -93,25 +104,34 @@ def rand_cos_hemisphere(state: torch.Tensor):
     return state, (x, y, z)
 
 
-def rand_uniform_sphere(state: torch.Tensor):
-    """Uniform direction on the unit sphere (``shader/rand.glsl:32-40``)."""
-    state, u = rand_uniform_float(state)
-    state, v = rand_uniform_float(state)
+def rand_uniform_sphere(state, xp=None):
+    """Uniform direction on the unit sphere (``shader/rand.glsl:32-40``);
+    ``xp`` as ``uint_to_unit_float``."""
+    state, u = rand_uniform_float(state, xp)
+    state, v = rand_uniform_float(state, xp)
+    if xp is np:
+        z = np.float32(2.0) * u - np.float32(1.0)
+        theta = np.float32(_TWO_PI) * v
+        r = np.sqrt(np.float32(1.0) - z * z)
+        return state, (r * np.cos(theta), r * np.sin(theta), z)
     z = 2.0 * u - 1.0
     theta = _TWO_PI * v
     r = torch.sqrt(1.0 - z * z)
     return state, (r * torch.cos(theta), r * torch.sin(theta), z)
 
 
-def rand_barycentric(state: torch.Tensor):
+def rand_barycentric(state, xp=None):
     """Uniform barycentric coordinates (``shader/rand.glsl:42-50``), with the
     reference's fold quirk: when u + v > 1 it sets u = 1 - v and then
-    v = 1 - u with the *new* u, so v ends unchanged."""
-    state, u = rand_uniform_float(state)
-    state, v = rand_uniform_float(state)
-    over = u + v > 1.0
-    new_u = 1.0 - v
-    new_v = 1.0 - new_u  # == v, faithfully mirroring the quirk
-    u = torch.where(over, new_u, u)
-    v = torch.where(over, new_v, v)
-    return state, (u, v, 1.0 - u - v)
+    v = 1 - u with the *new* u, so v ends unchanged. ``xp`` as
+    ``uint_to_unit_float``."""
+    state, u = rand_uniform_float(state, xp)
+    state, v = rand_uniform_float(state, xp)
+    one = np.float32(1.0) if xp is np else 1.0
+    where = np.where if xp is np else torch.where
+    over = u + v > one
+    new_u = one - v
+    new_v = one - new_u  # == v, faithfully mirroring the quirk
+    u = where(over, new_u, u)
+    v = where(over, new_v, v)
+    return state, (u, v, one - u - v)

@@ -27,12 +27,16 @@ single-device film up to the order of its float sums. Two layouts:
 
 Both ride ``Renderer.render``: the same chunk loop, chain policy
 (``resolve_chain_sweeps``), previews, checkpoints and overflow invariant.
-``Renderer._settle_overflow`` is the counterpart of JAX's
-``settle_mega_overflow``: one host read of the chunks' summed counters
-(every band's), and on any drop every recorded chunk is traced again at
-full capacity on every band. Per-sweep RNG comes from the same host
-schedule as the single device, so the device count never changes the
-estimate. No band falls back to the CPU: a failed build or launch raises.
+``Renderer._settle_overflow``, like JAX's ``settle_mega_overflow`` (here
+too, over a renderer's list of sweeps), makes one host read of the chunks'
+summed counters (every band's), and on any drop every recorded chunk is
+traced again at full capacity on every band (``Renderer._rerender``).
+JAX's function forms, ``make_sharded_sweep`` and
+``make_sharded_mega_sweep``, take a list of devices in place of a mesh and
+run the classes' one share and band implementation. Per-sweep RNG comes
+from the same host schedule as the single device, so the device count
+never changes the estimate. No band falls back to the CPU: a failed build
+or launch raises.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ import torch.nn.functional as F
 
 from hijiki_tpu_torch.ops.camera import camera_rays
 from hijiki_tpu_torch.ops.integrate import integrate
-from hijiki_tpu_torch.ops.megakernel import mega_scene, render_waves, render_waves_chained
+from hijiki_tpu_torch.ops.megakernel import (
+    _seed_bits, mega_scene, render_waves, render_waves_chained,
+)
 from hijiki_tpu_torch.ops.rng import MASK32, seed_rng
 from hijiki_tpu_torch.render.blocks import upload
 from hijiki_tpu_torch.render.pallas_reconstruct import R as RADIUS, reconstruct
@@ -55,6 +61,7 @@ from hijiki_tpu_torch.render.renderer import (
     RenderConfig, Renderer, chunk_inputs, resolve_shadow_tbl,
 )
 from hijiki_tpu_torch.scene.compile import CompiledScene, to_device
+from hijiki_tpu_torch.utils.tracing import maybe_span
 
 
 def resolve_devices(num_devices: Optional[int] = None, devices=None, device="cuda") -> list:
@@ -83,13 +90,37 @@ def resolve_devices(num_devices: Optional[int] = None, devices=None, device="cud
     return [torch.device("cuda", d.index or 0) if d.type == "cuda" else d for d in devices]
 
 
-def trace_blocks(scene, origins, dims, seeds, sample_offset, config: RenderConfig):
+def _sync_config(*, width: int, height: int, block_size: int, use_bvh: bool, max_bounces: int,
+                 radius: int, stddev: float, leaf_size: int) -> RenderConfig:
+    """The ``RenderConfig`` of JAX's ``trace_blocks``/``make_sharded_sweep``
+    keywords."""
+    return RenderConfig(width=width, height=height, block_size=block_size, use_bvh=use_bvh,
+                        max_bounces=max_bounces, reconstruction_radius=radius,
+                        reconstruction_stddev=stddev, leaf_size=leaf_size, driver="sync")
+
+
+def trace_blocks(scene, origins, dims, seeds, sample_offset, config: RenderConfig = None,
+                 **jax_kwargs):
     """Trace k blocks (block_size^2 lanes each) of one sweep and
     reconstruct them into a full-size partial film delta (H, W, 4): the
     unit each device runs. ``scene``: a device ``CompiledScene``; origins,
     dims (k, 2) int block origins (x, y) and clipped dims (w, h), a dummy
     block at (W, H); seeds (k,) u32 block seeds. Returns (delta, bounce
-    iterations)."""
+    iterations).
+
+    JAX's keyword form passes ``width``, ``height``, ``block_size``,
+    ``use_bvh``, ``max_bounces``, ``radius``, ``stddev`` and ``leaf_size``
+    (``_sync_config``) in place of ``config`` and returns the delta alone,
+    as JAX's does."""
+    if config is None:
+        return _trace_blocks(scene, origins, dims, seeds, sample_offset,
+                             _sync_config(**jax_kwargs))[0]
+    if jax_kwargs:
+        raise TypeError(f"trace_blocks: config= and JAX's keywords {sorted(jax_kwargs)} together")
+    return _trace_blocks(scene, origins, dims, seeds, sample_offset, config)
+
+
+def _trace_blocks(scene, origins, dims, seeds, sample_offset, config: RenderConfig):
     c = config
     dev = scene.trace_rows.device
     H, W, B = c.height, c.width, c.block_size
@@ -223,17 +254,23 @@ class MultiChipRenderer(_MultiDevice):
         return 1
 
     def _run_chunk(self, kind, block_seeds, sample_offset, phase_shrink):
-        """One sweep: each device traces its share of the blocks; the
-        partial films are summed on the first device."""
+        """One sweep of the static block list (its seeds padded with 0 for
+        the dummy blocks)."""
         seeds = np.asarray(block_seeds, np.uint32).reshape(-1)
         seeds = np.concatenate([seeds, np.zeros(len(self.block_origins) - len(seeds), np.uint32)])
-        k = len(self.block_origins) // self.n_dev
+        return self._run_shares(self.block_origins, self.block_dims, seeds, sample_offset)
+
+    def _run_shares(self, origins, dims, seeds, sample_offset):
+        """Each device traces its contiguous share of the blocks (k a
+        multiple of the device count); the partial films are summed on the
+        first device. Returns (delta, stats)."""
+        k = len(origins) // self.n_dev
         deltas, iterations = [], []
         for i, scene in enumerate(self.scenes):
             share = slice(i * k, (i + 1) * k)
             with self._on(i):
-                delta, it = trace_blocks(scene, self.block_origins[share], self.block_dims[share],
-                                         seeds[share], sample_offset, self.config)
+                delta, it = _trace_blocks(scene, origins[share], dims[share], seeds[share],
+                                          sample_offset, self.config)
             deltas.append(delta)
             iterations.append(it)
         self._join()
@@ -250,7 +287,9 @@ class MegaMultiChipRenderer(_MultiDevice):
     """The mega driver with the frame sharded in row bands, one a device."""
 
     def __init__(self, compiled: CompiledScene, config: RenderConfig,
-                 num_devices: Optional[int] = None, devices=None, device="cuda"):
+                 num_devices: Optional[int] = None, devices=None, device="cuda",
+                 interpret: Optional[bool] = None):
+        # interpret: JAX's choice of the TPU interpreter; the devices decide
         c = config
         if c.driver != "mega":
             raise ValueError("MegaMultiChipRenderer renders with the mega driver "
@@ -298,15 +337,26 @@ class MegaMultiChipRenderer(_MultiDevice):
 
     def _run_chunk(self, kind, block_seeds, offsets, phase_shrink):
         """One chunk on every band: ("sweep", (bh, bw) seeds, (2,) offset)
-        traced by render_waves, or ("chained", (S, bh, bw), (S, 2)) by one
+        or ("chained", (S, bh, bw), (S, 2)), each band's inputs expanded on
+        its device (``_run_bands``)."""
+        c = self.config
+        if kind == "sweep":
+            block_seeds, offsets = np.asarray(block_seeds)[None], np.asarray(offsets)[None]
+        offs = np.asarray(offsets, np.float32)
+        return self._run_bands(
+            lambda i: chunk_inputs(c.width, self.band, c.block_size, block_seeds, offs,
+                                   self.devices[i], row0=i * self.band),
+            offs, phase_shrink)
+
+    def _run_bands(self, inputs, offs, phase_shrink):
+        """S sweeps on every band: ``inputs(i)`` gives band i's pxs, pys (S,
+        band * W) f32 and seeds (S, band * W) int32 u32 bits on its device;
+        one sweep is traced by render_waves, S > 1 by one
         render_waves_chained; each band's S sweeps reconstructed in one K3
         launch on its extended canvas, then the halo exchange. Returns (the
         bands' deltas, stats with the overflow summed over bands)."""
         c = self.config
         B, band, W = c.block_size, self.band, c.width
-        if kind == "sweep":
-            block_seeds, offsets = np.asarray(block_seeds)[None], np.asarray(offsets)[None]
-        offs = np.asarray(offsets, np.float32)
         S = len(offs)
         kw = dict(max_bounces=c.max_bounces, shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
                   **({"phase_shrink": phase_shrink} if phase_shrink else {}))
@@ -315,8 +365,7 @@ class MegaMultiChipRenderer(_MultiDevice):
         exts, ovfs, segs, rows = [], [], [], []
         for i, ms in enumerate(self.scenes):
             with self._on(i):
-                pxs, pys, seeds = chunk_inputs(W, band, B, block_seeds, offs, self.devices[i],
-                                               row0=i * band)
+                pxs, pys, seeds = inputs(i)
                 if S == 1:
                     out = render_waves(ms, pxs[0], pys[0], seeds[0], lane_sort=c.sort_lanes, **kw)
                 else:
@@ -348,3 +397,112 @@ class MegaMultiChipRenderer(_MultiDevice):
             if i + 1 < self.n_dev:
                 own[i][band - R:] += exts[i + 1][B - R:B].to(d, non_blocking=True)
         return own
+
+
+# ----------------------------------------------------------------------------
+# JAX's function forms: a sweep function over a device list
+# ----------------------------------------------------------------------------
+# JAX builds a shard_map'ed function over a Mesh; here the first argument is
+# the list of devices (None: every visible CUDA device; a name may repeat),
+# since the port imports no jax. Each function runs the renderer classes'
+# one implementation of a share or a band (_run_shares, _run_bands) on a
+# renderer it builds once, and is called with JAX's arguments, the scene it
+# was made for first.
+
+
+def _check_scene(made_for, scene) -> None:
+    if scene is not made_for:
+        raise ValueError("the sweep function was made for another scene object")
+
+
+def make_sharded_sweep(devices, scene: CompiledScene, **kwargs):
+    """JAX's ``make_sharded_sweep``: the sync driver's sweep over
+    ``devices``. ``kwargs``: ``trace_blocks``' JAX keywords. Returns
+    ``fn(scene, origins, dims, seeds, sample_offset)``, which traces the
+    blocks (their count a multiple of the device count; contiguous shares,
+    one a device) and returns the assembled (H, W, 4) delta on the first
+    device, as JAX's returns its film (the sync integrator drops no path,
+    so there is no overflow to sum)."""
+    r = MultiChipRenderer(scene, _sync_config(**kwargs), devices=resolve_devices(None, devices))
+
+    def sweep(scene_, origins, dims, seeds, sample_offset):
+        _check_scene(scene, scene_)
+        origins, dims = np.asarray(origins, np.int32), np.asarray(dims, np.int32)
+        if len(origins) % r.n_dev:
+            raise ValueError(f"{len(origins)} blocks do not shard over {r.n_dev} devices")
+        return r._run_shares(origins, dims, np.asarray(seeds, np.uint32),
+                             np.asarray(sample_offset, np.float32))[0]
+
+    return sweep
+
+
+def make_sharded_mega_sweep(devices, scene: CompiledScene, *, width: int, height: int,
+                            block_size: int, max_bounces: int, stddev: float,
+                            interpret: bool = False, packet: int = 128, groups: int = 1,
+                            table_in_hbm: bool = False, trunk_rows: int = 0,
+                            shadow_tbl: bool = False, phase_shrink: tuple = (),
+                            n_sweeps: int = 1, seeds_from_blocks: bool = False,
+                            chain_cap: int = 8):
+    """JAX's ``make_sharded_mega_sweep``: the mega driver's row bands over
+    ``devices``, one a device (``height`` divisible by their count, a band
+    a multiple of ``block_size``). Returns, with ``seeds_from_blocks``,
+    ``fn(scene, block_seeds (S, bh, bw), sample_offsets (S, 2))`` (S =
+    ``n_sweeps``; S > 1 chains them, capped at ``chain_cap``), else
+    ``fn(scene, px, py, seeds (H * W,), sample_offset (2,))``; either gives
+    (the assembled (H, W, 4) delta on the first device, the overflow summed
+    over the bands). The walker kwargs are accepted as ``render_waves``
+    accepts them; ``interpret`` routes nothing."""
+    config = RenderConfig(
+        width=width, height=height, block_size=block_size, max_bounces=max_bounces,
+        reconstruction_stddev=stddev, driver="mega", mega_packet=packet, mega_groups=groups,
+        mega_trunk=trunk_rows, mega_shadow=1 if shadow_tbl else -1, mega_chain_cap=chain_cap,
+    )
+    r = MegaMultiChipRenderer(scene, config, devices=resolve_devices(None, devices))
+    band = r.band
+    ps = tuple(phase_shrink or ())
+
+    def assemble(out):
+        deltas, stats = out
+        return torch.cat([d.to(r.device) for d in deltas]), stats["wave_overflow"]
+
+    def from_blocks(scene_, block_seeds, sample_offsets):
+        _check_scene(scene, scene_)
+        bs = np.asarray(block_seeds, np.uint32).reshape((n_sweeps,) + np.shape(block_seeds)[-2:])
+        offs = np.asarray(sample_offsets, np.float32).reshape(n_sweeps, 2)
+        return assemble(r._run_bands(
+            lambda i: chunk_inputs(width, band, block_size, bs, offs, r.devices[i],
+                                   row0=i * band),
+            offs, ps))
+
+    def from_pixels(scene_, px, py, seeds, sample_offset):
+        _check_scene(scene, scene_)
+        px, py = torch.as_tensor(px, dtype=torch.float32), torch.as_tensor(py, dtype=torch.float32)
+        seeds = torch.as_tensor(np.asarray(seeds, np.uint32).view(np.int32)) \
+            if not isinstance(seeds, torch.Tensor) else _seed_bits(seeds)
+        n = band * width
+
+        def inputs(i):
+            part = slice(i * n, (i + 1) * n)
+            return tuple(a[part].to(r.devices[i]).contiguous()[None] for a in (px, py, seeds))
+
+        offs = np.asarray(sample_offset, np.float32).reshape(1, 2)
+        return assemble(r._run_bands(inputs, offs, ps))
+
+    return from_blocks if seeds_from_blocks else from_pixels
+
+
+def settle_mega_overflow(renderer, scheds, ovfs, film_start, tracer=None) -> int:
+    """JAX's ``settle_mega_overflow``: one host read sums the sweeps'
+    overflow counters ``ovfs``; if any path was dropped, ``renderer``'s
+    film restarts at ``film_start`` and every schedule of ``scheds`` is
+    traced again, a sweep a chunk, at full capacity (phase_shrink 1) with
+    the same seeds (``Renderer._rerender``, which ``Renderer.render``'s own
+    settle runs too). Returns the number of dropped paths (0 = no
+    retry)."""
+    with maybe_span(tracer, "overflow check (host sync)") as sp:
+        seen = int(torch.stack([o.to(ovfs[0].device) for o in ovfs]).sum()) if ovfs else 0
+        sp["overflow"] = seen
+    if seen:
+        renderer.film = film_start
+        renderer._rerender([("sweep", s.block_seeds, s.sample_offset) for s in scheds], seen)
+    return seen

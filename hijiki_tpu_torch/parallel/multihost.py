@@ -140,6 +140,6 @@ class MultiHostMegaRenderer(_HostStrideMixin, MegaMultiChipRenderer):
     processes."""
 
     def __init__(self, compiled, config, host_id=None, num_hosts=None, num_devices=None,
-                 devices=None, device="cuda"):
-        super().__init__(compiled, config, num_devices, devices, device)
+                 devices=None, device="cuda", interpret=None):
+        super().__init__(compiled, config, num_devices, devices, device, interpret)
         self._init_stride(host_id, num_hosts)

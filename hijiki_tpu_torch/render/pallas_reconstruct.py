@@ -1,7 +1,8 @@
 """The bilateral reconstruction kernel (K3) and its wrapper.
 
 Counterpart of ``hijiki_tpu/render/pallas_reconstruct.py`` (same module
-name, so the two are easy to pair). ``reconstruct`` takes S sweeps'
+name, so the two are easy to pair; ``reconstruct_pallas`` is JAX's call
+form). ``reconstruct`` takes S sweeps'
 (S, H, W, 3) radiance and first-hit normals and their (S, 2) sample
 offsets (or one sweep's (H, W, 3) and (2,)) and returns the (H, W, 4) film
 delta of the reference's R = 2 filter (``shader/reconstruction.glsl``),
@@ -32,6 +33,9 @@ import torch
 from hijiki_tpu_torch.render.reconstruct import reconstruct_sweep
 
 R = 2  # RECONSTRUCTION_RADIUS (src/main.rs:1284)
+# rows of one grid step of the Pallas kernel: the TPU's tiling, which
+# ``reconstruct_pallas`` accepts and the CUDA kernel does not read
+STRIP = 8
 
 # launches of the CUDA kernel, unweighted and weighted (CPU twin calls are
 # not counted)
@@ -98,3 +102,17 @@ def reconstruct(color, normal, sample_offset, *, block_size: int, stddev: float 
         if rc != 0:
             raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     return out
+
+
+def reconstruct_pallas(color, normal, sample_offset, sample_weight=None, *, block_size: int,
+                       stddev: float = 0.5, interpret: bool = False, strip: int = STRIP):
+    """JAX's call form of K3: one sweep's (H, W, 3) radiance and normals,
+    its (2,) offset and an optional (H, W) sample weight -> the (H, W, 4)
+    delta of ``reconstruct`` (K3, or ``reconstruct_weighted`` with a
+    weight, on a CUDA tensor; the plain version on a CPU one). ``strip``
+    tiles the TPU's grid and ``interpret`` picks the TPU's interpreter:
+    neither changes what runs here, which the inputs' device decides."""
+    if sample_weight is not None:
+        sample_weight = sample_weight.to(torch.float32).contiguous()
+    return reconstruct(color.contiguous(), normal.contiguous(), sample_offset,
+                       block_size=block_size, stddev=stddev, sample_weight=sample_weight)

@@ -22,8 +22,13 @@ time.
 
 ``sort_lanes`` sorts the wavefront driver's lane pool, and the mega
 driver's paths inside every launch (the lane-sorted kernels, K7); neither
-changes a film. Not ported yet (``RenderConfig`` refuses them at
-non-default values): the TPU packet/walker knobs.
+changes a film. The TPU's packet/walker knobs are accepted and read by
+nothing (the per-thread walk has no packet): their resolvers return what
+JAX's return off the TPU.
+
+``render_sweep`` and ``render_sweeps_chained`` take the port's form (a
+``RenderConfig``) or JAX's keyword form; each JAX form builds the config
+and runs the port's one implementation.
 """
 
 from __future__ import annotations
@@ -41,9 +46,9 @@ import torch
 from hijiki_tpu_torch.ops.camera import camera_rays
 from hijiki_tpu_torch.ops.integrate import TRAVERSALS, integrate
 from hijiki_tpu_torch.ops.megakernel import (
-    CHAIN_SWEEPS_CUDA, mega_scene, render_waves, render_waves_chained,
+    CHAIN_SWEEPS_CUDA, MegaScene, mega_scene, render_waves, render_waves_chained, scene_of,
 )
-from hijiki_tpu_torch.ops.rng import seed_rng, to_bits
+from hijiki_tpu_torch.ops.rng import as_state, seed_rng, to_bits
 from hijiki_tpu_torch.render.blocks import BlockScheduler, per_pixel_seeds_device, upload
 from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct
 from hijiki_tpu_torch.render.reconstruct import normalize_film, reconstruct_sweep
@@ -165,12 +170,22 @@ def chain_chunk_size(remaining: int, chain: int) -> int:
     return chain
 
 
-def resolve_chain_sweeps(config: RenderConfig, device, sweeps_done: int = 0) -> int:
+def resolve_chain_sweeps(config: RenderConfig, table_hbm=False, sweeps_done: int = 0, *,
+                         device=None) -> int:
     """Sweeps per chained launch. 0 = auto: CHAIN_SWEEPS_CUDA (through
     ``chain_chunk_size``) for the mega driver on a CUDA device, 1 (off) on
-    the CPU, where the twins gain nothing from chaining. Chaining needs the
-    mega driver with the radius-2 reconstruction, parity albedo and no lane
-    sort; HIJIKI_CHAIN_SWEEPS overrides the auto choice."""
+    the CPU, where the twins gain nothing from chaining, and on JAX's HBM
+    table path (``table_hbm``). Chaining needs the mega driver with the
+    radius-2 reconstruction, parity albedo and no lane sort;
+    HIJIKI_CHAIN_SWEEPS overrides the auto choice.
+
+    JAX's form is ``(config, table_hbm, sweeps_done)``; the port's passes
+    the device second (a ``torch.device`` or a name) or as ``device=``.
+    Without a device the port's entry points run on the card, so JAX's
+    form resolves the card's default (8 sweeps a launch), where JAX on a
+    non-TPU backend resolves 1."""
+    if isinstance(table_hbm, (str, torch.device)):
+        device, table_hbm = table_hbm, False
     c = config
     eligible = (
         c.driver == "mega"
@@ -189,22 +204,66 @@ def resolve_chain_sweeps(config: RenderConfig, device, sweeps_done: int = 0) -> 
                 "reconstruction, parity albedo, and no --sort-lanes"
             )
         return requested
-    if not eligible or torch.device(device).type != "cuda":
+    if not eligible or table_hbm or torch.device(device or "cuda").type != "cuda":
         return 1
     return chain_chunk_size(c.spp - sweeps_done, CHAIN_SWEEPS_CUDA)
 
 
-def resolve_shadow_tbl(requested: int) -> bool:
+def resolve_shadow_tbl(requested: int, table_hbm: bool = False, scene=None) -> bool:
     """Whether the mega driver's shadow walks take the dedicated any-hit
     table (JAX's ``resolve_shadow_tbl``, hijiki_tpu/render/renderer.py:
-    671-689): 0 = auto, which is off; > 0 on (the scene must have one);
-    < 0 off. HIJIKI_SHADOW_TBL overrides the auto choice."""
+    671-689, whose ``table_hbm`` and ``scene`` it reads no more than JAX
+    does): 0 = auto, which is off; > 0 on (the scene must have one); < 0
+    off. HIJIKI_SHADOW_TBL overrides the auto choice."""
     if requested:
         return requested > 0
     env = os.environ.get("HIJIKI_SHADOW_TBL")
     if env:
         return int(env) > 0
     return False
+
+
+# The resolvers of the TPU walker's knobs, with JAX's signatures and what
+# JAX's return off the TPU (hijiki_tpu/render/renderer.py:588-710), less
+# the HIJIKI_* overrides. The per-thread walk reads none of the values: any
+# of them gives the same film bit for bit.
+
+# JAX's VMEM budget of the HBM walk's trunk cache (resolve_mega_trunk)
+MEGA_TRUNK_BYTES = 12 << 20
+
+
+def resolve_spec_resolve(requested: int, table_hbm: bool = False) -> bool:
+    """The pipelined winner resolve: 0 = auto, on for HBM-streamed tables
+    only; 1 on, -1 off."""
+    if requested:
+        return requested > 0
+    return table_hbm
+
+
+def resolve_mega_groups(requested: int, packet: int, table_hbm: bool) -> int:
+    """Independent cursor groups a packet: 0 = auto, 2 on JAX's HBM path
+    when the packet holds two 128-lane groups, else 1."""
+    if requested:
+        return requested
+    if table_hbm:
+        return 2 if packet % (2 * 128) == 0 else 1
+    return 1
+
+
+def resolve_mega_trunk(requested: int, table_hbm: bool, scene) -> int:
+    """Trunk-cache rows of JAX's HBM walk: 0 off the HBM path; there 0 =
+    auto (off), N > 0 the first N rows, -1 off."""
+    if not table_hbm:
+        return 0
+    return max(requested, 0)
+
+
+def resolve_mega_window(requested: int, table_hbm: bool) -> int:
+    """Row-window height of JAX's HBM walk: 1 off the HBM path; there 0 =
+    auto (1), h >= 1 the height."""
+    if not table_hbm:
+        return 1
+    return max(requested, 1)
 
 
 def _pixel_grid(width, height, device, row0=0):
@@ -226,17 +285,109 @@ def chunk_inputs(width, height, block_size, block_seeds, offsets, device, row0=0
     return x + offs_d[:, 0:1], y + offs_d[:, 1:2], to_bits(seeds.reshape(len(offsets), -1))
 
 
-def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
-                 phase_shrink: tuple = ()):
-    """Trace + reconstruct one full-image sweep with ``config.driver``;
-    ``scene`` is a ``MegaScene`` for the mega driver and a device
-    ``CompiledScene`` (``to_device``) for the others. Returns (film_delta,
-    stats)."""
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _scene_device(scene, inputs=None) -> torch.device:
+    """Where a JAX-form call runs: on its inputs' device when they are
+    tensors, else on its scene's, else on the card."""
+    if isinstance(inputs, torch.Tensor):
+        return inputs.device
+    if isinstance(scene, MegaScene):
+        return scene.rows.device
+    rows = scene.trace_rows_mega
+    return rows.device if isinstance(rows, torch.Tensor) else torch.device("cuda")
+
+
+def _sweep_config(*, width: int, height: int, block_size: int, use_bvh: bool, max_bounces: int,
+                  radius: int, stddev: float, leaf_size: int, driver: str = "sync",
+                  wavefront_lanes: int = 1 << 18, sort_lanes: bool = False, traversal: str = "",
+                  fixed_albedo: bool = False, mega_packet: int = 128, mega_groups: int = 1,
+                  mega_table_hbm: bool = False, mega_spec_resolve: bool = False,
+                  mega_trunk: int = 0, mega_window: int = 1, mega_shadow_tbl: bool = False,
+                  chain_cap: int = 0) -> RenderConfig:
+    """The ``RenderConfig`` of JAX's keyword form of ``render_sweep`` (and,
+    with ``chain_cap``, of ``render_sweeps_chained``). The walker knobs are
+    taken as resolved; ``mega_table_hbm`` schedules JAX's HBM walk and
+    nothing here."""
+    c = RenderConfig(
+        width=width, height=height, block_size=block_size, use_bvh=use_bvh,
+        max_bounces=max_bounces, reconstruction_radius=radius,
+        reconstruction_stddev=stddev, leaf_size=leaf_size, driver=driver,
+        wavefront_lanes=wavefront_lanes, sort_lanes=sort_lanes, traversal=traversal,
+        fixed_albedo=fixed_albedo, mega_packet=mega_packet, mega_groups=mega_groups,
+        spec_resolve=1 if mega_spec_resolve else -1, mega_trunk=mega_trunk,
+        mega_window=mega_window, mega_shadow=1 if mega_shadow_tbl else -1,
+        mega_chain_cap=chain_cap,
+    )
+    check_config(c)
+    return c
+
+
+def render_sweep(scene, pixel_seeds, sample_offset, config: RenderConfig = None,
+                 phase_shrink: tuple = (), *, width: int = None, height: int = None,
+                 block_size: int = None, use_bvh: bool = None, max_bounces: int = None,
+                 radius: int = None, stddev: float = None, leaf_size: int = None,
+                 driver: str = "sync", wavefront_lanes: int = 1 << 18, sort_lanes: bool = False,
+                 traversal: str = "", fixed_albedo: bool = False, mega_packet: int = 128,
+                 mega_groups: int = 1, mega_table_hbm: bool = False,
+                 mega_spec_resolve: bool = False, mega_trunk: int = 0, mega_window: int = 1,
+                 mega_shadow_tbl: bool = False, seeds_from_blocks: bool = False,
+                 interpret: bool = False):
+    """Trace + reconstruct one full-image sweep with ``config.driver``.
+    Returns (film_delta, stats).
+
+    The port's form passes ``config``: ``scene`` is a ``MegaScene`` for the
+    mega driver and a device ``CompiledScene`` (``to_device``) for the
+    others, and ``pixel_seeds`` the scheduler's (bh, bw) block seeds, which
+    are expanded on the device. JAX's form passes JAX's keywords from
+    ``width`` to ``mega_shadow_tbl`` in place of ``config`` (the first
+    eight are required; ``driver`` defaults to JAX's ``sync``): ``scene``
+    is any ``CompiledScene`` (the mega driver bakes it once, ``scene_of``),
+    and ``pixel_seeds`` the (H, W) per-pixel seeds, or the block seeds
+    with ``seeds_from_blocks``. It runs on the pixel seeds' device when
+    they are a tensor, else on the scene's, else on the card;
+    ``interpret`` routes nothing."""
+    required = dict(width=width, height=height, block_size=block_size, use_bvh=use_bvh,
+                    max_bounces=max_bounces, radius=radius, stddev=stddev, leaf_size=leaf_size)
+    if config is not None:
+        given = sorted(k for k, v in required.items() if v is not None)
+        if given:
+            raise TypeError(f"render_sweep: config= and JAX's keywords {given} together")
+        c = config
+        dev = scene.rows.device if c.driver == "mega" else scene.trace_rows.device
+        seeds = per_pixel_seeds_device(c.width, c.height, c.block_size, pixel_seeds, dev)
+        return _render_sweep(scene, seeds.reshape(-1), sample_offset, c, phase_shrink)
+    missing = sorted(k for k, v in required.items() if v is None)
+    if missing:
+        raise TypeError(f"render_sweep: JAX's form needs {missing} (or the port's config=)")
+    c = _sweep_config(
+        **required, driver=driver, wavefront_lanes=wavefront_lanes, sort_lanes=sort_lanes,
+        traversal=traversal, fixed_albedo=fixed_albedo, mega_packet=mega_packet,
+        mega_groups=mega_groups, mega_table_hbm=mega_table_hbm,
+        mega_spec_resolve=mega_spec_resolve, mega_trunk=mega_trunk, mega_window=mega_window,
+        mega_shadow_tbl=mega_shadow_tbl,
+    )
+    dev = _scene_device(scene, pixel_seeds)
+    if c.driver == "mega":
+        scene = scene_of(scene, c.width, c.height, dev)
+    elif not isinstance(scene.trace_rows, torch.Tensor):
+        scene = to_device(scene, dev)
+    if seeds_from_blocks:
+        seeds = per_pixel_seeds_device(c.width, c.height, c.block_size, _host(pixel_seeds), dev)
+    else:
+        seeds = as_state(pixel_seeds, dev)
+    return _render_sweep(scene, seeds.reshape(-1), sample_offset, c, phase_shrink)
+
+
+def _render_sweep(scene, seeds, sample_offset, config: RenderConfig, phase_shrink: tuple):
+    """``render_sweep`` on the device's (H*W,) per-pixel seeds (int64
+    tensor of u32 values)."""
     c = config
     H, W, driver, max_bounces = c.height, c.width, c.driver, c.max_bounces
-    dev = scene.rows.device if driver == "mega" else scene.trace_rows.device
-    seeds = per_pixel_seeds_device(W, H, c.block_size, block_seeds, dev).reshape(-1)
-    so = np.asarray(sample_offset, np.float32)
+    dev = seeds.device
+    so = _host(sample_offset).astype(np.float32)
     x, y = _pixel_grid(W, H, dev)
     px, py = x + float(so[0]), y + float(so[1])
     traversal = c.traversal or ("rows" if c.use_bvh else "brute")
@@ -300,17 +451,45 @@ def render_sweep(scene, block_seeds, sample_offset, config: RenderConfig,
     return delta, stats
 
 
-def render_sweeps_chained(ms, block_seeds, sample_offsets, config: RenderConfig,
-                          phase_shrink: tuple = ()):
+def _chained_config(*, width: int, height: int, block_size: int, max_bounces: int,
+                    stddev: float, chain_cap: int = 8, mega_packet: int = 128,
+                    mega_groups: int = 1, mega_table_hbm: bool = False,
+                    mega_spec_resolve: bool = False, mega_trunk: int = 0, mega_window: int = 1,
+                    mega_shadow_tbl: bool = False, interpret: bool = False) -> RenderConfig:
+    """The ``RenderConfig`` of JAX's ``render_sweeps_chained`` keywords (its
+    ``_render_sweeps_chained_jit``'s; ``phase_shrink`` is the port's
+    parameter of that name)."""
+    return _sweep_config(
+        width=width, height=height, block_size=block_size, use_bvh=True,
+        max_bounces=max_bounces, radius=2, stddev=stddev, leaf_size=1, driver="mega",
+        mega_packet=mega_packet, mega_groups=mega_groups, mega_table_hbm=mega_table_hbm,
+        mega_spec_resolve=mega_spec_resolve, mega_trunk=mega_trunk, mega_window=mega_window,
+        mega_shadow_tbl=mega_shadow_tbl, chain_cap=chain_cap,
+    )
+
+
+def render_sweeps_chained(scene, block_seeds, sample_offsets, config: RenderConfig = None,
+                          phase_shrink: tuple = (), **static_kwargs):
     """Trace S sweeps in one chained launch (``render_waves_chained``) and
     reconstruct each with its own jitter. ``block_seeds`` (S, bh, bw) u32,
     ``sample_offsets`` (S, 2) f32. Returns (film_delta (H, W, 4): the S
-    sweeps' deltas summed in sweep order, stats: per-sweep averages)."""
-    c = config
+    sweeps' deltas summed in sweep order, stats: per-sweep averages).
+
+    The port's form passes a ``MegaScene`` and ``config``; JAX's passes
+    any ``CompiledScene`` (baked once, ``scene_of``) and JAX's static
+    keywords (``_chained_config``) in place of ``config``, and runs on the
+    scene's device (the card for a numpy scene)."""
+    if config is None:
+        config = _chained_config(**static_kwargs)
+        scene = scene_of(scene, config.width, config.height, _scene_device(scene))
+    elif static_kwargs:
+        raise TypeError(f"render_sweeps_chained: config= and JAX's keywords "
+                        f"{sorted(static_kwargs)} together")
+    ms, c = scene, config
     H, W = c.height, c.width
     S = len(block_seeds)
-    offs = np.asarray(sample_offsets, np.float32)
-    pxs, pys, seeds = chunk_inputs(W, H, c.block_size, block_seeds, offs, ms.rows.device)
+    offs = _host(sample_offsets).astype(np.float32)
+    pxs, pys, seeds = chunk_inputs(W, H, c.block_size, _host(block_seeds), offs, ms.rows.device)
     t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
         ms, pxs, pys, seeds, max_bounces=c.max_bounces,
         shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
@@ -389,7 +568,7 @@ class Renderer:
         return self.config.spp
 
     def _chain(self) -> int:
-        return resolve_chain_sweeps(self.config, self.device, self.sweeps_done)
+        return resolve_chain_sweeps(self.config, sweeps_done=self.sweeps_done, device=self.device)
 
     def _snapshot(self):
         """The film as it stands, to rebuild from (an overflow retry)."""
@@ -523,24 +702,32 @@ class Renderer:
             return 0
         seen = int(torch.stack(counters).sum())
         if seen:
-            import warnings
-
-            warnings.warn(
-                f"{seen} paths exceeded wavefront phase capacity; re-rendering "
-                "every pending chunk at full capacity (phase_shrink=1) with the "
-                "same seeds, so the film stays unbiased"
-            )
             self._restore(self._ovf_film_start)
-            for kind, a, b in self._ovf_records:
-                with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind):
-                    delta, stats = self._run_chunk(kind, a, b, (1,) * 8)
-                self._last_stats = stats
-                self._accumulate(delta)
+            self._rerender(self._ovf_records, seen)
             self._ovf_retried_total += seen
         self._ovf_film_start = self._snapshot()
         self._ovf_records = []
         self._ovf_counters = []
         return seen
+
+    def _rerender(self, records, seen: int) -> None:
+        """Trace every recorded chunk ((kind, seeds, offsets), as
+        ``_run_chunk`` takes it) again at full capacity (phase_shrink 1,
+        which cannot overflow) with the same seeds, adding each delta to
+        the film as it stands (the caller has set it back): ``seen``
+        dropped paths make the film unbiased again."""
+        import warnings
+
+        warnings.warn(
+            f"{seen} paths exceeded wavefront phase capacity; re-rendering "
+            "every pending chunk at full capacity (phase_shrink=1) with the "
+            "same seeds, so the film stays unbiased"
+        )
+        for kind, a, b in records:
+            with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind):
+                delta, stats = self._run_chunk(kind, a, b, (1,) * 8)
+            self._last_stats = stats
+            self._accumulate(delta)
 
     def _term_preview(self):
         if not hasattr(self, "_term_preview_obj"):

@@ -1078,6 +1078,12 @@ def to_device(cs: CompiledScene, device) -> CompiledScene:
     )
 
 
+def scene_to_device(cs: CompiledScene, device=None) -> CompiledScene:
+    """JAX's ``scene_to_device``: ``to_device(cs, device)``, on the card
+    unless the caller names another device (the CPU, as the tests do)."""
+    return to_device(cs, "cuda" if device is None else device)
+
+
 def from_reference(arrays: dict, statics: dict) -> CompiledScene:
     """Build the port's CompiledScene from ``hijiki_tpu``'s compile output.
 
