@@ -260,9 +260,14 @@ channels read and written once) and library_ms null (no PyTorch call
 computes a BVH walk, a path trace or the feature-weighted bilateral
 stencil), except K8's: torch.sort(stable=True) + gather, which orders ties
 otherwise; a probe's bound is its inputs and outputs once against its
-counted f32 operations (PROBE_OPS), and its library_ms null (no PyTorch call
-runs a dependent chain of loads or a fixed-trip walk). The last line is
-{"ok": true, "device": {...}}.
+counted f32 operations (PROBE_OPS; K10b's visited rows at their kinds'
+operations, as its plain version splits them), and its library_ms null (no
+PyTorch call runs a dependent chain of loads or a fixed-trip walk). Each
+entry also has bound_unfused_ms: the same bound with the operations at the
+unfused f32 issue rate that K11b measured under --fmad=false (33.5 T ops/s).
+Phase 7 reads the SASS of every packed walk of K10b, K1 and K4
+(walk_probe.check_packed_loads): its 128-bit and narrower loads, and no
+local memory in its walk loops. The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -286,6 +291,10 @@ WAVEFRONT_SWEEPS = 2
 # roofline of one H100 SXM (published peaks): HBM bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the f32 issue rate of unfused operations (the kernels build with
+# --fmad=false, so a multiply and an add issue apart): K11b's alu_issue
+# measured it on the H100 (PERF.md); each bound is also given at it
+F32_UNFUSED_OPS_PER_S = 33.5e12
 # f32 operations counted per trace row a walk visits: the interior row's
 # slab test (12 mul/add, 10 min/max, 1 add, 3 compares), the cheapest row
 ROW_OPS = 26
@@ -307,7 +316,8 @@ TAP_OPS = 25
 # 7 compares and the sum u + v; the counter's add), latency_chain's fetch
 # (one add) and chain (6 mul, 10 min/max, a compare, an add), and
 # staged_chase's add a cursor and step (8 a warp-step, counted a thread as
-# 8/32); walk_isolate counts ROW_OPS a row visited, as K6 does
+# 8/32); walk_isolate charges a visited row at its kind's ops (row_ops), as
+# the megakernels' bounds do
 PROBE_OPS = {"walk_ablate": ROW_OPS + 41 + 1, "fetch": 1, "chain": 18, "staged": 8 / 32}
 # K9's f32 operations a pixel and tap: K3's TAP_OPS and the spatial weight
 # it recomputes (the offsets 4, their squares and sum 3, the scale 1, the
@@ -904,10 +914,10 @@ def record_calls(mk, names, run):
     return calls
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and f32
-    operations over the f32 peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    operations over the f32 peak (or over ``ops_per_s``)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1057,6 +1067,16 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     full = {}
     ro, rd = pwk.ray_set("random", cs, N, dev)
     co, cd = pwk.ray_set("camera", cs, N, dev)
+    kinds = {}  # K10b's rows by kind, as its plain version splits them (mk.row_kinds)
+
+    def split_walk(key, plain):
+        from hijiki_tpu_torch.ops import megakernel as mk
+
+        mk.reset_row_kinds()
+        out = plain()
+        kinds[key] = mk.row_kinds()
+        return out
+
     runs = [
         ("walk_ablate", "full, G=1, 1M random rays, 16 steps",
          lambda: pab.walk_ablate(ms.rows, ro, rd, 16, {}, 1),
@@ -1064,15 +1084,17 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
          lambda got: (nbytes(ms.rows, ro, rd, got), N * 16 * PROBE_OPS["walk_ablate"])),
         ("walk_isolate", "w32, G=1, 1024x1024 camera rays, one walk",
          lambda: pwk.walk_isolate(ms, ms.rows, co, cd),
-         lambda: pwk.walk_isolate_plain(ms, ms.rows, co, cd),
-         lambda got: (nbytes(ms.rows, ms.consts, co, cd, *got), float(got[1].sum()) * ROW_OPS)),
+         lambda: split_walk("walk_isolate", lambda: pwk.walk_isolate_plain(ms, ms.rows, co, cd)),
+         lambda got: (nbytes(ms.rows, ms.consts, co, cd, *got),
+                      float(got[1].sum()) * row_ops(kinds["walk_isolate"]))),
     ] + [
         (f"walk_isolate_{t}", f"{t} ({tuple(tables[t][1].shape)} rows), G=1, 1024x1024 camera rays, "
          "one walk",
          lambda t=t: pwk.walk_isolate(tables[t][0], tables[t][1], co, cd),
-         lambda t=t: pwk.walk_isolate_plain(tables[t][0], tables[t][1], co, cd),
+         lambda t=t: split_walk(f"walk_isolate_{t}", lambda: pwk.walk_isolate_plain(
+             tables[t][0], tables[t][1], co, cd)),
          lambda got, t=t: (nbytes(tables[t][1], tables[t][0].consts, co, cd, *got),
-                           float(got[1].sum()) * ROW_OPS))
+                           float(got[1].sum()) * row_ops(kinds[f"walk_isolate_{t}"])))
         for t in packed
     ] + [
         ("latency_chain", "fetch chase, 1M threads, 16 steps",
@@ -1104,9 +1126,13 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
         t_p, want = timed(plain, reps=1, warm=False)
         same(f"{key} ({label})", key, got, want)
         b_ms, b_by = bound(*work(got))
-        full[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+        full[key] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                         bound_unfused_ms=bound(*work(got), F32_UNFUSED_OPS_PER_S)[0])
+        split = (f"; rows by kind {kinds[key]}, {row_ops(kinds[key]):.3f} ops a row"
+                 if key in kinds else "")
         print(f"{key} ({label}): bit-equal to its plain version; {t_k:.3f} ms, plain {t_p:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"bound {b_ms:.4f} ms ({b_by}; {full[key]['bound_unfused_ms']:.4f} at the unfused "
+              f"rate){split}", flush=True)
     # the redesigned probes (K10a on the render walk's row step, staged_chase
     # with float4 stores): ptxas' registers and spill stores of the timed
     # instantiation, the warps an SM holds at the timed launch's block; and
@@ -1132,6 +1158,19 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     print(f"walk_ablate: all {len(loads)} instantiations load rows with 128-bit loads only "
           "(SASS: no fewer LDG.E.128 than the source's float4 loads, no narrower LDG in a loop)",
           flush=True)
+    # every packed walk's loads (walk.cuh walk_packed, packed_test) in K10b,
+    # K1 and K4, and their registers and spills
+    try:
+        packed_loads = pwk.check_packed_loads()
+    except RuntimeError as e:
+        fail(str(e))
+    for (kernel, targs), (wide, narrow, local, local_all) in packed_loads.items():
+        regs, spill = build.ptxas_of(report, kernel, targs)
+        print(f"  {kernel}<{targs}>: {wide} LDG.E.128, {narrow} narrower LDG and "
+              f"{local} LDL/STL in its walk loops ({local_all} LDL/STL in all); {regs} registers, "
+              f"{spill} bytes spilled", flush=True)
+    print(f"walk_packed: all {len(packed_loads)} packed instantiations of K10b, K1 and K4 hold no "
+          "LDL/STL in their walk loops", flush=True)
 
     # K9 against its plain version (K3's bound) and against K3, then timed
     for H, W in ((1024, 1024), (1000, 1024)):
@@ -1151,8 +1190,10 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
               f"{t_p:.3f} ms", flush=True)
         if (H, W) == (1024, 1024):
             # each pixel's 7 planes in and 4 channels out, once; K9_TAP_OPS a tap
-            b_ms, b_by = bound(nbytes(planes, got), H * W * 25 * K9_TAP_OPS)
-            full["reconstruct_old"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
+            k9_work = (nbytes(planes, got), H * W * 25 * K9_TAP_OPS)
+            b_ms, b_by = bound(*k9_work)
+            full["reconstruct_old"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                           bound_unfused_ms=bound(*k9_work, F32_UNFUSED_OPS_PER_S)[0])
             print(f"reconstruct_old (1024x1024, block 128): bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
 
@@ -1197,7 +1238,8 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     return [dict(name=k, route="cuda", source=src + sources[k],
                  replaces=replaces[k], launches=counts_k[k], max_abs_err=err[k],
                  ms=full[k]["ms"], plain_ms=full[k]["plain_ms"], bound_ms=full[k]["bound_ms"],
-                 bound_by=full[k]["bound_by"], library_ms=None) for k in err]
+                 bound_by=full[k]["bound_by"], library_ms=None,
+                 bound_unfused_ms=full[k]["bound_unfused_ms"]) for k in err]
 
 
 def main() -> int:
@@ -2609,9 +2651,12 @@ def main() -> int:
           f"{sum(u_ms['mk_start']):.3f} ms + K2 {' + '.join(f'{t:.3f}' for t in u_ms['mk_resume'])} ms")
 
     def summed(works):
-        """bound of a list of calls: summed bytes and summed operations"""
-        b_ms, b_by = bound(sum(w[0] for w in works), sum(w[1] for w in works))
-        return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        """bound of a list of calls: summed bytes and summed operations (and
+        at the unfused issue rate)"""
+        work = (sum(w[0] for w in works), sum(w[1] for w in works))
+        b_ms, b_by = bound(*work)
+        return dict(bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    bound_unfused_ms=bound(*work, F32_UNFUSED_OPS_PER_S)[0])
 
     # the occlusion cache and skip-all at the main path's shapes: the chained
     # chunk's and the unchained sweep's recorded calls through the cache-on

@@ -244,9 +244,18 @@ __device__ void trace_closest(const Scene& S, const Path& p, Hit& h) {
   }
 }
 
+// where a packed any-hit walk stops at the first occluding prim
+// (walk_packed's kStop, packed_test's any-hit accept): the occlusion
+// cache's instantiations but PACKED12's. Elsewhere the any-hit walks run
+// the tournament and compare its t: there the early accept read slower
+// (PACKED12) or flipped K2's registers into spills past its record
+// (PERF.md §6)
+template <int kFmt, bool kCache>
+constexpr bool kAnyStop = kCache && kFmt != 12;
+
 // the occlusion cache's pretest: whether row `pred` of the main table
 // occludes [tmin, tmax), by the walk's own accept (a packed row: any of its
-// prims, the tournament's min t being below tmax)
+// prims, the tournament's min t being below tmax, or kAnyStop's first)
 template <int kFmt>
 __device__ __forceinline__ bool row_occludes(const Scene& S, int pred, float ox,
                                              float oy, float oz, float dx, float dy,
@@ -260,9 +269,13 @@ __device__ __forceinline__ bool row_occludes(const Scene& S, int pred, float ox,
            pt < tmax;
   } else {
     float slot;
-    return packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
-                             slot) &&
-           pt < tmax;
+    if constexpr (kAnyStop<kFmt, true>)
+      return packed_test<kFmt, true>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, tmax, pt,
+                                     pu, pv, slot);
+    else
+      return packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, tmax, pt, pu,
+                               pv, slot) &&
+             pt < tmax;
   }
 }
 
@@ -301,8 +314,9 @@ __device__ bool trace_any(const Scene& S, float ox, float oy, float oz, float dx
     nit = walk(S, ox, oy, oz, dx, dy, dz, tmin, tmax, true, hit, bt, bu, bv, wrow);
   } else {
     const int base = octant_base(S, dx, dy, dz);
-    nit = walk_packed<kFmt>(S.rows, base, base + S.tbl_rows, ox, oy, oz, dx, dy, dz,
-                            tmin, tmax, true, hit, bt, bu, bv, wrow);
+    nit = walk_packed<kFmt, true, 1, kAnyStop<kFmt, kCache>>(
+        S.rows, base, base + S.tbl_rows, ox, oy, oz, dx, dy, dz, tmin, tmax, true, hit, bt,
+        bu, bv, wrow);
   }
   if constexpr (kCache) {
     nit = pre + nit;

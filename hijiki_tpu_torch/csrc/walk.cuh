@@ -42,7 +42,14 @@
 // slot replaces the row index as the winner. The prims' columns are not
 // 16-byte aligned past the first (format 3 at 0, 11, 20; 12 at 0 and every
 // 9 from 11; 4 at 12 + 13k): the first prim comes from the row step's
-// float4s, the others by scalar loads.
+// float4s, the others by scalar loads, which NVVM merges into wider loads
+// where row4's 16-byte alignment proves them aligned. packed_test<kFmt,
+// true> is the any-hit accept: it stops a row's test at the first prim
+// with a hit below tmax (the tournament's min t is below tmax exactly when
+// some prim's is, so the hit flag and the accepting row are the
+// tournament's), and the later prims are neither loaded nor tested. The
+// any-hit walks take it where walk_packed's kStop says (megakernel.cu
+// kAnyStop); elsewhere they run the tournament and compare its t.
 
 #pragma once
 
@@ -317,13 +324,16 @@ __device__ __forceinline__ bool packed_tri(float v0x, float v0y, float v0z,
 }
 
 // _prim_test on a packed prim row whose columns 0-11 are c0, c1, c2: the
-// tournament over its prims -> (hit, t, u, v, the winner's payload slot)
-template <int kFmt>
+// tournament over its prims -> (hit, t, u, v, the winner's payload slot).
+// kAny: the any-hit accept instead, true at the first prim with a hit
+// below tmax (pt, pu, pv and slot left 0)
+template <int kFmt, bool kAny = false>
 __device__ __forceinline__ bool packed_test(const float* r, const float4& c0,
                                             const float4& c1, const float4& c2,
                                             float ox, float oy, float oz, float dx,
-                                            float dy, float dz, float tmin, float& pt,
-                                            float& pu, float& pv, float& slot) {
+                                            float dy, float dz, float tmin, float tmax,
+                                            float& pt, float& pu, float& pv,
+                                            float& slot) {
   bool bhit = false;
   pt = pu = pv = slot = 0.0f;
 #pragma unroll
@@ -349,25 +359,34 @@ __device__ __forceinline__ bool packed_test(const float* r, const float4& c0,
     float t, u, w;
     const bool h = packed_tri(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8],
                               nx, ny, nz, ox, oy, oz, dx, dy, dz, tmin, t, u, w);
-    if (h && (!bhit || t < pt)) {
-      pt = t;
-      pu = u;
-      pv = w;
-      slot = kFmt == 4 ? __ldg(r + B + 12) : static_cast<float>(k);
+    if constexpr (kAny) {
+      if (h && t < tmax) return true;
+    } else {
+      if (h && (!bhit || t < pt)) {
+        pt = t;
+        pu = u;
+        pv = w;
+        slot = kFmt == 4 ? __ldg(r + B + 12) : static_cast<float>(k);
+      }
+      bhit = bhit || h;
     }
-    bhit = bhit || h;
   }
-  if constexpr (kFmt == 1) slot = c2.w;  // column 11
-  else if constexpr (kFmt != 4) slot = __ldg(r + packed_slot_col<kFmt>()) + slot;
-  return bhit;
+  if constexpr (kAny) {
+    return false;
+  } else {
+    if constexpr (kFmt == 1) slot = c2.w;  // column 11
+    else if constexpr (kFmt != 4) slot = __ldg(r + packed_slot_col<kFmt>()) + slot;
+    return bhit;
+  }
 }
 
 // The stackless walk over rows [cur, end) of a packed table `rows` (the
 // main table's octant table, or the dedicated shadow table); as walk(),
 // with wrow the closest hit's payload slot (any hit: the accepting row).
 // kTest = false makes every prim row miss, kG = 32 walks the warp as one
-// packet (walk_isolate, as walk()). Returns rows visited.
-template <int kFmt, bool kTest = true, int kG = 1>
+// packet (walk_isolate, as walk()); kStop: an any hit by packed_test's
+// any-hit accept. Returns rows visited.
+template <int kFmt, bool kTest = true, int kG = 1, bool kStop = false>
 __device__ float walk_packed(const float* rows, int cur, int end, float ox, float oy,
                              float oz, float dx, float dy, float dz, float tmin,
                              float tmax, bool any_hit, bool& hit, float& bt,
@@ -393,10 +412,17 @@ __device__ float walk_packed(const float* rows, int cur, int end, float ox, floa
       continue;
     }
     float pt, pu, pv, slot;
-    if (kTest &&
-        packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, pt, pu, pv,
-                          slot) &&
-        pt < best_t) {
+    if (kStop && kTest && any_hit) {
+      if (packed_test<kFmt, true>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, tmax, pt,
+                                  pu, pv, slot)) {
+        hit = true;
+        wrow = cur;
+        break;
+      }
+    } else if (kTest &&
+               packed_test<kFmt>(r, c0, c1, c2, ox, oy, oz, dx, dy, dz, tmin, tmax, pt,
+                                 pu, pv, slot) &&
+               pt < best_t) {
       if (any_hit) {
         hit = true;
         wrow = cur;

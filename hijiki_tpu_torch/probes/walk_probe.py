@@ -189,7 +189,9 @@ def walk_isolate_plain(ms, rows, o, d, *, test: bool = True, group: int = 1):
     """The closest-hit walk of rays o, d (3, N) f32 over ``rows`` (ms.rows,
     or ``w16_rows`` of classic rows), ``group`` rays walking as one packet;
     a packed table's prims by ``_packed_test``'s tournament. Returns (t,
-    rows visited), each (N,) f32."""
+    rows visited), each (N,) f32; counts the rows by kind as the
+    megakernels' plain walk does (``mk.row_kinds``: interior rows, and prim
+    rows under the table's format, 0 for the classic rows and w16)."""
     n, W = o.shape[1], rows.shape[1]
     _check_table(ms, W)
     ng = n // group
@@ -240,6 +242,9 @@ def walk_isolate_plain(ms, rows, o, d, *, test: bool = True, group: int = 1):
         nxt = torch.where(~is_prim & slab, cur + 1, r[:, 10].long())
         cur = torch.where(act, nxt, cur)
         nit = nit + act.to(torch.float32)
+        # every ray of a group visits the group's row (mk.row_kinds)
+        mk._count_rows("interior", (act & ~is_prim)[:, None].expand(ng, group))
+        mk._count_rows(ms.packed, (act & is_prim)[:, None].expand(ng, group))
     return flat(bt), flat(nit[:, None].expand(ng, group))
 
 
@@ -270,6 +275,66 @@ def walk_isolate(ms, rows, o, d, *, test: bool = True, group: int = 1, iters: in
     call("walk_isolate", *args)
     LAUNCHES[_LAUNCH_KEY[ms.packed]] += 1
     return t, nit
+
+
+# the kernels whose packed instantiations run walk_packed and packed_test,
+# by their mangled template arguments: K10b <kFmt, kTest, kG>; K1 and K4
+# <kFmt, kSh, kCache>, each packed format with the occlusion cache off and
+# on, and the classic rows with the dedicated PACKED3 shadow table
+PACKED_FORMATS = (1, 3, 4, 12)
+PACKED_KERNELS = {"walk_isolate_packed_kernel": [f"ILi{f}ELb{t}ELi{g}E" for f in PACKED_FORMATS
+                                                 for t in (1, 0) for g in (1, 32)],
+                  **{k: [f"ILi{f}ELb0ELb{c}E" for f in PACKED_FORMATS for c in (0, 1)]
+                     + ["ILi0ELb1ELb0E"] for k in ("mk_start_kernel", "mk_start_chained_kernel")}}
+
+
+def walk_loops(code, loops) -> list:
+    """The walk loops of a kernel's SASS (``sass_functions``' code and
+    loops): a loop is a branch target and its furthest backward branch (the
+    back edges of one head together), and a walk loop one that holds a
+    128-bit LDG (the row step) and holds no other such loop."""
+    ends = {}
+    for start, end in loops:
+        ends[start] = max(end, ends.get(start, end))
+    wide = [j for j, (op, _) in enumerate(code) if op.startswith("LDG.") and ".128" in op]
+    rows = [(a, b) for a, b in ends.items() if any(a <= j <= b for j in wide)]
+    return [(a, b) for a, b in rows
+            if not any((c, d) != (a, b) and a <= c and d <= b for c, d in rows)]
+
+
+def check_packed_loads(lib=None, hold: bool = True) -> dict:
+    """The loads of every packed walk (``PACKED_KERNELS``) in the SASS of
+    the kernel library ``lib`` (the package's build by default): {(kernel,
+    mangled template arguments): (128-bit LDGs, narrower LDGs in its walk
+    loops (``walk_loops``), LDL/STL in its walk loops, LDL/STL in all)}.
+    Raises RuntimeError where an instantiation is missing or has no walk
+    loop, or, with ``hold``, has an LDL or STL in a walk loop: a spill of
+    the walk's own values into local memory (the kernels' frames lie
+    outside their walk loops)."""
+    from hijiki_tpu_torch.probes import sass_functions
+
+    out, bad = {}, []
+    every = sass_functions("_kernel", lib)  # one cuobjdump for the three kernels
+    for kernel, targs in PACKED_KERNELS.items():
+        for t in targs:
+            frag = f"{len(kernel)}{kernel}{t}E"
+            found = [v for f, v in every.items() if frag in f]
+            if not found:
+                bad.append(f"no {kernel}{t} in the SASS")
+                continue
+            code, loops, _ = found[0]
+            walks = walk_loops(code, loops)
+            inside = [code[j] for a, b in walks for j in range(a, b + 1)]
+            wide = sum(op.startswith("LDG.") and ".128" in op for op, _ in code)
+            narrow = sum(op.startswith("LDG.") and ".128" not in op for op, _ in inside)
+            local = sum(op.startswith(("LDL", "STL")) for op, _ in inside)
+            out[(kernel, t)] = (wide, narrow, local,
+                                sum(op.startswith(("LDL", "STL")) for op, _ in code))
+            if not walks or (hold and local):
+                bad.append(f"{kernel}{t}: {len(walks)} walk loops, {local} LDL/STL in them")
+    if bad:
+        raise RuntimeError("the packed walks' loads: " + "; ".join(bad))
+    return out
 
 
 def warp_rows(nit) -> tuple[float, float]:

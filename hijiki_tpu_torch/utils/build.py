@@ -183,26 +183,42 @@ def build_host(src: Path, flags: tuple) -> Path:
     return lib
 
 
+def ptxas_table(report: str) -> dict:
+    """{mangled kernel name: (registers, spill-store bytes)} of every entry
+    function in ptxas' ``report``, in the report's order (the spill stores
+    of the entry's own properties, not of a function it calls)."""
+    import re
+
+    out, entry, props, spill = {}, None, None, 0
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, props, spill = m.group(1), None, 0
+            continue
+        m = re.search(r"Function properties for '?([^' ]+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and props == entry:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, (int(m.group(1)), spill))
+            entry = None
+    return out
+
+
 def ptxas_of(report: str, kernel: str, targs: str = "") -> tuple[int, int]:
     """(registers, spill-store bytes) that ptxas reports, in ``report``, for
     the kernel function named ``kernel`` in any namespace, or for its
     instantiation whose mangled template arguments are ``targs``
     (``ILi0ELb0E`` for <0, false>): its mangled name holds
     <length><kernel><targs>E. Raises KeyError if the report has none."""
-    import re
-
     frag = f"{len(kernel)}{kernel}{targs}E"
-    name, spill = None, 0
-    for line in report.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
-        if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name and frag in name:
-            return int(m.group(1)), spill
+    for name, regs_spill in ptxas_table(report).items():
+        if frag in name:
+            return regs_spill
     raise KeyError(f"ptxas reported no kernel {kernel}{targs}")
 
 

@@ -450,6 +450,17 @@ def test_walk_ablate_loads_rows_128_bits_wide():
     assert len(A.check_row_loads()) == len(A.VARIANTS) * 2
 
 
+def test_packed_walks_keep_local_memory_out_of_walk_loops():
+    """Every packed walk of K10b (test and notest, G 1 and 32), K1 and K4
+    (each packed format, the occlusion cache off and on, and the dedicated
+    shadow table) has its walk loops in its SASS and no LDL/STL in them
+    (walk_probe.check_packed_loads)."""
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    cuda_device()
+    assert len(W.check_packed_loads()) == sum(len(t) for t in W.PACKED_KERNELS.values())
+
+
 @pytest.mark.parametrize("group", [1, 32])
 @pytest.mark.parametrize("variant", ["w32", "w32-notest", "w16", "w16-notest", "slim",
                                      "slim-notest", "pack3", "pack3-notest", "pack4",
@@ -824,8 +835,8 @@ FORMAT_OCCUPANCY = {
     # the occlusion cache's instantiations (kCache)
     "classic_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
     "slim_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed3_cache": ((80, 16, 24), (114, 0, 16), (80, 8, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24)),
-    "packed4_cache": ((80, 48, 24), (117, 0, 16), (80, 20, 24), (80, 12, 24), (80, 8, 24), (80, 8, 24), (80, 8, 24)),
+    "packed3_cache": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "packed4_cache": ((80, 0, 24), (109, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
     "packed12_cache": ((80, 0, 24), (117, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
 }
 
@@ -1270,6 +1281,105 @@ def test_cache_kernels_match_twin(config):
         want = plain(ms, *args, lane_sort=True, lane_order=True)
         assert all(torch.equal(a, b) for a, b in zip(bits(got[:2]), bits(un)))
         assert torch.equal(got[2], want[2])
+
+
+# packed prim rows edited so that the walk meets the cases the tournament
+# and the any-hit accept must get right: ``rotate`` moves each prim one
+# place on (the last, often a pad, to the front: a pad before the real
+# hits, an accept at prim 0 falls on prim 1, at n - 2 on the last),
+# ``tie`` copies prim 0 over prim 1 (two prims at the same t; format 4
+# keeps prim 1's own slot, so the wrong winner shows), ``last`` leaves
+# prim 0 alone at the last place and zero pads before it (every accept on
+# the last prim)
+PACKED_EDITS = ("rotate", "tie", "last")
+
+
+def _edit_packed(rows, fmt, n_walk, how):
+    """A copy of the packed table ``rows`` (format ``fmt``) whose first
+    ``n_walk`` rows' prim rows are edited as ``how`` says (PACKED_EDITS)."""
+    rows = rows.clone()
+    head = rows[:n_walk]
+    prim = head[:, 9] >= 0.0
+    ncol = 13 if fmt == 4 else 9
+    cols = [torch.arange(B, B + ncol, device=rows.device) for B in mk._PACKED_BASES[fmt]]
+    blocks = [head[prim][:, c] for c in cols]  # each prim's columns, before the edit
+    n = len(blocks)
+    if how == "rotate":
+        new = [blocks[(k - 1) % n] for k in range(n)]
+    elif how == "tie":
+        new = list(blocks)
+        new[1] = blocks[0].clone()
+        if fmt == 4:
+            new[1][:, 12] = blocks[1][:, 12]
+    else:
+        new = [torch.zeros_like(b) for b in blocks[:-1]] + [blocks[0]]
+        if fmt == 4:
+            for k in range(n - 1):
+                new[k][:, 12] = blocks[k][:, 12]
+    sub = head[prim]
+    for c, b in zip(cols, new):
+        sub[:, c] = b
+    head[prim] = sub
+    return rows
+
+
+@pytest.mark.parametrize("how", PACKED_EDITS)
+@pytest.mark.parametrize("config", ["packed3", "packed4", "packed12", "shadow_tbl"])
+def test_packed_walks_match_plain_on_edited_rows(config, how):
+    """Every packed walk on tables whose prim rows put two prims at one t,
+    a pad beside a real hit, and the any-hit accept on the second and on
+    the last prim (``_edit_packed``): K10b (test and notest, G 1 and 32; not
+    on the shadow table, which it does not walk), K1 (cap 5), K2 (to 24),
+    K5 (to 24), K4 (3 samples) and the sorted K1/K2/K5, with the occlusion
+    cache off and on (the shadow table: off, its any-hit walk is the
+    edited one), every output bit-equal to the plain version."""
+    import dataclasses
+
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    dev = cuda_device()
+    S = 64
+    ms = _format_scene(config, S, dev)
+    if config == "shadow_tbl":
+        ms = dataclasses.replace(ms, shadow_rows=_edit_packed(ms.shadow_rows, 3, ms.shadow_n, how))
+    else:
+        ms = dataclasses.replace(ms, rows=_edit_packed(ms.rows, ms.packed, ms.ntab * ms.tbl_rows,
+                                                       how))
+        cs = compile_scene(load_obj_scene(MESHBOX_SMALL))
+        for rays in ("camera", "random"):
+            o, d = W.ray_set(rays, cs, S * S, dev, frame=S)
+            for test in (True, False):
+                for g in (1, 32):
+                    got = W.walk_isolate(ms, ms.rows, o, d, test=test, group=g, iters=2)
+                    want = W.walk_isolate_plain(ms, ms.rows, o, d, test=test, group=g)
+                    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                               for a, b in zip(got, want)), (rays, test, g)
+    px, py, seeds = _frame(S, dev)
+    pxs = torch.stack([px, px + 0.25, px - 0.25])
+    pys = torch.stack([py, py - 0.125, py + 0.125])
+    sds = torch.stack([seeds, seeds + 1, seeds + 977])
+    bits = lambda ts: [t.view(torch.int32) for t in ts]
+    plain = {mk.megakernel_start: mk.megakernel_start_plain,
+             mk.megakernel_resume: mk.megakernel_resume_plain,
+             mk.megakernel_tiles: mk.megakernel_tiles_plain}
+    for cache in ((False,) if config == "shadow_tbl" else (False, True)):
+        m = mk.launch_scene(ms, shadow_tbl=config == "shadow_tbl", shadow_cache=cache)
+        k1 = mk.megakernel_start(m, px, py, seeds, 5)
+        k2 = mk.megakernel_resume(m, *k1, 24)
+        k5 = mk.megakernel_tiles(m, px, py, seeds, 24)
+        k4 = mk.megakernel_start_chained(m, pxs, pys, sds, 8)
+        for got, want in ((k1, mk.megakernel_start_plain(m, px, py, seeds, 5)),
+                          (k2, mk.megakernel_resume_plain(m, *k1, 24)),
+                          (k5, mk.megakernel_tiles_plain(m, px, py, seeds, 24)),
+                          (k4, mk.megakernel_start_chained_plain(m, pxs, pys, sds, 8))):
+            assert all(torch.equal(a, b) for a, b in zip(bits(got), bits(want))), cache
+        for fn, args, un in ((mk.megakernel_start, (px, py, seeds, 5), k1),
+                             (mk.megakernel_resume, (*k1, 24), k2),
+                             (mk.megakernel_tiles, (px, py, seeds, 24), k5)):
+            got = fn(m, *args, lane_sort=True, lane_order=True)
+            want = plain[fn](m, *args, lane_sort=True, lane_order=True)
+            assert all(torch.equal(a, b) for a, b in zip(bits(got[:2]), bits(un))), cache
+            assert torch.equal(got[2], want[2]), cache
 
 
 def test_skip_all_kernels_match_twin():

@@ -258,3 +258,88 @@ def test_staged_chase_copy_paths():
         assert "copy_rows(" in body and "store_row(" in body, kernel
         assert "o[c] = val" not in body
     assert "cp.async.cg.shared.global" in src and "cp.async.bulk.shared" not in src
+
+
+def test_walk_loops_pick_the_innermost_loops_of_row_loads():
+    """walk_probe.walk_loops: a head's back edges make one loop; of the
+    loops that hold a 128-bit LDG, those holding no other such loop."""
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    ops = ["MOV", "LDG.E.128.CONSTANT", "FADD", "BRA", "LDG.E.128.CONSTANT", "LDG.E", "BRA",
+           "LDG.E", "BRA", "EXIT"]
+    code = [(op, "") for op in ops]
+    # the walk: head 1, back edges at 3 and 6; the outer loop 0-8; a loop
+    # 7-7 without a row load
+    loops = [(1, 3), (1, 6), (0, 8), (7, 7)]
+    assert W.walk_loops(code, loops) == [(1, 6)]
+    assert W.walk_loops(code, [(0, 8)]) == [(0, 8)]
+    assert W.walk_loops(code, [(7, 8)]) == []
+
+
+def _fake_sass(local_at=None, drop=None, flat=None):
+    """sass_functions' form for every packed walk of walk_probe.PACKED_KERNELS:
+    a walk loop (a 128-bit row load, a narrower load, a back branch) after
+    a frame's STL; ``local_at`` gets an LDL inside its walk loop, ``drop``
+    is left out, ``flat`` has no loop."""
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    out = {}
+    for kernel, targs in W.PACKED_KERNELS.items():
+        for t in targs:
+            if (kernel, t) == drop:
+                continue
+            ops = ["STL", "LDG.E.128.CONSTANT", "LDG.E.CONSTANT", "FADD", "BRA", "EXIT"]
+            if (kernel, t) == local_at:
+                ops.insert(3, "LDL")
+            loops = [] if (kernel, t) == flat else [(1, ops.index("BRA"))]
+            out[f"_Z{len(kernel)}{kernel}{t}EvNS_5SceneE"] = ([(op, "") for op in ops], loops, "")
+    return out
+
+
+@pytest.mark.parametrize("case", ["clean", "local", "missing", "no_loop"])
+def test_check_packed_loads_holds_walk_loops(monkeypatch, case):
+    """walk_probe.check_packed_loads counts each packed walk's loads and
+    fails where an instantiation is missing or has no walk loop, and, held,
+    where an LDL/STL lies in a walk loop; a frame's LDL/STL outside the
+    walk loops is counted and allowed."""
+    import hijiki_tpu_torch.probes as P
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    key = ("mk_start_kernel", "ILi4ELb0ELb1E")
+    kw = {"local": dict(local_at=key), "missing": dict(drop=key), "no_loop": dict(flat=key)}
+    monkeypatch.setattr(P, "sass_functions", lambda kernel, lib=None: _fake_sass(**kw.get(case, {})))
+    if case != "clean":
+        with pytest.raises(RuntimeError, match=key[0]):
+            W.check_packed_loads()
+    if case in ("missing", "no_loop"):  # not held either
+        with pytest.raises(RuntimeError, match=key[0]):
+            W.check_packed_loads(hold=False)
+        return
+    got = W.check_packed_loads(hold=case == "clean")
+    assert len(got) == sum(map(len, W.PACKED_KERNELS.values()))
+    local = int(case == "local")
+    assert got[key] == (1, 1, local, 1 + local)
+
+
+def test_any_hit_walks_stop_at_the_first_occluding_prim():
+    """The packed walk's any-hit accept (walk.cuh packed_test<kFmt, true>)
+    returns at the first prim with a hit below tmax; walk_packed takes it
+    for an any hit under kStop and otherwise compares the tournament's t;
+    the kernels set kStop (megakernel.cu kAnyStop) in the occlusion
+    cache's instantiations but PACKED12's, in the walk and in
+    row_occludes, and the dedicated shadow table's walk keeps the
+    tournament."""
+    walk = (build.CSRC / "walk.cuh").read_text()
+    mega = (build.CSRC / "megakernel.cu").read_text()
+    test = walk[walk.index("bool packed_test("):walk.index("// The stackless walk over rows")]
+    assert "if constexpr (kAny) {\n      if (h && t < tmax) return true;" in test
+    assert "if (h && (!bhit || t < pt))" in test
+    body = walk[walk.index("__device__ float walk_packed("):]
+    assert "if (kStop && kTest && any_hit) {\n      if (packed_test<kFmt, true>(" in body
+    assert "packed_test<kFmt>(" in body
+    assert "constexpr bool kAnyStop = kCache && kFmt != 12;" in mega
+    occ = mega[mega.index("bool row_occludes("):mega.index("// any hit in [tmin, tmax)")]
+    assert "if constexpr (kAnyStop<kFmt, true>)\n      return packed_test<kFmt, true>(" in occ
+    any_hit = mega[mega.index("__device__ bool trace_any("):mega.index("// ----", mega.index("__device__ bool trace_any("))]
+    assert "walk_packed<kFmt, true, 1, kAnyStop<kFmt, kCache>>(" in any_hit
+    assert "walk_packed<3>(S.shadow_rows" in any_hit

@@ -46,3 +46,23 @@ def test_row_kinds_sum_to_rows(config):
     mk.reset_row_kinds()
     out, _ = mk.megakernel_resume(ms, st, rng, BOUNCES)
     assert sum(mk.row_kinds().values()) == int((out[ROWS] - st[ROWS]).sum())
+
+
+@pytest.mark.parametrize("group", [1, 32])
+@pytest.mark.parametrize("table", ["w32", "w16", "slim", "pack3", "pack4", "pack12"])
+def test_walk_isolate_row_kinds_sum_to_rows(table, group):
+    """K10b's plain walk splits its rows as the megakernels' does: interior
+    rows and the table's prim rows (format 0 for the classic rows and
+    their 16-column copy) sum to its rows visited, and a packed table has
+    prim rows of its own format only. chip_smoke.py charges K10b's rows at
+    this split."""
+    from hijiki_tpu_torch.probes import walk_probe as W
+
+    ms, cs = W.load_scene(MESHBOX_SMALL, "cpu", 16, 16, W.TABLES[table])
+    rows = W.w16_rows(ms.rows).contiguous() if table == "w16" else ms.rows
+    o, d = W.ray_set("camera", cs, 256, "cpu", frame=16)
+    mk.reset_row_kinds()
+    _, nit = W.walk_isolate_plain(ms, rows, o, d, group=group)
+    kinds = mk.row_kinds()
+    assert set(kinds) == {"interior", ms.packed}
+    assert sum(kinds.values()) == int(nit.sum()) and kinds[ms.packed] > 0

@@ -114,20 +114,43 @@ from chip_smoke import bit_equal, record_calls  # noqa: E402
 
 
 
-def mangled(kernel: str, *older: str) -> tuple:
-    """Parts of a megakernel's mangled name: the classic instantiation
-    without the occlusion cache, <0, false, false>, of this tree's template
-    on the trace-row format (<0, false> in a tree from before the cache),
-    the plain function of a tree from before the formats, and ``older``
-    forms."""
-    n = f"{len(kernel)}{kernel}"
-    return (f"{n}ILi0ELb0ELb0EE", f"{n}ILi0ELb0EE", f"{n}E") + older
+def mangled(kernel: str, *older: str, targs: str = "ILi0ELb0ELb0E") -> tuple:
+    """The forms of a megakernel's name, as (kernel, mangled template
+    arguments) pairs (``build.ptxas_of``'s): the instantiation ``targs`` of
+    this tree's template on the trace-row format, the shadow table and the
+    occlusion cache (default the classic rows without either, <0, false,
+    false>; its <0, false> in a tree from before the cache), the plain
+    function of a tree from before the formats, and ``older`` mangled
+    template arguments (a template on kSort)."""
+    forms = [(kernel, targs)]
+    if targs == "ILi0ELb0ELb0E":
+        forms += [(kernel, "ILi0ELb0E"), (kernel, "")]
+    return tuple(forms) + tuple((kernel, t) for t in older)
 
 
-# the kernels reported, by a part of their mangled names
+def frags(forms) -> tuple:
+    """The parts of a mangled name that ``forms`` (kernel, template
+    arguments) name, as ``build.ptxas_of`` matches them."""
+    return tuple(f"{len(k)}{k}{t}E" for k, t in forms)
+
+
+def ptxas_first(report: str, forms) -> tuple:
+    """(registers, spill-store bytes) of the first of ``forms`` that
+    ptxas' ``report`` has (``build.ptxas_of``); KeyError if none."""
+    from hijiki_tpu_torch.utils import build
+
+    for kernel, targs in forms:
+        try:
+            return build.ptxas_of(report, kernel, targs)
+        except KeyError:
+            continue
+    raise KeyError(f"ptxas reported none of {frags(forms)}")
+
+
+# the kernels reported, by their name's forms
 KERNELS = {"K4": mangled("mk_start_chained_kernel"),
-           "K2": mangled("mk_resume_kernel", "mk_resume_kernelILb0E"),  # or a template on kSort
-           "K10b": ("walk_isolate_kernelILi32ELb1ELi1E",)}
+           "K2": mangled("mk_resume_kernel", "ILb0"),  # or a template on kSort
+           "K10b": (("walk_isolate_kernel", "ILi32ELb1ELi1E"),)}
 SASS_OPS = ("BSSY", "BSYNC", "WARPSYNC", "VOTE", "SHFL", "ATOM", "RED")
 
 
@@ -151,24 +174,6 @@ def stage(name: str, csrc: Path, walk_from: Path | None = None, files=MEGA_FILES
             if (walk_from / h).exists():
                 shutil.copy(walk_from / h, out / h)
     shutil.rmtree(build.BUILD_ROOT / build.cache_key(out), ignore_errors=True)
-    return out
-
-
-def ptxas_table(report: str) -> dict:
-    """{mangled kernel name: (registers, spill store bytes)} from ptxas -v."""
-    out, name, spill = {}, None, 0
-    for line in report.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name, spill = m.group(1), 0
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name] = (int(m.group(1)), spill)
-            name = None
     return out
 
 
@@ -203,20 +208,21 @@ def entry_argtypes(fn: str, old: int | None) -> list:
     return argtypes
 
 
-def scene_args(ms, old: int | None) -> tuple:
-    """The scene block of a call: rows, constants, mk._scene_args (its first
-    ``old`` for an old library)."""
+def scene_args(ms, old: int | None, rows=None) -> tuple:
+    """The scene block of a call: rows (``ms.rows``, or ``rows``),
+    constants, mk._scene_args (its first ``old`` for an old library)."""
     from hijiki_tpu_torch.ops import megakernel as mk
 
     ints = mk._scene_args(ms)
-    return (ms.rows.data_ptr(), ms.consts.data_ptr(), *(ints[:old] if old else ints))
+    return ((ms.rows if rows is None else rows).data_ptr(), ms.consts.data_ptr(),
+            *(ints[:old] if old else ints))
 
 
 class Lib:
     """One built kernel library and its C entries."""
 
     def __init__(self, name: str, path: Path, report: str, tree: Path):
-        self.name, self.path, self.report = name, path, report
+        self.name, self.path, self.report, self.tree = name, path, report, tree
         self.cdll = ctypes.CDLL(str(path))
         self.persistent = hasattr(self.cdll, "mk_occupancy")
         self.old = old_scene(tree)
@@ -227,12 +233,12 @@ class Lib:
             getattr(self.cdll, fn).argtypes = argtypes
             getattr(self.cdll, fn).restype = ctypes.c_int
 
-    def call(self, fn: str, ms, *args, counter=None):
+    def call(self, fn: str, ms, *args, counter=None, rows=None):
         import torch
 
         ptr = lambda a: a.data_ptr() if torch.is_tensor(a) else a
         tail = [counter.data_ptr()] if (self.persistent and fn == "mk_start_chained") else []
-        rc = getattr(self.cdll, fn)(*scene_args(ms, self.old), *map(ptr, args), *tail,
+        rc = getattr(self.cdll, fn)(*scene_args(ms, self.old, rows), *map(ptr, args), *tail,
                                     torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
@@ -242,13 +248,12 @@ class Lib:
         K4's persistent blocks or None)}."""
         from hijiki_tpu_torch.ops import megakernel as mk
 
-        table = ptxas_table(self.report)
         out = {}
-        for k, parts in KERNELS.items():
-            hits = [v for n, v in table.items() if any(p in n for p in parts)]
-            if not hits:
-                raise RuntimeError(f"{self.name}: ptxas reported no {k} kernel ({parts[0]})")
-            regs, spill = hits[0]
+        for k, forms in KERNELS.items():
+            try:
+                regs, spill = ptxas_first(self.report, forms)
+            except KeyError as e:
+                raise RuntimeError(f"{self.name}: {k}: {e}") from None
             warps, blocks = warps_from_registers(regs), None
             if self.persistent and k != "K10b":
                 occ = mk.occupancy({"K4": "mk_start_chained", "K2": "mk_resume"}[k], self.cdll)
@@ -521,8 +526,8 @@ def mega_ab(args, parent: Path) -> tuple:
     result["sass"] = {}
     for lib in libs:
         every = sass_functions("", lib.path)
-        for k, parts in KERNELS.items():
-            found = {f: v for f, v in every.items() if any(p in f for p in parts)}
+        for k, forms in KERNELS.items():
+            found = {f: v for f, v in every.items() if any(p in f for p in frags(forms))}
             for fname, (code, loops, text) in found.items():
                 (args.sass / f"{lib.name}_{k}.sass").write_text(text)
                 counts = op_counts(code)
@@ -539,6 +544,196 @@ def mega_ab(args, parent: Path) -> tuple:
                     if any(op.startswith("LDG") for op in lp["ops"]):  # the walk's row loads
                         print(f"    loop [{lp['start']}, {lp['end']}] {lp['end'] - lp['start'] + 1} "
                               f"instructions: {lp['ops']}")
+    del held, rays
+    part, good = tables_ab(args, libs)
+    result["k10b_tables"] = part
+    ok &= good
+    part, good = formats_ab(args, libs)
+    result["formats"] = part
+    ok &= good
+    return result, ok
+
+
+def alternate(libs, cases, run, reps: int) -> dict:
+    """Time each case's ``run(lib, case)`` on every library, the libraries
+    in turn (the order reversed every other round), each launch between two
+    CUDA events, after a warm-up round: {case: {library: [ms, ...]}}."""
+    import torch
+
+    times = {c: {lib.name: [] for lib in libs} for c in cases}
+    for rep in range(reps + 1):  # round 0 warms up
+        for c in cases:
+            for lib in (libs if rep % 2 else libs[::-1]):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                run(lib, c)
+                b.record()
+                b.synchronize()
+                if rep:
+                    times[c][lib.name].append(a.elapsed_time(b))
+    return times
+
+
+def report_times(times: dict, width: int = 60) -> dict:
+    """Each case's min and median per library and their ratios to the
+    parent's, printed; returns them."""
+    out = {}
+    for c, by_lib in times.items():
+        base = summary(by_lib["parent"])
+        out[c] = {}
+        for name, ts in by_lib.items():
+            sm = summary(ts)
+            sm["ratio_min"] = sm["min_ms"] / base["min_ms"]
+            sm["ratio_median"] = sm["median_ms"] / base["median_ms"]
+            out[c][name] = sm
+            print(f"{c:{width}s} {name:10s} min {sm['min_ms']:9.4f} ms, median {sm['median_ms']:9.4f} "
+                  f"ms (x{sm['ratio_min']:.4f} / x{sm['ratio_median']:.4f} the parent's)", flush=True)
+    return out
+
+
+def tables_ab(args, libs) -> tuple:
+    """K10b on every table of ``walk_probe.TABLES`` (w32, w16, slim, pack3,
+    pack4, pack12), with and without the prim test, G = 1 and 32, on the
+    1024x1024 camera rays (``walk_probe``'s widths frame): t and rows
+    visited of every library bit-equal to the parent's, then timed in turns.
+    Returns (its results, whether every output equals the parent's)."""
+    import torch
+
+    from hijiki_tpu_torch.probes import walk_probe as pwk
+
+    dev = torch.device("cuda")
+    tables, cs = pwk.load_tables(pwk.SCENE, dev, pwk.TABLES)
+    o, d = pwk.ray_set("camera", cs, 1 << 20, dev)
+    n = o.shape[1]
+    cases = {f"K10b {t} {'test' if test else 'notest'} G={g}": (t, test, g)
+             for t in pwk.TABLES for test in (True, False) for g in (1, 32)}
+    outs = {(lib.name, c): [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(2)]
+            for lib in libs for c in cases}
+
+    def run(lib, c):
+        t, test, g = cases[c]
+        ms, rows = tables[t]
+        lib.call("walk_isolate", ms, rows.shape[1], int(test), g, 1, o, d, n, 128,
+                 *outs[(lib.name, c)], None, rows=rows)
+
+    ok, result = True, {"checks": {}}
+    for c in cases:
+        for lib in libs:
+            run(lib, c)
+        torch.cuda.synchronize()
+        for lib in libs[1:]:
+            same = bit_equal(outs[(lib.name, c)], outs[("parent", c)])
+            ok &= same
+            result["checks"][f"{lib.name} {c}"] = same
+            if not same:
+                print(f"{lib.name} {c}: DIFFERS from the parent's t or rows visited", flush=True)
+        result["checks"][f"rows per ray {c}"] = float(outs[("parent", c)][1].double().mean())
+    print(f"K10b on {len(cases)} cases (tables x test/notest x G): "
+          f"{'every library bit-equal to the parent' if ok else 'OUTPUTS DIFFER'}", flush=True)
+    result["times"] = report_times(alternate(libs, cases, run, args.reps), 34)
+    return result, ok
+
+
+def formats_ab(args, libs) -> tuple:
+    """K1, K2, K4, K5 and the sorted K1/K2/K5 on every format of
+    ``mk.KERNEL_FORMATS`` (the meshbox + spheres compiled with its
+    packed_leaf and the shadow-visibility boxes, launched with its shadow
+    table and occlusion cache), and (p)'s chained chunk (the meshbox split
+    4-to-1 twice, 100,384 triangles, compiled PACKED4 by the default
+    auto): the calls of chip_smoke's phase 6 recorded through the package
+    (the chained chunk's K4 and two K2, the unchained sweep's K1 and three
+    K2, K5 on the sweep's frame to 1000), the sorted forms on the sweep's K1
+    and K2 calls and K5's; every output of every library bit-equal to the
+    parent's, then each call timed in turns. Returns (its results, whether
+    every output equals the parent's)."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+    from hijiki_tpu_torch.probes import walk_probe as pwk
+    from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
+    from hijiki_tpu_torch.scene.bigscene import split_scene
+    from hijiki_tpu_torch.scene.compile import compile_scene
+    from hijiki_tpu_torch.scene.obj import load_obj_scene
+
+    plibs = [PathLib(lib.name, lib.path, lib.report, lib.tree) for lib in libs]
+    dev = torch.device("cuda")
+    W = H = 1024
+    scene = load_obj_scene(pwk.SCENE)
+    scene.put_cbox_spheres()
+    cfg = RenderConfig(width=W, height=H, spp=8, max_bounces=1000, block_size=128, use_bvh=True,
+                       driver="mega")
+    compiled = {leaf: compile_scene(scene, packed_leaf=leaf) for leaf in (0, 1, 3, 4, 12)}
+    compiled["p"] = compile_scene(split_scene(scene, 2))
+    sched = Renderer(compiled[0], cfg, device="cuda").scheduler
+    frames = [sweep_frame(sched.sweep(cfg.spp + 1 + s), W, H, dev) for s in range(mk.CHAIN_SWEEPS_CUDA)]
+    cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
+    upx, upy, useeds, _ = sweep_frame(sched.sweep(cfg.spp + 1 + mk.CHAIN_SWEEPS_CUDA), W, H, dev)
+    n = upx.numel()
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    configs = {f: (compiled[leaf], dict(shadow_tbl=sh, shadow_cache=cache))
+               for f, (leaf, sh, cache) in mk.KERNEL_FORMATS.items()}
+    configs["(p) packed4"] = (compiled["p"], {})
+    real = ["mk_start", "mk_resume", "mk_start_chained"]
+    result, ok = {"checks": {}, "times": {}}, True
+
+    def outs_of(entry, a):
+        """(C entry's arguments before its outputs, its fresh outputs)"""
+        if entry == "mk_start_chained":
+            pxs, pys, sds, cap = a
+            S, m = pxs.shape
+            shapes = ((mk.N_STATE, S * m), (S * m,), (mk.CHAIN_OUT_CH, S * m))
+            return (pxs, pys, sds, m, S, cap), [
+                torch.zeros(sh, dtype=dt, device=dev)
+                for sh, dt in zip(shapes, (torch.float32, torch.int32, torch.float32))]
+        ch = len(mk._TILE_CH) if entry.startswith("mk_tiles") else mk.N_STATE
+        lanes = a[-2].numel()
+        outs = [torch.empty((ch, lanes), dtype=torch.float32, device=dev),
+                torch.empty(lanes, dtype=torch.int32, device=dev)]
+        return (*a[:-1], lanes, a[-1]), outs + ([None] if entry.endswith("_sorted") else [])
+
+    for label, (cs_f, opts) in configs.items():
+        ms_f = mk.launch_scene(mk.mega_scene(cs_f, W, H, dev), **opts)
+        calls = record_calls(mk, real, lambda: mk.render_waves_chained(
+            ms_f, cpx, cpy, cseeds, max_bounces=1000, **opts))
+        if not label.startswith("(p)"):
+            sweep = record_calls(mk, real, lambda: mk.render_waves(
+                ms_f, upx, upy, useeds, max_bounces=1000, **opts))
+            calls += sweep + [("mk_tiles", (upx, upy, useeds, 1000))]
+            calls += [(name + "_sorted", a) for name, a in sweep] + [
+                ("mk_tiles_sorted", (upx, upy, useeds, 1000))]
+        cases, seen = {}, {}
+        for entry, a in calls:
+            seen[entry] = seen.get(entry, 0) + 1
+            lanes = "x".join(str(x) for x in a[-2].shape)
+            cases[f"{label} {entry} #{seen[entry]} ({lanes} lanes, cap {a[-1]})"] = (entry, a)
+        held = {}
+
+        def run(lib, c):
+            entry, _ = cases[c]
+            cargs, outs = held[(lib.name, c)]
+            lib.call(entry, ms_f, *cargs, *outs, counter=counter)
+
+        for c, (entry, a) in cases.items():
+            for lib in plibs:
+                held[(lib.name, c)] = outs_of(entry, a)
+                run(lib, c)
+            torch.cuda.synchronize()
+            want = [o for o in held[("parent", c)][1] if o is not None]
+            for lib in plibs[1:]:
+                same = bit_equal([o for o in held[(lib.name, c)][1] if o is not None], want)
+                ok &= same
+                result["checks"][f"{lib.name} {c}"] = same
+                if not same:
+                    print(f"{lib.name} {c}: DIFFERS from the parent's outputs", flush=True)
+        print(f"{label}: {len(cases)} calls, " + ("every library bit-equal to the parent"
+              if all(result["checks"].get(f"{lib.name} {c}", True) for lib in plibs[1:] for c in cases)
+              else "OUTPUTS DIFFER"), flush=True)
+        result["times"].update(report_times(alternate(plibs, cases, run, args.reps)))
+        del held, ms_f
+        torch.cuda.empty_cache()
     return result, ok
 
 
@@ -645,7 +840,7 @@ def k36_ab(args, parent: Path, groups) -> tuple:
     result = {"libraries": {}, "times": {}, "sass": {}, "calls": []}
     print("library: registers, spill stores, resident warps an SM of each K3/K6 kernel")
     for lib, secs in pairs:
-        table = ptxas_table(lib.report)
+        table = build.ptxas_table(lib.report)
         occ = lib.occupancy()
         ks = {}
         for n, (regs, spill) in table.items():
@@ -852,15 +1047,17 @@ K8_BURST = 10  # K8's launches a timed window
 # the kernels of the start and sorted groups, by a part of their mangled
 # names (mangled(): the classic instantiation, or a parent's own kernels;
 # older parents' K1/K2/K5 templates on kSort), and their mk_occupancy names
-PATH_KERNELS = {"K1": (mangled("mk_start_kernel", "mk_start_kernelILb0E"), "mk_start"),
-                "K1 sorted": (mangled("mk_start_sorted_kernel", "mk_start_kernelILb1E"), "mk_start_sorted"),
-                "K2": (mangled("mk_resume_kernel", "mk_resume_kernelILb0E"), "mk_resume"),
-                "K2 sorted": (mangled("mk_resume_sorted_kernel", "mk_resume_kernelILb1E"),
+PATH_KERNELS = {"K1": (mangled("mk_start_kernel", "ILb0"), "mk_start"),
+                "K1 sorted": (mangled("mk_start_sorted_kernel") + (("mk_start_kernel", "ILb1"),),
+                              "mk_start_sorted"),
+                "K2": (mangled("mk_resume_kernel", "ILb0"), "mk_resume"),
+                "K2 sorted": (mangled("mk_resume_sorted_kernel") + (("mk_resume_kernel", "ILb1"),),
                               "mk_resume_sorted"),
-                "K5": (mangled("mk_tiles_kernel", "mk_tiles_kernelILb0E"), "mk_tiles"),
-                "K5 sorted": (mangled("mk_tiles_sorted_kernel", "mk_tiles_kernelILb1E"), "mk_tiles_sorted"),
+                "K5": (mangled("mk_tiles_kernel", "ILb0"), "mk_tiles"),
+                "K5 sorted": (mangled("mk_tiles_sorted_kernel") + (("mk_tiles_kernel", "ILb1"),),
+                              "mk_tiles_sorted"),
                 "K4": (mangled("mk_start_chained_kernel"), "mk_start_chained"),
-                "K8": (("sort_tiles_kernel",), None)}
+                "K8": ((("sort_tiles_kernel", ""),), None)}
 
 # The start/sorted groups' variants: {name: (tree it rewrites, {file:
 # [(old text, new text, times it occurs)]}, what of its results may differ
@@ -976,20 +1173,24 @@ def takes_counter(src: str, fn: str) -> bool:
 
 
 class PathLib:
-    """One built megakernel.cu + sort.cu library: K1, K2, K5, their sorted
-    variants, K8 and the occupancy query. ``counter``: whether its K1 and
-    its K5 are persistent and take a work counter before the stream (a
-    tree's entry may lack it: one path a thread)."""
+    """One built megakernel.cu library (with sort.cu: the start and sorted
+    groups; with probe_walk.cu: the megakernel group's formats): K1, K2,
+    K4, K5, the sorted K1/K2/K5, K8 where the library has it and the
+    occupancy query. ``counter``: whether its K1, K4 and K5 are persistent
+    and take a work counter before the stream (a tree's entry may lack it:
+    one path a thread)."""
 
     def __init__(self, name: str, path: Path, report: str, tree: Path):
         self.name, self.path, self.report = name, path, report
         self.cdll = ctypes.CDLL(str(path))
         src = (tree / "megakernel.cu").read_text()
-        self.counter = {fn: takes_counter(src, fn) for fn in ("mk_start", "mk_tiles")}
+        self.counter = {fn: takes_counter(src, fn) for fn in ("mk_start", "mk_tiles", "mk_start_chained")}
         self.free = PATH_VARIANTS.get(name, (None, None, ()))[2]
         self.old = old_scene(tree)
         for fn in ("mk_start", "mk_resume", "mk_tiles", "mk_start_sorted", "mk_resume_sorted",
-                   "mk_tiles_sorted", "sort_tiles", "mk_occupancy"):
+                   "mk_tiles_sorted", "sort_tiles", "mk_occupancy", "mk_start_chained"):
+            if not hasattr(self.cdll, fn):
+                continue
             argtypes = entry_argtypes(fn, self.old)
             if fn in self.counter and not self.counter[fn]:
                 del argtypes[-2]  # the package's entry takes the counter there
@@ -1016,13 +1217,12 @@ class PathLib:
         kernel)."""
         from hijiki_tpu_torch.ops import megakernel as mk
 
-        table = ptxas_table(self.report)
         out = {}
-        for k, (parts, occ_name) in PATH_KERNELS.items():
-            hits = [v for n, v in table.items() if any(p in n for p in parts)]
-            if not hits:
-                raise RuntimeError(f"{self.name}: ptxas reported no {k} kernel ({parts})")
-            regs, spill = hits[0]
+        for k, (forms, occ_name) in PATH_KERNELS.items():
+            try:
+                regs, spill = ptxas_first(self.report, forms)
+            except KeyError as e:
+                raise RuntimeError(f"{self.name}: {k}: {e}") from None
             warps, local = None, None  # K8: no occupancy query
             if occ_name is not None:
                 try:
@@ -1070,11 +1270,12 @@ def paths_ab(args, parent: Path, groups) -> tuple:
     # SASS: each kernel's instruction count, and whether its code is the parent's
     sass = {lib.name: sass_functions("", lib.path) for lib in libs}
     result["sass"] = {}
-    for k, (parts, _) in PATH_KERNELS.items():
+    for k, (forms, _) in PATH_KERNELS.items():
         # the code of the first function of each library that is the kernel,
         # its labels unnumbered (a library's other functions shift them)
         code = {name: next(([(op, re.sub(r"\.L_x_\d+", ".L", rest)) for op, rest in c]
-                            for f, (c, _, _) in every.items() if any(p in f for p in parts)), None)
+                            for f, (c, _, _) in every.items() if any(p in f for p in frags(forms))),
+                           None)
                 for name, every in sass.items()}
         if code["parent"] is None:
             continue
@@ -1269,15 +1470,15 @@ PROBE_STAGED = {"staged chase": ("chase", 1, 1, False), "staged indep": ("indep"
 PROBE_ITERS = {"walk_ablate": 16, "staged_chase": 8}  # chip_smoke's (k) shapes
 # the kernels reported: a part of the mangled name of each timed case's
 # instantiation (walk_ablate_kernel<flags, G>, staged_*_kernel<mode>)
-PROBE_KERNELS = {"K10a full G=1": "walk_ablate_kernelILi63ELi1EE",
-                 "K10a full G=32": "walk_ablate_kernelILi63ELi32EE",
-                 "K10a noprefetch G=1": "walk_ablate_kernelILi61ELi1EE",
-                 "K10a noprefetch G=32": "walk_ablate_kernelILi61ELi32EE",
-                 "K10a noprim G=1": "walk_ablate_kernelILi47ELi1EE",
-                 "K10a noprim G=32": "walk_ablate_kernelILi47ELi32EE",
-                 "staged chase": "staged_chase_kernelILi1EE",
-                 "staged indep": "staged_chase_kernelILi0EE",
-                 "staged multi G=4 spec": "staged_multi_kernelILi4ELb1EE"}
+PROBE_KERNELS = {"K10a full G=1": ("walk_ablate_kernel", "ILi63ELi1E"),
+                 "K10a full G=32": ("walk_ablate_kernel", "ILi63ELi32E"),
+                 "K10a noprefetch G=1": ("walk_ablate_kernel", "ILi61ELi1E"),
+                 "K10a noprefetch G=32": ("walk_ablate_kernel", "ILi61ELi32E"),
+                 "K10a noprim G=1": ("walk_ablate_kernel", "ILi47ELi1E"),
+                 "K10a noprim G=32": ("walk_ablate_kernel", "ILi47ELi32E"),
+                 "staged chase": ("staged_chase_kernel", "ILi1E"),
+                 "staged indep": ("staged_chase_kernel", "ILi0E"),
+                 "staged multi G=4 spec": ("staged_multi_kernel", "ILi4ELb1E")}
 
 
 class ProbeLib:
@@ -1335,6 +1536,7 @@ def probes_ab(args, parent: Path) -> tuple:
     from hijiki_tpu_torch.probes import chain_latency_probe as pcl
     from hijiki_tpu_torch.probes import sass_functions
     from hijiki_tpu_torch.probes import walk_probe as pwk
+    from hijiki_tpu_torch.utils import build
 
     pairs = build_libraries(parent, args.variants, PROBE_FILES, ProbeLib)
     libs = [lib for lib, _ in pairs]
@@ -1360,12 +1562,12 @@ def probes_ab(args, parent: Path) -> tuple:
     print("library: registers / spill stores / warps an SM of each timed kernel (ptxas; the "
           "occupancy query at its block)")
     for lib, secs in pairs:
-        table = ptxas_table(lib.report)
         ks = {}
-        for k, frag in PROBE_KERNELS.items():
-            hit = next((v for nm, v in table.items() if frag in nm), None)
-            if hit is None:
-                raise RuntimeError(f"{lib.name}: ptxas reported no {k} kernel ({frag})")
+        for k, form in PROBE_KERNELS.items():
+            try:
+                hit = build.ptxas_of(lib.report, *form)
+            except KeyError as e:
+                raise RuntimeError(f"{lib.name}: {k}: {e}") from None
             fn, a, _, block = cases[k]
             ks[k] = {"registers": hit[0], "spill_bytes": hit[1],
                      "warps_per_sm": lib.call(fn, *a, block, None, occupancy=True) * block // 32}
@@ -1424,7 +1626,8 @@ def probes_ab(args, parent: Path) -> tuple:
     result["sass"] = {}
     for lib in libs:
         every = sass_functions("", lib.path)
-        for k, frag in PROBE_KERNELS.items():
+        for k, form in PROBE_KERNELS.items():
+            frag = frags([form])[0]
             found = [(f, v) for f, v in every.items() if frag in f]
             if not found:
                 continue
@@ -1471,12 +1674,16 @@ def sass_ab(args, parent: Path) -> tuple:
     with the package's of the same mangled name: registers and spill
     stores (ptxas), SASS instruction count and code (labels unnumbered).
     Prints the functions that differ and, by family (K1-K8, K9, K10a, K10b,
-    K11a, K11b), how many are the parent's. Returns (its results, True)."""
+    K11a, K11b), how many are the parent's; and each packed walk's loads in
+    both trees (``walk_probe.check_packed_loads``: 128-bit and narrower
+    LDGs, LDL/STL in its walk loops and in all). Returns (its results,
+    True)."""
     from hijiki_tpu_torch.probes import sass_functions
+    from hijiki_tpu_torch.utils import build
 
     files = tuple(sorted(p.name for p in parent.glob("*.cu")))
     pairs = build_libraries(parent, "", files, lambda name, path, report, tree: (name, path, report))
-    libs = {name: (path, {unhashed(f): v for f, v in ptxas_table(report).items()})
+    libs = {name: (path, {unhashed(f): v for f, v in build.ptxas_table(report).items()})
             for (name, path, report), _ in pairs}
     code = {}
     for name, (path, _) in libs.items():
@@ -1507,6 +1714,17 @@ def sass_ab(args, parent: Path) -> tuple:
             print(f"    differs: {f}: registers/spills {libs['parent'][1].get(f)} -> "
                   f"{libs['new'][1].get(f)}, SASS {len(code['parent'].get(f) or [])} -> "
                   f"{len(code['new'].get(f) or [])} instructions", flush=True)
+    # the packed walks' loads (K10b, K1, K4), the parent's and the package's
+    from hijiki_tpu_torch.probes import walk_probe
+
+    loads = {name: walk_probe.check_packed_loads(path, hold=False)
+             for name, (path, _) in libs.items()}
+    result["packed walks"] = {f"{k}<{t}>": {name: loads[name][(k, t)] for name in loads}
+                              for k, t in loads["new"]}
+    print("SASS packed walks (128-bit LDGs, narrower LDGs in the walk loops, LDL/STL in the walk "
+          "loops, LDL/STL in all): parent -> package", flush=True)
+    for key, by in result["packed walks"].items():
+        print(f"    {key}: {by['parent']} -> {by['new']}", flush=True)
     return result, True
 
 
