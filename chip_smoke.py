@@ -265,9 +265,26 @@ operations, as its plain version splits them), and its library_ms null (no
 PyTorch call runs a dependent chain of loads or a fixed-trip walk). Each
 entry also has bound_unfused_ms: the same bound with the operations at the
 unfused f32 issue rate that K11b measured under --fmad=false (33.5 T ops/s).
-Phase 7 reads the SASS of every packed walk of K10b, K1 and K4
-(walk_probe.check_packed_loads): its 128-bit and narrower loads, and no
-local memory in its walk loops. The last line is {"ok": true, "device": {...}}.
+Phase 7 reads the SASS of every packed walk of K10b, K1 and K4, and of
+K2's tail mode on all its instantiations (walk_probe.check_packed_loads):
+its 128-bit and narrower loads, and no local memory in its walk loops.
+
+K2's two modes (csrc/megakernel.cu, the note at K2): paths (a) and (b)
+record every K2 launch's survivor count and the word of the mode that ran
+(mk.RESUME_LOG, read after the render) and fail where the mode is not the
+one the threshold picks; phase 6 holds the thread and the tail mode of
+every recorded K2 call, launched as the compaction phases launch it
+(with their count of alive lanes), to the plain version's outputs there
+(in the twin workers, bit for bit, beside the auto launch), and prints each call's
+survivors, mode, the longest path's bounces and rows a bounce, ns a bounce
+of it, and each forced mode's ms. The kernel report's mk_resume_tail: its
+launches from (a) (an unsorted K2 call launches both modes' kernels, one
+returning at once, so these count the launches that returned at once too;
+tail_mode_runs counts those of (a) that ran the tail mode, by the word in
+mk.RESUME_LOG), its ms, plain ms, error and bound those of the chained
+chunk's calls that the auto mode ran in the tail mode (a part of
+mk_resume's ms, which sums every K2 call of the chunk).
+The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -805,12 +822,14 @@ def _twin_init() -> None:
     torch.zeros(1, device="cuda")
 
 
-def twin_job(label, name, sc, args, kw, got):
+def twin_job(label, name, sc, args, kw, got, also=()):
     """In a twin worker: the plain version of the megakernel entry ``name``
     (``mk_start`` -> ``megakernel_start_plain``, ...) on ``sc`` and ``args``
     (``kw``: lane_sort and lane_order), timed on the card, held to the
     kernel's outputs ``got`` with the phase-4 bounds and bit for bit, and
-    with ``lane_order`` its order record checked as check_order does.
+    with ``lane_order`` its order record checked as check_order does;
+    ``also``: (mode, outputs) of K2's forced modes on the same call, each
+    held to the same plain outputs likewise.
     Returns (the plain version's ms, its max abs error, what it printed,
     "" or why it failed, the occlusion-cache pretests (tried, verified) it
     made, its rows visited by kind: mk.row_kinds)."""
@@ -831,6 +850,10 @@ def twin_job(label, name, sc, args, kw, got):
             err = CHECKS[name](label, got[:n], want[:n])
             if not bit_equal(got[:n], want[:n]):
                 fail(f"{label}: the kernel's outputs differ from its plain version's bit for bit")
+            for mode, out in also:
+                err = max(err, CHECKS[name](f"{label} {mode} mode", out, want[:n]))
+                if not bit_equal(out, want[:n]):
+                    fail(f"{label}: the {mode} mode's outputs differ from the plain version's")
             if kw.get("lane_order"):
                 check_order(label, mk, sc, got, want)
             pre, kinds = mk.pretest_counts(), mk.row_kinds()
@@ -887,6 +910,40 @@ def lanes_of(name, args, stride: int):
         return st[:, ::stride].contiguous(), rng[::stride].contiguous(), cap
     *lanes, cap = args
     return (*(a[..., ::stride].contiguous() for a in lanes), cap)
+
+
+def k2_stats(st, out, cap) -> dict:
+    """What a K2 call on the state ``st`` to ``cap`` did, from its input
+    and output (``out``: state, RNG): the survivors in its input (alive,
+    under the cap), the longest path's bounces in the launch (output minus
+    input segs, channel 27) and its rows visited a bounce (channel 23), and
+    the rows a bounce over all its paths."""
+    import torch
+
+    going = (st[0] > 0) & (st[1] < cap)
+    bounces = (out[0][27] - st[27]).double()
+    rows = (out[0][23] - st[23]).double()
+    k = int(torch.argmax(bounces))
+    top = float(bounces[k])
+    total = float(bounces.sum())
+    return {"lanes": st.shape[1], "survivors": int(going.sum()), "longest_bounces": int(top),
+            "longest_rows_per_bounce": float(rows[k]) / top if top else 0.0,
+            "rows_per_bounce": float(rows.sum()) / total if total else 0.0}
+
+
+def resume_launches(mk, log) -> list:
+    """The K2 launches of ``mk.RESUME_LOG``'s ``log``, read back after the
+    work: [(lanes, cap, threshold, going paths, the mode that ran)]; fails
+    where the mode is not the one ``mk.resume_mode`` picks."""
+    out = []
+    for n, cap, thr, w in log:
+        count, word = (int(x) for x in w.tolist())
+        mode = mk.RESUME_MODE_WORDS.get(word, f"no word ({word})")
+        if mode != mk.resume_mode(count, thr):
+            fail(f"K2 on {n} lanes to cap {cap}: {count} going paths at threshold {thr} ran "
+                 f"{mode}, not {mk.resume_mode(count, thr)}")
+        out.append((n, cap, thr, count, mode))
+    return out
 
 
 def record_calls(mk, names, run):
@@ -1169,8 +1226,8 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
         print(f"  {kernel}<{targs}>: {wide} LDG.E.128, {narrow} narrower LDG and "
               f"{local} LDL/STL in its walk loops ({local_all} LDL/STL in all); {regs} registers, "
               f"{spill} bytes spilled", flush=True)
-    print(f"walk_packed: all {len(packed_loads)} packed instantiations of K10b, K1 and K4 hold no "
-          "LDL/STL in their walk loops", flush=True)
+    print(f"walk_packed: all {len(packed_loads)} packed instantiations of K10b, K1 and K4, and "
+          "K2's tail mode on all its instantiations, hold no LDL/STL in their walk loops", flush=True)
 
     # K9 against its plain version (K3's bound) and against K3, then timed
     for H, W in ((1024, 1024), (1000, 1024)):
@@ -1790,12 +1847,32 @@ def main() -> int:
 
     slice_cfg = dict(width=1024, height=1024, spp=8, max_bounces=1000, block_size=128,
                      use_bvh=True, driver="mega")
+
+    def print_k2_modes(tag, launches):
+        """The mode each K2 launch of a render ran, by cap (the word its
+        kernel wrote, read after the render)"""
+        by_cap = {}
+        for n, cap, thr, count, mode in launches:
+            by_cap.setdefault(cap, []).append(f"{count}/{n}:{mode}")
+        print(f"{tag} K2 launches (going paths/lanes: the mode that ran; threshold "
+              f"{sorted({x[2] for x in launches})}): " + "; ".join(
+                  f"cap {cap}: {', '.join(v)}" for cap, v in by_cap.items()), flush=True)
+        tails = sum(mode == "tail" for *_, mode in launches)
+        last = [mode for _, cap, _, _, mode in launches if cap == slice_cfg["max_bounces"]]
+        print(f"{tag} the tail mode ran {tails} of {len(launches)} K2 launches, "
+              f"{sum(m == 'tail' for m in last)} of the {len(last)} to cap "
+              f"{slice_cfg['max_bounces']}", flush=True)
+
     ra = Renderer(cs, RenderConfig(**slice_cfg), device="cuda")
     torch.cuda.reset_peak_memory_stats()
+    mk.RESUME_LOG = []
     ma, counts_a = drive("(a) chained slice: Renderer(device='cuda') 1024x1024, 8 spp, "
                          "chaining auto", ra.render)
     peak = torch.cuda.max_memory_allocated()
-    check_render("(a) chained", ra, ma, counts_a, ("mk_start_chained", "mk_resume", "reconstruct"))
+    check_render("(a) chained", ra, ma, counts_a, ("mk_start_chained", "mk_resume",
+                                                   "mk_resume_tail", "reconstruct"))
+    k2_modes_a, mk.RESUME_LOG = resume_launches(mk, mk.RESUME_LOG), None
+    print_k2_modes("(a)", k2_modes_a)
     if ma["chain_chunk_sweeps"] != mk.CHAIN_SWEEPS_CUDA:
         fail(f"auto chaining resolved to {ma['chain_chunk_sweeps']} sweeps, not {mk.CHAIN_SWEEPS_CUDA}")
     if counts_a["reconstruct"] != -(-slice_cfg["spp"] // mk.CHAIN_SWEEPS_CUDA):
@@ -1810,8 +1887,12 @@ def main() -> int:
     print(f"EXR written and read back: mean {float(back.mean()):.5f}")
 
     rb = Renderer(cs, RenderConfig(**slice_cfg, chain_sweeps=1), device="cuda")
+    mk.RESUME_LOG = []
     mb, counts_b = drive("(b) unchained slice: chain_sweeps=1, 1024x1024, 8 spp", rb.render)
-    check_render("(b) unchained", rb, mb, counts_b, ("mk_start", "mk_resume", "reconstruct"))
+    check_render("(b) unchained", rb, mb, counts_b, ("mk_start", "mk_resume", "mk_resume_tail",
+                                                     "reconstruct"))
+    print_k2_modes("(b)", resume_launches(mk, mk.RESUME_LOG))
+    mk.RESUME_LOG = None
     fa, fb = ra.film.cpu().numpy(), rb.film.cpu().numpy()
     if not np.allclose(fa, fb, rtol=1e-5, atol=1e-6):
         fail(f"chained and unchained films differ: max abs {np.abs(fa - fb).max():.3e}")
@@ -2207,7 +2288,18 @@ def main() -> int:
           f"{TWIN_WORKERS} processes at once")
     print(f"device memory: {torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
           f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved by the caching allocator")
-    real = {"mk_start": mk.megakernel_start, "mk_resume": mk.megakernel_resume,
+    alive_of = {}  # a recorded K2 state's count of alive lanes, made once
+
+    def resume_as_rendered(sc, st, rng, cap, **kw):
+        """K2 as the compaction phases launch it: with their count of alive
+        lanes, which a recorded state holds first (the sorted K2 reads none)"""
+        if kw.get("lane_sort"):
+            return mk.megakernel_resume(sc, st, rng, cap, **kw)
+        if st.data_ptr() not in alive_of:
+            alive_of[st.data_ptr()] = (st, (st[0] > 0).sum())
+        return mk.megakernel_resume(sc, st, rng, cap, survivors=alive_of[st.data_ptr()][1], **kw)
+
+    real = {"mk_start": mk.megakernel_start, "mk_resume": resume_as_rendered,
             "mk_start_chained": mk.megakernel_start_chained, "mk_tiles": mk.megakernel_tiles}
 
     def work(name, args, got, scene=None, per_row=ROW_OPS):
@@ -2276,7 +2368,15 @@ def main() -> int:
               ("K7 sorted", ms, sweep_calls, sorted_kw),
               ("(q) cache on, unchained sweep:", ms_q, qs_calls, {}),
               ("unchained sweep:", ms, sweep_calls, {}))
-    jobs = [(label_of(tag, name, args), name, sc, args, kw, real[name](sc, *args, **kw))
+    def forced_modes(name, sc, args, kw):
+        """K2's outputs in each forced mode on an unsorted call (both held
+        to the call's plain version in the twin worker), else none"""
+        if name != "mk_resume" or kw:
+            return ()
+        return tuple((m, real[name](sc, *args, mode=m)) for m in ("thread", "tail"))
+
+    jobs = [(label_of(tag, name, args), name, sc, args, kw, real[name](sc, *args, **kw),
+             forced_modes(name, sc, args, kw))
             for tag, sc, calls, kw in groups for name, args in calls]
     # the twins run while this process traces the small untimed paths
     # (the sorted wavefront, (m), (h)); only then is any kernel timed
@@ -2378,7 +2478,11 @@ def main() -> int:
         ms_of, plain_of, err_of, work_of, out_of = {}, {}, {}, {}, {}
         for name, args in calls:
             label = label_of(tag, name, args)
+            mk.RESUME_LOG = []
             t_k, got = timed(lambda: real[name](sc, *args), reps=3)
+            log, mk.RESUME_LOG = mk.RESUME_LOG, None
+            if name == "mk_resume":
+                k2_call(label, sc, args, got, t_k, resume_launches(mk, log[-1:])[0])
             t_p, err, _, kinds = twin_of[label]
             err_of[name] = max(err_of.get(name, 0.0), err)
             ms_of.setdefault(name, []).append(t_k)
@@ -2389,6 +2493,27 @@ def main() -> int:
             print(f"{label}: {t_k:.3f} ms, twin {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
         return ms_of, plain_of, err_of, work_of, out_of
+
+    k2_of = {}  # K2's recorded calls: {label: their survivors, modes and times}
+
+    def k2_call(label, sc, args, got, t_k, launch):
+        """Print a K2 call's survivors, the mode its auto launch ran, the
+        longest path's bounces and rows a bounce, ns a bounce of it, and
+        each forced mode's ms (means of 3)"""
+        st, _, cap = args
+        _, _, thr, count, mode = launch
+        stats = k2_stats(st, got, cap)
+        t_mode = {m: timed(lambda: real["mk_resume"](sc, *args, mode=m), reps=3)[0]
+                  for m in ("thread", "tail")}
+        top = stats["longest_bounces"]
+        k2_of[label] = dict(stats, threshold=thr, mode=mode, ms=t_k,
+                            ns_per_bounce=t_k * 1e6 / top if top else None,
+                            thread_ms=t_mode["thread"], tail_ms=t_mode["tail"])
+        print(f"{label}: {count} survivors (threshold {thr}): the {mode} mode; the longest path "
+              f"{top} bounces at {stats['longest_rows_per_bounce']:.2f} rows a bounce (all "
+              f"paths {stats['rows_per_bounce']:.2f}), "
+              f"{k2_of[label]['ns_per_bounce'] or 0:.1f} ns a bounce of it; forced thread "
+              f"{t_mode['thread']:.3f} ms, tail {t_mode['tail']:.3f} ms", flush=True)
 
     c_ms, c_plain, c_err, c_work, c_out = replay("chained chunk:", chunk_calls)
     t_zero, _ = timed(lambda: (torch.zeros((mk.N_STATE, cpx.numel()), device=dev),
@@ -2797,6 +2922,9 @@ def main() -> int:
 
     src = "hijiki_tpu_torch/csrc/"
     mkpy = "hijiki_tpu/ops/pallas_megakernel.py"
+    c_modes = [v["mode"] for k, v in k2_of.items() if k.startswith("chained chunk:")]
+    if "tail" not in c_modes:
+        fail(f"no K2 call of the chained chunk ran the tail mode: {c_modes}")
     kernels = [
         dict(name="mk_start", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3000", launches=counts_b["mk_start"],
@@ -2809,6 +2937,21 @@ def main() -> int:
              ms=sum(c_ms["mk_resume"]), plain_ms=sum(c_plain["mk_resume"]),
              **summed(c_work["mk_resume"]),
              formats=held["mk_resume"], ms_by_format=by_format("mk_resume")),
+        # K2's tail mode: the chained chunk's calls whose auto launch ran it
+        # (held bit for bit to their plain versions, both forced modes too).
+        # launches: (a)'s launches of the kernel, each K2 call's, those that
+        # returned at once included; tail_mode_runs: those that ran the tail
+        # mode (its word in mk.RESUME_LOG). Its ms is part of mk_resume's.
+        dict(name="mk_resume_tail", route="cuda", source=src + "megakernel.cu",
+             replaces=f"{mkpy}:3041", launches=counts_a["mk_resume_tail"],
+             tail_mode_runs=sum(mode == "tail" for *_, mode in k2_modes_a),
+             max_abs_err=c_err["mk_resume"], ms=sum(t for t, m in zip(c_ms["mk_resume"], c_modes)
+                                                    if m == "tail"),
+             plain_ms=sum(t for t, m in zip(c_plain["mk_resume"], c_modes) if m == "tail"),
+             **summed([w for w, m in zip(c_work["mk_resume"], c_modes) if m == "tail"]),
+             calls=[f"{k}: {v['survivors']} survivors, {v['mode']}" for k, v in k2_of.items()
+                    if k.startswith("chained chunk:")],
+             ms_by_mode={k: [v["thread_ms"], v["tail_ms"]] for k, v in k2_of.items()}),
         dict(name="mk_start_chained", route="cuda", source=src + "megakernel.cu",
              replaces=f"{mkpy}:3015", launches=counts_a["mk_start_chained"],
              max_abs_err=max(c_err["mk_start_chained"], fmt_err["mk_start_chained"]),

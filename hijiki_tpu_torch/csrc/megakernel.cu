@@ -3,7 +3,8 @@
 //
 // Replaces, in hijiki_tpu/ops/pallas_megakernel.py:
 //   _megakernel_start          -> mk_start          (K1, persistent: note below)
-//   _megakernel_resume         -> mk_resume         (K2)
+//   _megakernel_resume         -> mk_resume         (K2; its tail mode
+//                                 mk_resume_tail, a warp a path: note at K2)
 //   _megakernel_start_chained  -> mk_start_chained  (K4, persistent: note below)
 //   _megakernel/_megakernel_body (render_tiles) -> mk_tiles (K5, persistent)
 // and, with lane_sort=True (K7, _lane_sort with pallas_sort.py's network
@@ -22,7 +23,8 @@
 // exit pointer in column 10 — the reference GLSL's stackless walk), reading
 // the table from global memory (it fits in the 50 MB L2 many times over).
 // With octant table sets each thread takes the table of its own direction
-// signs. K2 traces a whole path per thread; K4, K1 and K5 are persistent
+// signs. K2 traces a whole path per thread (in its tail mode a whole path
+// per warp, its lane 0 running it); K4, K1 and K5 are persistent
 // and bounce-granular (a thread whose path stopped takes the next slot one
 // bounce later; note below); the sorted kernels run a block's paths in
 // lockstep; render_waves compacts the survivors between phases.
@@ -901,17 +903,178 @@ __device__ void bounce_loop_sorted(const Scene& S, Path& p, float cap, int n,
   get_path<kSortTile>(p, my);
 }
 
-// K2, the resume launch: one path a thread
+// K2, the resume launch, in two modes chosen on the device from the count
+// of its input's paths still going (alive, under the cap), with no host
+// read. The count comes
+// * from the compaction phases (ops/megakernel.py _run_compaction_phases),
+//   which put the alive lanes first and hand K2 their count before the cut
+//   (`hint`): K2 counts min(*hint, n) and takes its first lanes for the
+//   going ones; or
+// * elsewhere (hint null) from mk_resume_scan_kernel, launched before K2,
+//   which counts the going paths into work[0] and lists them at work[2..]
+//   (a ballot a warp, one atomicAdd of its count, each going lane at the
+//   base + its rank; the list holds min(n, thr) of them, in no order).
+// mk_resume then launches
+// * mk_resume_kernel, the thread mode (one path a thread, the code K2
+//   always had), which returns at once where the count is at most thr;
+// * mk_resume_tail_kernel, the tail mode, which returns at once where it
+//   is above: lane 0 of warp w of its grid takes the w-th going path (the
+//   list's, or lane w) and runs it to the cap, the warp's other lanes idle;
+//   then every thread copies the lanes that are not going, as one path a
+//   thread would (it reads and writes them unchanged). A going lane that a
+//   hint left out (a hint is never trusted for the outputs) is run there
+//   by the thread that meets it.
+// The mode that runs writes the count and its word at work[0..1]
+// (kModeThread, kModeTail), which the wrapper can read after the launch.
+// Neither mode changes an output: a path's trace depends only on its
+// state, whichever thread runs it, so both give one path a thread's
+// outputs bit for bit.
+//
+// Why: the tail launch (the cap max_bounces) lasts as long as its longest
+// path, a few paths trapped in the mirror sphere bouncing hundreds of
+// times, each bounce a chain of dependent instructions (7,254 cycles a
+// bounce for the longest path alone on an NVIDIA H100 80GB HBM3 at 700 W,
+// its closest walk 36% of them, the rows it visits held in L1; PERF.md
+// §6, K2's tail mode). One path a thread packs the survivors 32 to a
+// warp, which then steps through their diverging walks and shading
+// together; a warp a path lets each run at its own pace, the SM's other
+// warps hiding its latency. The tail bounce stashes the path in shared
+// memory around its walks and traces a shadow ray only where NEE gates
+// one in (bounce's kStash and kGate, as K4 and K5 do): 94-96 registers,
+// 20 warps an SM (114-116 and 16 for the occlusion cache's classic and
+// PACKED4 instantiations), no spill, where without the stash it spilled.
+// Where the paths outnumber the warps the card holds, the lanes are
+// better spent on 32 paths a warp: the wrapper's threshold `thr`
+// (ops/megakernel.py resume_threshold) is the tail kernel's resident
+// warps, -1 to force the thread mode, n to force the tail mode. Walking
+// the closest ray 32 rows at a time with the warp's lanes read 1.4-1.8x
+// slower there and is not kept (PERF.md §6).
+//
+// Two launches of which one returns at once, rather than one kernel with a
+// uniform branch: a kernel's registers are the most any of its paths
+// needs, and the thread mode keeps its own code and registers this way
+// (its record in tests/test_torch_cuda.py FORMAT_OCCUPANCY) while the tail
+// mode spills nothing. In one call against the two kernels, one kernel read
+// the thread mode's launches 3-6.5% slower (128 threads a block), or up to
+// 12% slower on some formats and 6% faster on others (capped at the tail's
+// registers). Two ways of giving each copied lane a thread of its own read
+// the 524,288-lane tail launches 4-5% faster and were not kept: the thread
+// kernel copying the lanes no warp takes (every form of its skip cost it 4
+// spilled bytes or a register past its record) and a tail grid of a thread
+// a lane (it cost the thread mode's launches 1-3%; PERF.md §6, K2's tail
+// mode).
+constexpr int kModeThread = 1, kModeTail = 2;
+constexpr int kScanThreads = 256;
+// resident blocks an SM asked of ptxas for the tail mode (__launch_bounds__'
+// second argument: it caps the registers, at 96 for 5 blocks, 128 for 4):
+// 5, the most that spills nothing, but 4 for the occlusion cache's
+// instantiations, which spilled 4 bytes at 5 in one build or another
+template <bool kCache>
+constexpr int kTailMinBlocks = kCache ? 4 : 5;
+
+__device__ __forceinline__ bool going_at(const float* st, int i, int n, float cap) {
+  return st[i] > 0.0f && st[static_cast<size_t>(n) + i] < cap;  // alive, bounce
+}
+
+// the going paths' count: the hint's, else the scan's
+__device__ __forceinline__ int resume_count(const int* work, const long long* hint, int n) {
+  if (hint == nullptr) return work[0];
+  const long long h = *hint;
+  return static_cast<int>(h < n ? (h < 0 ? 0 : h) : n);
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+    mk_resume_scan_kernel(const float* st_in, int n, float cap, int list_cap, int* work) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool go = i < n && going_at(st_in, i, n, cap);
+  const unsigned m = __ballot_sync(kFull, go);
+  if (m == 0u) return;
+  const unsigned lane = threadIdx.x % 32u;
+  const int leader = __ffs(m) - 1;
+  int base = 0;
+  if (static_cast<int>(lane) == leader) base = atomicAdd(work, __popc(m));
+  base = __shfl_sync(kFull, base, leader);
+  const int t = base + __popc(m & ((1u << lane) - 1u));
+  if (go && t < list_cap) work[2 + t] = i;
+}
+
+// a going path of the tail mode, run to the cap by this thread, with the
+// stash in its column `my` and the shadow gate
+template <int kFmt, bool kSh, bool kCache>
+__device__ __forceinline__ void tail_path(const Scene& S, const float* st_in,
+                                          const uint32_t* rng_in, int n, float cap,
+                                          float* st_out, uint32_t* rng_out, int i,
+                                          volatile float* my) {
+  Path p{};
+  read_state(st_in, rng_in, i, n, p);
+  int pred = -1;  // kCache: the path's prediction
+  while (going(p, cap)) {
+    if constexpr (kCache) bounce<true, kThreads, true, kFmt, kSh, true>(S, p, my, &pred);
+    else bounce<true, kThreads, true, kFmt, kSh>(S, p, my);
+  }
+  write_state(p, st_out, rng_out, i, n);
+}
+
+__device__ __forceinline__ void copy_lane(const float* st_in, const uint32_t* rng_in, int n,
+                                          float* st_out, uint32_t* rng_out, int i) {
+#pragma unroll
+  for (int c = 0; c < kNState; ++c)
+    st_out[static_cast<size_t>(c) * n + i] = st_in[static_cast<size_t>(c) * n + i];
+  rng_out[i] = rng_in[i];
+}
+
 template <int kFmt = 0, bool kSh = false, bool kCache = false>
 __global__ void __launch_bounds__(kThreads)
     mk_resume_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
-                     float cap, float* st_out, uint32_t* rng_out) {
+                     float cap, float* st_out, uint32_t* rng_out, int* work,
+                     const long long* hint, int thr) {
+  const int count = resume_count(work, hint, n);
+  if (count <= thr) return;  // the tail mode's launch
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i == 0) {
+    work[0] = count;
+    work[1] = kModeThread;
+  }
   if (i >= n) return;
   Path p{};
   read_state(st_in, rng_in, i, n, p);
   bounce_loop<kFmt, kSh, kCache>(S, p, cap);
   write_state(p, st_out, rng_out, i, n);
+}
+
+// a grid of at least min(n, thr) warps (one block at least)
+template <int kFmt = 0, bool kSh = false, bool kCache = false>
+__global__ void __launch_bounds__(kThreads, kTailMinBlocks<kCache>)
+    mk_resume_tail_kernel(Scene S, const float* st_in, const uint32_t* rng_in, int n,
+                          float cap, float* st_out, uint32_t* rng_out, int* work,
+                          const long long* hint, int thr) {
+  __shared__ float stash[(kCache ? kPredWord + 1 : kStashWords) * kThreads];
+  volatile float* my = stash + threadIdx.x;
+  const int count = resume_count(work, hint, n);
+  if (count > thr) return;  // the thread mode's launch
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid == 0) {
+    work[0] = count;
+    work[1] = kModeTail;
+  }
+  const bool listed = hint == nullptr;  // the scan listed every going lane
+  const int w = tid / 32;
+  const int stride = gridDim.x * blockDim.x;
+  // this thread's lanes: first (k = -1, lane 0 of warp w < count) the w-th
+  // going path, then every stride-th lane from tid that no warp takes (a
+  // going one is past a hint's count: this thread runs it); one call site
+  // of the path's code, which inlined twice spilled
+  for (int k = threadIdx.x % 32u == 0u && w < count ? -1 : 0;; ++k) {
+    int i = k < 0 ? (listed ? work[2 + w] : w) : tid + k * stride;
+    if (k >= 0) {
+      if (i >= n) break;
+      if (listed ? going_at(st_in, i, n, cap) : i < count) continue;  // a warp's
+    }
+    if (going_at(st_in, i, n, cap))
+      tail_path<kFmt, kSh, kCache>(S, st_in, rng_in, n, cap, st_out, rng_out, i, my);
+    else
+      copy_lane(st_in, rng_in, n, st_out, rng_out, i);
+  }
 }
 
 // The sorted K1 and K2 (mk_start_sorted, mk_resume_sorted): a block's
@@ -1271,12 +1434,37 @@ extern "C" int mk_start_sorted(START_ARGS, float* st_out, uint32_t* rng_out,
                             static_cast<float>(cap), st_out, rng_out, order);
 }
 
-extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out,
-                         void* stream) {
+// K2's survivors (mk_resume_scan_kernel): `work` holds 2 + min(n, max(thr,
+// 0)) ints, its first zeroed on the stream
+extern "C" int mk_resume_scan(const float* st_in, int n, int cap, int thr, int* work,
+                              void* stream) {
+  const int list_cap = thr < 0 ? 0 : (thr < n ? thr : n);
+  mk_resume_scan_kernel<<<(n + kScanThreads - 1) / kScanThreads, kScanThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(st_in, n, static_cast<float>(cap),
+                                                               list_cap, work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: the thread mode where more than thr paths go on, else the tail mode
+// (the note above). `hint`: the compaction's count of alive lanes, put
+// first (a device int64), or null after mk_resume_scan with the same
+// `thr` and `work`; `work` holds 2 ints at least
+extern "C" int mk_resume(RESUME_ARGS, float* st_out, uint32_t* rng_out, int* work,
+                         const long long* hint, int thr, void* stream) {
   const Scene S = SCENE_CALL;
   if (!known_format(S)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_paths<false>(FMT_KERNEL(S, mk_resume_kernel), n, 0, stream, S, st_in,
-                             rng_in, n, static_cast<float>(cap), st_out, rng_out);
+  const float fcap = static_cast<float>(cap);
+  int rc = launch_paths<false>(FMT_KERNEL(S, mk_resume_kernel), n, 0, stream, S, st_in, rng_in,
+                               n, fcap, st_out, rng_out, work, hint, thr);
+  if (rc != 0) return rc;
+  // a warp a going path (one block at least: with none it copies every lane)
+  const int warps = thr < 1 ? 1 : (thr < n ? thr : n);
+  constexpr int kWarpsBlock = kThreads / 32;
+  const auto tail = FMT_KERNEL(S, mk_resume_tail_kernel);
+  tail<<<(warps + kWarpsBlock - 1) / kWarpsBlock, kThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(S, st_in, rng_in, n, fcap, st_out, rng_out, work,
+                                              hint, thr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int mk_resume_sorted(RESUME_ARGS, float* st_out, uint32_t* rng_out,
@@ -1340,7 +1528,8 @@ int occupancy(void (*kernel)(Params...), int threads, int smem, int* out) {
 // out[1] resident blocks an SM, out[2] threads a block, out[3] SMs, out[4]
 // local (spill) bytes a thread. which % 8: 0 K1 mk_start, 1 K2 mk_resume,
 // 2 K4 mk_start_chained, 3 K5 mk_tiles, 4-6 the sorted K1/K2/K5 (blocks of
-// kSortTile threads with launch_paths' dynamic shared memory); which / 8:
+// kSortTile threads with launch_paths' dynamic shared memory), 7 K2's tail
+// mode mk_resume_tail (its resident warps are the wrapper's threshold); which / 8:
 // the instantiation (fmt_index: the format, the cache). K4, K1 and K5,
 // persistent, launch out[1] * out[3] blocks (fewer where their slots fill
 // fewer).
@@ -1356,6 +1545,7 @@ extern "C" int mk_occupancy(int which, int* out) {
     case 4: return occupancy(FMT_KERNEL_AT(f, mk_start_sorted_kernel), kSortTile, smem, out);
     case 5: return occupancy(FMT_KERNEL_AT(f, mk_resume_sorted_kernel), kSortTile, smem, out);
     case 6: return occupancy(FMT_KERNEL_AT(f, mk_tiles_sorted_kernel), kSortTile, smem, out);
+    case 7: return occupancy(FMT_KERNEL_AT(f, mk_resume_tail_kernel), kThreads, 0, out);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

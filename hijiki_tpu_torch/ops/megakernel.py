@@ -57,7 +57,8 @@ sorts (nor does JAX's).
 On a CUDA tensor the launches run the hand-written kernels of
 ``csrc/megakernel.cu`` (a path a thread at a time, the stackless walk over
 the trace rows; K1, K4 and K5 persistent, the sorted launches a block's
-paths in lockstep; see the notes there). On a CPU tensor they run the
+paths in lockstep; K2 a path a warp where few paths go on, its tail mode;
+see the notes there). On a CPU tensor they run the
 plain twin below: a vectorized per-lane transcription of ``_camera_init``,
 ``_bounce_loop`` (with its chain block), ``_analytic_pretest``, the walk
 and ``_resolve_winners`` that computes, lane by lane, what one CUDA thread
@@ -164,10 +165,28 @@ CHAIN_SWEEPS_CUDA = 8
 # launches of each hand-written kernel (CUDA tensors only; the CPU twin is
 # not counted), by C entry; a launch with the occlusion cache counts under
 # its entry's name + "_cache" (its kCache instantiation). Read and reset by
-# chip_smoke.py to prove the main path ran through the kernels.
+# chip_smoke.py to prove the main path ran through the kernels. An unsorted
+# K2 call launches the thread mode (mk_resume) and the tail mode
+# (mk_resume_tail), of which one returns at once (csrc/megakernel.cu, the
+# note at K2), after the survivor scan (mk_resume_scan) where the caller
+# hands it no count; the word that the mode that ran writes is K2's record
+# (RESUME_LOG).
 _ENTRIES = ("mk_start", "mk_resume", "mk_start_chained", "mk_tiles",
-            "mk_start_sorted", "mk_resume_sorted", "mk_tiles_sorted")
+            "mk_start_sorted", "mk_resume_sorted", "mk_tiles_sorted", "mk_resume_tail")
 LAUNCHES = {name + tag: 0 for tag in ("", "_cache") for name in _ENTRIES}
+LAUNCHES["mk_resume_scan"] = 0
+
+# K2's modes (megakernel_resume's ``mode``): "auto", the card picks by the
+# count of the launch's going paths (resume_threshold); "thread", one path
+# a thread; "tail", one path a warp. Only tests and tools force a mode.
+RESUME_MODES = ("auto", "thread", "tail")
+# the word the mode that ran writes at work[1] (csrc/megakernel.cu kModeThread, kModeTail)
+RESUME_MODE_WORDS = {1: "thread", 2: "tail"}
+# None, or a list to which every unsorted K2 launch on the card appends
+# (lanes, cap, threshold, its work[:2] on the card: the going paths' count
+# it read and the word of the mode that ran), read after a render
+# (chip_smoke.py)
+RESUME_LOG = None
 
 _f32 = np.float32
 # layout of one baked analytic prim / emitter in the constants buffer
@@ -1447,12 +1466,14 @@ def check_rows_aligned(rows, shadow=None):
             raise ValueError("the trace rows must start on a 16-byte boundary (a fresh tensor does)")
 
 
-def _launch(fn_name, ms, ins, ints, outs, persistent=False):
+def _launch(fn_name, ms, ins, ints, outs, persistent=False, extra=()):
     """Run the C entry ``fn_name`` of csrc/megakernel.cu on the current
     stream: scene, input pointers, ``ints``, output pointers (None: a null
     pointer), for the ``persistent`` K1, K4 and K5 their work counter zeroed
-    on the stream, then the stream. The first int is the lane count; nothing
-    launches for 0 lanes. Returns the outputs that are not None."""
+    on the stream, ``extra`` (a tensor as its pointer, an int or None as
+    it is: K2's work buffer, count and threshold), then the stream. The
+    first int is the lane count; nothing launches for 0 lanes. Returns the
+    outputs that are not None."""
     from hijiki_tpu_torch.utils.build import load_library
 
     if ints[0]:
@@ -1464,7 +1485,8 @@ def _launch(fn_name, ms, ins, ints, outs, persistent=False):
             ms.rows.data_ptr(), ms.consts.data_ptr(), *_scene_args(ms),
             *[t.data_ptr() for t in ins], *ints,
             *[None if t is None else t.data_ptr() for t in outs],
-            *[t.data_ptr() for t in counter], stream,
+            *[t.data_ptr() for t in counter],
+            *[a.data_ptr() if torch.is_tensor(a) else a for a in extra], stream,
         )
         LAUNCHES[fn_name + ("_cache" if ms.shadow_cache else "")] += 1
         if rc != 0:
@@ -1533,13 +1555,122 @@ def megakernel_start_plain(ms: MegaScene, px, py, seeds, cap: int, lane_sort: bo
     return _with_order(_pack(s), s, lane_order)
 
 
+def resume_threshold(mode: str, n: int, tail_warps: int) -> int:
+    """K2's threshold ``thr`` for ``mode`` (``RESUME_MODES``) on ``n``
+    lanes: the tail mode runs where the launch's going paths number at most
+    thr, the thread mode above it. "auto": ``tail_warps``, the warps the
+    tail mode holds resident on the card (every survivor then has a warp
+    at once); "thread": -1; "tail": n."""
+    if mode == "auto":
+        return tail_warps
+    if mode == "thread":
+        return -1
+    if mode == "tail":
+        return n
+    raise ValueError(f"mode must be one of {RESUME_MODES}, not {mode!r}")
+
+
+def resume_mode(count: int, thr: int) -> str:
+    """The mode K2 runs with ``count`` going paths and threshold ``thr``."""
+    return "tail" if count <= thr else "thread"
+
+
+_TAIL_WARPS = {}
+
+
+def format_of(ms: MegaScene) -> str:
+    """The key of ``KERNEL_FORMATS`` whose instantiation a launch on
+    ``ms`` runs (csrc/megakernel.cu fmt_index)."""
+    want = (ms.packed, bool(ms.shadow_tbl) and ms.packed == 0, bool(ms.shadow_cache))
+    return next(k for k, v in KERNEL_FORMATS.items() if v == want)
+
+
+def tail_warps(ms: MegaScene) -> int:
+    """The warps K2's tail mode (``mk_resume_tail``, the instantiation of
+    ``ms``'s format) holds resident on the card: its resident warps an SM
+    times the SMs, asked of the loaded library once per format and device
+    (a dictionary lookup after: K2's host time is on the render's path)."""
+    from hijiki_tpu_torch.utils.build import load_library
+
+    lib = load_library()
+    key = (id(lib), ms.rows.get_device(), ms.packed, bool(ms.shadow_tbl), bool(ms.shadow_cache))
+    warps = _TAIL_WARPS.get(key)
+    if warps is None:
+        occ = occupancy("mk_resume_tail", lib, format_of(ms))
+        warps = _TAIL_WARPS[key] = occ["warps_per_sm"] * occ["sms"]
+    return warps
+
+
+def _check_survivors(survivors, dev) -> None:
+    """The compaction's count of alive lanes as mk_resume reads it: a
+    one-element int64 tensor on ``dev``."""
+    if not (torch.is_tensor(survivors) and survivors.dtype == torch.int64
+            and survivors.numel() == 1 and survivors.get_device() == dev.index):
+        raise ValueError(f"survivors: expected a one-element int64 tensor on {dev}")
+
+
+# a device's two ints that K2 writes its count and mode's word to where no
+# one reads them (RESUME_LOG off): one buffer, written by every such launch
+_WORK_WORDS = {}
+
+
+def resume_survivors(st, cap: int, thr: int):
+    """K2's work buffer for the state ``st`` at ``cap`` and threshold
+    ``thr``: (2 + min(n, max(thr, 0)),) int32, [0] the count of the lanes
+    still going (alive, bounce < cap), [1] 0 (the word of the mode that
+    runs, which K2 writes), then the going lanes, as many as the list holds.
+    On the card the survivor scan (``mk_resume_scan``) fills it on the
+    stream, with no host read, the lanes in no particular order; on the CPU
+    its plain version, the lanes ascending."""
+    if st.device.type != "cuda":
+        return resume_survivors_plain(st, cap, thr)
+    from hijiki_tpu_torch.utils.build import load_library
+
+    n = st.shape[1]
+    work = torch.empty(2 + min(n, max(thr, 0)), dtype=torch.int32, device=st.device)
+    work[:2].zero_()
+    if n:
+        stream = torch.cuda.current_stream(st.device).cuda_stream
+        rc = load_library().mk_resume_scan(st.data_ptr(), n, cap, thr, work.data_ptr(), stream)
+        LAUNCHES["mk_resume_scan"] += 1
+        if rc != 0:
+            raise RuntimeError(f"mk_resume_scan launch failed: CUDA error {rc}")
+    return work
+
+
+def resume_survivors_plain(st, cap: int, thr: int):
+    """The plain version of ``resume_survivors`` (any device)."""
+    n = st.shape[1]
+    list_cap = min(n, max(thr, 0))
+    going = (st[0] > 0) & (st[1] < cap)
+    work = torch.zeros(2 + list_cap, dtype=torch.int32, device=st.device)
+    work[0] = going.sum()
+    lanes = torch.nonzero(going).flatten()[:list_cap]
+    work[2:2 + lanes.numel()] = lanes.to(torch.int32)
+    return work
+
+
 def megakernel_resume(ms: MegaScene, st, rng, cap: int, lane_sort: bool = False,
-                      lane_order: bool = False):
+                      lane_order: bool = False, mode: str = "auto", survivors=None):
     """Resume launch (K2, replaces ``_megakernel_resume``): continue the
     paths of a packed state up to ``cap`` bounces (``lane_sort``,
     ``lane_order``, ``ms``'s cache: as for ``megakernel_start``,
-    ``mk_resume_sorted``; a resumed path's prediction starts at -1)."""
+    ``mk_resume_sorted``; a resumed path's prediction starts at -1).
+
+    On the card the unsorted launch runs in one of two modes, chosen on the
+    device from the count of its going paths: one path a thread, or, where
+    no more paths go on than the tail mode holds warps resident
+    (``tail_warps``), one path a warp (csrc/megakernel.cu, the note at
+    K2). Both give the same outputs bit for bit. The count is the survivor
+    scan's (``resume_survivors``), or, with ``survivors`` (a one-element
+    int64 tensor on the device: the compaction phases' count of alive
+    lanes, which they put first), min(survivors, N) with no scan; a count
+    that is wrong for the state costs time only. ``mode``
+    (``RESUME_MODES``, tests and tools only) forces a mode; the sorted
+    launch has one mode and reads no ``survivors``."""
     n = st.shape[1]
+    if mode not in RESUME_MODES or (lane_sort and mode != "auto"):
+        raise ValueError(f"mode must be one of {RESUME_MODES} (\"auto\" with lane_sort), not {mode!r}")
     if st.device.type == "cuda":
         dev = ms.rows.device
         _check("state", st, torch.float32, (N_STATE, n), dev)
@@ -1547,7 +1678,23 @@ def megakernel_resume(ms: MegaScene, st, rng, cap: int, lane_sort: bool = False,
         name, extra = _entry("mk_resume", lane_sort, lane_order, n, dev)
         st_out = torch.empty((N_STATE, n), dtype=torch.float32, device=dev)
         rng_out = torch.empty(n, dtype=torch.int32, device=dev)
-        return _launch(name, ms, [st, rng], [n, cap], [st_out, rng_out, *extra])
+        if lane_sort:
+            return _launch(name, ms, [st, rng], [n, cap], [st_out, rng_out, *extra])
+        thr = resume_threshold(mode, n, tail_warps(ms) if mode == "auto" and n else 0)
+        if survivors is None:
+            work = resume_survivors(st, cap, thr)
+        else:  # the kernel writes the count and the mode's word
+            _check_survivors(survivors, dev)
+            work = (torch.empty(2, dtype=torch.int32, device=dev) if RESUME_LOG is not None
+                    else _WORK_WORDS.get(dev.index))
+            if work is None:
+                work = _WORK_WORDS[dev.index] = torch.empty(2, dtype=torch.int32, device=dev)
+        out = _launch(name, ms, [st, rng], [n, cap], [st_out, rng_out], extra=(work, survivors, thr))
+        if n:
+            LAUNCHES["mk_resume_tail" + ("_cache" if ms.shadow_cache else "")] += 1
+            if RESUME_LOG is not None:
+                RESUME_LOG.append((n, cap, thr, work[:2]))
+        return out
     return megakernel_resume_plain(ms, st, rng, cap, lane_sort, lane_order)
 
 
@@ -1614,7 +1761,8 @@ def warp_iterations(segs, warp: int = 32) -> dict:
 
 # mk_occupancy's kernel numbers (csrc/megakernel.cu)
 _OCCUPANCY_OF = {"mk_start": 0, "mk_resume": 1, "mk_start_chained": 2, "mk_tiles": 3,
-                 "mk_start_sorted": 4, "mk_resume_sorted": 5, "mk_tiles_sorted": 6}
+                 "mk_start_sorted": 4, "mk_resume_sorted": 5, "mk_tiles_sorted": 6,
+                 "mk_resume_tail": 7}
 # each kernel's instantiations, in mk_occupancy's (fmt_index's) order: the
 # trace-row format, whether shadow rays walk the dedicated shadow table, and
 # whether the occlusion cache runs (kFmt, kSh, kCache)
@@ -1628,9 +1776,9 @@ KERNEL_FORMATS = {"classic": (0, False, False), "slim": (1, False, False),
 
 def occupancy(name: str, lib=None, fmt: str = "classic") -> dict:
     """What the card makes of the megakernel ``name`` (a key of
-    ``_OCCUPANCY_OF``: K1, K2, K4, K5 and the sorted K1/K2/K5) as built
-    for the format ``fmt`` (a key of ``KERNEL_FORMATS``; ``lib``: another
-    build's library, asked for the classic rows only; default the
+    ``_OCCUPANCY_OF``: K1, K2, K4, K5, the sorted K1/K2/K5 and K2's tail
+    mode) as built for the format ``fmt`` (a key of ``KERNEL_FORMATS``;
+    ``lib``: another build's library, or the loaded one; default the
     package's): registers a thread, local-memory bytes a thread (its stack
     frame, spills included), spill-store bytes a thread (ptxas' report of
     the package's build; None for another library), threads a block,
@@ -1794,7 +1942,9 @@ def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state,
             key = torch.where(alive, octant + 8 * (q[0] + 8 * (q[1] + 8 * q[2])), 1 << 20)
             order = torch.argsort(key, stable=True)[:n_next]
         flat, rngf, orig = flat[:, order].contiguous(), rngf[order].contiguous(), orig[order]
-        flat, rngf = megakernel_resume(ms, flat, rngf, cap, lane_sort=lane_sort)
+        # the alive lanes come first: K2 counts min(n_alive, n_next) going
+        # paths there (no survivor scan, no host read)
+        flat, rngf = megakernel_resume(ms, flat, rngf, cap, lane_sort=lane_sort, survivors=n_alive)
         _commit(res, res_state, orig, flat.index_select(0, ms.result_ch), rngf)
         n_lanes = n_next
     return res, res_state, overflow

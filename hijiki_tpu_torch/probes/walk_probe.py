@@ -280,12 +280,16 @@ def walk_isolate(ms, rows, o, d, *, test: bool = True, group: int = 1, iters: in
 # the kernels whose packed instantiations run walk_packed and packed_test,
 # by their mangled template arguments: K10b <kFmt, kTest, kG>; K1 and K4
 # <kFmt, kSh, kCache>, each packed format with the occlusion cache off and
-# on, and the classic rows with the dedicated PACKED3 shadow table
+# on, and the classic rows with the dedicated PACKED3 shadow table; K2's
+# tail mode (its closest and shadow walks) on all 11 instantiations, the
+# classic rows' too
 PACKED_FORMATS = (1, 3, 4, 12)
 PACKED_KERNELS = {"walk_isolate_packed_kernel": [f"ILi{f}ELb{t}ELi{g}E" for f in PACKED_FORMATS
                                                  for t in (1, 0) for g in (1, 32)],
                   **{k: [f"ILi{f}ELb0ELb{c}E" for f in PACKED_FORMATS for c in (0, 1)]
-                     + ["ILi0ELb1ELb0E"] for k in ("mk_start_kernel", "mk_start_chained_kernel")}}
+                     + ["ILi0ELb1ELb0E"] for k in ("mk_start_kernel", "mk_start_chained_kernel")},
+                  "mk_resume_tail_kernel": [f"ILi{f}ELb0ELb{c}E" for f in (0, *PACKED_FORMATS)
+                                            for c in (0, 1)] + ["ILi0ELb1ELb0E"]}
 
 
 def walk_loops(code, loops) -> list:
@@ -302,9 +306,10 @@ def walk_loops(code, loops) -> list:
             if not any((c, d) != (a, b) and a <= c and d <= b for c, d in rows)]
 
 
-def check_packed_loads(lib=None, hold: bool = True) -> dict:
-    """The loads of every packed walk (``PACKED_KERNELS``) in the SASS of
-    the kernel library ``lib`` (the package's build by default): {(kernel,
+def check_packed_loads(lib=None, hold: bool = True, kernels: dict | None = None) -> dict:
+    """The loads of every packed walk (``PACKED_KERNELS``, or ``kernels``
+    of that form) in the SASS of the kernel library ``lib`` (the
+    package's build by default): {(kernel,
     mangled template arguments): (128-bit LDGs, narrower LDGs in its walk
     loops (``walk_loops``), LDL/STL in its walk loops, LDL/STL in all)}.
     Raises RuntimeError where an instantiation is missing or has no walk
@@ -315,7 +320,7 @@ def check_packed_loads(lib=None, hold: bool = True) -> dict:
 
     out, bad = {}, []
     every = sass_functions("_kernel", lib)  # one cuobjdump for the three kernels
-    for kernel, targs in PACKED_KERNELS.items():
+    for kernel, targs in (PACKED_KERNELS if kernels is None else kernels).items():
         for t in targs:
             frag = f"{len(kernel)}{kernel}{t}E"
             found = [v for f, v in every.items() if frag in f]

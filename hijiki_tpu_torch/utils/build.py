@@ -53,7 +53,10 @@ _SCENE = [_P, _P] + [_I] * 13 + [_P, _I] + [_I, _I]
 SIGNATURES = {
     # K1, K4 and K5 are persistent: the pointer before the stream is the work counter
     "mk_start": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P],
+    # K2: its work buffer, the compaction's count of alive lanes (or null)
+    # and the threshold before the stream (the survivor scan's: its own)
+    "mk_resume": _SCENE + [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P],
+    "mk_resume_scan": [_P, _I, _I, _I, _P, _P],
     "mk_start_chained": _SCENE + [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "mk_occupancy": [_I, _P],
     "mk_tiles": _SCENE + [_P, _P, _P, _I, _I, _P, _P, _P, _P],

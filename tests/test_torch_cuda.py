@@ -29,7 +29,12 @@ bit-equal to its one-sweep launches summed in sweep order (B = 1, 2, 3, 4,
 zero-direction rays in all three modes; K8 bit-equal to its plain version
 for T = 1, 3, 300 tiles and C = 0, 1, 8, 31, 33 channels (none a whole
 number of its batches but 8) on random keys, all-equal keys, ties with
-dead keys and INT_MIN/INT_MAX."""
+dead keys and INT_MIN/INT_MAX; K2 in its thread mode, its tail mode and
+the auto mode on all 11 instantiations bit-equal to the plain version on
+scattered survivors, one survivor, every lane alive, a count just below
+and just above the auto threshold and NaN/inf/1e30 origins, caps 1, 12,
+48 and 1000, with the mode word the threshold predicts, and an unsorted
+K2 call making no host read."""
 
 import numpy as np
 import pytest
@@ -800,12 +805,13 @@ def test_wrapper_rejects_unaligned_rows():
 
 
 def test_megakernels_occupancy():
-    """mk_occupancy answers for all seven megakernels (K1, K2, K4, K5 and
-    the sorted K1/K2/K5, these in blocks of SORT_TILE threads with their
-    shared memory): registers, resident warps and the card's SMs. K4, K1
-    and K5 (the stash, 6 blocks of 128) and the sorted kernels (the stash in the
-    exchange buffer, 3 blocks of 256) hold 24 warps an SM, and ptxas
-    spilled no bytes of them."""
+    """mk_occupancy answers for all eight megakernels (K1, K2, K4, K5, the
+    sorted K1/K2/K5, these in blocks of SORT_TILE threads with their
+    shared memory, and K2's tail mode): registers, resident warps and the
+    card's SMs. K4, K1 and K5 (the stash, 6 blocks of 128) and the sorted
+    kernels (the stash in the exchange buffer, 3 blocks of 256) hold 24
+    warps an SM, and ptxas spilled no bytes of them, nor of K2's tail mode
+    on any instantiation."""
     cuda_device()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in mk._OCCUPANCY_OF:
@@ -818,32 +824,36 @@ def test_megakernels_occupancy():
                  "mk_tiles_sorted"):
         occ = mk.occupancy(name)
         assert occ["warps_per_sm"] == 24 and occ["spill_bytes"] == 0, (name, occ)
+    for fmt in mk.KERNEL_FORMATS:  # K2's tail mode spills nothing on any instantiation
+        occ = mk.occupancy("mk_resume_tail", fmt=fmt)
+        assert occ["spill_bytes"] == 0, (fmt, occ)
 
 
 # ptxas' registers and spill-store bytes a thread, and the resident warps
 # an SM, of each megakernel's instantiation for each trace-row format, as
 # built for the NVIDIA H100 80GB HBM3 (chip_smoke.py phase 6 prints them):
-# mk_start, mk_resume, mk_start_chained, mk_tiles and the sorted mk_start,
-# mk_resume, mk_tiles (mk._OCCUPANCY_OF's order)
+# mk_start, mk_resume, mk_start_chained, mk_tiles, the sorted mk_start,
+# mk_resume, mk_tiles and K2's tail mode mk_resume_tail (mk._OCCUPANCY_OF's
+# order)
 FORMAT_OCCUPANCY = {
-    "classic": ((80, 0, 24), (96, 16, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "slim": ((80, 0, 24), (96, 8, 20), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed3": ((80, 8, 24), (109, 0, 16), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed4": ((80, 16, 24), (113, 0, 16), (80, 12, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24)),
-    "packed12": ((80, 12, 24), (96, 4, 20), (80, 8, 24), (80, 8, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "shadow_tbl": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "classic": ((80, 0, 24), (96, 16, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
+    "slim": ((80, 0, 24), (96, 8, 20), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
+    "packed3": ((80, 8, 24), (109, 0, 16), (80, 4, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
+    "packed4": ((80, 16, 24), (113, 0, 16), (80, 12, 24), (80, 0, 24), (80, 4, 24), (80, 4, 24), (80, 4, 24), (94, 0, 20)),
+    "packed12": ((80, 12, 24), (96, 4, 20), (80, 8, 24), (80, 8, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
+    "shadow_tbl": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
     # the occlusion cache's instantiations (kCache)
-    "classic_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "slim_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed3_cache": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed4_cache": ((80, 0, 24), (109, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
-    "packed12_cache": ((80, 0, 24), (117, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24)),
+    "classic_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (116, 0, 16)),
+    "slim_cache": ((80, 0, 24), (96, 40, 20), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (94, 0, 20)),
+    "packed3_cache": ((80, 0, 24), (108, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (96, 0, 20)),
+    "packed4_cache": ((80, 0, 24), (109, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (114, 0, 16)),
+    "packed12_cache": ((80, 0, 24), (117, 0, 16), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (80, 0, 24), (96, 0, 20)),
 }
 
 
 @pytest.mark.parametrize("fmt", list(mk.KERNEL_FORMATS))
 def test_format_kernels_occupancy(fmt):
-    """Each of the seven megakernels' instantiation for ``fmt`` uses no
+    """Each of the eight megakernels' instantiation for ``fmt`` uses no
     more registers and spills no more bytes than FORMAT_OCCUPANCY records,
     and holds as many resident warps an SM, or more."""
     cuda_device()
@@ -1433,3 +1443,106 @@ def test_drivers_meet_oracle_bar_on_card():
         r = chip_smoke.readings(x, y)
         print(f"{a}-{b}: raw MSE {r[0]:.3e}, divergent {r[1]}/{side * side}, trimmed {r[2]:.3e}")
         assert chip_smoke.breaks_bar(r, side * side) == "", (a, b, r)
+
+
+# K2's two modes on each of its 11 instantiations (mk.KERNEL_FORMATS):
+# the FORMATS configuration of the scene and whether the occlusion cache runs
+RESUME_CONFIGS = {f: ("boxes" if f.startswith("classic") else f.removesuffix("_cache"),
+                      f.endswith("_cache")) for f in mk.KERNEL_FORMATS}
+
+
+def _resume_inputs(ms, dev, thr):
+    """K2's inputs that each mode is held on: {label: (state, rng, cap)} on
+    a 96x96 frame: K1's survivors at cap 5 (scattered among the dead) to 48
+    and to 1000, and put first as the compaction puts them; one survivor to
+    1000; every lane alive (fresh camera paths) to cap 1; a scattered set
+    of thr - 1 and of thr + 1 going paths (just below and just above the
+    auto threshold) to 12; K1's survivors with NaN, inf and 1e30 origins to
+    1000."""
+    px, py, seeds = _frame(96, dev)
+    st5, rng5 = mk.megakernel_start(ms, px, py, seeds, 5)
+    st0, rng0 = mk.megakernel_start(ms, px, py, seeds, 0)
+    g = np.random.default_rng(17)
+    going = torch.nonzero(st5[0] > 0).flatten()
+    assert going.numel() > 1 and going[-1] >= going.numel()  # not a prefix
+    one = st5.clone()
+    one[0] = 0.0
+    one[0, going[going.numel() // 2]] = 1.0
+    odd = st5.clone()
+    for k, v in enumerate((float("nan"), float("inf"), 1e30)):
+        odd[2 + k, going[k::3]] = v
+    first = torch.argsort((st5[0] <= 0).int(), stable=True)
+    cases = {"scattered to 48": (st5, rng5, 48), "scattered to 1000": (st5, rng5, 1000),
+             "alive first to 1000": (st5[:, first].contiguous(), rng5[first].contiguous(), 1000),
+             "one survivor to 1000": (one, rng5, 1000), "all alive to 1": (st0, rng0, 1),
+             "odd origins to 1000": (odd, rng5, 1000)}
+    n = st0.shape[1]
+    for label, count in (("thr - 1", thr - 1), ("thr + 1", thr + 1)):
+        assert 0 < count < n
+        st = st0.clone()
+        st[0] = 0.0
+        st[0, torch.from_numpy(g.choice(n, count, replace=False)).to(dev)] = 1.0
+        cases[f"{label} going to 12"] = (st, rng0, 12)
+    return cases
+
+
+@pytest.mark.parametrize("fmt", list(mk.KERNEL_FORMATS))
+def test_resume_modes_bit_equal_to_twin(fmt):
+    """K2 forced into each mode and in the auto mode, on every instantiation
+    (every format, the shadow table, the occlusion cache), on scattered
+    survivors, survivors first, one survivor, every lane alive, a count
+    just below and just above the auto threshold, NaN/inf/1e30 origins,
+    caps 1, 12, 48 and 1000, each after the survivor scan and with the
+    compaction's count of alive lanes (``survivors``: right where they come
+    first, a wrong list of lanes where they are scattered): every output
+    and the RNG bit-equal to megakernel_resume_plain, so to each other; each
+    launch's count and mode word as mk.resume_mode predicts from the
+    threshold, which is the tail mode's resident warps."""
+    dev = cuda_device()
+    config, cache = RESUME_CONFIGS[fmt]
+    ms = mk.launch_scene(_format_scene(config, 96, dev), shadow_tbl=FORMATS[config][2],
+                         shadow_cache=cache)
+    assert mk.format_of(ms) == fmt
+    thr = mk.tail_warps(ms)
+    occ = mk.occupancy("mk_resume_tail", fmt=fmt)
+    assert thr == occ["warps_per_sm"] * occ["sms"]
+    for label, (st, rng, cap) in _resume_inputs(ms, dev, thr).items():
+        want = _bits(mk.megakernel_resume_plain(ms, st, rng, cap))
+        alive = (st[0] > 0).sum().reshape(1)
+        mk.RESUME_LOG = []
+        try:
+            got = {(m, h): _bits(mk.megakernel_resume(ms, st, rng, cap, mode=m,
+                                                      survivors=alive if h else None))
+                   for h in (False, True) for m in mk.RESUME_MODES}
+            words = [(int(w[0]), mk.RESUME_MODE_WORDS[int(w[1])]) for *_, w in mk.RESUME_LOG]
+        finally:
+            mk.RESUME_LOG = None
+        for key, out in got.items():
+            assert all(torch.equal(a, b) for a, b in zip(out, want)), (fmt, label, key)
+        count = int(((st[0] > 0) & (st[1] < cap)).sum())
+        assert count == int(alive)
+        auto = mk.resume_mode(count, thr)
+        assert words == [(count, auto), (count, "thread"), (count, "tail")] * 2, (fmt, label, words)
+        if label.startswith("thr"):
+            assert auto == ("tail" if label.startswith("thr - 1") else "thread")
+
+
+def test_resume_launch_reads_nothing_back():
+    """An unsorted K2 call (the two modes' kernels, after the survivor scan
+    or with the compaction's count) makes no host read: under torch's sync
+    debug mode "error" any synchronizing operation on its way would raise."""
+    dev = cuda_device()
+    ms = mk.mega_scene(_scene(MESHBOX_SMALL), 64, 64, dev)
+    st, rng = mk.megakernel_start(ms, *_frame(64, dev), 5)
+    mk.tail_warps(ms)  # the threshold is asked of the library once (no device read)
+    alive = (st[0] > 0).sum()
+    torch.cuda.synchronize()
+    before = dict(mk.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mk.megakernel_resume(ms, st, rng, 48)
+        mk.megakernel_resume(ms, st, rng, 48, survivors=alive)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for k, more in (("mk_resume_scan", 1), ("mk_resume", 2), ("mk_resume_tail", 2)):
+        assert mk.LAUNCHES[k] == before[k] + more, k

@@ -40,6 +40,13 @@ def test_ab_variants_apply_to_the_sources(variant):
             assert new != old
 
 
+def test_resume_group_covers_every_k2_instantiation():
+    """The A/B tool's resume group (its default --resume-formats) times K2
+    on every instantiation of the kernel (mk.KERNEL_FORMATS, in its order)
+    and on (p)."""
+    assert ab.RESUME_FORMATS == (*mk.KERNEL_FORMATS, "(p)")
+
+
 def test_probe_sort_tile_lines_occur_once():
     """tools/probe_sort_tile.py's tile, key and sort lines each occur once
     in megakernel.cu, and its lockstep key removes the whole exchange."""
@@ -113,7 +120,7 @@ def test_occupancy_names_match_the_kernel_source():
     for name, which in mk._OCCUPANCY_OF.items():
         threads = "kSortTile" if name.endswith("_sorted") else "kThreads"
         assert f"case {which}: return occupancy(FMT_KERNEL_AT(f, {name}_kernel), {threads}," in src, name
-    assert len(mk._OCCUPANCY_OF) == 7
+    assert len(mk._OCCUPANCY_OF) == 8
     assert f"constexpr int kFormats = {len(mk.KERNEL_FORMATS)};" in src
     for f, (packed, sh, cache) in enumerate(mk.KERNEL_FORMATS.values()):
         inst = f"&k<{packed}, {'true' if sh else 'false'}, {'true' if cache else 'false'}>"

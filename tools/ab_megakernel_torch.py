@@ -6,8 +6,11 @@ single-launch render (K5), the lane-sorted K1/K2/K5 and the tile sort (K8),
 the walker-body ablation (K10a) and the staged chase (K11a), and every
 kernel's SASS against the parent's.
 
-    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass]
+    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass,resume]
                                         [--variants walk,loop,NAME=DIR]
+                                        [--resume-modes parent,auto,thread,tail,scan]
+                                        [--resume-formats classic,slim,...,(p)]
+                                        [--crossover 32,64,...,32768]
                                         [--reps 10] [--json PATH] [--sass DIR]
 
 PARENT_CSRC is a directory holding another commit's
@@ -92,6 +95,30 @@ tree to load its rows with 128-bit loads only
 parent with the package's of the same mangled name (registers, spill
 stores, SASS code with its labels unnumbered), by family: K1-K8, K9, K10a,
 K10b, K11a, K11b.
+
+The resume group builds ``megakernel.cu`` and ``probe_walk.cu`` of each
+tree and runs K2 of the parent's tree against the package's K2 in each of
+its modes (``--resume-modes``: ``auto``, the card's choice by the survivor
+count; ``thread``, one path a thread; ``tail``, one path a warp, its lane 0
+running the path; each a copy of the package's library whose K2 calls run
+at that mode's threshold with the compaction's count of alive lanes;
+``scan``, auto after the survivor scan) and each NAME=DIR variant (auto),
+on chip_smoke's recorded K2 calls (the chained chunk's caps 48 and 1000,
+the unchained sweep's 12, 48 and 1000) on every format of
+``--resume-formats`` (each instantiation of K2 and (p)), every output
+bit-equal to the parent's, timed in turns; it prints each call's
+survivors, its longest path's bounces and rows a bounce, and ns a bounce
+of that path in each form, and for each format the ratios to the parent
+on the calls the auto mode runs in the tail mode. Its crossover sweep
+draws ``--crossover`` going paths from the classic rows' sweep's cap-12
+and cap-1000 inputs and times the parent, the thread mode and the tail
+mode on each set alone to cap 1000: the largest set the tail mode reads
+faster on, beside the auto threshold (the tail mode's resident warps).
+Last, the tail mode's registers, spill stores, local bytes and warps an
+SM on every instantiation, its walk loops' loads and LDL/STL
+(``walk_probe.check_packed_loads``), and the thread mode's walk-loop
+LDL/STL in both trees. A library whose K2 has one mode (before the
+survivor scan: ``k2_modes``) is called as it was.
 """
 
 from __future__ import annotations
@@ -110,7 +137,7 @@ from pathlib import Path
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, ".."))
 
-from chip_smoke import bit_equal, record_calls  # noqa: E402
+from chip_smoke import bit_equal, k2_stats, record_calls  # noqa: E402
 
 
 
@@ -198,14 +225,86 @@ def old_scene(tree: Path) -> int | None:
     return 15 if "skip_all" not in text else None
 
 
-def entry_argtypes(fn: str, old: int | None) -> list:
-    """build.SIGNATURES[fn], with the scene block of an ``old_scene``."""
+def entry_argtypes(fn: str, old: int | None, modes: bool = True) -> list:
+    """build.SIGNATURES[fn], with the scene block of an ``old_scene``, and
+    for the K2 of a tree without its two modes (``k2_modes``) no work
+    buffer or threshold."""
     from hijiki_tpu_torch.utils import build
 
     argtypes = list(build.SIGNATURES[fn])
     if old and argtypes[:len(build._SCENE)] == build._SCENE:
         del argtypes[2 + old:len(build._SCENE)]
+    if fn == "mk_resume" and not modes:
+        del argtypes[-4:-1]
     return argtypes
+
+
+def k2_modes(tree: Path) -> bool:
+    """Whether the K2 of a megakernel.cu tree runs in two modes: the
+    survivor scan (mk_resume_scan) before it, its work buffer and threshold
+    after its outputs."""
+    return "mk_resume_scan" in (tree / "megakernel.cu").read_text()
+
+
+class ResumeModes:
+    """The K2 call of a library with two modes (``k2_modes``): mk_resume
+    with the threshold of ``mode`` (the library's own tail-mode warps for
+    "auto", asked once per format; "scan" is "auto" without the count) and
+    the count of the input's alive lanes as the compaction phases hand it
+    (``survivors``; its alive lanes come first in every recorded call), or,
+    for "scan", after the survivor scan."""
+
+    def __init__(self, cdll, tree: Path):
+        self.on = k2_modes(tree)
+        self.mode = "auto"
+        self.cdll, self.warps, self.hints = cdll, {}, {}
+        if self.on:
+            from hijiki_tpu_torch.utils import build
+
+            self.cdll.mk_resume_scan.argtypes = build.SIGNATURES["mk_resume_scan"]
+            self.cdll.mk_resume_scan.restype = ctypes.c_int
+
+    def tail(self, args: tuple, ms) -> tuple:
+        """mk_resume's arguments after the scene (st, rng, n, cap, st_out,
+        rng_out) with the work buffer and threshold appended, the scan
+        launched on the stream; as they are for a library of one mode."""
+        import torch
+
+        from hijiki_tpu_torch.ops import megakernel as mk
+
+        if not self.on:
+            return args
+        st, _, n, cap = args[:4]
+        fmt = mk.format_of(ms)
+        if fmt not in self.warps:
+            occ = mk.occupancy("mk_resume_tail", self.cdll, fmt)
+            self.warps[fmt] = occ["warps_per_sm"] * occ["sms"]
+        thr = mk.resume_threshold("auto" if self.mode == "scan" else self.mode, n, self.warps[fmt])
+        if self.mode != "scan":  # the compaction's count, made once a state
+            key = (st.data_ptr(), n)
+            if key not in self.hints:
+                self.hints[key] = (st, (st[0] > 0).sum().reshape(1))
+            return (*args, torch.empty(2, dtype=torch.int32, device=st.device),
+                    self.hints[key][1], thr)
+        work = torch.empty(2 + min(n, max(thr, 0)), dtype=torch.int32, device=st.device)
+        work[:2].zero_()
+        rc = self.cdll.mk_resume_scan(st.data_ptr(), n, cap, thr, work.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"mk_resume_scan: CUDA error {rc}")
+        return (*args, work, None, thr)
+
+
+def with_mode(lib, mode: str):
+    """A copy of the library ``lib`` (Lib, PathLib) whose K2 runs in
+    ``mode`` and that is named after it."""
+    import copy
+
+    out = copy.copy(lib)
+    out.name = mode
+    out.k2 = copy.copy(lib.k2)
+    out.k2.mode = mode
+    return out
 
 
 def scene_args(ms, old: int | None, rows=None) -> tuple:
@@ -226,8 +325,9 @@ class Lib:
         self.cdll = ctypes.CDLL(str(path))
         self.persistent = hasattr(self.cdll, "mk_occupancy")
         self.old = old_scene(tree)
+        self.k2 = ResumeModes(self.cdll, tree)
         for fn in ["mk_start_chained", "mk_resume", "walk_isolate"] + ["mk_occupancy"] * self.persistent:
-            argtypes = entry_argtypes(fn, self.old)
+            argtypes = entry_argtypes(fn, self.old, self.k2.on)
             if fn == "mk_start_chained" and not self.persistent:
                 del argtypes[-2]  # a K4 that is not persistent takes no work counter
             getattr(self.cdll, fn).argtypes = argtypes
@@ -238,6 +338,8 @@ class Lib:
 
         ptr = lambda a: a.data_ptr() if torch.is_tensor(a) else a
         tail = [counter.data_ptr()] if (self.persistent and fn == "mk_start_chained") else []
+        if fn == "mk_resume":
+            args = self.k2.tail(args, ms)
         rc = getattr(self.cdll, fn)(*scene_args(ms, self.old, rows), *map(ptr, args), *tail,
                                     torch.cuda.current_stream().cuda_stream)
         if rc != 0:
@@ -321,7 +423,7 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
     ap.add_argument("--kernels", default="megakernel",
                     help="comma-separated groups: megakernel, reconstruct, traverse, start, "
-                         "sorted, probes, sass")
+                         "sorted, probes, sass, resume")
     ap.add_argument("--variants", default="",
                     help="comma-separated: walk, loop (megakernel group), the names of "
                          "PATH_VARIANTS (start and sorted groups), NAME=DIR")
@@ -329,10 +431,18 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="write the results here")
     ap.add_argument("--sass", type=Path, default=Path(HERE).parent / "build" / "ab_megakernel" / "sass",
                     help="write the kernels' SASS here")
+    ap.add_argument("--resume-modes", default="parent,auto,thread,tail,scan",
+                    help="the resume group's K2 forms timed: parent (its tree's K2) and the "
+                         "package's K2 in each of mk.RESUME_MODES with the compaction's count, "
+                         "and scan (auto after the survivor scan)")
+    ap.add_argument("--crossover", default="32,64,128,256,512,1024,2048,4096,8192,16384,32768",
+                    help="the resume group's crossover sweep: survivor set sizes (empty: none)")
+    ap.add_argument("--resume-formats", default=",".join(RESUME_FORMATS),
+                    help="the resume group's formats: keys of mk.KERNEL_FORMATS and (p)")
     args = ap.parse_args(argv)
     groups = set(filter(None, args.kernels.split(",")))
     if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted", "probes",
-                               "sass"}:
+                               "sass", "resume"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
     import torch
@@ -344,7 +454,7 @@ def main(argv=None) -> int:
 
     print(card(), flush=True)
     parent = args.parent.resolve()
-    need = (MEGA_FILES if "megakernel" in groups else ()) + (
+    need = (MEGA_FILES if groups & {"megakernel", "resume"} else ()) + (
         K36_FILES if groups & {"reconstruct", "traverse"} else ()) + (
         PATH_FILES if groups & {"start", "sorted"} else ()) + (
         PROBE_FILES if "probes" in groups else ())
@@ -371,6 +481,10 @@ def main(argv=None) -> int:
         ok &= good
     if "sass" in groups:
         result["sass"], _ = sass_ab(args, parent)
+    if "resume" in groups:
+        part, good = resume_ab(args, parent)
+        result["resume"] = part
+        ok &= good
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1, default=str))
     if not ok:
@@ -554,10 +668,14 @@ def mega_ab(args, parent: Path) -> tuple:
     return result, ok
 
 
-def alternate(libs, cases, run, reps: int) -> dict:
+def alternate(libs, cases, run, reps: int, busy: bool = False) -> dict:
     """Time each case's ``run(lib, case)`` on every library, the libraries
     in turn (the order reversed every other round), each launch between two
-    CUDA events, after a warm-up round: {case: {library: [ms, ...]}}."""
+    CUDA events, after a warm-up round: {case: {library: [ms, ...]}}.
+    ``busy``: keep the card busy (torch.cuda._sleep, ~1 ms) while the host
+    enqueues each launch, so that the events time the launches on the card
+    and not the host's calls before them (K2 of two modes makes more host
+    calls than one mode made)."""
     import torch
 
     times = {c: {lib.name: [] for lib in libs} for c in cases}
@@ -567,6 +685,8 @@ def alternate(libs, cases, run, reps: int) -> dict:
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
+                if busy:
+                    torch.cuda._sleep(2_000_000)
                 a.record()
                 run(lib, c)
                 b.record()
@@ -1187,11 +1307,12 @@ class PathLib:
         self.counter = {fn: takes_counter(src, fn) for fn in ("mk_start", "mk_tiles", "mk_start_chained")}
         self.free = PATH_VARIANTS.get(name, (None, None, ()))[2]
         self.old = old_scene(tree)
+        self.k2 = ResumeModes(self.cdll, tree)
         for fn in ("mk_start", "mk_resume", "mk_tiles", "mk_start_sorted", "mk_resume_sorted",
                    "mk_tiles_sorted", "sort_tiles", "mk_occupancy", "mk_start_chained"):
             if not hasattr(self.cdll, fn):
                 continue
-            argtypes = entry_argtypes(fn, self.old)
+            argtypes = entry_argtypes(fn, self.old, self.k2.on)
             if fn in self.counter and not self.counter[fn]:
                 del argtypes[-2]  # the package's entry takes the counter there
             getattr(self.cdll, fn).argtypes = argtypes
@@ -1206,6 +1327,8 @@ class PathLib:
             counter.zero_()
             tail = [counter.data_ptr()]
         scene = scene_args(ms, self.old) if fn != "sort_tiles" else ()
+        if fn == "mk_resume":
+            args = self.k2.tail(args, ms)
         rc = getattr(self.cdll, fn)(*scene, *map(ptr, args), *tail, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} {fn}: CUDA error {rc}")
@@ -1717,15 +1840,241 @@ def sass_ab(args, parent: Path) -> tuple:
     # the packed walks' loads (K10b, K1, K4), the parent's and the package's
     from hijiki_tpu_torch.probes import walk_probe
 
-    loads = {name: walk_probe.check_packed_loads(path, hold=False)
+    # (a kernel the parent lacks, K2's tail mode before it had one, is the package's alone)
+    loads = {name: walk_probe.check_packed_loads(path, hold=False, kernels={
+        k: t for k, t in walk_probe.PACKED_KERNELS.items() if any(k in f for f in code[name])})
              for name, (path, _) in libs.items()}
-    result["packed walks"] = {f"{k}<{t}>": {name: loads[name][(k, t)] for name in loads}
+    result["packed walks"] = {f"{k}<{t}>": {name: loads[name].get((k, t)) for name in loads}
                               for k, t in loads["new"]}
     print("SASS packed walks (128-bit LDGs, narrower LDGs in the walk loops, LDL/STL in the walk "
           "loops, LDL/STL in all): parent -> package", flush=True)
     for key, by in result["packed walks"].items():
         print(f"    {key}: {by['parent']} -> {by['new']}", flush=True)
     return result, True
+
+
+# ---- the resume group: K2 by mode, its crossover, its tail mode's code ----
+
+# the resume group's formats: every instantiation of K2 (mk.KERNEL_FORMATS)
+# and (p), the 100,384-triangle scene that compiles PACKED4 (its chained
+# chunk's calls only, as formats_ab)
+RESUME_FORMATS = ("classic", "slim", "packed3", "packed4", "packed12", "shadow_tbl", "classic_cache",
+                  "slim_cache", "packed3_cache", "packed4_cache", "packed12_cache", "(p)")
+
+
+def resume_ab(args, parent: Path) -> tuple:
+    """The resume group: K2 (mk_resume) of the parent's tree against the
+    package's in each of its modes (``--resume-modes``) and each NAME=DIR
+    variant (in its auto mode), on chip_smoke's recorded calls on every
+    format of ``--resume-formats`` (the meshbox + spheres at 1024x1024
+    compiled with the format's packed_leaf and the boxes, launched with its
+    shadow table and occlusion cache: the chained chunk's two calls, caps 48
+    and 1000, and the unchained sweep's three, caps 12, 48 and 1000; (p)'s
+    chained chunk), every output bit-equal to the parent's, timed in turns
+    (``alternate``: medians of alternating launches), a format at a time;
+    for each call the survivors in its input, the longest path's bounces and
+    rows a bounce and ns a bounce of it, and for each format the auto
+    mode's ratio to the parent on the calls it ran in the tail mode. The
+    crossover sweep (the classic rows): synthetic survivor sets of
+    ``--crossover`` paths (drawn, seed 0, from the going paths of the
+    sweep's cap-12 call and of its cap-1000 call), to cap 1000, each mode
+    timed: the largest set the tail mode reads faster on, beside the auto
+    threshold (the tail mode's resident warps). Then the tail mode's
+    registers, spill stores and resident warps on every instantiation, its
+    walk loops' loads (``walk_probe.check_packed_loads``), and the thread
+    mode's walk loops' LDL/STL in both trees. Returns (its results, whether
+    every output equals the parent's)."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.ops import megakernel as mk
+    from hijiki_tpu_torch.probes import card, walk_probe as pwk
+    from hijiki_tpu_torch.render.renderer import RenderConfig, Renderer
+    from hijiki_tpu_torch.scene.bigscene import split_scene
+    from hijiki_tpu_torch.scene.compile import compile_scene
+    from hijiki_tpu_torch.scene.obj import load_obj_scene
+    from hijiki_tpu_torch.utils import build
+
+    pairs = build_libraries(parent, ",".join(v for v in args.variants.split(",") if "=" in v),
+                            MEGA_FILES, lambda name, path, report, tree: Lib(name, path, report, tree))
+    base = {lib.name: lib for lib, _ in pairs}
+    forms = [m for m in args.resume_modes.split(",") if m]
+    libs = [base["parent"] if m == "parent" else with_mode(base["new"], m) for m in forms]
+    if libs[0].name != "parent":
+        libs.insert(0, base["parent"])  # the outputs' reference
+    libs += [lib for name, lib in base.items() if name not in ("parent", "new")]  # NAME=DIR, auto
+    result = {"card": card(), "calls": {}, "times": {}, "tail_ratio": {}, "crossover": {}}
+    dev = torch.device("cuda")
+    W = H = 1024
+    scene = load_obj_scene(pwk.SCENE)
+    scene.put_cbox_spheres()
+    cfg = RenderConfig(width=W, height=H, spp=8, max_bounces=1000, block_size=128, use_bvh=True,
+                       driver="mega")
+    formats = [f for f in args.resume_formats.split(",") if f]
+    unknown = set(formats) - set(RESUME_FORMATS)
+    if unknown:
+        raise SystemExit(f"--resume-formats: unknown {sorted(unknown)}")
+    compiled = {}
+    for f in formats:
+        leaf = mk.KERNEL_FORMATS[f][0] if f != "(p)" else "p"
+        if leaf not in compiled:
+            compiled[leaf] = compile_scene(split_scene(scene, 2) if leaf == "p" else scene,
+                                           **({} if leaf == "p" else {"packed_leaf": leaf}))
+    sched = Renderer(compile_scene(scene), cfg, device="cuda").scheduler
+    frames = [sweep_frame(sched.sweep(cfg.spp + 1 + s), W, H, dev) for s in range(mk.CHAIN_SWEEPS_CUDA)]
+    cpx, cpy, cseeds = (torch.stack([f[i] for f in frames]) for i in range(3))
+    upx, upy, useeds, _ = sweep_frame(sched.sweep(cfg.spp + 1 + mk.CHAIN_SWEEPS_CUDA), W, H, dev)
+    ok = True
+
+    def outs(a):
+        return [torch.empty_like(a[0]), torch.empty_like(a[1])]
+
+    def check(held, label, among):
+        nonlocal ok
+        want = held[("parent", label)]
+        for lib in among:
+            if lib.name == "parent":
+                continue
+            same = bit_equal(held[(lib.name, label)], want)
+            ok &= same
+            if not same:
+                print(f"{lib.name} {label}: DIFFERS from the parent's outputs", flush=True)
+
+    def timed(ms, cases, among):
+        """every library's outputs on ``cases`` held to the parent's, then
+        the cases timed in turns; returns (times, outputs)"""
+        held = {}
+
+        def run(lib, c):
+            st, rng, cap = cases[c]
+            lib.call("mk_resume", ms, st, rng, st.shape[1], cap, *held[(lib.name, c)])
+
+        for c in cases:
+            for lib in among:
+                held[(lib.name, c)] = outs(cases[c])
+                run(lib, c)
+            torch.cuda.synchronize()
+            check(held, c, among)
+        return report_times(alternate(among, cases, run, args.reps, busy=True)), held
+
+    sweep_calls = None
+    for f in formats:
+        leaf, opts = ("p", {}) if f == "(p)" else (mk.KERNEL_FORMATS[f][0], dict(
+            shadow_tbl=mk.KERNEL_FORMATS[f][1], shadow_cache=mk.KERNEL_FORMATS[f][2]))
+        ms = mk.launch_scene(mk.mega_scene(compiled[leaf], W, H, dev), **opts)
+        calls = [("chained", a) for _, a in record_calls(mk, ["mk_resume"], lambda: mk.render_waves_chained(
+            ms, cpx, cpy, cseeds, max_bounces=1000, **opts))]
+        if f != "(p)":
+            calls += [("unchained", a) for _, a in record_calls(mk, ["mk_resume"], lambda: mk.render_waves(
+                ms, upx, upy, useeds, max_bounces=1000, **opts))]
+        cases = {f"{f} {tag} K2 ({a[0].shape[1]} lanes, cap {a[2]})": a for tag, a in calls}
+        times, held = timed(ms, cases, libs)
+        result["times"].update(times)
+        thr = mk.tail_warps(ms)  # the package's auto threshold for this format
+        tail_calls = []
+        for c, (st, _, cap) in cases.items():
+            stats = k2_stats(st, held[("parent", c)], cap)
+            stats["auto_mode"] = mk.resume_mode(stats["survivors"], thr)
+            if stats["auto_mode"] == "tail":
+                tail_calls.append(c)
+            for lib in libs:
+                med = times[c][lib.name]["median_ms"]
+                stats[f"{lib.name}_ns_per_bounce"] = (med * 1e6 / stats["longest_bounces"]
+                                                     if stats["longest_bounces"] else None)
+            result["calls"][c] = stats
+            print(f"{c}: {stats['survivors']} survivors ({stats['auto_mode']} mode at {thr}), the "
+                  f"longest path {stats['longest_bounces']} bounces at "
+                  f"{stats['longest_rows_per_bounce']:.2f} rows a bounce (all paths "
+                  f"{stats['rows_per_bounce']:.2f}); ns a bounce of it: " + ", ".join(
+                      f"{lib.name} {stats[lib.name + '_ns_per_bounce']:.1f}" for lib in libs
+                      if stats[lib.name + "_ns_per_bounce"] is not None), flush=True)
+        ratios = {lib.name: {c: times[c][lib.name]["ratio_median"] for c in tail_calls}
+                  for lib in libs if lib.name != "parent"}
+        result["tail_ratio"][f] = ratios
+        print(f"{f}: the calls the auto mode runs in the tail mode, median against the parent: "
+              + "; ".join(f"{name} " + ", ".join(f"x{r:.4f}" for r in v.values())
+                          for name, v in ratios.items()), flush=True)
+        if f == "classic":
+            sweep_calls = (ms, [a for tag, a in calls if tag == "unchained"])
+        del held, cases, calls
+        if f != "classic":
+            del ms
+        torch.cuda.empty_cache()
+
+    # the crossover: m going paths alone, to 1000, thread mode against tail mode
+    sizes = [int(x) for x in args.crossover.split(",") if x]
+    xlibs = [lib for lib in libs if lib.name in ("parent", "thread", "tail")]
+    if sweep_calls is not None and sizes:
+        ms, sweep = sweep_calls
+        pools = {"typical (cap-12 input)": sweep[0], "tail (cap-1000 input)": sweep[-1]}
+        g = np.random.default_rng(0)
+        for pool_name, (st, rng, _) in pools.items():
+            going = torch.nonzero((st[0] > 0) & (st[1] < 1000)).flatten().cpu().numpy()
+            xcases = {}
+            for m in sizes:
+                if m > going.size:
+                    continue
+                pick = torch.from_numpy(np.sort(g.choice(going, m, replace=False))).to(dev)
+                xcases[f"{pool_name} {m} paths"] = (st[:, pick].contiguous(), rng[pick].contiguous(), 1000)
+            if not xcases:
+                continue
+            part, held = timed(ms, xcases, xlibs)
+            del held
+            result["crossover"][pool_name] = part
+            faster = [int(c.split()[-2]) for c, by in part.items()
+                      if "tail" in by and "thread" in by and by["tail"]["median_ms"] < by["thread"]["median_ms"]]
+            print(f"crossover, {pool_name}: the tail mode reads faster up to "
+                  f"{max(faster) if faster else 0} paths (sizes "
+                  f"{', '.join(str(int(c.split()[-2])) for c in part)})", flush=True)
+    # the tail mode's code: registers, spills, warps (each library that has
+    # one: the package's and the variants'; a variant without the tail
+    # kernel, its K2's); walk loops
+    result["tail_code"] = {}
+    for name, lib in base.items():
+        if name == "parent" or not lib.k2.on:
+            continue
+        kern = ("mk_resume_tail_kernel" if "mk_resume_tail_kernel("
+                in (lib.tree / "megakernel.cu").read_text() else "mk_resume_kernel")
+        fmts = {}
+        for f, (packed, sh, cache) in mk.KERNEL_FORMATS.items():
+            targs = f"ILi{packed}ELb{int(sh)}ELb{int(cache)}E"
+            regs, spill = build.ptxas_of(lib.report, kern, targs)
+            occ = mk.occupancy("mk_resume_tail", lib.cdll, f)
+            fmts[f] = {"registers": regs, "spill_bytes": spill, "local_bytes": occ["local_bytes"],
+                       "warps_per_sm": occ["warps_per_sm"],
+                       "threshold": occ["warps_per_sm"] * occ["sms"]}
+        result["tail_code"][name] = fmts
+        print(f"{name} tail mode, {kern} (registers/spill bytes/local bytes/warps an SM/auto "
+              "threshold): " + ", ".join(f"{f} {v['registers']}/{v['spill_bytes']}/{v['local_bytes']}/"
+                                         f"{v['warps_per_sm']}/{v['threshold']}" for f, v in fmts.items()),
+              flush=True)
+    # the thread mode's kernel in every library: ptxas' registers and spill bytes
+    result["thread_code"] = {}
+    for name, lib in base.items():
+        fmts = {f: build.ptxas_of(lib.report, "mk_resume_kernel", f"ILi{p}ELb{int(sh)}ELb{int(c)}E")
+                for f, (p, sh, c) in mk.KERNEL_FORMATS.items()}
+        result["thread_code"][name] = fmts
+        print(f"{name} thread mode, mk_resume_kernel (registers/spill bytes): "
+              + ", ".join(f"{f} {r}/{s}" for f, (r, s) in fmts.items()), flush=True)
+    new = base["new"]
+    every = [f"ILi{p}ELb{int(sh)}ELb{int(c)}E" for p, sh, c in mk.KERNEL_FORMATS.values()]
+    loads = {"tail": pwk.check_packed_loads(new.path, hold=False,
+                                            kernels={"mk_resume_tail_kernel": every})}
+    for lib in (base["parent"], new):
+        loads[f"{lib.name} thread"] = pwk.check_packed_loads(
+            lib.path, hold=False, kernels={"mk_resume_kernel": every})
+    result["walk_loops"] = {k: {f"{kern}<{t}>": v for (kern, t), v in d.items()} for k, d in loads.items()}
+    print("K2's walk loops (128-bit LDGs, narrower LDGs in the walk loops, LDL/STL in the walk loops, "
+          "LDL/STL in all):", flush=True)
+    for k, d in result["walk_loops"].items():
+        for name, v in d.items():
+            print(f"    {k} {name}: {v}", flush=True)
+    added = [name for name, v in result["walk_loops"]["new thread"].items()
+             if v[2] > result["walk_loops"]["parent thread"][name][2]]
+    tail_local = [name for name, v in result["walk_loops"]["tail"].items() if v[2]]
+    print(f"walk-loop LDL/STL: the thread mode adds them on {added or 'no instantiation'}; the tail "
+          f"mode holds them on {tail_local or 'no instantiation'}", flush=True)
+    return result, ok
 
 
 if __name__ == "__main__":

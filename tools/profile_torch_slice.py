@@ -9,7 +9,8 @@ Renders the meshbox (+ cbox spheres) once to warm up, then renders again
 under torch.profiler (CPU + CUDA activities) and prints device time by
 kernel, per render and per chunk (a chained launch of S sweeps, or one
 sweep), the device time grouped into the hand-written kernels (K1-K5 the
-megakernel launches, K3 reconstruct, K6 traverse) and everything else (the
+megakernel launches, K2 in its thread mode, its tail mode and its survivor
+scan apart, K3 reconstruct, K6 traverse) and everything else (the
 torch ops), the sum of device time, the wall time, their ratio (the busy
 share), the device-to-host and host-to-device copies (each host read of a
 device value is one and waits for the device) and the peak device memory. ``--chain-sweeps`` (mega driver): 0 =
@@ -44,6 +45,8 @@ GROUPS = (("K6 traverse", ("traverse_kernel",)), ("K3 reconstruct", ("reconstruc
           ("K7 in K2 mk_resume_sorted", ("mk_resume_sorted_kernel", "mk_resume_kernel<true>")),
           ("K7 in K5 mk_tiles_sorted", ("mk_tiles_sorted_kernel", "mk_tiles_kernel<true>")),
           ("K1 mk_start", ("mk_start_kernel",)), ("K2 mk_resume", ("mk_resume_kernel",)),
+          ("K2's tail mode mk_resume_tail", ("mk_resume_tail_kernel",)),
+          ("K2's survivor scan mk_resume_scan", ("mk_resume_scan_kernel",)),
           ("K5 mk_tiles", ("mk_tiles_kernel",)))
 
 
