@@ -224,12 +224,15 @@ of them once more before the kernel report); any failure exits non-zero:
    of walk_ablate (K10a), walk_isolate (K10b, on the classic rows, their
    16-column copy and the SLIM, PACKED3, PACKED4, PACKED12 tables), latency_chain and
    staged_chase (K11a), alu_issue, dtype_elementwise (f32, bf16, bf16x2)
-   and dtype_slab (f32, bf16; rows 8 and 1024) (K11b) bit-equal to its plain
-   version at 4096 threads (every mode and variant) and at 1M threads with
-   a short trip count (timed there beside the plain version); K9
+   and dtype_slab (f32, bf16; (rows, P) (8, 1024), (1024, 1024), (1023,
+   96), (1023, 32)) (K11b) bit-equal to its plain version at 4096 threads
+   (every mode and variant) and at 1M threads with a short trip count
+   (timed there beside the plain version); their SASS (dtype_slab's trip
+   loops without the block's barrier, K9 without a run-time division); K9
    (reconstruct_old) against its plain version at 1024x1024 and 1000x1024,
-   block 128, with NaN pixels, to K3's bound (rtol 1e-5, atol 1e-6), and
-   against K3 (the differing pixels counted); then (k) a short run of each
+   block 128, and 1024x1024, block 100, with NaN pixels, to K3's bound
+   (rtol 1e-5, atol 1e-6), and against K3 (the differing pixels counted);
+   latency_chain's latency bound; then (k) a short run of each
    probe's main() (the walker probes at one warp per SM and at 1M threads,
    slope timings; ab_reconstruct's A/B and in-stream modes; the issue and
    dtype probes; walk_probe's main on the unpacked and packed tables and
@@ -999,7 +1002,8 @@ def k11b_same(same, dev, pvi, pvd, n, it) -> None:
     """The K11b bodies at ``n`` threads, ``it`` trips, bit-equal to their
     plain versions on the card: alu_issue at every K, dtype_elementwise in
     f32, bf16 and bf16x2 at 1 and 8 chains (bf16x2 also equal to bf16), and
-    dtype_slab in f32 and bf16 at rows 8 and 1024 of 1024 lanes."""
+    dtype_slab in f32 and bf16 at rows 8 and 1024 of 1024 lanes (four warps
+    a row) and 1023 rows of 96 (three warps) and of 32 (one warp)."""
     import torch
 
     x = torch.from_numpy(pvi.x_of(n)).to(dev)
@@ -1015,10 +1019,10 @@ def k11b_same(same, dev, pvi, pvd, n, it) -> None:
             if v == "bf16x2":
                 same("dtype_elementwise bf16x2 against bf16", "dtype_elementwise", got,
                      pvd.dtype_elementwise(xe, it, "bf16"))
-    for rows in pvd.SLAB_ROWS:
-        sx, srow = (t.to(dev) for t in pvd.slab_input(rows, 1024))
+    for rows, P in [(rows, 1024) for rows in pvd.SLAB_ROWS] + [(1023, 96), (1023, 32)]:
+        sx, srow = (t.to(dev) for t in pvd.slab_input(rows, P))
         for v in pvd.SLAB_VARIANTS:
-            same(f"dtype_slab {v} ({rows}, 1024)", "dtype_slab", pvd.dtype_slab(sx, srow, it, v),
+            same(f"dtype_slab {v} ({rows}, {P})", "dtype_slab", pvd.dtype_slab(sx, srow, it, v),
                  pvd.slab_plain(sx, srow, it, v))
 
 
@@ -1099,8 +1103,8 @@ def probe_checks(dev, pab, pwk, pcl, pga, pvi, pvd, compiled) -> dict:
           flush=True)
     k11b_same(same, dev, pvi, pvd, n, it=6)
     print(f"K11b at {n} threads: alu_issue (K 1, 2, 4, 8, 16), dtype_elementwise (f32, bf16, "
-          "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; rows 8 and 1024) bit-equal to "
-          "their plain versions", flush=True)
+          "bf16x2; 1 and 8 chains) and dtype_slab (f32, bf16; (8, 1024), (1024, 1024), (1023, "
+          "96), (1023, 32)) bit-equal to their plain versions", flush=True)
     return dict(T=T, cs=cs, dtbl=dtbl, err=err, ftbl=ftbl, ms=ms, packed=packed, same=same,
                 tables=tables)
 
@@ -1112,6 +1116,8 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     main(), whose launches are counted as a path's. ``checked``: what
     probe_checks returned. Returns the probes' entries of the kernel
     report."""
+    import torch
+
     from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct as k3_reconstruct
 
     phase("probes: K9/K10/K11 at 1M threads vs plain, timed")
@@ -1229,30 +1235,44 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     print(f"walk_packed: all {len(packed_loads)} packed instantiations of K10b, K1 and K4, and "
           "K2's tail mode on all its instantiations, hold no LDL/STL in their walk loops", flush=True)
 
+    # the redesigned K11b dtype_slab and K9: their SASS beside their times
+    try:
+        slab_loops, k9_taps = pvd.check_slab_loops(), pk9.check_tap_divisions()
+    except RuntimeError as e:
+        fail(str(e))
+    lanes, warps = pvd.slab_split(1024)
+    print(f"dtype_slab ((1024, 1024): {lanes} lanes a thread, {warps} warps a row): "
+          f"{full['dtype_slab']['ms']:.4f} ms; its trip loop (SASS) "
+          f"{slab_loops[('F32Ops', lanes, warps == 1)]}; no trip loop of the "
+          f"{len(slab_loops)} instantiations waits on the block's barrier 0", flush=True)
+
     # K9 against its plain version (K3's bound) and against K3, then timed
-    for H, W in ((1024, 1024), (1000, 1024)):
+    for H, W, B in ((1024, 1024, 128), (1000, 1024, 128), (1024, 1024, 100)):
         color, normal, so = pk9.inputs(W, H, dev)
         color[3, 5, 1] = float("nan")
         normal[H // 2, 10, 2] = float("nan")
         planes = pk9.planes_of(color, normal)
-        kern = lambda: pk9.reconstruct_old_planes(planes, H, so, block_size=128)
-        plain = lambda: pk9.reconstruct_old_plain(planes, H, so, block_size=128)
+        kern = lambda: pk9.reconstruct_old_planes(planes, H, so, block_size=B)
+        plain = lambda: pk9.reconstruct_old_plain(planes, H, so, block_size=B)
         t_k, got = timed(kern, reps=20)
         t_p, want = timed(plain, reps=1, warm=False)
-        err["reconstruct_old"] = max(err["reconstruct_old"], check_k3(f"K9 {H}x{W}", got, want))
-        t_3, k3 = timed(lambda: k3_reconstruct(color, normal, so, block_size=128), reps=20)
-        e3 = check_k3(f"K9 against K3 {H}x{W}", got, k3)
-        print(f"K9 {H}x{W}: {pk9.differing_pixels(got, k3)} of {H * W} pixels differ from K3 "
-              f"(max |diff| {e3:.3e}); K9 {t_k:.4f} ms, K3 {t_3:.4f} ms (mean of 20), plain "
-              f"{t_p:.3f} ms", flush=True)
-        if (H, W) == (1024, 1024):
+        err["reconstruct_old"] = max(err["reconstruct_old"],
+                                     check_k3(f"K9 {H}x{W} block {B}", got, want))
+        t_3, k3 = timed(lambda: k3_reconstruct(color, normal, so, block_size=B), reps=20)
+        e3 = check_k3(f"K9 against K3 {H}x{W} block {B}", got, k3)
+        print(f"K9 {H}x{W} block {B}: {pk9.differing_pixels(got, k3)} of {H * W} pixels differ "
+              f"from K3 (max |diff| {e3:.3e}); K9 {t_k:.4f} ms, K3 {t_3:.4f} ms (mean of 20), "
+              f"plain {t_p:.3f} ms", flush=True)
+        if (H, W, B) == (1024, 1024, 128):
             # each pixel's 7 planes in and 4 channels out, once; K9_TAP_OPS a tap
             k9_work = (nbytes(planes, got), H * W * 25 * K9_TAP_OPS)
             b_ms, b_by = bound(*k9_work)
             full["reconstruct_old"] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                            bound_unfused_ms=bound(*k9_work, F32_UNFUSED_OPS_PER_S)[0])
-            print(f"reconstruct_old (1024x1024, block 128): bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
+            print(f"reconstruct_old (1024x1024, block 128): bound {b_ms:.4f} ms ({b_by}); its "
+                  f"SASS {k9_taps['instructions']} instructions, {k9_taps['MUFU.RCP']} MUFU.RCP, "
+                  f"a tap {k9_taps['per_tap']:.0f} instructions with {k9_taps['tap_loop_LDS']} "
+                  f"LDS and {k9_taps['tap_loop_LDG']} LDG", flush=True)
 
     out_dir = os.path.join(HERE, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -1275,6 +1295,21 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     for k in err:
         if counts_k[k] <= 0:
             fail(f"(k) the probes did not launch {k}")
+    # latency_chain's latency bound: its 16 dependent links at the link
+    # latency the probe measured at one warp per SM (the fetch chase on the
+    # same 4096-row table), once for each wave of resident threads that its
+    # 1M threads take (a wave that starts runs all 16 links)
+    with open(os.path.join(out_dir, "probe_fetch.json")) as f:
+        link_ns = next(r["ns_per_iter"] for r in json.load(f)
+                       if r["occupancy"] == "warp" and r["mode"] == "chase")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = pcl.fetch(ftbl, N, 1, "chase", occupancy=True) * 128
+    waves = -(-N // (sms * resident))
+    full["latency_chain"]["bound_latency_ms"] = 16 * link_ns * waves * 1e-6
+    print(f"latency_chain: latency bound {full['latency_chain']['bound_latency_ms']:.4f} ms = 16 "
+          f"links x {link_ns:.3f} ns (one warp per SM) x {waves} waves of {resident} threads on "
+          f"{sms} SMs; {full['latency_chain']['ms']:.4f} ms, bytes bound "
+          f"{full['latency_chain']['bound_ms']:.5f} ms", flush=True)
     print(f"(k) launches {{{', '.join(f'{k!r}: {counts_k[k]}' for k in err)}}}; phase 7 took "
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
     src = "hijiki_tpu_torch/csrc/"
@@ -1296,7 +1331,9 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
                  replaces=replaces[k], launches=counts_k[k], max_abs_err=err[k],
                  ms=full[k]["ms"], plain_ms=full[k]["plain_ms"], bound_ms=full[k]["bound_ms"],
                  bound_by=full[k]["bound_by"], library_ms=None,
-                 bound_unfused_ms=full[k]["bound_unfused_ms"]) for k in err]
+                 bound_unfused_ms=full[k]["bound_unfused_ms"],
+                 **({"bound_latency_ms": full[k]["bound_latency_ms"]}
+                    if "bound_latency_ms" in full[k] else {})) for k in err]
 
 
 def main() -> int:

@@ -23,17 +23,29 @@
 // :91): the walker's slab-test mix in the probed type (6 multiply-adds of a
 // row's broadcast columns, 10 min/max), the casts to f32, three compares,
 // an `any` vote across the P lanes of a row, the select of best_t and the
-// vote count in f32. One block of P threads a row; the vote is
-// __syncthreads_or. The slab arithmetic depends on the inputs and the row
-// only, never on the trip, so the compiler hoists it out of the loop and the
-// probe would time a compare and a vote. An empty asm barrier on the inputs
-// (asm volatile("" : "+f"(v))) does not stop it: the asm emits no PTX
+// vote count in f32. The TPU held a row's lanes in one vreg set and reduced
+// them in registers; here a thread holds kL lanes of its row (lane t + j
+// 32W for j < kL, W = ceil(P / 32 kL) warps a row), ORs their votes, and the
+// row's `any` is one __any_sync where the row is one warp, else one
+// bar.red.or of the row's W warps on a named barrier of their own (at most
+// kSlabMaxWarps: no barrier of a 1,024-thread block). Rows of one or two
+// warps share 128-thread blocks, each on its own barrier. The split (kL,
+// W) is the wrapper's (vpu_dtype_probe.slab_split, from the card's
+// measurements: PERF.md §6). So a thread pays the trip's shared loads,
+// vote, count and loop once for kL lanes: with one lane a thread they were
+// 12 of a trip's 40 instructions. Lanes past P (where 32 W kL > P) start
+// at best_t = -inf, so their compares never pass and they never vote.
+// The slab arithmetic depends on the inputs and the row only, never on the
+// trip, so the compiler hoists it out of the loop and the probe would time
+// a compare and a vote. An empty asm barrier on the inputs (asm
+// volatile("" : "+f"(v))) does not stop it: the asm emits no PTX
 // instruction, and ptxas hoists the arithmetic all the same (the loop held
 // 10 instructions in the SASS). So, as the tool's body reads its row's
 // columns from VMEM and casts them each trip, a trip reads the row's 6
 // columns from shared memory with volatile loads (one broadcast LDS each)
 // and converts them to the probed type: the 6 multiply-adds and the 10
-// min/max then run every trip.
+// min/max of every lane then run every trip
+// (vpu_dtype_probe.check_slab_loops holds the SASS trip loop to that).
 //
 // min/max propagate NaN as torch.minimum/maximum do: min.NaN.f32 (one
 // FMNMX) and __hmin_nan/__hmax_nan. Built with --fmad=false, so each a*b+c
@@ -176,46 +188,104 @@ struct Bf16Ops {
   static __device__ __forceinline__ T mx(T a, T b) { return __hmax_nan(a, b); }
 };
 
+constexpr int kSlabMaxWarps = 8;  // warps a row at most
+constexpr int kSlabBlock = 128;    // threads a block of rows of one or two warps
+
+// The OR of `p` over the `threads` threads (whole warps) of named barrier
+// `id` (1-15): bar.red.or.pred, the reduction __syncthreads_or makes on
+// barrier 0, on the barrier of one row's warps only.
+__device__ __forceinline__ bool row_or(bool p, int id, int threads) {
+  unsigned r;
+  asm volatile(
+      "{\n\t.reg .pred p, q;\n\tsetp.ne.u32 p, %1, 0;\n\t"
+      "bar.red.or.pred q, %2, %3, p;\n\tselp.u32 %0, 1, 0, q;\n\t}"
+      : "=r"(r)
+      : "r"(static_cast<unsigned>(p)), "r"(id), "r"(threads)
+      : "memory");
+  return r != 0;
+}
+
 // x: (6, rows, P) f32 (inv_d xyz, t_off xyz); row: (rows, 32) f32;
-// out: (rows, P) f32. One block of P threads a row.
-template <typename Ops>
-__global__ void dtype_slab_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ row, int rows, int P,
-                                  int iters, float* __restrict__ out) {
+// out: (rows, P) f32. W warps a row, kL lanes a thread; kOneWarp: W = 1.
+template <typename Ops, int kL, bool kOneWarp>
+__global__ void __launch_bounds__(kSlabMaxWarps * 32)
+    dtype_slab_kernel(const float* __restrict__ x, const float* __restrict__ row, int rows,
+                      int P, int warps, int iters, float* __restrict__ out) {
   using T = typename Ops::T;
-  __shared__ float srow[6];
-  const int r = blockIdx.x, p = threadIdx.x;
-  const size_t plane = static_cast<size_t>(rows) * P;
-  const size_t e = static_cast<size_t>(r) * P + p;
-  if (p < 6) srow[p] = row[r * 32 + p];
+  __shared__ float srow[kSlabBlock / 32][6];
+  const int span = 32 * warps;  // threads a row
+  const int g = threadIdx.x / span, t = threadIdx.x - g * span;
+  const int r = blockIdx.x * (blockDim.x / span) + g;
+  if (t < 6 && r < rows) srow[g][t] = row[r * 32 + t];
   __syncthreads();
-  const volatile float* vrow = srow;
-  T in[6];
+  if (r >= rows) return;  // whole warps: the row's barrier goes unused
+  const volatile float* vrow = srow[g];
+  const size_t plane = static_cast<size_t>(rows) * P;
+  const size_t e0 = static_cast<size_t>(r) * P;
+  T in[kL][6];
+  float best_t[kL];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) in[k] = Ops::of(x[k * plane + e]);
-  const float x0 = x[e];
-  float acc = x[static_cast<size_t>(r) * P] * 0.0f;
-  float best_t = x0 * 0.0f + 1e6f;
+  for (int j = 0; j < kL; ++j) {
+    const int p = t + j * span;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) in[j][k] = Ops::of(p < P ? x[k * plane + e0 + p] : 0.0f);
+    best_t[j] = p < P ? x[e0 + p] * 0.0f + 1e6f : __int_as_float(0xff800000);  // -inf
+  }
+  float acc = x[e0] * 0.0f;
 #pragma unroll 1
   for (int i = 0; i < iters; ++i) {
     T col[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) col[k] = Ops::of(vrow[k]);
-    const T ax = Ops::mad(col[0], in[0], in[3]);
-    const T bx = Ops::mad(col[3], in[0], in[3]);
-    const T ay = Ops::mad(col[1], in[1], in[4]);
-    const T by = Ops::mad(col[4], in[1], in[4]);
-    const T az = Ops::mad(col[2], in[2], in[5]);
-    const T bz = Ops::mad(col[5], in[2], in[5]);
-    const T t0 = Ops::mx(Ops::mx(Ops::mn(ax, bx), Ops::mn(ay, by)), Ops::mn(az, bz));
-    const T t1 = Ops::mn(Ops::mn(Ops::mx(ax, bx), Ops::mx(ay, by)), Ops::mx(az, bz));
-    const float t0f = Ops::f32(t0), t1f = Ops::f32(t1);
-    const bool slab = (t0f < t1f + 1e-4f) && (t0f < best_t) && (t1f > 1e-4f);
-    const bool vote = __syncthreads_or(slab) != 0;
-    best_t = slab ? best_t * 0.9999f : best_t;
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const T ax = Ops::mad(col[0], in[j][0], in[j][3]);
+      const T bx = Ops::mad(col[3], in[j][0], in[j][3]);
+      const T ay = Ops::mad(col[1], in[j][1], in[j][4]);
+      const T by = Ops::mad(col[4], in[j][1], in[j][4]);
+      const T az = Ops::mad(col[2], in[j][2], in[j][5]);
+      const T bz = Ops::mad(col[5], in[j][2], in[j][5]);
+      const T t0 = Ops::mx(Ops::mx(Ops::mn(ax, bx), Ops::mn(ay, by)), Ops::mn(az, bz));
+      const T t1 = Ops::mn(Ops::mn(Ops::mx(ax, bx), Ops::mx(ay, by)), Ops::mx(az, bz));
+      const float t0f = Ops::f32(t0), t1f = Ops::f32(t1);
+      const bool slab = (t0f < t1f + 1e-4f) && (t0f < best_t[j]) && (t1f > 1e-4f);
+      best_t[j] = slab ? best_t[j] * 0.9999f : best_t[j];
+      any |= slab;
+    }
+    const bool vote = kOneWarp ? __any_sync(0xffffffffu, any) : row_or(any, 1 + g, span);
     acc = acc + (vote ? 1.0f : 0.0f);
   }
-  out[e] = acc + best_t;
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    const int p = t + j * span;
+    if (p < P) out[e0 + p] = acc + best_t[j];
+  }
+}
+
+// rows of `warps` warps in blocks of kSlabBlock threads where that holds
+// whole rows, else a block a row
+template <typename Ops, int kL>
+int slab_launch(const float* x, const float* row, int rows, int P, int warps, int iters,
+                float* out, int* occ, void* stream) {
+  const int span = 32 * warps;
+  const int block = kSlabBlock % span == 0 ? kSlabBlock : span;
+  const int threads = (rows + block / span - 1) / (block / span) * block;
+  if (warps == 1)
+    return launch(dtype_slab_kernel<Ops, kL, true>, threads, block, 0, occ, stream, x, row,
+                  rows, P, warps, iters, out);
+  return launch(dtype_slab_kernel<Ops, kL, false>, threads, block, 0, occ, stream, x, row, rows,
+                P, warps, iters, out);
+}
+
+template <int kL>
+int slab_variant(int variant, const float* x, const float* row, int rows, int P, int warps,
+                 int iters, float* out, int* occ, void* stream) {
+  if (variant == kF32)
+    return slab_launch<F32Ops, kL>(x, row, rows, P, warps, iters, out, occ, stream);
+  if (variant == kBf16)
+    return slab_launch<Bf16Ops, kL>(x, row, rows, P, warps, iters, out, occ, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <int kChains>
@@ -264,14 +334,21 @@ extern "C" int dtype_elementwise(int variant, int chains, const void* x, int n, 
 }
 
 // variant: 0 f32, 1 bf16; x: (6, rows, P) f32; row: (rows, 32) f32;
-// out: (rows, P) f32; P <= 1024 threads a block.
+// out: (rows, P) f32; P a multiple of 32 up to 1024; lanes a thread 1, 2, 4,
+// 8, 16 or 32, at most kSlabMaxWarps warps a row.
 extern "C" int dtype_slab(int variant, const float* x, const float* row, int rows, int P,
-                          int iters, float* out, int* occ, void* stream) {
-  if (variant == kF32)
-    return launch(dtype_slab_kernel<F32Ops>, rows * P, P, 0, occ, stream, x, row, rows, P,
-                  iters, out);
-  if (variant == kBf16)
-    return launch(dtype_slab_kernel<Bf16Ops>, rows * P, P, 0, occ, stream, x, row, rows, P,
-                  iters, out);
+                          int iters, int lanes, float* out, int* occ, void* stream) {
+  if (P < 32 || P > 1024 || P % 32 || lanes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = (P / 32 + lanes - 1) / lanes;
+  if (warps > kSlabMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
+  switch (lanes) {
+    case 1: return slab_variant<1>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+    case 2: return slab_variant<2>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+    case 4: return slab_variant<4>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+    case 8: return slab_variant<8>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+    case 16: return slab_variant<16>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+    case 32: return slab_variant<32>(variant, x, row, rows, P, warps, iters, out, occ, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

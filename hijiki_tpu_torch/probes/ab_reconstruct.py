@@ -12,7 +12,9 @@ arithmetic costs.
 * ``reconstruct_old``: the tool's signature; builds the (7, Hp, W) planes
   with torch ops as the tool does, then launches csrc/reconstruct_old.cu
   on a CUDA tensor (counted in ``LAUNCHES``) or runs the plain version on
-  a CPU one.
+  a CPU one. The kernel stages K3's halo tile and divides by the block
+  size B through the multiplier and shift ``divisor_constants`` gives, as
+  the tool's static B compiled to; its taps recompute what K3 hoists.
 
 Usage (the tool's arguments):
 
@@ -51,6 +53,18 @@ def constants(stddev: float = 0.5) -> tuple[float, float]:
     curve_offset is math.exp in double, rounded to f32."""
     gauss_fac = -1.0 / (2.0 * stddev * stddev)
     return float(np.float32(gauss_fac)), float(np.float32(math.exp(gauss_fac * R * R)))
+
+
+def divisor_constants(B: int) -> tuple[int, int]:
+    """K9's constants for dividing by the block size B >= 1, a compiler's
+    for a constant divisor: (m, s) with s = ceil(log2 B) and m =
+    ceil(2^(31 + s) / B) < 2^32, so that n // B == mulhi(2n, m) >> s (the
+    high 32 bits of the 64-bit product, then a shift) for every 0 <= n <
+    2^31: m B exceeds 2^(31 + s) by e < B <= 2^s, and n e < 2^(31 + s)."""
+    if B < 1:
+        raise ValueError(f"block size {B}: the splat blocks need B >= 1")
+    s = (B - 1).bit_length()
+    return -(-(1 << (31 + s)) // B), s
 
 
 def planes_of(color, normal):
@@ -115,10 +129,14 @@ def reconstruct_old_planes(planes, H: int, sample_offset, *, block_size: int,
     check("planes", planes, torch.float32, (7, hp, W), planes.device)
     if hp % STRIP or not H <= hp < H + STRIP:
         raise ValueError(f"planes: {hp} rows is not {H} padded to a multiple of {STRIP}")
+    if max(W, H) + block_size >= 1 << 30:
+        raise ValueError(f"reconstruct_old: {W}x{H} at block {block_size} is past the divisor "
+                         "constants' range (2^30)")
     so_x, so_y = torch.as_tensor(sample_offset, dtype=torch.float32).cpu().tolist()
     gauss_fac, curve = constants(stddev)
     out = torch.empty((H, W, 4), dtype=torch.float32, device=planes.device)
-    call("reconstruct_old", planes, hp, H, W, block_size, so_x, so_y, gauss_fac, curve, out)
+    call("reconstruct_old", planes, hp, H, W, block_size, *divisor_constants(block_size), so_x,
+         so_y, gauss_fac, curve, out)
     LAUNCHES["reconstruct_old"] += 1
     return out
 
@@ -142,6 +160,45 @@ def inputs(W: int, H: int, dev) -> tuple:
 def differing_pixels(a, b) -> int:
     """Pixels whose four channels are not bit for bit the same."""
     return int((a.view(torch.int32) != b.view(torch.int32)).any(-1).sum())
+
+
+def tap_loop(code, loops) -> dict:
+    """K9's SASS (``sass_functions``): its instructions, run-time integer
+    divisions (one MUFU.RCP each; K9 has no float division), expf
+    (MUFU.EX2, two a tap), loads from device and shared memory; and its tap
+    loop (the shortest loop of the most MUFU.EX2, else the function) over
+    its taps."""
+    count = lambda ops, *pre: sum(1 for op, _ in ops if op.startswith(pre))
+    s0, e0 = max(loops, key=lambda lp: (count(code[lp[0]:lp[1] + 1], "MUFU.EX2"), lp[0] - lp[1]),
+                 default=(0, len(code) - 1))
+    body = code[s0:e0 + 1] if count(code[s0:e0 + 1], "MUFU.EX2") else code
+    taps = max(1, count(body, "MUFU.EX2") // 2)
+    return {"instructions": len(code), "MUFU.RCP": count(code, "MUFU.RCP"),
+            "MUFU.EX2": count(code, "MUFU.EX2"), "LDG": count(code, "LDG"),
+            "LDS": count(code, "LDS"), "tap_loop_instructions": len(body), "tap_loop_taps": taps,
+            "per_tap": len(body) / taps, "tap_loop_RCP": count(body, "MUFU.RCP"),
+            "tap_loop_LDG": count(body, "LDG"), "tap_loop_LDS": count(body, "LDS")}
+
+
+def check_tap_divisions(lib=None) -> dict:
+    """K9's SASS (cuobjdump of the kernel library ``lib``, the package's
+    build by default): no run-time integer division (no MUFU.RCP) and a tap
+    loop of one tap (two MUFU.EX2) that reads shared memory, not device
+    memory. Returns ``tap_loop``'s counts; raises RuntimeError otherwise."""
+    from hijiki_tpu_torch import probes
+
+    found = list(probes.sass_functions("reconstruct_old_kernel", lib).values())
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} reconstruct_old_kernel functions in the SASS, not 1")
+    got = tap_loop(*found[0][:2])
+    bad = [what for what, fails in (
+        (f"{got['MUFU.RCP']} MUFU.RCP (a run-time division)", got["MUFU.RCP"]),
+        (f"a tap loop of {got['tap_loop_taps']} taps", got["tap_loop_taps"] != 1),
+        (f"{got['tap_loop_LDG']} LDG in the tap loop", got["tap_loop_LDG"]),
+        (f"{got['tap_loop_LDS']} LDS in the tap loop", not got["tap_loop_LDS"])) if fails]
+    if bad:
+        raise RuntimeError("reconstruct_old_kernel: " + ", ".join(bad))
+    return got
 
 
 def chain_k3(color, normal, so, k: int):

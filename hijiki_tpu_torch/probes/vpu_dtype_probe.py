@@ -11,8 +11,11 @@ Counterpart of tools/vpu_dtype_probe.py, two bodies (csrc/probe_alu.cu):
 * ``dtype_slab`` (_slab_kernel, :38-87): the walker's slab-test mix in the
   probed type (6 multiply-adds, 10 min/max), the casts to f32, the compares,
   an ``any`` vote across the P lanes of a row and the select of best_t and
-  the vote count in f32; one block of P threads a row, at the tool's
-  (8, P) and at (1024, P), P = 1024, in f32 and bf16.
+  the vote count in f32, at the tool's (8, P) and at (1024, P), P = 1024,
+  in f32 and bf16. A thread holds L lanes of its row and a row spans W
+  warps (``slab_split``: L = 8, W = 4 at P = 1024); the row's vote is one
+  ``__any_sync`` where W = 1, else a reduction on a named barrier of the
+  row's W warps.
 
 Each ``*_plain`` function is the plain PyTorch version (any device), every
 op rounded to the probed type as torch's bf16 ops round. The wrappers
@@ -48,6 +51,20 @@ TOOL_SLAB_TRIPS = (100_000, 300_000)
 # and the count's add
 EW_OPS = 3
 SLAB_OPS = 12 + 10 + 1 + 3 + 1 + 1
+
+# dtype_slab's lanes a thread (csrc/probe_alu.cu instantiates these), the
+# most warps a row may span, and the splits the wrapper takes, in order of
+# preference (the card's measurements, PERF.md §6: more lanes a thread
+# spread the trip's fixed instructions)
+SLAB_LANES = (1, 2, 4, 8, 16, 32)
+SLAB_MAX_WARPS = 8
+SLAB_PREFERRED = (8, 4, 2, 1)
+# a dtype_slab trip loop's least slab arithmetic a lane, by the probed
+# type's Ops: f32 12 FMUL/FADD (6 multiply-adds under --fmad=false) and 10
+# FMNMX; bf16 ptxas packs the pairs: 6 HMUL2/HADD2, and 4 HMNMX2 beside 2
+# three-way VHMNMX (a one-lane loop's SASS, PERF.md §6)
+SLAB_ARITH = {"F32Ops": {"FMUL+FADD": 12, "FMNMX": 10},
+              "Bf16Ops": {"HMUL2+HADD2": 6, "HMNMX2": 4}}
 
 # launches of the CUDA kernels (CPU calls of the plain versions are not counted)
 LAUNCHES = {"dtype_elementwise": 0, "dtype_slab": 0}
@@ -134,19 +151,37 @@ def dtype_elementwise(x, iters: int, variant: str, *, block: int = 128,
     return out
 
 
+def slab_split(P: int, lanes: int | None = None) -> tuple[int, int]:
+    """(lanes a thread, warps a row) of dtype_slab on rows of P lanes: the
+    first of SLAB_PREFERRED that divides P / 32 into at most SLAB_MAX_WARPS
+    warps, else 8 lanes a thread (the last warp's spare lanes idle), or the
+    given ``lanes``. Raises ValueError where P is no multiple of 32 up to
+    1024 or the lanes are not instantiated or span too many warps."""
+    if P < 32 or P > 1024 or P % 32:
+        raise ValueError(f"dtype_slab runs rows of P lanes, P a multiple of 32 up to 1024 "
+                         f"(got {P})")
+    n32 = P // 32
+    if lanes is None:
+        lanes = next((n for n in SLAB_PREFERRED if n32 % n == 0 and n32 // n <= SLAB_MAX_WARPS),
+                     SLAB_PREFERRED[0])
+    warps = -(-n32 // lanes)
+    if lanes not in SLAB_LANES or warps > SLAB_MAX_WARPS:
+        raise ValueError(f"dtype_slab: {lanes} lanes a thread give {warps} warps a row of {P} "
+                         f"lanes (lanes in {SLAB_LANES}, at most {SLAB_MAX_WARPS} warps)")
+    return lanes, warps
+
+
 def dtype_slab(x, row, iters: int, variant: str, *, occupancy: bool = False):
     """The slab body on x (6, rows, P) and row (rows, 32) f32, ``variant``
-    f32 or bf16; one block of P <= 1024 threads a row. Out (rows, P) f32."""
+    f32 or bf16; rows split as ``slab_split(P)``. Out (rows, P) f32."""
     if x.device.type != "cuda":
         return slab_plain(x, row, iters, variant)
     _, rows, P = x.shape
     check("x", x, torch.float32, (6, rows, P), x.device)
     check("row", row, torch.float32, (rows, 32), x.device)
-    if P > 1024 or P % 32:
-        raise ValueError(f"dtype_slab runs a block of P threads, P a multiple of 32 up to "
-                         f"1024 (got {P})")
+    lanes, _ = slab_split(P)
     out = torch.empty((rows, P), dtype=torch.float32, device=x.device)
-    args = (SLAB_VARIANTS[variant], x, row, rows, P, iters, out)
+    args = (SLAB_VARIANTS[variant], x, row, rows, P, iters, lanes, out)
     if occupancy:
         return call("dtype_slab", *args, occupancy=True)
     call("dtype_slab", *args)
@@ -164,6 +199,60 @@ def sass_counts() -> dict:
     for name, counts in sass_loop("_kernel").items():
         if "ew_" in name or "dtype_slab" in name:
             out[name] = counts
+    return out
+
+
+def slab_loop(code, loops) -> dict:
+    """A dtype_slab instantiation's trip loop (its longest loop, from
+    ``sass_functions``): its instructions, barriers (BAR, with the barrier
+    each names), votes, shared loads and slab arithmetic by SLAB_ARITH's
+    kinds."""
+    start, end = max(loops, key=lambda lp: lp[1] - lp[0], default=(0, -1))
+    body = code[start:end + 1]
+    count = lambda *pre: sum(1 for op, _ in body if op.startswith(pre))
+    return {"instructions": len(body), "BAR": count("BAR"), "VOTE": count("VOTE"),
+            "LDS": count("LDS"), "FMUL+FADD": count("FMUL", "FADD"), "FMNMX": count("FMNMX"),
+            "HMUL2+HADD2": count("HMUL2", "HADD2"), "HMNMX2": count("HMNMX2"),
+            "barriers": sorted({rest.split(",")[0].strip() for op, rest in body
+                                if op.startswith("BAR")})}
+
+
+def check_slab_loops(lib=None) -> dict:
+    """Every dtype_slab instantiation's SASS trip loop (cuobjdump of the
+    kernel library ``lib``, the package's build by default): no barrier 0
+    (the block's, which __syncthreads_or reduces on), a one-warp row's loop
+    no barrier at all and a vote, and the slab arithmetic of each of its L
+    lanes (SLAB_ARITH) every trip. Returns {(Ops, L, one warp): slab_loop};
+    raises RuntimeError naming what fails, or where an instantiation of
+    SLAB_LANES is missing."""
+    import re
+
+    from hijiki_tpu_torch import probes
+
+    out, bad = {}, []
+    for name, (code, loops, _) in probes.sass_functions("dtype_slab_kernel", lib).items():
+        m = re.search(r"dtype_slab_kernelI\w*?(F32Ops|Bf16Ops)ELi(\d+)ELb([01])E", name)
+        if not m:
+            continue
+        ops, lanes, one = m.group(1), int(m.group(2)), m.group(3) == "1"
+        counts = slab_loop(code, loops)
+        out[(ops, lanes, one)] = counts
+        what = f"dtype_slab_kernel<{ops}, {lanes}, {str(one).lower()}>"
+        if any(b in ("0x0", "0") for b in counts["barriers"]):
+            bad.append(f"{what}: its trip loop waits on barrier 0, the whole block's")
+        if one and (counts["BAR"] or not counts["VOTE"]):
+            bad.append(f"{what}: a one-warp row's loop holds {counts['BAR']} BAR and "
+                       f"{counts['VOTE']} VOTE")
+        for kind, per_lane in SLAB_ARITH[ops].items():
+            if counts[kind] < per_lane * lanes:
+                bad.append(f"{what}: {counts[kind]} {kind} in its trip loop, fewer than "
+                           f"{per_lane} x {lanes} lanes")
+    want = {(ops, n, one) for ops in SLAB_ARITH for n in SLAB_LANES for one in (False, True)}
+    if out.keys() != want:
+        bad.append(f"{len(out)} dtype_slab instantiations, not the {len(want)} of {SLAB_LANES} "
+                   "lanes x 2 types x 2 votes")
+    if bad:
+        raise RuntimeError("; ".join(bad))
     return out
 
 
@@ -217,6 +306,8 @@ def main(argv=None) -> int:
             run = lambda it, x=x, v=v, **kw: dtype_elementwise(x, it, v, block=block, **kw)
             timed(f"elementwise {v:6s} {occ:4s} ({n} elements)", run, n, EW_OPS * chains,
                   body="elementwise", variant=v, occupancy=occ, threads=threads, chains=chains)
+    lanes, warps = slab_split(P)
+    print(f"slab rows of {P} lanes: {lanes} lanes a thread, {warps} warps a row", flush=True)
     for rows in SLAB_ROWS:
         x, row = (t.to(dev) for t in slab_input(rows, P))
         for v in SLAB_VARIANTS:

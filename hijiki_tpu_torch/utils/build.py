@@ -45,6 +45,7 @@ LINK_FLAGS = ("-shared",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # csrc/walk.cuh SCENE_ARGS: rows, consts, the table's sizes and the bakes'
 # counts (10), the packed format, payload rows, boxes, the shadow table,
 # the occlusion cache and skip-all
@@ -79,10 +80,12 @@ SIGNATURES = {
     "latency_chain": [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "staged_chase": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # csrc/reconstruct_old.cu (K9), csrc/probe_alu.cu (K11b)
-    "reconstruct_old": [_P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P],
+    # K9 takes B's divisor constants (multiplier, shift) after B
+    "reconstruct_old": [_P, _I, _I, _I, _I, _U, _I, _F, _F, _F, _F, _P, _P, _P],
     "alu_issue": [_I, _P, _I, _I, _I, _P, _P, _P],
     "dtype_elementwise": [_I, _I, _P, _I, _I, _I, _P, _P, _P],
-    "dtype_slab": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # dtype_slab takes its lanes a thread after the trip count
+    "dtype_slab": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 _loaded: dict = {}

@@ -57,8 +57,8 @@ def _inputs(H, W, nan=True):
     return color, normal
 
 
-@pytest.mark.parametrize("H,W,block", [(37, 64, 16), (64, 64, 128), (40, 48, 16)],
-                         ids=["partial-strip-block16", "one-block", "spill-block16"])
+@pytest.mark.parametrize("H,W,block", [(37, 64, 16), (64, 64, 128), (40, 48, 16), (40, 48, 12)],
+                         ids=["partial-strip-block16", "one-block", "spill-block16", "spill-block12"])
 def test_old_matches_jax(monkeypatch, H, W, block):
     ab = _tool(monkeypatch)
     color, normal = _inputs(H, W)
@@ -86,6 +86,55 @@ def test_old_plain_matches_k3_plain(H, W, block):
     new = k3(color, normal, so, block_size=block)
     np.testing.assert_allclose(old.numpy(), new.numpy(), rtol=5e-7, atol=1e-8)
     assert K9.differing_pixels(old, new) <= 0.01 * H * W * 4
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 7, 8, 100, 127, 128, 129, 1000, 1024, 4096])
+def test_divisor_constants_floor_divide(B):
+    """The kernel's floor division by B (csrc/reconstruct_old.cu::floordiv)
+    with the host's constants, step for step on int64 tensors: n = q, or
+    B - 1 - q for q < 0; the high 32 bits of (2n) m; shifted by s; negated
+    for q < 0. It equals q // B for every q in [-2, 4098), the taps of a
+    4096-wide image, and m fits 32 unsigned bits."""
+    m, s = K9.divisor_constants(B)
+    assert 1 << 31 <= m < 1 << 32 and (1 << s) >= B > (1 << s) // 2
+    q = torch.arange(-2, 4098, dtype=torch.int64)
+    n = torch.where(q >= 0, q, B - 1 - q)
+    assert int(2 * n.max()) < 1 << 32  # the kernel's 2n in 32 unsigned bits
+    d = ((2 * n * m) >> 32) >> s
+    got = torch.where(q >= 0, d, -d)
+    assert torch.equal(got, torch.div(q, B, rounding_mode="floor"))
+
+
+def _k9_sass(ops, loop_ops):
+    """sass_functions' form of one reconstruct_old_kernel: ``ops`` before a
+    rolled tap loop of ``loop_ops``."""
+    code = [(op, "") for op in ops + loop_ops + ["BRA", "EXIT"]]
+    return {"_ZN12_GLOBAL__N_122reconstruct_old_kernelEPKfiiiijiffffPf":
+            (code, [(len(ops), len(ops) + len(loop_ops))], "")}
+
+
+@pytest.mark.parametrize("case", ["clean", "division", "global_taps", "unrolled"])
+def test_check_tap_divisions(monkeypatch, case):
+    """check_tap_divisions passes K9's code without MUFU.RCP whose tap loop
+    is one tap reading shared memory, and names a run-time division (the
+    first version's two a tap), taps read from device memory, or a loop of
+    more taps."""
+    import hijiki_tpu_torch.probes as probes
+
+    stage = ["LDG.E"] * 7 + ["STS.128"] * 2 + ["BAR.SYNC.DEFER_BLOCKING"]
+    tap = ["IMAD.HI.U32", "SHF.R.U32.HI", "MUFU.EX2", "LDS.128", "LDS.128", "MUFU.EX2", "FADD"]
+    loop = {"clean": tap, "division": tap + ["I2FP.F32.U32", "MUFU.RCP", "F2I.FTZ.U32.TRUNC"],
+            "global_taps": tap + ["LDG.E"], "unrolled": tap * 5}[case]
+    monkeypatch.setattr(probes, "sass_functions", lambda kernel, lib=None: _k9_sass(stage, loop))
+    if case == "clean":
+        got = K9.check_tap_divisions()
+        assert got["MUFU.RCP"] == 0 and got["tap_loop_taps"] == 1 and got["tap_loop_LDS"] == 2
+        assert got["per_tap"] == len(loop) + 1  # the back branch
+        return
+    what = {"division": "1 MUFU.RCP", "global_taps": "1 LDG in the tap loop",
+            "unrolled": "a tap loop of 5 taps"}[case]
+    with pytest.raises(RuntimeError, match=what):
+        K9.check_tap_divisions()
 
 
 def test_planes_and_constants():

@@ -16,8 +16,10 @@ driver's film is the same bit for bit whichever walk it runs; K8
 inside) bit-equal to the unsorted kernels on every output (a pure
 permutation of whole paths), also on 397 tiles and on heavy dead-key ties; K6's strict and inclusive any-hit bit-equal
 to the plain walk at tmax = the closest hit's t; K9 (reconstruct_old) to
-K3's bound; the K11b bodies (alu_issue, dtype_elementwise in f32, bf16 and
-bf16x2, dtype_slab in f32 and bf16) bit-equal to their plain versions; the
+K3's bound at blocks 1, 3, 100, 128 and 2048; the K11b bodies (alu_issue,
+dtype_elementwise in f32, bf16 and bf16x2, dtype_slab in f32 and bf16 at P
+= 32, 96 and 1024 and at every lane split) bit-equal to their plain
+versions, and the SASS of dtype_slab's trip loops and K9's taps; the
 persistent K4 (into NaN-filled outputs: it writes every slot it owns),
 K1 (n = 1, 127, 129, 4097 at caps 1, 5, 1000) and K5 (n = 1, 31, 129,
 4097 at caps 5 and 1000, likewise into NaN-filled outputs, and a 256x256
@@ -608,10 +610,12 @@ def test_traverse_any_hit_modes_at_tmax(path):
     assert (answers[1] & ~answers[0]).any() and not (answers[0] & ~answers[1]).any()
 
 
+@pytest.mark.parametrize("B", [1, 3, 100, 128, 2048])
 @pytest.mark.parametrize("H,W", [(1024, 1024), (1000, 1024)])
-def test_reconstruct_old_kernel_matches_plain(H, W):
+def test_reconstruct_old_kernel_matches_plain(H, W, B):
     """K9 against its plain version (K3's bound: expf ULPs), with NaN
-    pixels and rows no multiple of 8; K9 against K3 to the same bound."""
+    pixels and rows no multiple of 8, at block sizes a power of two or not,
+    and one wider than the image (2048); K9 against K3 to the same bound."""
     from hijiki_tpu_torch.probes import ab_reconstruct as K9
 
     dev = cuda_device()
@@ -619,13 +623,13 @@ def test_reconstruct_old_kernel_matches_plain(H, W):
     color[3, 5, 1] = float("nan")
     normal[H // 2, 10, 2] = float("nan")
     before = K9.LAUNCHES["reconstruct_old"]
-    got = K9.reconstruct_old(color, normal, so, block_size=128)
+    got = K9.reconstruct_old(color, normal, so, block_size=B)
     assert K9.LAUNCHES["reconstruct_old"] == before + 1
     planes = K9.planes_of(color, normal)
-    want = K9.reconstruct_old_plain(planes, H, so, block_size=128)
+    want = K9.reconstruct_old_plain(planes, H, so, block_size=B)
     assert got.shape == (H, W, 4) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-6)
-    k3 = prc.reconstruct(color, normal, so, block_size=128)
+    k3 = prc.reconstruct(color, normal, so, block_size=B)
     np.testing.assert_allclose(got.cpu().numpy(), k3.cpu().numpy(), rtol=1e-5, atol=1e-6)
 
 
@@ -666,16 +670,50 @@ def test_dtype_elementwise_kernel_matches_plain(variant, chains, n):
 
 
 @pytest.mark.parametrize("variant", ["f32", "bf16"])
-@pytest.mark.parametrize("rows", [8, 1024])
-def test_dtype_slab_kernel_matches_plain(variant, rows):
+@pytest.mark.parametrize("rows", [8, 1023])
+@pytest.mark.parametrize("P", [32, 96, 1024])
+def test_dtype_slab_kernel_matches_plain(variant, rows, P):
+    """dtype_slab bit-equal to its plain version: one warp a row (P = 32,
+    rows sharing blocks, the last block's rows in part), three warps on a
+    named barrier (P = 96), four warps of 8 lanes a thread (P = 1024)."""
     from hijiki_tpu_torch.probes import vpu_dtype_probe as D
 
     dev = cuda_device()
-    x, row = (t.to(dev) for t in D.slab_input(rows, 1024))
+    x, row = (t.to(dev) for t in D.slab_input(rows, P))
     before = D.LAUNCHES["dtype_slab"]
     got = D.dtype_slab(x, row, 9, variant)
     assert D.LAUNCHES["dtype_slab"] == before + 1
     assert torch.equal(got, D.slab_plain(x, row, 9, variant))
+
+
+@pytest.mark.parametrize("variant", ["f32", "bf16"])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_dtype_slab_every_split_matches_plain(variant, lanes):
+    """Every instantiated lanes a thread, at the widest row it takes (at
+    most 8 warps) and at a row of spare lanes (P = 32 (lanes - 1) + 32 for
+    lanes > 1), through the C entry: bit-equal to the plain version."""
+    from hijiki_tpu_torch.probes import call
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as D
+
+    dev = cuda_device()
+    for P in sorted({min(1024, 32 * D.SLAB_MAX_WARPS * lanes), 32 * max(1, lanes - 1)}):
+        x, row = (t.to(dev) for t in D.slab_input(37, P))
+        out = torch.full((37, P), float("nan"), device=dev)
+        call("dtype_slab", D.SLAB_VARIANTS[variant], x, row, 37, P, 9, lanes, out)
+        assert torch.equal(out, D.slab_plain(x, row, 9, variant)), P
+
+
+def test_slab_and_k9_sass():
+    """dtype_slab's trip loops hold no barrier of the whole block (a
+    one-warp row's none at all) and every lane's slab arithmetic; K9 holds
+    no run-time integer division and reads its taps from the staged tile."""
+    from hijiki_tpu_torch.probes import ab_reconstruct as K9
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as D
+
+    cuda_device()
+    loops = D.check_slab_loops()
+    assert loops[("F32Ops", 8, False)]["FMNMX"] >= 80
+    assert K9.check_tap_divisions()["MUFU.RCP"] == 0
 
 
 # ---- the persistent K4, K2 and the row step (min.NaN slab test, 128-bit

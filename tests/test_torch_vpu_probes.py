@@ -88,20 +88,103 @@ def test_elementwise_matches_jax(variant, chains):
         np.testing.assert_allclose(got, want, rtol=5e-7, atol=0)
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("iters", [1, ITERS])
-def test_slab_matches_jax(dtype, iters):
+# (lanes, iters, dtype): the tool's P and, since the kernel maps a row onto
+# L lanes a thread of W warps, one warp a row (P = 32) and a row of three
+# (P = 96), at the tool's 8 rows
+SLAB_CASES = ([pytest.param(P, iters, dtype, id=f"{iters}-{dtype}")
+               for iters in (1, ITERS) for dtype in ("f32", "bf16")]
+              + [pytest.param(lanes, ITERS, dtype, id=f"P{lanes}-{ITERS}-{dtype}")
+                 for lanes in (32, 96) for dtype in ("f32", "bf16")])
+
+
+@pytest.mark.parametrize("lanes,iters,dtype", SLAB_CASES)
+def test_slab_matches_jax(lanes, iters, dtype):
     import vpu_dtype_probe as tool
 
     dt = jnp.float32 if dtype == "f32" else jnp.bfloat16
-    x, row = D.slab_input(8, P)
+    x, row = D.slab_input(8, lanes)
     rng = np.random.default_rng(1)
-    assert np.array_equal(x.numpy(), rng.uniform(0.5, 1.5, (6, 8, P)).astype(np.float32))
+    assert np.array_equal(x.numpy(), rng.uniform(0.5, 1.5, (6, 8, lanes)).astype(np.float32))
     body = functools.partial(tool._slab_kernel, iters=iters, dtype=dt)
-    want = _call(body, (8, P))(jnp.asarray(x.numpy()), jnp.asarray(row.numpy()))
+    want = _call(body, (8, lanes))(jnp.asarray(x.numpy()), jnp.asarray(row.numpy()))
     got = D.dtype_slab(x, row, iters, dtype)
     _bits_equal(got, want)
     assert D.LAUNCHES["dtype_slab"] == 0
+
+
+@pytest.mark.parametrize("P,split", [(32, (1, 1)), (64, (2, 1)), (96, (1, 3)), (128, (4, 1)),
+                                     (256, (8, 1)), (384, (4, 3)), (992, (8, 4)), (1024, (8, 4))])
+def test_slab_split(P, split):
+    """A row of P lanes as (lanes a thread, warps a row): the most lanes of
+    SLAB_PREFERRED that divide it into at most SLAB_MAX_WARPS warps, else 8
+    lanes a thread with spare lanes (P = 992); never a barrier of more than
+    8 warps, and every lane held."""
+    lanes, warps = D.slab_split(P)
+    assert (lanes, warps) == split
+    assert warps <= D.SLAB_MAX_WARPS and 32 * warps * lanes >= P > 32 * warps * lanes - 32 * warps
+    assert D.slab_split(P, 32 if P <= 1024 else 8) == (32, 1)
+
+
+@pytest.mark.parametrize("P,lanes", [(16, None), (1056, None), (100, None), (1024, 2), (1024, 3),
+                                     (64, 64)])
+def test_slab_split_refuses(P, lanes):
+    """P no multiple of 32 up to 1024, lanes not instantiated or spanning
+    more than SLAB_MAX_WARPS warps: refused before any launch."""
+    with pytest.raises(ValueError):
+        D.slab_split(P, lanes)
+
+
+def _slab_sass(counts):
+    """sass_functions' form for every dtype_slab instantiation: a trip loop
+    of the given opcode counts ({(Ops, lanes, one warp): {opcode: n}}),
+    else a clean loop: the arithmetic of SLAB_ARITH a lane, a vote (one
+    warp) or a named barrier in a register."""
+    out = {}
+    for ops in D.SLAB_ARITH:
+        for lanes in D.SLAB_LANES:
+            for one in (False, True):
+                arith = {"F32Ops": {"FMUL": 6, "FADD": 8, "FMNMX": 10},
+                         "Bf16Ops": {"HMUL2.BF16_V2": 3, "HADD2.BF16_V2": 3, "HMNMX2.BF16_V2": 4}}
+                ops_n = {op: n * lanes for op, n in arith[ops].items()}
+                ops_n.update({"LDS": 6, "VOTE.ANY" if one else "BAR.RED.OR.DEFER_BLOCKING": 1})
+                ops_n.update(counts.get((ops, lanes, one), {}))
+                code = [("MOV", "")] + [(op, " R4, R5, P0 " if op.startswith("BAR") else " R0 ")
+                                        for op, n in ops_n.items() for _ in range(n)]
+                code += [("BRA", ""), ("EXIT", "")]
+                name = (f"_ZN12_GLOBAL__N_117dtype_slab_kernelINS_{len(ops)}{ops}ELi{lanes}"
+                        f"ELb{int(one)}EEEvPKfS3_iiiiiPf")
+                out[name] = (code, [(1, len(code) - 2)], "")
+    return out
+
+
+@pytest.mark.parametrize("case", ["clean", "barrier0", "hoisted", "bar_one_warp", "missing"])
+def test_check_slab_loops(monkeypatch, case):
+    """check_slab_loops passes trip loops that hold each lane's slab
+    arithmetic and no barrier 0, and names an instantiation whose loop waits
+    on the block's barrier 0 (where __syncthreads_or reduces), holds less
+    arithmetic than its lanes (hoisted), or, with one warp a row, holds a
+    barrier; and a missing instantiation."""
+    import hijiki_tpu_torch.probes as probes
+
+    key = ("F32Ops", 8, False)
+    edits = {"clean": {}, "barrier0": {key: {"BAR.RED.OR.DEFER_BLOCKING": 0, "BAR.SYNC0": 1}},
+             "hoisted": {key: {"FMNMX": 79}}, "bar_one_warp": {("Bf16Ops", 1, True): {"BAR.SYNC": 1}}}
+    fake = _slab_sass(edits.get(case, {}))
+    if case == "barrier0":  # the barrier operand 0x0: the block's
+        name = next(n for n in fake if "F32OpsELi8ELb0E" in n)
+        code, loops, text = fake[name]
+        fake[name] = ([(op, " 0x0 " if op == "BAR.SYNC0" else rest) for op, rest in code], loops, text)
+    if case == "missing":
+        del fake[next(n for n in fake if "Bf16OpsELi32ELb1E" in n)]
+    monkeypatch.setattr(probes, "sass_functions", lambda kernel, lib=None: fake)
+    if case == "clean":
+        got = D.check_slab_loops()
+        assert len(got) == 2 * 2 * len(D.SLAB_LANES) and got[key]["FMNMX"] == 80
+        return
+    what = {"barrier0": "barrier 0", "hoisted": "79 FMNMX", "bar_one_warp": "1 BAR",
+            "missing": "23 dtype_slab instantiations"}[case]
+    with pytest.raises(RuntimeError, match=what):
+        D.check_slab_loops()
 
 
 def test_slab_dtypes_differ_and_bounds():

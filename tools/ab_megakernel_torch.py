@@ -3,14 +3,15 @@ on one CUDA card: the megakernel's chained camera launch (K4) and resume
 launch (K2) and the walk they share, and (``--kernels``) the reconstruction
 stencil (K3), the trace-row walk (K6), the camera launch (K1), the
 single-launch render (K5), the lane-sorted K1/K2/K5 and the tile sort (K8),
-the walker-body ablation (K10a) and the staged chase (K11a), and every
-kernel's SASS against the parent's.
+the walker-body ablation (K10a) and the staged chase (K11a), K11b's
+dtype_slab and the pre-hoisting stencil K9 beside K3, and every kernel's
+SASS against the parent's.
 
-    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass,resume]
+    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass,resume,alu]
                                         [--variants walk,loop,NAME=DIR]
                                         [--resume-modes parent,auto,thread,tail,scan]
                                         [--resume-formats classic,slim,...,(p)]
-                                        [--crossover 32,64,...,32768]
+                                        [--crossover 32,64,...,32768] [--slab-lanes 4,8,16,32]
                                         [--reps 10] [--json PATH] [--sass DIR]
 
 PARENT_CSRC is a directory holding another commit's
@@ -119,6 +120,20 @@ SM on every instantiation, its walk loops' loads and LDL/STL
 (``walk_probe.check_packed_loads``), and the thread mode's walk-loop
 LDL/STL in both trees. A library whose K2 has one mode (before the
 survivor scan: ``k2_modes``) is called as it was.
+
+The alu group builds ``probe_alu.cu``, ``reconstruct_old.cu`` and
+``reconstruct.cu`` of each tree and times, in turns, dtype_slab in f32 and
+bf16 at the (k) shape (1024 rows of 1024 lanes, 64 trips) and at one warp a
+row (32768, 32), the package's also at each lanes a thread of
+``--slab-lanes``, and K9 beside K3 at 1024x1024, blocks 128 and 100; every
+output bit-equal to the parent's (K3 is the same code in both trees: the
+A/B's floor). It prints K9 / K3 by median, each library's slab ns a trip
+by slope at three shapes of equal elements ((1024, 1024), (4096, 256),
+(32768, 32)) with its share of the unfused bound, registers and spills,
+and the SASS of the slab's trip loops (barriers, votes, shared loads,
+arithmetic) and of K9 (divisions, loads, instructions a tap). A parent
+whose dtype_slab takes no lanes, or whose K9 takes no divisor constants,
+is called as it was.
 """
 
 from __future__ import annotations
@@ -423,7 +438,7 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
     ap.add_argument("--kernels", default="megakernel",
                     help="comma-separated groups: megakernel, reconstruct, traverse, start, "
-                         "sorted, probes, sass, resume")
+                         "sorted, probes, sass, resume, alu")
     ap.add_argument("--variants", default="",
                     help="comma-separated: walk, loop (megakernel group), the names of "
                          "PATH_VARIANTS (start and sorted groups), NAME=DIR")
@@ -437,12 +452,15 @@ def main(argv=None) -> int:
                          "and scan (auto after the survivor scan)")
     ap.add_argument("--crossover", default="32,64,128,256,512,1024,2048,4096,8192,16384,32768",
                     help="the resume group's crossover sweep: survivor set sizes (empty: none)")
+    ap.add_argument("--slab-lanes", default="4,8,16,32",
+                    help="the alu group: the package's dtype_slab also at these lanes a thread "
+                         "(its own split is always timed)")
     ap.add_argument("--resume-formats", default=",".join(RESUME_FORMATS),
                     help="the resume group's formats: keys of mk.KERNEL_FORMATS and (p)")
     args = ap.parse_args(argv)
     groups = set(filter(None, args.kernels.split(",")))
     if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted", "probes",
-                               "sass", "resume"}:
+                               "sass", "resume", "alu"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
     import torch
@@ -457,7 +475,8 @@ def main(argv=None) -> int:
     need = (MEGA_FILES if groups & {"megakernel", "resume"} else ()) + (
         K36_FILES if groups & {"reconstruct", "traverse"} else ()) + (
         PATH_FILES if groups & {"start", "sorted"} else ()) + (
-        PROBE_FILES if "probes" in groups else ())
+        PROBE_FILES if "probes" in groups else ()) + (
+        ALU_FILES if "alu" in groups else ())
     missing = [f for f in need if not (parent / f).exists()]
     if missing:
         print(f"error: {parent} holds no {', '.join(missing)}", file=sys.stderr)
@@ -484,6 +503,10 @@ def main(argv=None) -> int:
     if "resume" in groups:
         part, good = resume_ab(args, parent)
         result["resume"] = part
+        ok &= good
+    if "alu" in groups:
+        part, good = alu_ab(args, parent)
+        result["alu"] = part
         ok &= good
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1, default=str))
@@ -2074,6 +2097,232 @@ def resume_ab(args, parent: Path) -> tuple:
     tail_local = [name for name, v in result["walk_loops"]["tail"].items() if v[2]]
     print(f"walk-loop LDL/STL: the thread mode adds them on {added or 'no instantiation'}; the tail "
           f"mode holds them on {tail_local or 'no instantiation'}", flush=True)
+    return result, ok
+
+
+# ---- the alu group: K11b dtype_slab and K9 reconstruct_old beside K3 ----
+
+ALU_FILES = ("probe_alu.cu", "reconstruct_old.cu", "reconstruct.cu")
+SLAB_ITERS = 64  # chip_smoke's (k) configuration: (1024, 1024), 64 trips
+# the slab's shapes timed in turns: the (k) configuration and one warp a
+# row (P = 32); and those of its ns a trip by slope, equal elements
+SLAB_SHAPES = ((1024, 1024), (32768, 32))
+SLOPE_SHAPES = ((1024, 1024), (4096, 256), (32768, 32))
+K9_BLOCKS = (128, 100)  # a power of two and one that is not
+K9_SIZE = 1024
+
+
+class AluLib:
+    """One built probe_alu.cu + reconstruct_old.cu + reconstruct.cu library:
+    dtype_slab (with a ``lanes`` argument where the tree's entry takes one),
+    K9 (with the divisor constants where its entry takes them) and K3."""
+
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
+        from hijiki_tpu_torch.utils import build
+
+        self.name, self.path, self.report = name, path, report
+        self.cdll = ctypes.CDLL(str(path))
+        P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+        self.lanes = "int lanes" in (tree / "probe_alu.cu").read_text()
+        self.div = "div_mul" in (tree / "reconstruct_old.cu").read_text()
+        sigs = {"dtype_slab": [I, P, P, I, I, I] + [I] * self.lanes + [P, P, P],
+                "reconstruct_old": [P, I, I, I, I] + [U, I] * self.div + [F, F, F, F, P, P, P],
+                "reconstruct": build.SIGNATURES["reconstruct"]}
+        for fn, argtypes in sigs.items():
+            getattr(self.cdll, fn).argtypes = argtypes
+            getattr(self.cdll, fn).restype = ctypes.c_int
+
+    def _rc(self, what, rc):
+        if rc != 0:
+            raise RuntimeError(f"{self.name} {what}: CUDA error {rc}")
+
+    def slab(self, variant, x, row, iters, out, lanes=0):
+        """dtype_slab on x (6, rows, P); ``lanes`` a thread (0: the entry's
+        own split; a tree without the argument takes only 0)."""
+        import torch
+
+        from hijiki_tpu_torch.probes import vpu_dtype_probe as pvd
+
+        _, rows, P = x.shape
+        if lanes and not self.lanes:
+            raise ValueError(f"{self.name}: its dtype_slab takes no lanes")
+        self._rc("dtype_slab", self.cdll.dtype_slab(
+            pvd.SLAB_VARIANTS[variant], x.data_ptr(), row.data_ptr(), rows, P, iters,
+            *([lanes or pvd.slab_split(P)[0]] if self.lanes else []), out.data_ptr(), None,
+            torch.cuda.current_stream().cuda_stream))
+        return out
+
+    def k9(self, planes, H, B, so, out):
+        import torch
+
+        from hijiki_tpu_torch.probes import ab_reconstruct as pk9
+
+        gauss, curve = pk9.constants()
+        div = list(pk9.divisor_constants(B)) if self.div else []
+        self._rc("reconstruct_old", self.cdll.reconstruct_old(
+            planes.data_ptr(), planes.shape[1], H, planes.shape[2], B, *div, float(so[0]),
+            float(so[1]), gauss, curve, out.data_ptr(), None, torch.cuda.current_stream().cuda_stream))
+        return out
+
+    def k3(self, color, normal, offs, B, out):
+        import torch
+
+        from hijiki_tpu_torch.probes import ab_reconstruct as pk9
+
+        H, W = color.shape[:2]
+        self._rc("reconstruct", self.cdll.reconstruct(
+            color.data_ptr(), normal.data_ptr(), offs.ctypes.data, 1, pk9.constants()[0], H, W, B,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream))
+        return out
+
+
+def slab_fits(P: int, lanes: int) -> bool:
+    """Whether the package's dtype_slab runs rows of P lanes at ``lanes``
+    a thread (vpu_dtype_probe.slab_split)."""
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as pvd
+
+    try:
+        pvd.slab_split(P, lanes)
+    except ValueError:
+        return False
+    return True
+
+
+def alu_ab(args, parent: Path) -> tuple:
+    """The alu group: dtype_slab (f32 and bf16 at the (k) shape (1024,
+    1024) and at one warp a row (32768, 32), 64 trips; the package's at
+    each lane split of ``--slab-lanes`` beside its own) and K9 beside K3
+    (1024x1024, blocks 128 and 100), every library's outputs bit-equal to
+    the parent's, timed in turns (medians); each library's
+    slab ns a trip by slope (probes/timing.py) at ``SLOPE_SHAPES`` with its
+    share of the unfused bound; registers and spills, and the SASS of the
+    slab's trip loop and of K9. Returns (its results, whether every output
+    equals the parent's)."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import F32_UNFUSED_OPS_PER_S
+    from hijiki_tpu_torch.probes import ab_reconstruct as pk9
+    from hijiki_tpu_torch.probes import card, sass_functions, timing
+    from hijiki_tpu_torch.probes import vpu_dtype_probe as pvd
+    from hijiki_tpu_torch.utils import build
+
+    pairs = build_libraries(parent, args.variants, ALU_FILES, AluLib)
+    base = [lib for lib, _ in pairs]
+    result = {"card": card(), "libraries": {}, "times": {}, "k9_over_k3": {}, "slope": {},
+              "sass": {}, "outputs_equal": {}}
+    print("library: registers / spill stores of each dtype_slab, K9 and K3 kernel (ptxas)")
+    for lib, secs in pairs:
+        table = {f: v for f, v in build.ptxas_table(lib.report).items()
+                 if any(k in f for k in ("dtype_slab_kernel", "reconstruct_old_kernel",
+                                         "reconstruct_kernel"))}
+        result["libraries"][lib.name] = {"build_s": secs, "ptxas": table}
+        print(f"  {lib.name} built in {secs:.1f} s: " + "; ".join(
+            f"{f} {r}/{s}" for f, (r, s) in table.items()), flush=True)
+
+    # runners: (label, library, lanes); the package's each split of --slab-lanes
+    runners = [(lib.name, lib, 0) for lib in base]
+    new = next(lib for lib in base if lib.name == "new")
+    if new.lanes:
+        runners += [(f"new L={n}", new, n) for n in map(int, filter(None, args.slab_lanes.split(",")))]
+    dev = torch.device("cuda")
+    cases = {}  # label -> (runners, make output, run(lib, lanes, out))
+    for rows, P in SLAB_SHAPES:
+        x, row = (t.to(dev) for t in pvd.slab_input(rows, P))
+        for v in pvd.SLAB_VARIANTS:
+            split = [r for r in runners if not r[2] or slab_fits(P, r[2])]
+            cases[f"slab {v} ({rows}, {P}) {SLAB_ITERS} trips"] = (
+                split, lambda P=P, rows=rows: torch.empty((rows, P), device=dev),
+                lambda lib, lanes, out, x=x, row=row, v=v: lib.slab(v, x, row, SLAB_ITERS, out, lanes))
+    color, normal, so = pk9.inputs(K9_SIZE, K9_SIZE, dev)
+    color[3, 5, 1] = float("nan")
+    normal[K9_SIZE // 2, 10, 2] = float("nan")
+    planes = pk9.planes_of(color, normal)
+    offs = np.asarray(so, np.float32).reshape(1, 2)
+    lib_runners = [r for r in runners if not r[2]]
+    for B in K9_BLOCKS:
+        out4 = lambda: torch.empty((K9_SIZE, K9_SIZE, 4), device=dev)
+        cases[f"K9 {K9_SIZE}x{K9_SIZE} block {B}"] = (
+            lib_runners, out4, lambda lib, _, out, B=B: lib.k9(planes, K9_SIZE, B, so, out))
+        cases[f"K3 {K9_SIZE}x{K9_SIZE} block {B}"] = (
+            lib_runners, out4, lambda lib, _, out, B=B: lib.k3(color, normal, offs, B, out))
+
+    # first launches: every runner's outputs against the parent's, bit for bit
+    outs = {}
+    for label, (rs, make, run) in cases.items():
+        for name, lib, lanes in rs:
+            outs[(label, name)] = run(lib, lanes, make())
+    torch.cuda.synchronize()
+    ok = True
+    for label, (rs, _, _) in cases.items():
+        for name, _, _ in rs[1:]:
+            same = bit_equal((outs[(label, name)],), (outs[(label, "parent")],))
+            ok &= same
+            result["outputs_equal"][f"{name} {label}"] = same
+            if not same:
+                print(f"{name} {label}: DIFFERS from the parent's outputs", flush=True)
+    for B in K9_BLOCKS:  # K9 against K3 (K3's bound; the A/B's question)
+        k9, k3 = (outs[(f"{k} {K9_SIZE}x{K9_SIZE} block {B}", "parent")] for k in ("K9", "K3"))
+        print(f"K9 against K3, block {B}: {pk9.differing_pixels(k9, k3)} pixels differ, max |diff| "
+              f"{float((k9 - k3).abs().max()):.3e}", flush=True)
+    print(f"outputs: {'every runner bit-equal to the parent on every case' if ok else 'DIFFER'}",
+          flush=True)
+
+    # timing in turns: each case, its runners one after another (the order
+    # reversed every other round), each launch between two events
+    times = {label: {name: [] for name, _, _ in rs} for label, (rs, _, _) in cases.items()}
+    for rep in range(args.reps + 1):  # round 0 warms up
+        for label, (rs, _, run) in cases.items():
+            for name, lib, lanes in (rs if rep % 2 else rs[::-1]):
+                out = outs[(label, name)]
+                t_ms = timing.event_ms(lambda: run(lib, lanes, out))
+                if rep:
+                    times[label][name].append(t_ms)
+    for label, by in times.items():
+        ref = summary(by["parent"])
+        result["times"][label] = {}
+        for name, ts in by.items():
+            sm = summary(ts)
+            sm["ratio_median"] = sm["median_ms"] / ref["median_ms"]
+            result["times"][label][name] = sm
+            print(f"{label:40s} {name:10s} min {sm['min_ms']:9.4f} ms, median {sm['median_ms']:9.4f} "
+                  f"ms (x{sm['ratio_median']:.4f} the parent's median)", flush=True)
+    for B in K9_BLOCKS:
+        for name, _, _ in lib_runners:
+            k9 = result["times"][f"K9 {K9_SIZE}x{K9_SIZE} block {B}"][name]["median_ms"]
+            k3 = result["times"][f"K3 {K9_SIZE}x{K9_SIZE} block {B}"][name]["median_ms"]
+            result["k9_over_k3"][f"block {B} {name}"] = k9 / k3
+            print(f"K9 / K3 (medians), block {B}, {name}: {k9 / k3:.4f}", flush=True)
+
+    # the slab's ns a trip by slope, each library (parent, new, new, parent)
+    order = [lib for lib in base if lib.name == "parent"] + [new]
+    for rows, P in SLOPE_SHAPES:
+        x, row = (t.to(dev) for t in pvd.slab_input(rows, P))
+        out = torch.empty((rows, P), device=dev)
+        for v in pvd.SLAB_VARIANTS:
+            key = f"slab {v} ({rows}, {P})"
+            for lib in order + order[::-1]:
+                res = timing.slope(lambda it, lib=lib: lib.slab(v, x, row, it, out))
+                share = rows * P * pvd.SLAB_OPS / F32_UNFUSED_OPS_PER_S * 1e9 / res["ns_per_iter"]
+                res["unfused_share"] = share
+                result["slope"].setdefault(key, {}).setdefault(lib.name, []).append(res)
+                print(f"slope {key:24s} {lib.name:8s} {res['ns_per_iter']:9.3f} ns a trip "
+                      f"(lo {res['lo']}, hi {res['hi']}), {share:.3f} of the unfused bound",
+                      flush=True)
+
+    # SASS: the slab's trip loops, K9's divisions, loads and taps
+    args.sass.mkdir(parents=True, exist_ok=True)
+    for lib in base:
+        for fname, (code, loops, text) in sass_functions("", lib.path).items():
+            kernel = next((k for k in ("dtype_slab_kernel", "reconstruct_old_kernel") if k in fname),
+                          None)
+            if kernel is None:
+                continue
+            entry = (pvd.slab_loop if kernel == "dtype_slab_kernel" else pk9.tap_loop)(code, loops)
+            short = fname[fname.index(kernel):][:60]
+            (args.sass / f"{lib.name}_{short}.sass").write_text(text)
+            result["sass"][f"{lib.name} {fname}"] = entry
+            print(f"SASS {lib.name} {short}: {entry}", flush=True)
     return result, ok
 
 
