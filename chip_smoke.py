@@ -227,12 +227,19 @@ of them once more before the kernel report); any failure exits non-zero:
    and dtype_slab (f32, bf16; (rows, P) (8, 1024), (1024, 1024), (1023,
    96), (1023, 32)) (K11b) bit-equal to its plain version at 4096 threads
    (every mode and variant) and at 1M threads with a short trip count
-   (timed there beside the plain version); their SASS (dtype_slab's trip
-   loops without the block's barrier, K9 without a run-time division); K9
+   (timed there beside the plain version: each kernel's device time with
+   the card kept busy while the host enqueues); every latency_chain mode
+   (fetch indep h 1, 2 and chase, chain G 1, 32, gather const, gather1,
+   gatherK at K 4, 32: past the persistent grid's threads) bit-equal to its
+   plain version at that launch's shape, 1M elements and 16 steps; their SASS (dtype_slab's trip loops
+   without the block's barrier, K9 without a run-time division,
+   latency_chain's row4 fetch and chain loops on 128-bit row loads without
+   local memory); K9
    (reconstruct_old) against its plain version at 1024x1024 and 1000x1024,
    block 128, and 1024x1024, block 100, with NaN pixels, to K3's bound
    (rtol 1e-5, atol 1e-6), and against K3 (the differing pixels counted);
-   latency_chain's latency bound; then (k) a short run of each
+   latency_chain's latency bound (its links at the one-warp-per-SM link
+   latency, times the waves its threads take); then (k) a short run of each
    probe's main() (the walker probes at one warp per SM and at 1M threads,
    slope timings; ab_reconstruct's A/B and in-stream modes; the issue and
    dtype probes; walk_probe's main on the unpacked and packed tables and
@@ -620,6 +627,26 @@ def timed(fn, reps: int = 1, warm: bool = True):
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, out
+
+
+def busy_timed(fn, reps: int = 1):
+    """(mean device milliseconds of ``fn`` over ``reps`` back-to-back runs,
+    the last run's result), with the card kept busy (torch.cuda._sleep,
+    ~1 ms) while the host enqueues them, so that the events time the
+    kernels and not the host's calls before each; ``fn`` runs once before."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(2_000_000)
     a.record()
     for _ in range(reps):
         out = fn()
@@ -1084,6 +1111,13 @@ def probe_checks(dev, pab, pwk, pcl, pga, pvi, pvd, compiled) -> dict:
                 lambda g=g: pcl.chain_plain(ctbl, xc, it, g)) for g in (1, 32)]
     chains += [(f"gather {m}", lambda m=m: pga.gather(gtbl, gidx, it, m),
                 lambda m=m: pga.gather_plain(gtbl, gidx, it, m)) for m in pga.MODES]
+    # a column a thread (130 columns), and gather's 128 KB table (K = 32)
+    ftbl130 = T(pcl.fetch_table(ncols=130))
+    g32tbl, g32idx = (T(a) for a in pga.gather_inputs(n, 32))
+    chains += [(f"fetch {m} h=1, 130 columns", lambda m=m: pcl.fetch(ftbl130, n, it, m),
+                lambda m=m: pcl.fetch_plain(ftbl130, n, it, m)) for m in ("indep", "chase")]
+    chains += [(f"gather {m} K=32", lambda m=m: pga.gather(g32tbl, g32idx, it, m),
+                lambda m=m: pga.gather_plain(g32tbl, g32idx, it, m)) for m in pga.MODES]
     for label, kern, plain in chains:
         same(f"latency_chain {label}", "latency_chain", kern(), plain())
     dma_cases = [(m, h) for m in ("indep", "chase", "sharedsem") for h in (1, 2, 4)]
@@ -1098,7 +1132,8 @@ def probe_checks(dev, pab, pwk, pcl, pga, pvi, pvd, compiled) -> dict:
              pcl.staged_multi_plain(dtbl, 128, it, g, spec))
     print(f"probes at {n} threads: every kernel bit-equal to its plain version (walk_ablate: 11 "
           "variants x G 1, 32; walk_isolate: w32/w16/slim/pack3/pack4/pack12 x test/notest x G 1, "
-          "32 x camera/random rays; latency_chain: alu, vote, fetch, chain, gather; staged_chase: "
+          "32 x camera/random rays; latency_chain: alu, vote, fetch (128 and 130 columns), chain, "
+          "gather (K 4, 32); staged_chase: "
           "indep, chase, sharedsem at heights 1, 2, 4, sharedsem+noclamp, dedup, 6 multi)",
           flush=True)
     k11b_same(same, dev, pvi, pvd, n, it=6)
@@ -1116,6 +1151,7 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
     main(), whose launches are counted as a path's. ``checked``: what
     probe_checks returned. Returns the probes' entries of the kernel
     report."""
+    import numpy as np
     import torch
 
     from hijiki_tpu_torch.render.pallas_reconstruct import reconstruct as k3_reconstruct
@@ -1185,7 +1221,9 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
          lambda got: (nbytes(sx, srow, got), N * 64 * pvd.SLAB_OPS)),
     ]
     for key, label, kern, plain, work in runs:
-        t_k, got = timed(kern, reps=3)
+        # the kernel's device time: three launches with the card kept busy
+        # while the host enqueues them
+        t_k, got = busy_timed(kern, reps=3)
         t_p, want = timed(plain, reps=1, warm=False)
         same(f"{key} ({label})", key, got, want)
         b_ms, b_by = bound(*work(got))
@@ -1193,9 +1231,36 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
                          bound_unfused_ms=bound(*work(got), F32_UNFUSED_OPS_PER_S)[0])
         split = (f"; rows by kind {kinds[key]}, {row_ops(kinds[key]):.3f} ops a row"
                  if key in kinds else "")
-        print(f"{key} ({label}): bit-equal to its plain version; {t_k:.3f} ms, plain {t_p:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}; {full[key]['bound_unfused_ms']:.4f} at the unfused "
-              f"rate){split}", flush=True)
+        print(f"{key} ({label}): bit-equal to its plain version; {t_k:.4f} ms device time (card "
+              f"busy while the host enqueues), "
+              f"plain {t_p:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{full[key]['bound_unfused_ms']:.4f} at the unfused rate){split}", flush=True)
+    # every latency_chain mode at the timed launch's shape (1M elements, 16
+    # steps): the row4 fetch and chain at a wave of 2,048 threads an SM,
+    # gather's persistent grid (on an H100, 264 blocks of 1,024 threads at
+    # K = 4, 132 at K = 32) taking its elements in 4 and 8 passes
+    import numpy as np
+
+    ctbl, xc = T(pcl.chain_table()[0]), T(pcl.x_of(N) + np.float32(0.5))
+    chains = [(f"fetch {m} h={h}", lambda m=m, h=h: pcl.fetch(ftbl, N, 16, m, h),
+               lambda m=m, h=h: pcl.fetch_plain(ftbl, N, 16, m, h))
+              for m, h in (("indep", 1), ("indep", 2), ("chase", 1))]
+    chains += [(f"chain G={g}", lambda g=g: pcl.chain(ctbl, xc, 16, g),
+                lambda g=g: pcl.chain_plain(ctbl, xc, 16, g)) for g in (1, 32)]
+    for K in (4, 32):
+        gtbl, gidx = (T(a) for a in pga.gather_inputs(N, K))
+        grid = pcl.resident(dev, "gather1", K, pga.GATHER_BLOCK) * pga.GATHER_BLOCK
+        if grid >= N:
+            fail(f"latency_chain gather K={K}: the persistent grid ({grid} threads) covers "
+                 f"{N} elements in one pass")
+        chains += [(f"gather {m} K={K} ({grid} threads)",
+                    lambda m=m, gtbl=gtbl, gidx=gidx: pga.gather(gtbl, gidx, 16, m),
+                    lambda m=m, gtbl=gtbl, gidx=gidx: pga.gather_plain(gtbl, gidx, 16, m))
+                   for m in pga.MODES]
+    for label, kern, plain in chains:
+        same(f"latency_chain {label}, {N} elements, 16 steps", "latency_chain", kern(), plain())
+    print(f"latency_chain at {N} elements, 16 steps: every mode bit-equal to its plain version ("
+          + "; ".join(label for label, _, _ in chains) + ")", flush=True)
     # the redesigned probes (K10a on the render walk's row step, staged_chase
     # with float4 stores): ptxas' registers and spill stores of the timed
     # instantiation, the warps an SM holds at the timed launch's block; and
@@ -1207,13 +1272,23 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
             ("walk_ablate", "walk_ablate_kernel", "ILi63ELi1E",
              pab.walk_ablate(ms.rows, ro, rd, 1, {}, 1, occupancy=True), pab.FULL_BLOCK),
             ("staged_chase", "staged_chase_kernel", "ILi1E",
-             pcl.staged_chase(dtbl, N // 32, 1, "chase", occupancy=True), 32)):
+             pcl.staged_chase(dtbl, N // 32, 1, "chase", occupancy=True), 32),
+            ("latency_chain", "fetch_row4_kernel", "ILi3E",
+             pcl.fetch(ftbl, N, 1, "chase", occupancy=True), 128)):
         regs, spill = build.ptxas_of(report, kernel, targs)
         print(f"{key} ({kernel}<{targs}>): {regs} registers, {spill} bytes spilled, "
               f"{blocks * block // 32} warps an SM in blocks of {block}; {full[key]['ms']:.4f} ms, "
               f"bound {full[key]['bound_ms']:.4f} ms ({full[key]['bound_by']})", flush=True)
         if spill:
             fail(f"{key}: {spill} bytes spilled")
+    # latency_chain's fetch and chain loops: 128-bit row loads, no local memory
+    try:
+        chain_loads = pcl.check_chain_loads()
+    except RuntimeError as e:
+        fail(str(e))
+    print("latency_chain: the fetch and chain row4 loops load rows with 128-bit loads and hold "
+          "no LDL/STL (SASS loop loads: LDG.E.128, narrower LDG, LDL/STL): " + "; ".join(
+              f"{name} {v}" for name, v in chain_loads.items()), flush=True)
     try:
         loads = pab.check_row_loads()
     except RuntimeError as e:
@@ -1297,18 +1372,22 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
             fail(f"(k) the probes did not launch {k}")
     # latency_chain's latency bound: its 16 dependent links at the link
     # latency the probe measured at one warp per SM (the fetch chase on the
-    # same 4096-row table), once for each wave of resident threads that its
-    # 1M threads take (a wave that starts runs all 16 links)
+    # same 4096-row table), once for each wave of resident threads that the
+    # launch's threads take (a wave that starts runs all 16 links): at 4
+    # elements a thread (a warp a 128-column row) 1M elements are 262,144
+    # threads
     with open(os.path.join(out_dir, "probe_fetch.json")) as f:
         link_ns = next(r["ns_per_iter"] for r in json.load(f)
                        if r["occupancy"] == "warp" and r["mode"] == "chase")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = pcl.geometry("fetch_chase", N, ftbl.shape[1], ftbl.data_ptr() % 16 == 0, 128)
     resident = pcl.fetch(ftbl, N, 1, "chase", occupancy=True) * 128
-    waves = -(-N // (sms * resident))
+    waves = -(-geo.threads // (sms * resident))
     full["latency_chain"]["bound_latency_ms"] = 16 * link_ns * waves * 1e-6
     print(f"latency_chain: latency bound {full['latency_chain']['bound_latency_ms']:.4f} ms = 16 "
           f"links x {link_ns:.3f} ns (one warp per SM) x {waves} waves of {resident} threads on "
-          f"{sms} SMs; {full['latency_chain']['ms']:.4f} ms, bytes bound "
+          f"{sms} SMs ({geo.threads} threads, {geo.per_thread} elements a thread); "
+          f"{full['latency_chain']['ms']:.4f} ms, bytes bound "
           f"{full['latency_chain']['bound_ms']:.5f} ms", flush=True)
     print(f"(k) launches {{{', '.join(f'{k!r}: {counts_k[k]}' for k in err)}}}; phase 7 took "
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
@@ -1332,8 +1411,8 @@ def probe_phase(checked, dev, drive, pab, pwk, pcl, pga, pk9, pvi, pvd) -> list:
                  ms=full[k]["ms"], plain_ms=full[k]["plain_ms"], bound_ms=full[k]["bound_ms"],
                  bound_by=full[k]["bound_by"], library_ms=None,
                  bound_unfused_ms=full[k]["bound_unfused_ms"],
-                 **({"bound_latency_ms": full[k]["bound_latency_ms"]}
-                    if "bound_latency_ms" in full[k] else {})) for k in err]
+                 **{x: full[k][x] for x in ("bound_latency_ms",) if x in full[k]})
+            for k in err]
 
 
 def main() -> int:
@@ -2750,6 +2829,7 @@ def main() -> int:
     ko, kd, ktmin, ktmax = camera_rays(csd.cam_position, csd.cam_rotation, csd.cam_fov,
                                        torch.stack([kpx, kpy], -1), (W, H))
     pt.traverse = traverse_recorded
+    torch.cuda.synchronize()  # no kernel in flight when the profiler starts
     try:
         prof.start()
         ksweep = integrate(csd, ko, kd, ktmin, ktmax, seed_rng(from_bits(kseeds)),

@@ -97,13 +97,14 @@ def device_of(args) -> torch.device:
     return torch.device("cpu")
 
 
-def occupancies(dev: torch.device) -> list[tuple[str, int, int]]:
-    """(name, threads, block) of the two occupancies on the card: one warp
-    per SM (grid = SM count, 32 threads a block; the exposed latency), then
-    the main path's 1M threads in blocks of 128 (the throughput). Their ratio
-    against the resident warps is the Little's-law share."""
+def occupancies(dev: torch.device, per_thread: int = 1) -> list[tuple[str, int, int]]:
+    """(name, elements, block) of the two occupancies on the card: one warp
+    per SM (grid = SM count, 32 threads a block, each holding
+    ``per_thread`` elements; the exposed latency), then the main path's 1M
+    elements in blocks of 128 (the throughput). Their ratio against the
+    resident warps is the Little's-law share."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return [("warp", sms * 32, 32), ("full", FULL_THREADS, FULL_BLOCK)]
+    return [("warp", sms * 32 * per_thread, 32), ("full", FULL_THREADS, FULL_BLOCK)]
 
 
 def card() -> str:
@@ -156,13 +157,18 @@ def sm_clock_during(fn) -> tuple:
     return res, cur[len(cur) // 2], max(m for _, m in samples)
 
 
+# cuobjdump's SASS of each kernel library read, by (path, mtime, size)
+_SASS_TEXT = {}
+
+
 def sass_functions(kernel: str, lib=None) -> dict:
     """The SASS of each kernel function whose mangled name contains
     ``kernel``, from ``cuobjdump -sass`` of the kernel library ``lib`` (a
     path; the package's build by default): {mangled name: ([(opcode, the
     rest of the line), ...], [loop, ...], the function's cuobjdump text)}, a
     loop being the (start, end) indices of a branch target and the backward
-    branch that reaches it. Empty where cuobjdump is missing."""
+    branch that reaches it. Empty where cuobjdump is missing. A library's
+    dump is taken once a process."""
     import re
     import shutil
     import subprocess
@@ -172,8 +178,13 @@ def sass_functions(kernel: str, lib=None) -> dict:
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
-    text = subprocess.run([tool, "-sass", str(lib or build()[0])], capture_output=True,
-                          text=True, timeout=300).stdout
+    path = str(lib or build()[0])
+    stat = os.stat(path)
+    key = (path, stat.st_mtime_ns, stat.st_size)
+    if key not in _SASS_TEXT:  # one cuobjdump a library: the checks each read it
+        _SASS_TEXT[key] = subprocess.run([tool, "-sass", path], capture_output=True,
+                                         text=True, timeout=300).stdout
+    text = _SASS_TEXT[key]
     ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);")
     out = {}
     for chunk in text.split("Function : ")[1:]:

@@ -7,7 +7,12 @@ test -> vote) with the slope harness (probes/timing.py), at one warp per SM
 
 * ``latency_chain`` (csrc/probe_latency.cu) runs ``alu`` (make_alu, :116),
   ``vote`` (make_vote, :153), ``fetch`` (make_fetch, :193), ``chain``
-  (make_chain, :260) and gather_probe.py's gather modes;
+  (make_chain, :260) and gather_probe.py's gather modes, at the launch
+  ``geometry`` picks from the table: fetch a row's 4 columns a thread (a
+  warp a 128-column row; one warp per SM is then 128 elements an SM) and
+  chain a row as three float4s where the table's columns are a multiple of
+  4 and it starts on a 16-byte boundary, else a column a thread; gather's
+  blocks persistent;
 * ``staged_chase`` runs ``dma`` (make_dma, :430) and ``dmag``
   (make_dma_multi, :330): rows copied from global into shared memory with
   cp.async, the GPU's counterpart of the TPU's HBM -> VMEM DMA (Hopper's
@@ -30,6 +35,8 @@ Usage (the tool's argument):
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -44,6 +51,11 @@ ROW_F = 128  # floats a staged row
 # staged_chase's modes that read a cursor's rows unclamped: a cursor kept in
 # [0, rows) reads past the table at a height above 1
 UNCLAMPED = ("sharedsem+noclamp", "dedup")
+
+# latency_chain's layouts (csrc/probe_latency.cu Layout): a column (an
+# element) a thread; a row's columns four at a time (fetch: a float4 a
+# thread, a warp a 128-column row; chain: three float4s a row)
+LAYOUTS = {"column": 0, "row4": 1}
 
 # launches of the CUDA kernels (CPU calls of the plain versions are not counted)
 LAUNCHES = {"latency_chain": 0, "staged_chase": 0}
@@ -237,15 +249,63 @@ def staged_multi_plain(tbl, nblk: int, iters: int, nchains: int, spec: bool):
 
 # ----------------------------------------------------------------- wrappers --
 
+class Geometry(NamedTuple):
+    """A latency_chain launch: its layout (LAYOUTS), the elements a thread
+    holds and the threads launched."""
+
+    layout: int
+    per_thread: int
+    threads: int
+
+
+def geometry(mode: str, n: int, ncols: int = 0, aligned: bool = True, block: int = 128,
+             resident: int | None = None) -> Geometry:
+    """The launch of ``latency_chain`` in ``mode`` on ``n`` elements over a
+    table of ``ncols`` columns (``aligned``: it starts on a 16-byte
+    boundary), ``block`` threads a block. fetch on such a table with ncols %
+    4 == 0: a float4 a thread (row4); chain on one with ncols >= 12
+    as well: three float4s a row; gather: the persistent grid, ``resident``
+    blocks (the card's at once; None: a block per ``block`` elements);
+    else a column (an element) a thread."""
+    row4 = aligned and ncols > 0 and ncols % 4 == 0
+    if mode.startswith("fetch") and row4:
+        return Geometry(LAYOUTS["row4"], 4, -(-n // 4))
+    if mode == "chain" and row4 and ncols >= 12:
+        return Geometry(LAYOUTS["row4"], 1, n)
+    if mode.startswith("gather"):
+        blocks = -(-n // block)
+        return Geometry(LAYOUTS["column"], 1,
+                        block * (blocks if resident is None else max(1, min(blocks, resident))))
+    return Geometry(LAYOUTS["column"], 1, n)
+
+
+# gather's resident blocks on the card, by (device, mode, K, block)
+_RESIDENT = {}
+
+
+def resident(device, mode: str, p0: int, block: int) -> int:
+    """The blocks of ``block`` threads of ``latency_chain`` in a gather
+    ``mode`` at K = ``p0`` that the card holds at once (the occupancy
+    query's blocks an SM times the SMs): gather's persistent grid."""
+    key = (device.index, mode, p0, block)
+    if key not in _RESIDENT:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        geo = geometry(mode, 1, block=block)
+        _RESIDENT[key] = sms * call("latency_chain", MODES[mode], 1, geo.layout, None, 0, 0, None,
+                                    None, 1, 1, p0, geo.threads, block, None, occupancy=True)
+    return _RESIDENT[key]
+
+
 def latency_chain(mode: str, *, device, x=None, tbl=None, idx=None, n: int, iters: int,
                   p0: int = 0, group: int = 1, block: int = 128, occupancy: bool = False,
                   plain=None):
     """``latency_chain`` in ``mode`` (MODES): on a CUDA ``device`` the
     kernel, given x (n,) f32 (alu, vote, chain), tbl f32 (fetch, chain:
     (rows, ncols); gather: (K, 8, 128)), idx (n,) i32 (gather); p0: alu ops
-    a step, fetch height or gather K; group 1 or 32 (vote, chain). Out
-    (n,) f32, gather (2, n). On the CPU it returns ``plain()``.
-    ``occupancy``: launch nothing, return the blocks an SM holds."""
+    a step, fetch height or gather K; group 1 or 32 (vote, chain), launched
+    at ``geometry``'s layout and threads. Out (n,) f32, gather (2, n). On
+    the CPU it returns ``plain()``. ``occupancy``: launch nothing, return
+    the blocks an SM holds."""
     if device.type != "cuda":
         return plain()
     if group not in (1, 32) or n % group or (group == 32 and block % 32):
@@ -268,11 +328,60 @@ def latency_chain(mode: str, *, device, x=None, tbl=None, idx=None, n: int, iter
         raise ValueError("chase runs at height 1")
     shape = (2, n) if mode.startswith("gather") else (n,)
     out = torch.empty(shape, dtype=torch.float32, device=device)
-    args = (MODES[mode], group, tbl, rows, ncols, x, idx, n, iters, p0, block, out)
+    aligned = tbl is None or tbl.data_ptr() % 16 == 0
+
+    def args(geo):
+        return (MODES[mode], group, geo.layout, tbl, rows, ncols, x, idx, n, iters, p0,
+                geo.threads, block, out)
+
+    geo = geometry(mode, n, ncols, aligned, block)
     if occupancy:
-        return call("latency_chain", *args, occupancy=True)
-    call("latency_chain", *args)
+        return call("latency_chain", *args(geo), occupancy=True)
+    if mode.startswith("gather"):
+        geo = geometry(mode, n, ncols, aligned, block, resident(device, mode, p0, block))
+    call("latency_chain", *args(geo))
     LAUNCHES["latency_chain"] += 1
+    return out
+
+
+# latency_chain's row4 instantiations (csrc/probe_latency.cu): {mangled
+# part: the narrower LDGs at most for each LDG.E.128 of its link loop}; the
+# chase's cursor is a 32-bit load of column 10 beside the row's 128-bit
+# load; chain's row is three float4s, of which ptxas keeps the columns
+# read (0-3 whole, 4-5 and 10 narrower): three loads a link where there
+# were seven. A ratio, as the compiler may unroll the loop
+ROW4_LOOPS = {"fetch_row4_kernelILi2E": 0, "fetch_row4_kernelILi3E": 1,
+              "chain_row4_kernelILi1E": 2, "chain_row4_kernelILi32E": 2}
+
+
+def check_chain_loads(lib=None) -> dict:
+    """Hold latency_chain's row4 fetch and chain (``ROW4_LOOPS``) to their
+    loads, in the SASS (``cuobjdump``) of the kernel library ``lib`` (the
+    package's build by default): the link loop (the loop of the most
+    global loads) holds a 128-bit load and at most the listed narrower
+    loads for each, and the function no LDL/STL. Returns {instantiation:
+    (LDG.E.128, narrower LDG in the link loop, LDL/STL)}; raises
+    RuntimeError where one does not hold or is missing."""
+    from hijiki_tpu_torch.probes import sass_functions
+
+    out, bad = {}, []
+    fns = sass_functions("_row4_kernel", lib)
+    for part, per_wide in ROW4_LOOPS.items():
+        found = [v for f, v in fns.items() if part in f]
+        if not found:
+            bad.append(f"{part}: not in the SASS")
+            continue
+        code, loops, _ = found[0]
+        ldg = lambda lp: [op for op, _ in code[lp[0]:lp[1] + 1] if op.startswith("LDG.")]
+        link = ldg(max(loops, key=lambda lp: len(ldg(lp)), default=(0, -1)))
+        wide = sum(".128" in op for op in link)
+        local = sum(op.startswith(("LDL", "STL")) for op, _ in code)
+        out[part] = (wide, len(link) - wide, local)
+        if not wide or len(link) - wide > per_wide * wide or local:
+            bad.append(f"{part}: {wide} LDG.E.128 and {len(link) - wide} narrower in its link "
+                       f"loop (want at most {per_wide} narrower a 128-bit load), {local} LDL/STL")
+    if bad:
+        raise RuntimeError("latency_chain's row4 loads: " + "; ".join(bad))
     return out
 
 
@@ -355,9 +464,9 @@ def configs(which: str, rows_list=None, table: str = "tool") -> list[dict]:
     return [dict(c, table=table) for c in out]
 
 
-def runner(cfg: dict, threads: int, block: int, dev, tables: dict):
-    """(run(iters, **kw), label, chains a step) of one configuration at
-    ``threads`` threads in blocks of ``block``; ``tables`` caches the inputs
+def runner(cfg: dict, n: int, block: int, dev, tables: dict):
+    """(run(iters, **kw), label, chains a step) of one configuration on
+    ``n`` elements in blocks of ``block``; ``tables`` caches the inputs
     on ``dev`` across configurations."""
 
     def cached(key, make):
@@ -367,7 +476,7 @@ def runner(cfg: dict, threads: int, block: int, dev, tables: dict):
 
     p = cfg["probe"]
     if p in ("alu", "vote"):
-        x = cached(("x", p, threads), lambda: x_of(threads, scale=1.0 if p == "alu" else 0.4))
+        x = cached(("x", p, n), lambda: x_of(n, scale=1.0 if p == "alu" else 0.4))
         if p == "alu":
             fn = lambda it, **kw: alu(x, it, cfg["k"], block=block, **kw)
             return fn, f"alu k={cfg['k']:2d}", cfg["k"]
@@ -375,18 +484,18 @@ def runner(cfg: dict, threads: int, block: int, dev, tables: dict):
         return fn, f"vote G={cfg['group']:2d}", 1
     if p == "chain":
         tbl = cached(("chain",), lambda: chain_table()[0])
-        x = cached(("x", "chain", threads), lambda: x_of(threads) + np.float32(0.5))
+        x = cached(("x", "chain", n), lambda: x_of(n) + np.float32(0.5))
         fn = lambda it, **kw: chain(tbl, x, it, cfg["group"], block=block, **kw)
         return fn, f"chain G={cfg['group']:2d}", 1
     rows, cyc = cfg["rows"], cfg["table"] == "cycle"
     tail = f"rows={rows}{' cycle' * cyc}"
     if p == "fetch":
         tbl = cached(("fetch", rows, cyc), lambda: cycle_table(rows) if cyc else fetch_table(rows))
-        fn = lambda it, **kw: fetch(tbl, threads, it, cfg["mode"], cfg["height"], block=block, **kw)
+        fn = lambda it, **kw: fetch(tbl, n, it, cfg["mode"], cfg["height"], block=block, **kw)
         return fn, f"fetch {cfg['mode']:5s} h={cfg['height']} {tail}", 1
     h = cfg.get("height", 2)  # dmag: make_dma_multi's table
     tbl = cached(("dma", rows, h, cyc), lambda: cycle_table(rows) if cyc else dma_table(rows, height=h))
-    nblk = max(1, threads // 32)
+    nblk = max(1, n // 32)
     if p == "dma":
         fn = lambda it, **kw: staged_chase(tbl, nblk, it, cfg["mode"], h, block=32, **kw)
         return fn, f"dma {cfg['mode']:17s} h={h} {tail}", 1
@@ -421,17 +530,24 @@ def main(argv=None) -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"# {card()}; {sms} SMs", flush=True)
     warp_ns = {}
-    for occ, threads, block in occupancies(dev):
+    for which_occ in range(2):
         for cfg in cfgs:
-            run, label, per = runner(cfg, threads, block, dev, tables)
+            # fetch holds a row's 4 columns a thread (geometry): one warp an
+            # SM is then 128 elements an SM
+            mode = f"fetch_{cfg['mode']}" if cfg["probe"] == "fetch" else cfg["probe"]
+            per = geometry(mode, 1, ROW_F).per_thread if cfg["probe"] == "fetch" else 1
+            occ, n, block = occupancies(dev, per)[which_occ]
+            run, label, per_step = runner(cfg, n, block, dev, tables)
             res = timing.slope(run)
             bps = run(1, occupancy=True)
-            res.update(cfg, label=label, occupancy=occ, threads=threads, block=block,
+            threads = -(-n // per)
+            res.update(cfg, label=label, occupancy=occ, elements=n, threads=threads, block=block,
                        blocks_per_sm=bps, resident_warps=bps * block // 32)
             line = (f"{occ:4s} {label:34s} lo {res['t_lo_ms']:8.3f} ms hi {res['t_hi_ms']:8.3f} ms "
                     f"slope {res['ns_per_iter']:9.3f} ns/iter")
-            if per > 1:
-                line += f" ({res['ns_per_iter'] / per:.3f} ns a {'op' if cfg['probe'] == 'alu' else 'chain step'})"
+            if per_step > 1:
+                line += (f" ({res['ns_per_iter'] / per_step:.3f} ns a "
+                         f"{'op' if cfg['probe'] == 'alu' else 'chain step'})")
             if occ == "warp":
                 warp_ns[label] = res["ns_per_iter"]
             elif label in warp_ns:

@@ -3,7 +3,10 @@
 Counterpart of tools/gather_probe.py (``_kernel``/``build``, pallas_call at
 :85): a fixed-trip chain idx -> table value -> idx per element over a
 (K, 8, 128) f32 table, run by the gather modes of ``latency_chain``
-(csrc/probe_latency.cu), which stages the table in shared memory. Modes:
+(csrc/probe_latency.cu), which stages the table in shared memory once a
+persistent block (blocks of ``GATHER_BLOCK`` threads but at one warp per
+SM: two an SM at K <= 16, one at K = 32, whose table takes 128 KB).
+Modes:
 
 * ``const``: no load (v = tbl[0, 0, 0] + idx), the loop's own cost;
 * ``gather1``: entry idx & 1023 of tile 0;
@@ -30,6 +33,10 @@ from hijiki_tpu_torch.probes import card, device_of, dump, occupancies, parser
 from hijiki_tpu_torch.probes.chain_latency_probe import latency_chain
 
 MODES = ("const", "gather1", "gatherK")
+# threads a block of the gather kernel: the most an SM holds at every K
+# (two blocks of 2 x K x 4 KB up to K = 16, one of 128 KB at K = 32), so
+# each SM stages the table at most twice
+GATHER_BLOCK = 1024
 
 
 def gather_inputs(n: int, K: int, seed: int = 0):
@@ -66,12 +73,13 @@ def gather_plain(tbl, idx, iters: int, mode: str, order: str = "entry"):
     return torch.stack([acc, idx.to(torch.float32)])
 
 
-def gather(tbl, idx, iters: int, mode: str, **kw):
-    """The gather chain: the kernel on CUDA tensors, ``gather_plain`` (entry
-    order) on CPU ones. Out (2, n) f32."""
+def gather(tbl, idx, iters: int, mode: str, block: int = GATHER_BLOCK, **kw):
+    """The gather chain: the kernel on CUDA tensors (``block`` threads a
+    persistent block), ``gather_plain`` (entry order) on CPU ones. Out (2,
+    n) f32."""
     return latency_chain(f"gather_{mode}" if mode == "const" else mode, device=idx.device,
                          tbl=tbl, idx=idx, n=idx.numel(), iters=iters, p0=tbl.shape[0],
-                         plain=lambda: gather_plain(tbl, idx, iters, mode), **kw)
+                         block=block, plain=lambda: gather_plain(tbl, idx, iters, mode), **kw)
 
 
 def main(argv=None) -> int:
@@ -92,6 +100,7 @@ def main(argv=None) -> int:
         return 0
     print(f"# {card()}", flush=True)
     for occ, threads, block in occupancies(dev):
+        block = GATHER_BLOCK if occ == "full" else block
         tbl, idx = (torch.from_numpy(a).to(dev) for a in gather_inputs(threads, args.K))
         for mode in MODES:
             run = lambda it, **kw: gather(tbl, idx, it, mode, block=block, **kw)

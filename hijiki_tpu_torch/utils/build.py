@@ -77,7 +77,8 @@ SIGNATURES = {
     # out-parameter (or null)
     "walk_ablate": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "walk_isolate": _SCENE + [_I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P],
-    "latency_chain": [_I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # mode, group, layout, tbl, rows, ncols, x, idx, n, iters, p0, threads, block
+    "latency_chain": [_I, _I, _I, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     "staged_chase": [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # csrc/reconstruct_old.cu (K9), csrc/probe_alu.cu (K11b)
     # K9 takes B's divisor constants (multiplier, shift) after B

@@ -491,18 +491,52 @@ def test_walk_isolate_kernel_matches_plain(rays, variant, group):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
+def _shifted(t):
+    """``t``'s values in a view one float into its storage: off a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
+# latency_chain's cases beyond every mode at 4096 elements: fetch at 130
+# columns (a column a thread), on a table one float off a 16-byte boundary
+# (the same), on n a multiple of neither 4 nor the block (row4's tail);
+# chain off a 16-byte boundary; gather at K
+# = 1 and 32 on n a multiple of no persistent grid
+LATENCY_CASES = {
+    "fetch_indep1_ncols130": dict(ncols=130), "fetch_chase1_ncols130": dict(ncols=130),
+    "fetch_indep2_unaligned": dict(shift=True), "fetch_chase1_unaligned": dict(shift=True),
+    "fetch_indep1_oddn": dict(n=4059), "fetch_indep2_oddn": dict(n=4059),
+    "fetch_chase1_oddn": dict(n=4059),
+    "chain1_unaligned": dict(shift=True), "chain32_unaligned": dict(shift=True),
+    "gather1_K1": dict(K=1, n=300001), "gatherK_K1": dict(K=1, n=300001),
+    "gather_const_K32": dict(K=32, n=300001), "gather1_K32": dict(K=32, n=300001),
+    "gatherK_K32": dict(K=32, n=300001), "gatherK_K32_block128": dict(K=32, n=300001, block=128),
+}
+
+
 @pytest.mark.parametrize("case", ["alu8", "alu16", "alu32", "vote1", "vote32", "fetch_indep1",
                                   "fetch_indep2", "fetch_chase1", "chain1", "chain32",
-                                  "gather_const", "gather1", "gatherK"])
+                                  "gather_const", "gather1", "gatherK", *LATENCY_CASES])
 def test_latency_chain_kernel_matches_plain(case):
+    """K11a latency_chain bit-equal to its plain version in every mode, and
+    each launch counted once."""
     import numpy as np
 
     from hijiki_tpu_torch.probes import chain_latency_probe as C
     from hijiki_tpu_torch.probes import gather_probe as G
 
     dev = cuda_device()
-    n, it = 64 * 64, 50
+    opt = LATENCY_CASES.get(case, {})
+    case = case.split("_K")[0] if case.startswith("gather") else case.split("_")[0] + (
+        "_" + case.split("_")[1] if case.startswith("fetch") else "")
+    n, it = opt.get("n", 64 * 64), 50
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    table = lambda a: _shifted(T(a)) if opt.get("shift") else T(a)
+    before = C.LAUNCHES["latency_chain"]
     if case.startswith("alu"):
         x = T(C.x_of(n))
         got, want = C.alu(x, it, int(case[3:])), C.alu_plain(x, it, int(case[3:]))
@@ -511,19 +545,32 @@ def test_latency_chain_kernel_matches_plain(case):
         g = int(case[4:])
         got, want = C.vote(x, it, g), C.vote_plain(x, it, g)
     elif case.startswith("fetch"):
-        tbl = T(C.fetch_table())
+        tbl = table(C.fetch_table(ncols=opt.get("ncols", 128)))
         mode, h = case[6:-1], int(case[-1])
         got, want = C.fetch(tbl, n, it, mode, h), C.fetch_plain(tbl, n, it, mode, h)
     elif case.startswith("chain"):
         tbl, x = C.chain_table()
-        tbl, x = T(tbl), T(C.x_of(n) + np.float32(0.5))
+        tbl, x = table(tbl), T(C.x_of(n) + np.float32(0.5))
         g = int(case[5:])
         got, want = C.chain(tbl, x, it, g), C.chain_plain(tbl, x, it, g)
     else:
-        tbl, idx = (T(a) for a in G.gather_inputs(n, 4))
+        tbl, idx = (T(a) for a in G.gather_inputs(n, opt.get("K", 4)))
         mode = case[7:] if case == "gather_const" else case
-        got, want = G.gather(tbl, idx, it, mode), G.gather_plain(tbl, idx, it, mode)
+        kw = {"block": opt["block"]} if "block" in opt else {}
+        got, want = G.gather(tbl, idx, it, mode, **kw), G.gather_plain(tbl, idx, it, mode)
+    assert C.LAUNCHES["latency_chain"] == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_latency_chain_row4_loads():
+    """latency_chain's row4 fetch and chain link loops load the row with
+    128-bit loads (the chase's cursor and chain's columns 4-5 and 10 beside
+    them) and hold no LDL/STL."""
+    from hijiki_tpu_torch.probes import chain_latency_probe as C
+
+    cuda_device()
+    loads = C.check_chain_loads()
+    assert set(loads) == set(C.ROW4_LOOPS)
 
 
 @pytest.mark.parametrize("case", ["indep1", "indep2", "indep4", "chase1", "chase2", "chase4",

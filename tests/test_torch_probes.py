@@ -258,6 +258,42 @@ def test_gather_matches_jax(monkeypatch, mode, K):
         assert not torch.equal(entry, tpu)
 
 
+@pytest.mark.parametrize("mode,n,ncols,aligned,block,resident,want", [
+    # fetch: a float4 a thread on a table of ncols % 4 == 0 that starts on a
+    # 16-byte boundary (a warp a 128-column row); n not a multiple of 4 or
+    # of the block rounds up
+    ("fetch_chase", 1 << 20, 128, True, 128, None, ("row4", 4, 1 << 18)),
+    ("fetch_indep", 4059, 128, True, 128, None, ("row4", 4, 1015)),
+    ("fetch_indep", 4096, 64, True, 32, None, ("row4", 4, 1024)),
+    # a column a thread: ncols off a multiple of 4, a table off a 16-byte boundary
+    ("fetch_chase", 4096, 130, True, 128, None, ("column", 1, 4096)),
+    ("fetch_indep", 4059, 128, False, 128, None, ("column", 1, 4059)),
+    # chain: three float4s a row where ncols >= 12, % 4 == 0, aligned
+    ("chain", 4096, 128, True, 128, None, ("row4", 1, 4096)),
+    ("chain", 4096, 8, True, 128, None, ("column", 1, 4096)),
+    ("chain", 4096, 130, True, 128, None, ("column", 1, 4096)),
+    ("chain", 4096, 128, False, 128, None, ("column", 1, 4096)),
+    # gather: the persistent grid, at most the card's resident blocks
+    ("gatherK", 300001, 1024, True, 1024, 132, ("column", 1, 132 * 1024)),
+    ("gather1", 1000, 1024, True, 128, 1716, ("column", 1, 1024)),
+    ("gather_const", 4224, 1024, True, 32, 1716, ("column", 1, 4224)),
+    ("gatherK", 5000, 1024, True, 128, None, ("column", 1, 5120)),
+    # alu, vote: a column a thread
+    ("alu", 4096, 0, True, 128, None, ("column", 1, 4096)),
+    ("vote", 4096, 0, True, 128, None, ("column", 1, 4096)),
+])
+def test_latency_chain_launch_geometry(mode, n, ncols, aligned, block, resident, want):
+    """The wrapper's launch of latency_chain (chain_latency_probe.geometry,
+    what the C entry is handed): its layout, elements a thread and threads,
+    given the table's columns and alignment."""
+    layout, per, threads = C.geometry(mode, n, ncols, aligned, block, resident)
+    assert (layout, per, threads) == (C.LAYOUTS[want[0]], want[1], want[2])
+    if mode.startswith("gather"):  # whole blocks, none without an element
+        assert threads % block == 0 and threads < n + block
+    else:  # every element held, no thread without one
+        assert per * threads >= n > per * (threads - 1)
+
+
 def test_staged_chase_is_the_fetch_chain():
     """The staged copy changes the memory path, not the values: the indep
     and chase modes add column 0 of the rows a fetch chain with the same

@@ -4,10 +4,10 @@ launch (K2) and the walk they share, and (``--kernels``) the reconstruction
 stencil (K3), the trace-row walk (K6), the camera launch (K1), the
 single-launch render (K5), the lane-sorted K1/K2/K5 and the tile sort (K8),
 the walker-body ablation (K10a) and the staged chase (K11a), K11b's
-dtype_slab and the pre-hoisting stencil K9 beside K3, and every kernel's
-SASS against the parent's.
+dtype_slab and the pre-hoisting stencil K9 beside K3, K11a's latency_chain
+(fetch, chain, gather), and every kernel's SASS against the parent's.
 
-    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass,resume,alu]
+    python tools/ab_megakernel_torch.py PARENT_CSRC [--kernels megakernel,reconstruct,traverse,start,sorted,probes,sass,resume,alu,chain]
                                         [--variants walk,loop,NAME=DIR]
                                         [--resume-modes parent,auto,thread,tail,scan]
                                         [--resume-formats classic,slim,...,(p)]
@@ -134,6 +134,18 @@ and the SASS of the slab's trip loops (barriers, votes, shared loads,
 arithmetic) and of K9 (divisions, loads, instructions a tap). A parent
 whose dtype_slab takes no lanes, or whose K9 takes no divisor constants,
 is called as it was.
+
+The chain group builds ``probe_latency.cu`` of each tree and runs
+latency_chain's fetch (indep at heights 1 and 2, chase), chain (G = 1, 32)
+and gather (const, gather1, gatherK at K = 4 and 32) at 1M and 262,144
+elements, 16 steps, every output bit-equal to the parent's, in turns: each
+launch's device time with the card kept busy while the host enqueues it,
+beside chip_smoke's ``timed`` reading (three launches between two events,
+the host's calls inside); then each case's ns a step by slope at one warp
+an SM and at 1M elements with the Little's-law share, and the SASS loops
+(128-bit and narrower loads, shuffles, local memory) of every
+latency_chain function. A parent whose C entry takes no layout is launched
+a column a thread, as it was.
 """
 
 from __future__ import annotations
@@ -438,7 +450,7 @@ def main(argv=None) -> int:
     ap.add_argument("parent", type=Path, help="a directory holding the parent's csrc/ files")
     ap.add_argument("--kernels", default="megakernel",
                     help="comma-separated groups: megakernel, reconstruct, traverse, start, "
-                         "sorted, probes, sass, resume, alu")
+                         "sorted, probes, sass, resume, alu, chain")
     ap.add_argument("--variants", default="",
                     help="comma-separated: walk, loop (megakernel group), the names of "
                          "PATH_VARIANTS (start and sorted groups), NAME=DIR")
@@ -460,7 +472,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     groups = set(filter(None, args.kernels.split(",")))
     if not groups or groups - {"megakernel", "reconstruct", "traverse", "start", "sorted", "probes",
-                               "sass", "resume", "alu"}:
+                               "sass", "resume", "alu", "chain"}:
         ap.error(f"--kernels: unknown group in {args.kernels!r}")
 
     import torch
@@ -476,7 +488,8 @@ def main(argv=None) -> int:
         K36_FILES if groups & {"reconstruct", "traverse"} else ()) + (
         PATH_FILES if groups & {"start", "sorted"} else ()) + (
         PROBE_FILES if "probes" in groups else ()) + (
-        ALU_FILES if "alu" in groups else ())
+        ALU_FILES if "alu" in groups else ()) + (
+        CHAIN_FILES if "chain" in groups else ())
     missing = [f for f in need if not (parent / f).exists()]
     if missing:
         print(f"error: {parent} holds no {', '.join(missing)}", file=sys.stderr)
@@ -507,6 +520,10 @@ def main(argv=None) -> int:
     if "alu" in groups:
         part, good = alu_ab(args, parent)
         result["alu"] = part
+        ok &= good
+    if "chain" in groups:
+        part, good = chain_ab(args, parent)
+        result["chain"] = part
         ok &= good
     if args.json:
         Path(args.json).write_text(json.dumps(result, indent=1, default=str))
@@ -1838,7 +1855,8 @@ def sass_ab(args, parent: Path) -> tuple:
     families = {"K1-K5, K7 (megakernel.cu)": ("mk_",), "K3": ("reconstruct_kernel",),
                 "K6": ("traverse_kernel",), "K8": ("sort_tiles_kernel",),
                 "K9": ("reconstruct_old_kernel",), "K10a": ("walk_ablate_kernel",),
-                "K10b": ("walk_isolate",), "K11a latency_chain": ("latency_chain_kernel",),
+                "K10b": ("walk_isolate",),
+                "K11a latency_chain": ("latency_chain_kernel", "_row4_kernel", "gather_chain_kernel"),
                 "K11a staged_chase": ("staged_chase_kernel", "staged_multi_kernel"),
                 "K11b": ("alu_issue_kernel", "ew_", "dtype_slab_kernel")}
     result = {}
@@ -2323,6 +2341,252 @@ def alu_ab(args, parent: Path) -> tuple:
             (args.sass / f"{lib.name}_{short}.sass").write_text(text)
             result["sass"][f"{lib.name} {fname}"] = entry
             print(f"SASS {lib.name} {short}: {entry}", flush=True)
+    return result, ok
+
+
+# ---- the chain group: K11a latency_chain (fetch, chain, gather) ----
+
+CHAIN_FILES = ("probe_latency.cu",)
+CHAIN_ITERS = 16  # chip_smoke's (k) launch: 16 steps
+# elements timed: the (k) shape, and a quarter of it (one wave of 2,048
+# threads an SM at a column a thread)
+CHAIN_SIZES = (1 << 20, 1 << 18)
+GATHER_KS = (4, 32)
+# the parent's C entry (before the layouts): mode, group, tbl, rows, ncols,
+# x, idx, n, iters, p0, block, out, occ, stream
+OLD_CHAIN_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + \
+    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+
+
+class ChainLib:
+    """One built probe_latency.cu library: latency_chain at its C entry.
+    A tree whose entry takes the layout and the threads launched (``int
+    layout``) is launched at ``chain_latency_probe.geometry``'s, gather on
+    the package wrapper's persistent grid (``chain_latency_probe.resident``);
+    the parent's before it at a column (an element) a thread."""
+
+    def __init__(self, name: str, path: Path, report: str, tree: Path):
+        from hijiki_tpu_torch.utils import build
+
+        self.name, self.path, self.report = name, path, report
+        self.cdll = ctypes.CDLL(str(path))
+        self.layouts = "int layout" in (tree / "probe_latency.cu").read_text()
+        fn = self.cdll.latency_chain
+        fn.argtypes = build.SIGNATURES["latency_chain"] if self.layouts else OLD_CHAIN_ARGS
+        fn.restype = ctypes.c_int
+
+    def launch(self, mode: str, a: dict, block: int, out=None, occupancy: bool = False):
+        """latency_chain in ``mode`` on the inputs ``a`` (tbl, x, idx, n,
+        iters, p0, group). With
+        ``occupancy``: the blocks an SM holds. Returns the geometry's
+        (layout, elements a thread, threads) or the occupancy."""
+        import torch
+
+        from hijiki_tpu_torch.probes import chain_latency_probe as pcl
+
+        tbl, x, idx = a.get("tbl"), a.get("x"), a.get("idx")
+        rows, ncols = (tbl.shape[0], tbl[0].numel()) if tbl is not None else (0, 0)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        occ = ctypes.c_int(0)
+        occ_p = ctypes.byref(occ) if occupancy else None
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (pcl.MODES[mode], a.get("group", 1))
+        body = (ptr(tbl), rows, ncols, ptr(x), ptr(idx), a["n"], a["iters"], a.get("p0", 0))
+        if not self.layouts:
+            rc = self.cdll.latency_chain(*head, *body, block, ptr(out), occ_p, stream)
+            geo = (0, 1, a["n"])
+        else:
+            aligned = tbl is None or tbl.data_ptr() % 16 == 0
+            grid = None
+            if mode.startswith("gather") and not occupancy:
+                grid = pcl.resident(torch.device("cuda"), mode, a.get("p0", 0), block)
+            geo = tuple(pcl.geometry(mode, a["n"], ncols, aligned, block, resident=grid))
+            rc = self.cdll.latency_chain(head[0], head[1], geo[0], *body, geo[2], block, ptr(out),
+                                         occ_p, stream)
+        if rc != 0:
+            raise RuntimeError(f"{self.name} latency_chain {mode}: CUDA error {rc}")
+        if occupancy:
+            return occ.value
+        return geo
+
+
+def chain_cases(n: int, dev) -> dict:
+    """The chain group's cases at ``n`` elements, 16 steps: {label: (mode,
+    inputs, output shape)} on chip_smoke's tables (fetch_table's 4096 x 128,
+    chain_table, gather_inputs at K = 4 and 32)."""
+    import numpy as np
+    import torch
+
+    from hijiki_tpu_torch.probes import chain_latency_probe as pcl
+    from hijiki_tpu_torch.probes import gather_probe as pga
+
+    T = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+    ftbl = T(pcl.fetch_table())
+    ctbl = T(pcl.chain_table()[0])
+    xc = T(pcl.x_of(n) + np.float32(0.5))
+    cases = {}
+    for m, h in (("indep", 1), ("indep", 2), ("chase", 1)):
+        cases[f"fetch {m} h={h}"] = (f"fetch_{m}", dict(tbl=ftbl, n=n, iters=CHAIN_ITERS, p0=h), (n,))
+    for g in (1, 32):
+        cases[f"chain G={g}"] = ("chain", dict(tbl=ctbl, x=xc, n=n, iters=CHAIN_ITERS, group=g), (n,))
+    for K in GATHER_KS:
+        gtbl, gidx = (T(v) for v in pga.gather_inputs(n, K))
+        for m in pga.MODES:
+            cases[f"gather {m} K={K}"] = ("gather_const" if m == "const" else m,
+                                          dict(tbl=gtbl, idx=gidx, n=n, iters=CHAIN_ITERS, p0=K), (2, n))
+    return cases
+
+
+def loop_counts(code, loops) -> list:
+    """Each loop's memory instructions (LDG.128, narrower LDG, LDS, SHFL,
+    LDL/STL) and its instruction count, innermost loops first."""
+    out = []
+    for start, end in sorted(loops, key=lambda lp: lp[1] - lp[0]):
+        ops = [op for op, _ in code[start:end + 1]]
+        out.append({"LDG.128": sum(op.startswith("LDG.") and ".128" in op for op in ops),
+                    "LDG narrower": sum(op.startswith("LDG.") and ".128" not in op for op in ops),
+                    "LDS": sum(op.startswith("LDS") for op in ops),
+                    "SHFL": sum(op.startswith("SHFL") for op in ops),
+                    "LDL/STL": sum(op.startswith(("LDL", "STL")) for op in ops),
+                    "instructions": len(ops)})
+    return out
+
+
+def chain_ab(args, parent: Path) -> tuple:
+    """The chain group: latency_chain's fetch (indep h = 1, 2; chase), chain
+    (G = 1, 32) and gather (const, gather1, gatherK at K = 4 and 32) of the
+    parent's tree against the package's and each NAME=DIR variant's, every
+    output bit-equal to the parent's, at 1M and 262,144 elements and 16
+    steps (the (k) launch and a quarter of it), in turns: each launch's
+    device time with the card kept busy while the host enqueues it (behind
+    torch.cuda._sleep) and chip_smoke's ``timed`` reading (three launches
+    back to back between two events, the host's calls inside); medians.
+    Then each case's ns a step by slope (probes/timing.py) at one warp per
+    SM (the link latency) and at 1M elements (parent, new, new, parent),
+    with the Little's-law share (timing.little); registers, spills and
+    warps an SM; and the SASS loops of every latency_chain function.
+    Returns (its results, whether every output equals the parent's)."""
+    import torch
+
+    from hijiki_tpu_torch.probes import FULL_BLOCK, card, sass_functions, timing
+    from hijiki_tpu_torch.probes import chain_latency_probe as pcl
+    from hijiki_tpu_torch.probes import gather_probe as pga
+    from hijiki_tpu_torch.utils import build
+
+    pairs = build_libraries(parent, args.variants, CHAIN_FILES, ChainLib)
+    libs = [lib for lib, _ in pairs]
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {"card": card(), "libraries": {}, "times": {}, "slope": {}, "sass": {},
+              "outputs_equal": {}}
+    for lib, secs in pairs:
+        table = {f: v for f, v in build.ptxas_table(lib.report).items() if "staged" not in f}
+        result["libraries"][lib.name] = {"build_s": secs, "ptxas": table}
+        print(f"  {lib.name} built in {secs:.1f} s: " + "; ".join(
+            f"{f} {r}/{s}" for f, (r, s) in table.items()), flush=True)
+    gather_block = lambda lib: getattr(pga, "GATHER_BLOCK", 128) if lib.layouts else 128
+
+    ok = True
+    for n in CHAIN_SIZES:
+        cases = chain_cases(n, dev)
+        outs = {}
+        for label, (mode, a, shape) in cases.items():
+            for lib in libs:
+                block = gather_block(lib) if mode.startswith("gather") else FULL_BLOCK
+                out = torch.empty(shape, dtype=torch.float32, device=dev)
+                geo = lib.launch(mode, a, block, out)
+                outs[(label, lib.name)] = out
+                result.setdefault("geometry", {})[f"{lib.name} {label} n={n}"] = geo
+        torch.cuda.synchronize()
+        for label in cases:
+            for name in (lib.name for lib in libs[1:]):
+                same = bit_equal((outs[(label, name)],), (outs[(label, "parent")],))
+                ok &= same
+                result["outputs_equal"][f"{name} {label} n={n}"] = same
+                if not same:
+                    print(f"{name} {label} n={n}: DIFFERS from the parent's outputs", flush=True)
+        # in turns: a busy launch (device time), then the smoke's timed reading
+        busy = {label: {lib.name: [] for lib in libs} for label in cases}
+        host = {label: {lib.name: [] for lib in libs} for label in cases}
+        for rep in range(args.reps + 1):  # round 0 warms up
+            for label, (mode, a, _) in cases.items():
+                for lib in (libs if rep % 2 else libs[::-1]):
+                    name = lib.name
+                    block = gather_block(lib) if mode.startswith("gather") else FULL_BLOCK
+                    out = outs[(label, name)]
+                    run = lambda: lib.launch(mode, a, block, out)
+                    for store, count, sleep in ((busy, 1, True), (host, 3, False)):
+                        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                        torch.cuda.synchronize()
+                        if sleep:
+                            torch.cuda._sleep(2_000_000)
+                        ev[0].record()
+                        for _ in range(count):
+                            run()
+                        ev[1].record()
+                        ev[1].synchronize()
+                        if rep:
+                            store[label][name].append(ev[0].elapsed_time(ev[1]) / count)
+        for label in cases:
+            key = f"{label} n={n}"
+            result["times"][key] = {}
+            base = statistics.median(busy[label]["parent"])
+            for name in (lib.name for lib in libs):
+                b, h = summary(busy[label][name]), summary(host[label][name])
+                b["ratio_median"] = b["median_ms"] / base
+                result["times"][key][name] = {"device": b, "timed": h}
+                print(f"{key:32s} {name:9s} device (card busy) min {b['min_ms']:.4f} median "
+                      f"{b['median_ms']:.4f} ms (x{b['ratio_median']:.4f} the parent's); timed "
+                      f"(3 back to back) median {h['median_ms']:.4f} ms", flush=True)
+
+    # ns a step by slope: one warp per SM (the link latency) and 1M elements
+    cases_full = chain_cases(1 << 20, dev)
+    for label, (mode, a_full, shape) in cases_full.items():
+        for lib in libs + libs[::-1]:  # parent, new, ..., new, parent
+            name = lib.name
+            per = 1 if not lib.layouts else pcl.geometry(
+                mode, 1 << 20, a_full["tbl"][0].numel(), True, 32, resident=sms)[1]
+            res_by = {}
+            for occ in ("warp", "full"):
+                if occ == "warp":
+                    n = sms * 32 * per
+                    a = chain_cases(n, dev)[label][1]
+                    block = 32
+                else:
+                    n, a = 1 << 20, a_full
+                    block = gather_block(lib) if mode.startswith("gather") else FULL_BLOCK
+                outw = torch.empty(shape[:-1] + (n,), dtype=torch.float32, device=dev)
+                run = lambda it, a=a, block=block, outw=outw: lib.launch(
+                    mode, dict(a, iters=it), block, outw)
+                res = timing.slope(run)
+                geo = run(1)
+                bps = lib.launch(mode, a, block, occupancy=True)
+                res.update(threads=geo[2], block=block, resident_warps=bps * block // 32,
+                           elements=n)
+                res_by[occ] = res
+            warps = res_by["full"]["threads"] // 32
+            res_by["full"]["little"] = timing.little(
+                res_by["warp"]["ns_per_iter"], res_by["full"]["ns_per_iter"], warps, sms,
+                min(res_by["full"]["resident_warps"], warps // sms or 1))
+            result["slope"].setdefault(label, {}).setdefault(name, []).append(res_by)
+            print(f"slope {label:22s} {name:9s} one warp an SM {res_by['warp']['ns_per_iter']:8.3f} "
+                  f"ns a step; 1M elements {res_by['full']['ns_per_iter']:8.3f} ns a step "
+                  f"({res_by['full']['threads']} threads, {res_by['full']['resident_warps']} warps "
+                  f"an SM resident), Little's-law share {res_by['full']['little']:.3f}", flush=True)
+
+    # SASS: every latency_chain function's loops, each library
+    args.sass.mkdir(parents=True, exist_ok=True)
+    for lib in libs:
+        for fname, (code, loops, text) in sass_functions("", lib.path).items():
+            if "staged" in fname or not any(k in fname for k in (
+                    "latency_chain_kernel", "fetch_", "chain_", "gather_")):
+                continue
+            short = fname[:80]
+            (args.sass / f"{lib.name}_{short}.sass").write_text(text)
+            counts = {"instructions": len(code), "loops": loop_counts(code, loops),
+                      "LDL/STL": sum(op.startswith(("LDL", "STL")) for op, _ in code)}
+            result["sass"][f"{lib.name} {fname}"] = counts
+            print(f"SASS {lib.name} {short}: {counts}", flush=True)
     return result, ok
 
 
