@@ -2087,9 +2087,8 @@ def main() -> int:
     for _ in range(3):
         for key, (c_, kw) in warm_cfgs.items():
             m_ = Renderer(c_, RenderConfig(**slice_cfg, **kw), device="cuda").render()
-            # a chunk's rows_visited is its per-sweep mean: times the sweeps
-            warm_pr[key].append((m_["mrays_per_second"],
-                                 m_["rows_visited_last_sweep"] * slice_cfg["spp"]))
+            # the rows the render visited, summed over its chunks
+            warm_pr[key].append((m_["mrays_per_second"], m_["rows_visited"]))
     for key, v in warm_pr.items():
         rates = [x[0] for x in v]
         print(f"warm {key}: median {float(np.median(rates)):.3f} Mrays/s "

@@ -113,8 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Sweep samples chained per megakernel launch (in-kernel lane "
                    "respawn); 1 = off, 0 = auto (8 on a CUDA device, off on the CPU)")
     p.add_argument("--trace-json", default=None,
-                   help="Write a Chrome-trace timeline of the driver loop (chunk "
-                   "dispatches, film sync, overflow retries, checkpoint saves) to "
+                   help="Write a Chrome-trace timeline of the driver loop (the render "
+                   "span and its chunk dispatches, film sync, overflow retries, preview "
+                   "reads; checkpoint saves), on the clock of --profile-dir's trace, to "
                    "this path; load in chrome://tracing or ui.perfetto.dev")
     p.add_argument("--profile-dir", default=None,
                    help="Write a torch.profiler trace of the render (CPU and, on a card, "
@@ -266,6 +267,10 @@ def main(argv=None) -> int:
     if args.trace_json and renderer.tracer is not None:
         renderer.tracer.write(args.trace_json)
         print(f"Trace: {args.trace_json}")
+        if "rows_visited" in metrics:
+            print(f"Render: {metrics['path_segments']} path segments, "
+                  f"{metrics['rows_visited']} trace rows visited, survivors by compaction "
+                  f"phase {metrics['phase_paths']}")
     if args.metrics_json:
         payload = dict(
             metrics={k: (list(map(float, v)) if isinstance(v, list) else float(v))

@@ -1906,13 +1906,15 @@ def _with_trash_column(res, res_state):
 
 
 def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state,
-                           lane_sort=False):
+                           lane_sort=False, phase_paths=None):
     """The survivor phases: compact + coherence-sort the alive lanes, resume
     at each cap (lane-sorted resumes with ``lane_sort``), scatter the
     results into ``res``/``res_state`` at ``orig`` (``_commit``: both carry
     a trash column at index ``n``, where ``orig`` points for slots that must
     not commit). Shared by render_waves (orig = lane) and
-    render_waves_chained (orig = samp * N + lane). Returns (res, res_state,
+    render_waves_chained (orig = samp * N + lane). ``phase_paths``, a list,
+    receives each phase's count of alive lanes (the survivors it hands K2;
+    a () int64 device tensor, no host read). Returns (res, res_state,
     overflow tensor)."""
     dev = flat.device
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -1924,6 +1926,8 @@ def _run_compaction_phases(ms, caps, shrinks, flat, rngf, orig, res, res_state,
         alive = flat[0] > 0
         alive_i = alive.long()
         n_alive = alive_i.sum()
+        if phase_paths is not None:
+            phase_paths.append(n_alive)
         overflow = overflow + torch.clamp_min(n_alive - n_next, 0)
         if n_lanes > 65536:
             # stable partition: survivors keep their order
@@ -1976,6 +1980,7 @@ def render_waves(
     trunk_rows: int = 0,
     hbm_window: int = 1,
     shadow_tbl: bool = False,
+    phase_paths: list = None,
 ):
     """Phased wavefront render (``render_waves``) of a ``MegaScene``, or of
     a ``CompiledScene`` with ``width`` and ``height`` (JAX's form, baked
@@ -1990,6 +1995,8 @@ def render_waves(
     ``shadow_tbl``, ``shadow_cache``: as JAX's (``launch_scene``).
     ``shadow_skip_all``: JAX's performance probe only, biased image: every
     shadow walk is skipped with visibility 1 (not with ``shadow_cache``).
+    ``phase_paths``: a list that receives each compaction phase's count of
+    alive lanes, in phase order (``_run_compaction_phases``).
 
     Returns (total (N,3), normal (N,3), depth (N,), state (N,), overflow (),
     segs (N,), rows (N,), albedo (N,3)).
@@ -2012,7 +2019,7 @@ def render_waves(
     res, res_state = _with_trash_column(flat.index_select(0, ms.result_ch), rngf)
     orig = torch.arange(n, device=px.device)
     res, res_state, overflow = _run_compaction_phases(
-        ms, caps[1:], shrinks, flat, rngf, orig, res, res_state, lane_sort
+        ms, caps[1:], shrinks, flat, rngf, orig, res, res_state, lane_sort, phase_paths
     )
     res = res[:, :n_req]
     return (
@@ -2046,6 +2053,7 @@ def render_waves_chained(
     trunk_rows: int = 0,
     hbm_window: int = 1,
     shadow_tbl: bool = False,
+    phase_paths: list = None,
 ):
     """Chained phased render (``render_waves_chained``) of a ``MegaScene``,
     or of a ``CompiledScene`` with ``width`` and ``height`` (JAX's form, as
@@ -2060,6 +2068,7 @@ def render_waves_chained(
     Per sample exactly what S separate ``render_waves`` sweeps compute (each
     thread walks alone), as long as nothing overflows. ``shadow_vis``,
     ``shadow_tbl``, ``shadow_cache``: as JAX's (``launch_scene``).
+    ``phase_paths``: as ``render_waves``'.
 
     Returns per-sweep images: total (S,N,3), normal (S,N,3), depth (S,N),
     state (S,N) (the sample's final RNG), overflow (), segs (S,N), rows (N,)
@@ -2091,7 +2100,7 @@ def render_waves_chained(
     caps, shrinks = _chain_caps(max_bounces, cap0, phase_bounces, phase_shrink)
     if caps:
         res, res_state, overflow = _run_compaction_phases(
-            ms, caps, shrinks, flat, rngf, orig, res, res_state
+            ms, caps, shrinks, flat, rngf, orig, res, res_state, phase_paths=phase_paths
         )
     else:
         # max_bounces <= chain_cap: every parked path has traced its whole

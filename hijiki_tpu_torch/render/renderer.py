@@ -55,7 +55,7 @@ from hijiki_tpu_torch.render.reconstruct import normalize_film, reconstruct_swee
 from hijiki_tpu_torch.render.wavefront import render_wavefront
 from hijiki_tpu_torch.scene.compile import CompiledScene, to_device
 from hijiki_tpu_torch.utils.exr import write_exr, write_png
-from hijiki_tpu_torch.utils.tracing import maybe_span
+from hijiki_tpu_torch.utils.tracing import RENDER_SPAN, maybe_span
 
 
 @dataclass(frozen=True)
@@ -394,10 +394,12 @@ def _render_sweep(scene, seeds, sample_offset, config: RenderConfig, phase_shrin
     albedo = None  # None = the reference's always-zero albedo AOV
     zero = torch.zeros((), device=dev)
     iterations = None
+    work = None
     if driver == "mega":
+        phase_paths = []
         total, normal, depth, _, overflow, segs, rows, alb = render_waves(
             scene, px, py, to_bits(seeds), max_bounces=max_bounces, lane_sort=c.sort_lanes,
-            shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
+            shadow_tbl=resolve_shadow_tbl(c.mega_shadow), phase_paths=phase_paths,
             **({"phase_shrink": phase_shrink} if phase_shrink else {}),
         )
         if c.fixed_albedo:
@@ -405,7 +407,8 @@ def _render_sweep(scene, seeds, sample_offset, config: RenderConfig, phase_shrin
         # total path segments (closest-hit casts); trace-table rows visited,
         # summed over paths (per-thread walks: not comparable with the
         # TPU's per-packet row unions)
-        path_segments, rows_visited = segs.sum(), rows.sum()
+        work = _chunk_work(segs, rows, phase_paths)
+        path_segments, rows_visited = work[0], work[1]
     elif driver == "wavefront":
         lanes = min(c.wavefront_lanes, H * W)
         imgs = render_wavefront(
@@ -448,7 +451,66 @@ def _render_sweep(scene, seeds, sample_offset, config: RenderConfig, phase_shrin
     if iterations is not None:
         # bounce iterations of the sync loop / the wavefront pool
         stats["iterations"] = iterations
+    if work is not None:
+        stats["work"] = work
     return delta, stats
+
+
+def _chunk_work(segs, rows, phase_paths) -> list:
+    """A mega chunk's work as device scalars, nothing read: [path segments,
+    trace-table rows visited, then each compaction phase's survivors in phase
+    order (``render_waves(phase_paths=)``); the last phase is the
+    ``max_bounces`` resume, K2's tail mode]. The sums are the per-sweep
+    stats' own and the counts the compaction's, so a chunk launches nothing
+    more for them."""
+    return [segs.sum(), rows.sum(), *phase_paths]
+
+
+def _chunk_record(stats: dict, sweeps: int) -> tuple:
+    """A chunk's work as the renderer keeps it until the film's sync:
+    (scalars, scale), its ``stats["work"]`` (``_chunk_work``) at scale 1, or,
+    from a chunk that reports per-sweep means only (the sync and wavefront
+    drivers, the multi-device bands), those means at scale ``sweeps``."""
+    work = stats.get("work")
+    if work is not None:
+        return work, 1
+    return [stats["path_segments"], stats["rows_visited"]], sweeps
+
+
+def _host_values(values: list) -> list:
+    """``values`` (numbers, and one-element tensors of any dtype on one
+    device) as host floats, read in one copy: the tensors of each dtype
+    stacked, cast to float64 and joined on the device."""
+    slots: dict = {}
+    for i, v in enumerate(values):
+        if isinstance(v, torch.Tensor):
+            slots.setdefault(v.dtype, []).append(i)
+    out = [None if isinstance(v, torch.Tensor) else float(v) for v in values]
+    if slots:
+        host = torch.cat([torch.stack([values[i].reshape(()) for i in idx]).double()
+                          for idx in slots.values()]).tolist()
+        for i, h in zip((i for idx in slots.values() for i in idx), host):
+            out[i] = h
+    return out
+
+
+def _work_counts(chunks: list) -> dict:
+    """A render's counts from its chunks' host values [(values, scale)]
+    (``_chunk_record``): path segments, rows visited, and the survivors each
+    compaction phase handed K2, summed with the phases aligned at the last
+    (the ``max_bounces`` resume, K2's tail mode), so a sweep's three phases
+    add to a chained chunk's two."""
+    segs = rows = 0.0
+    phases: list = []
+    for vals, scale in chunks:
+        segs += vals[0] * scale
+        rows += vals[1] * scale
+        tail = vals[2:]
+        phases = [0.0] * (len(tail) - len(phases)) + phases
+        for j, v in enumerate(tail, len(phases) - len(tail)):
+            phases[j] += v
+    return {"path_segments": round(segs), "rows_visited": round(rows),
+            "phase_paths": [round(v) for v in phases]}
 
 
 def _chained_config(*, width: int, height: int, block_size: int, max_bounces: int,
@@ -490,15 +552,17 @@ def render_sweeps_chained(scene, block_seeds, sample_offsets, config: RenderConf
     S = len(block_seeds)
     offs = _host(sample_offsets).astype(np.float32)
     pxs, pys, seeds = chunk_inputs(W, H, c.block_size, _host(block_seeds), offs, ms.rows.device)
+    phase_paths = []
     t, n, dep, _, overflow, segs, rows, _ = render_waves_chained(
         ms, pxs, pys, seeds, max_bounces=c.max_bounces,
-        shadow_tbl=resolve_shadow_tbl(c.mega_shadow),
+        shadow_tbl=resolve_shadow_tbl(c.mega_shadow), phase_paths=phase_paths,
         **({"chain_cap": c.mega_chain_cap} if c.mega_chain_cap else {}),
         **({"phase_shrink": phase_shrink} if phase_shrink else {}),
     )
     # one K3 launch reconstructs the S sweeps and sums them in sweep order
     delta = reconstruct(t.reshape(S, H, W, 3), n.reshape(S, H, W, 3), offs,
                         block_size=c.block_size, stddev=c.reconstruction_stddev)
+    work = _chunk_work(segs, rows, phase_paths)
     stats = dict(
         wave_overflow=overflow,
         mean_radiance=t.mean(),
@@ -506,8 +570,10 @@ def render_sweeps_chained(scene, block_seeds, sample_offsets, config: RenderConf
         # per-sweep averages, so the metrics stay sweep-denominated; the
         # rows counter is per thread here (the TPU's is per packet and is
         # divided by 8*packet too)
-        path_segments=segs.sum() / S,
-        rows_visited=rows.sum() / S,
+        path_segments=work[0] / S,
+        rows_visited=work[1] / S,
+        # the chunk's sums and survivors (_chunk_work)
+        work=work,
     )
     return delta, stats
 
@@ -534,11 +600,17 @@ class Renderer:
         self.sweeps_done = 0
         self.metrics: dict = {}
         self._last_stats = None
+        # a render's chunks' work (_chunk_record) and timed chunks
+        # (_timed_chunk); render() starts them anew
+        self._work: list = []
+        self._retry_work: list = []
+        self._timed: list = []
         # chunks are pending settlement (save_checkpoint settles them first)
         self._rendering = False
         # optional host-span tracing (utils/tracing.SpanTracer; CLI
-        # --trace-json): chunk dispatches, overflow check, film sync,
-        # retries, checkpoint saves. None = no-op.
+        # --trace-json): a render span around the chunk dispatches (their
+        # device ms from CUDA events on a card), the overflow check, film
+        # sync and retries; the image read; checkpoint saves. None = no-op.
         self.tracer = None
 
     def _run_chunk(self, kind, block_seeds, offsets, phase_shrink):
@@ -582,6 +654,11 @@ class Renderer:
 
     def render(self, progress: Optional[Callable[[int, int], None]] = None):
         """Run the remaining sweeps (all of them unless resumed)."""
+        with maybe_span(self.tracer, RENDER_SPAN) as args:
+            self._render(progress, args)
+        return self.metrics
+
+    def _render(self, progress, span_args: dict) -> None:
         c = self.config
         start = time.monotonic()
         sweep_marks = []
@@ -601,8 +678,13 @@ class Renderer:
         self._ovf_records: list = []
         self._ovf_counters: list = []
         self._ovf_retried_total = 0
+        # the work of the chunks' first attempts, and of the overflow retries
+        # apart (_chunk_record): device scalars until the film's sync
+        self._work, self._retry_work = [], []
+        # (span args, CUDA start and end events) of each timed chunk
+        self._timed = []
         self._rendering = True
-        i = 0
+        i = chunks = 0
         while i < len(todo):
             n_chunk = min(chain, len(todo) - i) if chain > 1 else 1
             ids = todo[i:i + n_chunk]
@@ -618,13 +700,17 @@ class Renderer:
                 sched = self._schedule(ids[0])
                 rec = ("sweep", sched.block_seeds, sched.sample_offset)
                 span = maybe_span(self.tracer, "dispatch sweep", sweep=ids[0])
-            with span:
+            t0 = self._event()
+            with span as sp:
                 delta, stats = self._run_chunk(*rec, ps)
             self._last_stats = stats
             self._ovf_records.append(rec)
             self._ovf_counters.append(stats["wave_overflow"])
             self._accumulate(delta)
+            self._work.append(_chunk_record(stats, n_chunk))
+            self._timed_chunk(sp, t0)
             i += n_chunk
+            chunks += 1
             prev_done = self.sweeps_done
             self.sweeps_done += n_chunk
             done = self.sweeps_done
@@ -662,34 +748,77 @@ class Renderer:
             sweep_marks=sweep_marks,
             chain_chunk_sweeps=chain if chain > 1 else 1,
         )
+        work, retry, last = self._read_counts()
+        # the render's own work (the chunks' first attempts); an overflow
+        # retry's work is counted apart
+        counts = _work_counts(work)
+        if seen:
+            counts.update({"retry_" + k: v for k, v in _work_counts(retry).items()})
+        self.metrics.update(counts)
         if self._last_stats is not None:
             st = self._last_stats
             # the overflow of the film as accumulated: 0 when nothing dropped
             # and after a full-capacity re-render; overflow_retried says how
             # many paths the discarded attempts dropped
-            self.metrics["wave_overflow"] = 0 if seen else int(st["wave_overflow"])
+            self.metrics["wave_overflow"] = 0 if seen else int(last["wave_overflow"])
             self.metrics["overflow_retried"] = seen
-            segs = float(st["path_segments"])
+            segs = float(last["path_segments"])
             if segs > 0:
                 self.metrics["path_segments_last_sweep"] = segs
                 self.metrics["mean_path_length"] = segs / (c.width * c.height)
             if "iterations" in st:
-                self.metrics["iterations_last_sweep"] = int(st["iterations"])
-            rows = float(st["rows_visited"])
+                self.metrics["iterations_last_sweep"] = int(last["iterations"])
+            rows = float(last["rows_visited"])
             if rows > 0:
                 self.metrics["rows_visited_last_sweep"] = rows
-                # sweeps traced in this call (the JAX renderer multiplies by
-                # c.spp, which overstates the rate after a resume)
-                self.metrics["mrows_per_second"] = (
-                    rows * sweeps_traced / elapsed / 1e6 if elapsed > 0 else 0.0
-                )
+        walked = counts["rows_visited"] + counts.get("retry_rows_visited", 0)
+        if walked > 0:
+            # every row the render walked, retries included, over its time
+            self.metrics["mrows_per_second"] = walked / elapsed / 1e6 if elapsed > 0 else 0.0
         if self.tracer is not None:
-            self.tracer.counter(
-                "throughput",
-                mrays_per_s=self.metrics["mrays_per_second"],
-                spp_per_s=self.metrics["spp_per_second"],
-            )
-        return self.metrics
+            span_args.update(counts, chunks=chunks, sweeps=sweeps_traced, overflow=seen,
+                             mrays_per_s=self.metrics["mrays_per_second"])
+            if self._timed:
+                span_args["device_ms"] = self._resolve_timed()
+
+    def _event(self):
+        """A timing CUDA event recorded now on the render device's stream,
+        while a tracer is attached on a card; else None."""
+        if self.tracer is None or self.device.type != "cuda":
+            return None
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(self.device))
+        return e
+
+    def _timed_chunk(self, span_args: dict, t0) -> None:
+        """Close a chunk's timing begun by ``_event`` (its film add
+        included); resolved into ``span_args["device_ms"]`` after the film's
+        sync (``_resolve_timed``)."""
+        if t0 is not None:
+            self._timed.append((span_args, t0, self._event()))
+
+    def _resolve_timed(self) -> float:
+        """Each timed chunk's device ms into its span's args; their sum."""
+        total = 0.0
+        for args, t0, t1 in self._timed:
+            args["device_ms"] = t0.elapsed_time(t1)
+            total += args["device_ms"]
+        self._timed = []
+        return total
+
+    def _read_counts(self):
+        """One host read, after the film's sync: the work of the render's
+        chunks (first attempts and retries, ``_chunk_record``) and the last
+        chunk's scalars. Returns (work, retry) as [(values, scale)] and the
+        last chunk's stats with host values."""
+        st = self._last_stats or {}
+        keys = [k for k in ("wave_overflow", "path_segments", "rows_visited", "iterations")
+                if k in st]
+        parts = self._work + self._retry_work
+        host = iter(_host_values([v for vals, _ in parts for v in vals] + [st[k] for k in keys]))
+        read = [([next(host) for _ in vals], scale) for vals, scale in parts]
+        last = dict(st, **{k: next(host) for k in keys})
+        return read[:len(self._work)], read[len(self._work):], last
 
     def _settle_overflow(self) -> int:
         """Enforce overflow == 0 on the pending chunks: one host read sums
@@ -724,10 +853,13 @@ class Renderer:
             "same seeds, so the film stays unbiased"
         )
         for kind, a, b in records:
-            with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind):
+            t0 = self._event()
+            with maybe_span(self.tracer, "retry chunk (full capacity)", kind=kind) as sp:
                 delta, stats = self._run_chunk(kind, a, b, (1,) * 8)
             self._last_stats = stats
             self._accumulate(delta)
+            self._retry_work.append(_chunk_record(stats, len(a) if kind == "chained" else 1))
+            self._timed_chunk(sp, t0)
 
     def _term_preview(self):
         if not hasattr(self, "_term_preview_obj"):
@@ -738,7 +870,11 @@ class Renderer:
 
     def image(self) -> np.ndarray:
         """Normalized (H, W, 3) float RGB."""
-        return normalize_film(self.film).cpu().numpy()
+        with maybe_span(self.tracer, "image"):
+            with maybe_span(self.tracer, "normalize film"):
+                img = normalize_film(self.film)
+            with maybe_span(self.tracer, "copy to host"):
+                return img.cpu().numpy()
 
     def save_exr(self, path: str) -> None:
         write_exr(path, self.image())
